@@ -1,0 +1,545 @@
+"""Dispatch stage: epoch opens and single-dispatch tick assembly.
+
+Owns the per-tick scheduling loop (``run_tick``): advances copies of open
+epochs, opens new epochs off the priority queue, and hands the tick's work
+to the device as ONE megastep (:func:`repro_torch.core.migrator.megastep`):
+the previous epoch's commits, then begin/zero/force/copy/runs/heat, over the
+pool in place.  The host side of this stage is pure *plan assembly*: it
+gathers numpy id vectors, checks the copy plan against the copy kernel's
+contract, and moves every index operand to the device in one transfer.  The
+dirty verdict never crosses back here — it travels in the
+:class:`~repro_torch.core.queues.VerdictFuture` of a ``CommitBatch``,
+harvested by the verdict stage off the tick critical path.
+
+The operands have their real lengths.  The JAX package pads every phase to
+a shared bucket with out-of-bounds sentinel lanes so that XLA compiles few
+variants; eager PyTorch compiles nothing, and an out-of-bounds lane would
+raise on the CPU and device-assert on CUDA.  So there are no sentinel lanes
+and no lane-0 replication here, and an empty phase ships an empty tensor
+that the megastep skips.  Padding comes back with CUDA-graph capture,
+together with a trash slot in the pool.  The JAX package's batched and
+legacy dispatch generations are not ported yet (``LeapConfig`` refuses
+them).
+
+Budget decisions (how much a link grants, congestion deferral) come from
+the budget stage; dirty verdicts are harvested later by the verdict stage.
+Tier transitions (promotion/adoption) live here too: a promotion is just a
+compaction dispatch through the atomic force program.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import migrator
+from repro_torch.core.adaptive import Area, demote_area
+from repro_torch.core.pipeline.accounting import AccountingStage
+from repro_torch.core.pipeline.budget import BudgetStage, TickBudget
+from repro_torch.core.pipeline.context import PipelineContext
+from repro_torch.core.queues import CommitBatch, VerdictFuture
+from repro_torch.core.state import REGION, SLOT, host_to_device
+from repro_torch.kernels.leap_copy import check_copy_plan
+
+
+def to_device(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
+    """Int arrays as int64 tensors on ``device``, in one host->device copy.
+
+    The arrays are packed into one buffer (pinned, on CUDA) that crosses
+    without blocking the host; the results are views of its device copy.
+    """
+    lengths = [len(a) for a in arrays]
+    packed = np.concatenate([np.asarray(a, np.int64) for a in arrays] + [np.zeros(0, np.int64)])
+    return list(torch.split(host_to_device(torch.from_numpy(packed), device), lengths))
+
+
+class DispatchStage:
+    def __init__(
+        self,
+        ctx: PipelineContext,
+        budget: BudgetStage,
+        accounting: AccountingStage,
+    ):
+        self.ctx = ctx
+        self.budget = budget
+        self.accounting = accounting
+        # Source slots freed by this tick's forced escalations, quarantined
+        # until the tick's megastep is dispatched (see run_tick).
+        self._freed: list[np.ndarray] = []
+        # Commit-ready areas staged by commit_ready() for the tick's single
+        # dispatch (they stay in ctx.active until it fires).
+        self._staged_small: list[Area] = []
+        self._staged_huge: list[Area] = []
+
+    # -- the per-tick scheduling loop --------------------------------------
+
+    def commit_ready(self) -> None:
+        """Stage commits for areas whose copy completed in an earlier tick.
+        Deferring the commit by one tick keeps the copy->remap window open
+        across at least one application step, faithfully reproducing the
+        paper's race (its footnote 1: a write can land after the copy but
+        before the remap)."""
+        ctx = self.ctx
+        with ctx.telemetry.stage("dispatch.commit_ready"):
+            ready = [a for a in ctx.active if a.copied == len(a)]
+            # No dispatch here: the commits ride this tick's megastep.
+            # Ready areas stay in ctx.active until it fires, so emptiness
+            # checks (huge stall detection, done()) see them as live.
+            self._staged_small = [a for a in ready if not a.huge]
+            self._staged_huge = [a for a in ready if a.huge]
+
+    def run_tick(self, tb: TickBudget) -> None:
+        """Spend the tick budget: advance open epochs, open new ones."""
+        with self.ctx.telemetry.stage("dispatch.run_tick"):
+            self._run_tick(tb)
+
+    def _run_tick(self, tb: TickBudget) -> None:
+        ctx = self.ctx
+        skipped: set[int] = set()  # active areas deferred this tick (link dry)
+        opened: list[Area] = []  # epochs opened this tick (batch begin)
+        forced: list[Area] = []  # escalations this tick (batch force)
+        blocked: list[Area] = []  # areas whose destination is out of slots
+        congested: list[Area] = []  # queued areas whose link budget ran dry
+        zeros: list[Area] = []  # fresh-alloc epochs (batch zero-fill)
+        plan: list[tuple[Area, np.ndarray, np.ndarray]] = []  # copy chunks
+        run_plan: list[Area] = []  # huge areas copied as whole contiguous runs
+        while tb.blocks > 0:
+            area = self._next_copyable(skipped)
+            if area is not None:
+                if area.huge:
+                    need = len(area) - area.copied
+                    if self.budget.grant_huge(tb, area, need) == 0:
+                        skipped.add(id(area))
+                        continue
+                    run_plan.append(area)
+                    tb.blocks -= need
+                    area.copied = len(area)
+                    continue
+                want = min(len(area) - area.copied, tb.blocks)
+                n = self.budget.grant_copy(tb, area, want)
+                if n == 0:
+                    skipped.add(id(area))
+                    continue
+                ids = area.block_ids[area.copied : area.copied + n]
+                slots = area.dst_slots[area.copied : area.copied + n]
+                plan.append((area, ids, slots))
+                area.copied += n
+                tb.blocks -= n
+                continue
+            if ctx.queue:
+                area = ctx.queue.popleft()
+                if not self.budget.may_open(tb, area):
+                    congested.append(area)
+                    continue
+                if not self._open_epoch(area, opened, forced, zeros):
+                    # Destination out of slots.  A relayed first hop falls
+                    # back to the direct link (stalling behind a full relay
+                    # region would trade congestion for a livelock); anything
+                    # else is set aside (it goes back to the head of its
+                    # priority class below) while we keep trying lower-
+                    # priority areas: one of THEIR commits may be what frees
+                    # the blocked destination — breaking here would let a
+                    # high-priority request to a full region starve the very
+                    # migrations that could unblock it (livelock).
+                    if area.final_dst >= 0 and area.final_dst != area.dst_region:
+                        area.dst_region = area.final_dst
+                        area.final_dst = -1
+                        ctx.queue.appendleft(area)
+                    else:
+                        blocked.append(area)
+                    continue
+                if ctx.active and ctx.active[-1] is area:
+                    # Charge the per-link epoch-open budget only for a real
+                    # open: the out-of-slots halving path requeues without
+                    # opening, and forced escalations are budget-exempt.
+                    self.budget.charge_open(tb, area)
+                continue
+            break
+        for area in reversed(congested):
+            ctx.queue.appendleft(area)
+        for area in reversed(blocked):
+            ctx.queue.appendleft(area)
+        # The whole tick — staged commits, begins, zeros, forces, copies,
+        # heat — goes to the device as ONE megastep.  Device order matters
+        # (begin before copy, zero before force and copy, force before copy),
+        # and it is only sound because slots freed by this tick's forces are
+        # QUARANTINED until the flush below: no open in this tick can hand a
+        # force's still-unread source slot to another area as a
+        # zero/force/copy destination.
+        with ctx.telemetry.stage(
+            "dispatch.device",
+            opened=len(opened),
+            forced=len(forced),
+            copy_chunks=len(plan),
+            huge_runs=len(run_plan),
+            committed=len(self._staged_small) + len(self._staged_huge),
+        ):
+            self._dispatch_megastep(opened, zeros, forced, plan, run_plan)
+        # End of tick: every program that reads a forced area's old source
+        # slots is dispatched; release them for the next tick's allocations.
+        for old in self._freed:
+            for r in np.unique(old[:, REGION]):
+                ctx.free[r].put(old[old[:, REGION] == r, SLOT])
+        self._freed = []
+
+    def quarantined_slots(self) -> np.ndarray:
+        """Copy of the current force-freed slot quarantine: ``(region, slot)``
+        rows held back until this tick's megastep dispatches.  Empty between
+        ticks; exposed (read-only) for pipeline introspection."""
+        if not self._freed:
+            return np.zeros((0, 2), dtype=np.int32)
+        return np.concatenate([f.copy() for f in self._freed]).astype(np.int32)
+
+    def _next_copyable(self, skipped: set | None = None) -> Area | None:
+        for a in self.ctx.active:
+            if a.copied < len(a) and (skipped is None or id(a) not in skipped):
+                return a
+        return None
+
+    # -- epoch open --------------------------------------------------------
+
+    def _open_epoch(
+        self,
+        area: Area,
+        opened: list[Area],
+        forced: list[Area],
+        zeros: list[Area],
+    ) -> bool:
+        ctx = self.ctx
+        cfg = ctx.cfg
+        if area.huge:
+            return self._open_epoch_huge(area, opened)
+        if (
+            area.attempts >= cfg.max_attempts_before_force
+            and area.final_dst >= 0
+            and area.final_dst != area.dst_region
+        ):
+            # Escalation overrides routing: the atomic force program has no
+            # race window for the relay to shrink, so the second copy would
+            # be pure waste — and a force to the relay could share the tick's
+            # force phase with its own re-queued second hop (duplicate
+            # scatter lanes, undefined table order).  Force straight to the
+            # final destination instead.
+            area.dst_region = area.final_dst
+            area.final_dst = -1
+        slots = ctx.alloc(area.dst_region, len(area))
+        if slots is None:
+            # Not enough pooled slots for the whole area right now.  If the
+            # destination has *some* space, split and make progress with the
+            # smaller half; otherwise wait for commits to free slots.
+            if len(area) > 1 and len(ctx.free[area.dst_region]) > 0:
+                mid = len(area) // 2
+                a = Area(
+                    area.block_ids[:mid],
+                    area.src_region,
+                    area.dst_region,
+                    area.attempts,
+                    request_id=area.request_id,
+                    priority=area.priority,
+                    final_dst=area.final_dst,
+                    fresh_alloc=area.fresh_alloc,
+                )
+                b = Area(
+                    area.block_ids[mid:],
+                    area.src_region,
+                    area.dst_region,
+                    area.attempts,
+                    request_id=area.request_id,
+                    priority=area.priority,
+                    final_dst=area.final_dst,
+                    fresh_alloc=area.fresh_alloc,
+                )
+                ctx.queue.appendleft(b)
+                ctx.queue.appendleft(a)
+                return True
+            return False  # caller re-queues (tick sets it aside, tries others)
+        area.dst_slots = slots
+        area.copied = 0
+        if area.fresh_alloc:
+            # Fresh-destination policies (move_pages()/autonuma analogues)
+            # pay the kernel's zero-fill pass before their copy/force lands:
+            # the megastep's zero phase, sequenced before force and copy.
+            zeros.append(area)
+        if area.attempts >= cfg.max_attempts_before_force:
+            # Write-through escalation: fused copy+flip, cannot be dirtied.
+            # Deliberately exempt from the per-link budgets (escalation must
+            # terminate), but its traffic is still accounted to the link.
+            # (Never a relay hop here — escalation converted it to direct
+            # above — so the per-block count is exact, not doubled.)
+            ctx.count("bytes_copied", len(area) * ctx.pool_cfg.block_bytes)
+            ctx.count("blocks_forced", len(area), rid=area.request_id)
+            self.budget.charge_link(area.src_region, area.dst_region, len(area))
+            ctx.telemetry.request_phase(
+                area.request_id,
+                "EPOCH_OPEN",
+                n=len(area),
+                attempts=area.attempts,
+                forced=True,
+            )
+            forced.append(area)  # the megastep's force phase, end of tick
+            self._finalize_success(area)
+            return True
+        ctx.telemetry.request_phase(
+            area.request_id, "EPOCH_OPEN", n=len(area), attempts=area.attempts
+        )
+        opened.append(area)  # the megastep's begin phase, before copies
+        ctx.active.append(area)
+        return True
+
+    def _open_epoch_huge(self, area: Area, opened: list[Area]) -> bool:
+        """Open a huge area's epoch: reserve one aligned run at the destination.
+
+        If the destination has >= G free slots but no contiguous run
+        (fragmentation), or the pipeline is empty and can never free one, the
+        huge block demotes and retries at small granularity — the second half
+        of the paper's §4.2 rule.
+        """
+        ctx = self.ctx
+        g = int(area.block_ids[0]) // ctx.pool_cfg.huge_factor
+        start = ctx.free[area.dst_region].take_run()
+        if start is None:
+            fragmented = len(ctx.free[area.dst_region]) >= ctx.pool_cfg.huge_factor
+            stalled = not ctx.active and not ctx.pending
+            if fragmented or stalled:
+                ctx.demote_group(g)
+                ctx.queue.extend(
+                    demote_area(area, ctx.cfg.reduction_factor, ctx.cfg.min_area_blocks)
+                )
+                return True
+            return False  # caller re-queues (tick sets it aside, tries others)
+        area.dst_slots = start + np.arange(ctx.pool_cfg.huge_factor, dtype=np.int32)
+        area.copied = 0
+        ctx.telemetry.request_phase(
+            area.request_id, "EPOCH_OPEN", n=len(area), attempts=area.attempts, huge=True
+        )
+        opened.append(area)  # members share the tick's begin phase
+        ctx.active.append(area)
+        return True
+
+    def _finalize_success(self, area: Area) -> None:
+        # Force path: all blocks flip on device in this tick's megastep;
+        # mirror it now and quarantine the freed sources.  Never a relay hop
+        # (escalation forces direct to the final destination), so the credit
+        # is always terminal.  The force phase itself runs at end of tick, so
+        # the freed source slots are quarantined (self._freed) instead of
+        # released: handing one out to a later open this tick would let that
+        # area's zero/force/copy write the slot before this force has read it.
+        ctx = self.ctx
+        ids = area.block_ids
+        self._freed.append(ctx.table[ids].copy())
+        ctx.table[ids, REGION] = area.dst_region
+        ctx.table[ids, SLOT] = area.dst_slots
+        ctx.migrating[ids] = False
+        ctx.note_migrated(ids)
+        self.accounting.credit(area, forced=len(area))
+
+    # -- access-heat plane (closed-loop tiering) ----------------------------
+
+    def _pop_heat(self) -> tuple[np.ndarray, np.ndarray]:
+        """Pop and flatten the tick's pending heat samples (ids, weights)."""
+        ctx = self.ctx
+        if ctx.heat is None or not ctx.heat_pending:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        samples, ctx.heat_pending = ctx.heat_pending, []
+        ids = np.concatenate([s for s, _ in samples]).astype(np.int64)
+        w = np.concatenate(
+            [np.full(len(s), wt, np.float32) for s, wt in samples]
+        )
+        return ids, w
+
+    # -- megastep dispatch (one program per tick) ---------------------------
+
+    def _dispatch_megastep(
+        self,
+        opened: list[Area],
+        zeros: list[Area],
+        forced: list[Area],
+        plan: list[tuple[Area, np.ndarray, np.ndarray]],
+        run_plan: list[Area],
+    ) -> None:
+        """Assemble and fire the tick's single device program.
+
+        Every operand has its real length; an EMPTY phase ships a
+        shape-``(0,)`` operand and the megastep skips it.  An idle tick —
+        nothing staged, nothing scheduled — dispatches nothing at all.
+        """
+        ctx = self.ctx
+        small, huge = self._staged_small, self._staged_huge
+        self._staged_small, self._staged_huge = [], []
+        heat_ids, heat_w = self._pop_heat()
+        if not (
+            small
+            or huge
+            or opened
+            or zeros
+            or forced
+            or plan
+            or run_plan
+            or len(heat_ids)
+        ):
+            return
+        pc = ctx.pool_cfg
+        S = pc.slots_per_region
+        G = pc.huge_factor
+
+        def cat(parts: list[np.ndarray]) -> np.ndarray:
+            if not parts:
+                return np.zeros(0, np.int64)
+            return np.concatenate(parts).astype(np.int64)
+
+        commit_ids = cat([a.block_ids for a in small])
+        commit_regions = cat([np.full(len(a), a.dst_region) for a in small])
+        commit_slots = cat([a.dst_slots for a in small])
+        offsets = np.cumsum([0] + [len(a) for a in small])
+        begin_ids = cat([a.block_ids for a in opened])
+        zero_flat = cat([a.dst_region * S + a.dst_slots.astype(np.int64) for a in zeros])
+        force_ids = cat([a.block_ids for a in forced])
+        force_regions = cat([np.full(len(a), a.dst_region) for a in forced])
+        force_slots = cat([a.dst_slots for a in forced])
+        # Copy plan: flat slot ids from the exact host mirror — table entries
+        # of in-flight blocks cannot change until their commit, which this
+        # driver issues (and this tick's commits target disjoint blocks).
+        copy_ids = cat([ids for _, ids, _ in plan])
+        copy_regions = cat([np.full(len(c), a.dst_region) for a, c, _ in plan])
+        copy_slots = cat([s for _, _, s in plan])
+        copy_src = ctx.table[copy_ids, REGION].astype(np.int64) * S + ctx.table[copy_ids, SLOT]
+        copy_dst = copy_regions * S + copy_slots
+        check_copy_plan(copy_src, copy_dst, pc.n_regions * S)
+        if len(copy_ids):
+            ctx.count("bytes_copied", len(copy_ids) * pc.block_bytes)
+
+        k = len(huge)
+        grp_members = cat([a.block_ids for a in huge])
+        grp_regions = cat([[a.dst_region] for a in huge])
+        grp_starts = cat([a.dst_slots[:1] for a in huge])
+        firsts = cat([a.block_ids[:1] for a in run_plan])
+        run_src = ctx.table[firsts, REGION].astype(np.int64) * S + ctx.table[firsts, SLOT]
+        run_dst = cat([a.dst_region * S + a.dst_slots[:1].astype(np.int64) for a in run_plan])
+        check_copy_plan(run_src, run_dst, pc.n_regions * S, run=G)
+        if run_plan:
+            nbytes = len(run_plan) * G * pc.block_bytes
+            ctx.count("bytes_copied", nbytes)
+            ctx.count("bytes_copied_huge", nbytes)
+
+        dev = ctx.state.device
+        operands = to_device(
+            [
+                commit_ids,
+                commit_regions,
+                commit_slots,
+                grp_members,
+                grp_regions,
+                grp_starts,
+                begin_ids,
+                zero_flat,
+                force_ids,
+                force_regions,
+                force_slots,
+                copy_src,
+                copy_dst,
+                run_src,
+                run_dst,
+                heat_ids,
+            ],
+            dev,
+        )
+        if len(heat_ids):
+            heat_in = ctx.heat
+            heat_w_in = host_to_device(torch.from_numpy(heat_w), dev)
+        else:
+            heat_in = heat_w_in = torch.zeros(0, dtype=torch.float32, device=dev)
+        ctx.state, verdict_small, verdict_groups, _ = migrator.megastep(
+            ctx.state,
+            *operands[:15],
+            heat_in,
+            operands[15],
+            heat_w_in,
+            group=G,
+            impl=ctx.cfg.copy_impl,
+            heat_decay=ctx.cfg.tier_heat_decay,
+        )
+        ctx.count("dispatches", 1, program="megastep")
+        for a in small + huge:
+            ctx.active.remove(a)
+        if small:
+            ctx.pending.append(CommitBatch(small, offsets, VerdictFuture(verdict_small)))
+        if huge:
+            ctx.pending.append(
+                CommitBatch(huge, np.arange(k + 1), VerdictFuture(verdict_groups))
+            )
+
+    # -- tier transitions (two-tier pool) ----------------------------------
+
+    def promote_candidates(self, limit: int | None = None) -> list[int]:
+        """Groups currently eligible for promotion (aligned, resident, cold)."""
+        ctx = self.ctx
+        if ctx.tiers is None:
+            return []
+        out = ctx.promotion.candidates(
+            ctx.tiers, ctx.table, ctx.migrating, ctx.last_write, ctx.stats.ticks
+        )
+        return out[:limit] if limit is not None else out
+
+    def promote_group(self, g: int) -> bool:
+        """Coalesce group ``g``'s G small blocks into one huge block.
+
+        Requires the policy's aligned/fully-resident/cold checks and a free
+        run in the group's region; the compaction copy+remap goes through the
+        atomic force program, so no epoch (and no race window) is needed.
+        Returns False (no state change) when ineligible or out of runs.
+        """
+        ctx = self.ctx
+        if ctx.tiers is None:
+            return False
+        if not ctx.promotion.eligible(
+            g, ctx.tiers, ctx.table, ctx.migrating, ctx.last_write, ctx.stats.ticks
+        ):
+            return False
+        members = ctx.tiers.members(g)
+        region = int(ctx.table[members[0], REGION])
+        start = ctx.free[region].take_run()
+        if start is None:
+            return False
+        G = ctx.pool_cfg.huge_factor
+        dst_slots = start + np.arange(G, dtype=np.int32)
+        ctx.state = migrator.force_areas(
+            ctx.state, *to_device([members, np.full(G, region), dst_slots], ctx.state.device)
+        )
+        ctx.count("dispatches", 1, program="force_areas")
+        ctx.count("bytes_copied", G * ctx.pool_cfg.block_bytes)
+        # take_run left the destination live as one huge allocation; the old
+        # scattered member slots free individually and coalesce.
+        ctx.free[region].put(ctx.table[members, SLOT])
+        ctx.table[members, SLOT] = dst_slots
+        ctx.tiers.promote(g, region, start)
+        ctx.count("promotions", 1, group=g)
+        return True
+
+    def adopt_huge(self, group_ids) -> int:
+        """Zero-copy promotion of groups whose members already sit on aligned
+        contiguous runs (e.g. straight out of ``init_state``'s dense
+        placement).  Pure host metadata; returns the number adopted.
+        """
+        ctx = self.ctx
+        if ctx.tiers is None:
+            return 0
+        G = ctx.pool_cfg.huge_factor
+        adopted = 0
+        for g in np.asarray(group_ids, dtype=np.int64):
+            g = int(g)
+            members = ctx.tiers.members(g)
+            if ctx.tiers.tier[g] or ctx.migrating[members].any():
+                continue
+            region = ctx.table[members, REGION]
+            start = int(ctx.table[members[0], SLOT])
+            contiguous = (
+                (region == region[0]).all()
+                and start % G == 0
+                and (ctx.table[members, SLOT] == start + np.arange(G)).all()
+            )
+            if not contiguous:
+                continue
+            ctx.free[int(region[0])].merge_allocated(start)
+            ctx.tiers.promote(g, int(region[0]), start)
+            adopted += 1
+        return adopted
