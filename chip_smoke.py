@@ -20,9 +20,25 @@ printed):
 5. A small drain run twice, on the card (kernels) and on the CPU (plain
    versions), which must agree bit for bit (heat within 1e-6); the CPU
    path is the one the test suite holds against the JAX package.
+6. The paged-decode kernel against its plain version on the card, on the
+   layer-20 strided view of a 40-layer bf16 pool at granite_3_2b's decode
+   shapes (bf16 within rtol 2e-2 and atol 2e-3, an f32 case with softcap 20
+   within 2e-5, bit-identical run to run, and unchanged when the pad table
+   entries point out of range), timed beside a gather plus
+   ``scaled_dot_product_attention`` (timed here only; the port never calls it).
+7. Serving at full width: granite_3_2b (40 layers, bf16, random weights from
+   a seeded generator) through ``PagedEngine``: 8 prompts of 512 tokens,
+   then 64 decode steps, once undisturbed and once while two sequences
+   leap-migrate to the other region from step 1 on (``tick()`` before every
+   step), their append frontier pages among the pages in flight.  Tokens
+   and the last step's logits must be bit-identical between the two runs.
+8. The reduced two-layer granite (f32, TF32 off) served on the card
+   (kernels) and on the CPU (plain versions) under a live rebalance with
+   blocking harvest: equal tokens, pools and logits within 1e-5.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
-``{"drains": ...}`` line, and last ``{"ok": true, "device": {...}}``.
+``{"drains": ...}`` line, the ``{"serving": ...}`` line, and last
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -30,6 +46,8 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,7 +67,11 @@ from repro_torch.core import (  # noqa: E402
     init_state,
     leap_write,
 )
-from repro_torch.kernels import _build, heat_scan, leap_copy, ref  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.smoke import reduce  # noqa: E402
+from repro_torch.kernels import _build, heat_scan, leap_copy, ops, paged_attn, ref  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -60,6 +82,13 @@ BLOCK = (1, 16384)  # 64 KiB fp32 blocks
 HUGE = 32  # 2 MiB huge blocks
 IO_PER_TICK = 64  # writes and reads per tick
 SEED = 0
+# paged decode at granite_3_2b's widths: 8 sequences, 32 query heads over
+# 8 kv heads of 64, pages of 16 tokens, up to 64 pages a sequence
+PAGED = dict(b=8, h=32, kvh=8, hd=64, blk=16, maxb=64, layers=40, layer=20, slots=1024)
+# bf16: rtol covers the rounding of large m and l; atol sits about 8 times
+# over the error measured on an H100 (2.44e-4) and well under |out| (~0.05)
+PAGED_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
+SERVE = dict(prompts=8, prompt_len=512, steps=64)
 
 
 def check(ok: bool, what: str) -> None:
@@ -104,6 +133,7 @@ def launch_counts() -> dict[str, int]:
         "copy_blocks": leap_copy.copy_blocks.launches,
         "copy_runs": leap_copy.copy_runs.launches,
         "heat_scan": heat_scan.heat_scan.launches,
+        "paged_decode": paged_attn.paged_decode.launches,
     }
 
 
@@ -134,6 +164,7 @@ def reset_launch_counts() -> None:
     leap_copy.copy_blocks.launches = 0
     leap_copy.copy_runs.launches = 0
     heat_scan.heat_scan.launches = 0
+    paged_attn.paged_decode.launches = 0
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -351,6 +382,254 @@ def card_matches_cpu(dev) -> None:
     print("small drains on the card and on the CPU agree")
 
 
+# -- phase 6: the paged-decode kernel against its plain version ----------------
+
+
+def paged_inputs(dev, dtype, lens: torch.Tensor, seed: int):
+    """q, the layer-20 strided view of a 40-layer pool, tables of distinct
+    slots, and ``lens``; everything from seeded generators."""
+    p = PAGED
+    g = torch.Generator(device=dev).manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    pool = torch.randn((p["slots"], p["layers"], 2, p["blk"], p["kvh"], p["hd"]),
+                       generator=g, device=dev, dtype=dtype)
+    q = torch.randn((p["b"], p["h"], p["hd"]), generator=g, device=dev, dtype=dtype)
+    tables = torch.randperm(p["slots"], generator=host)[: p["b"] * p["maxb"]]
+    tables = tables.view(p["b"], p["maxb"]).int().to(dev)
+    return q, pool[:, p["layer"]], tables, lens.int().to(dev)
+
+
+def paged_bound(q, view, lens_host) -> tuple[float, str]:
+    """Each input byte read once and each output written once: the K and V
+    rows of every token below len, q, the valid table entries and lens; out,
+    m and l.  Operations: 4 flops per token, query head and head element."""
+    p = PAGED
+    toks = int(lens_host.sum())
+    kv_bytes = toks * p["kvh"] * p["hd"] * 2 * view.element_size()
+    pages = int(((lens_host + p["blk"] - 1) // p["blk"]).sum())
+    n_bytes = (kv_bytes + 2 * q.numel() * q.element_size() + pages * 4 + p["b"] * 4
+               + 2 * p["b"] * p["h"] * 4)
+    return bound_ms(n_bytes, 4.0 * toks * p["h"] * p["hd"])
+
+
+def paged_timings(q, view, tables, lens, lens_host) -> dict:
+    p = PAGED
+    qg = q.view(p["b"], p["kvh"], p["h"] // p["kvh"], p["hd"])
+    tok = torch.arange(p["maxb"] * p["blk"], device=q.device)
+    mask = (tok[None, :] < lens[:, None].long())[:, None, None, :]  # [B, 1, 1, T]
+
+    def library():  # gather the pages, then one fused attention call
+        kv = view[tables.long()].transpose(1, 2)  # [B, 2, MAXB, BLK, KVH, hd]
+        k = kv[:, 0].reshape(p["b"], -1, p["kvh"], p["hd"]).transpose(1, 2)
+        v = kv[:, 1].reshape(p["b"], -1, p["kvh"], p["hd"]).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    want = ref.paged_decode_ref(q, view, tables, lens)[0]
+    b, by = paged_bound(q, view, lens_host)
+    return dict(
+        ms=time_ms(lambda: paged_attn.paged_decode(qg, view, tables, lens)),
+        plain_ms=time_ms(lambda: ref.paged_decode_ref(q, view, tables, lens)),
+        library_ms=time_ms(library), bound_ms=b, bound_by=by,
+        library_max_abs_err=float((library().float() - want.float()).abs().max()),
+        tokens=int(lens_host.sum()),
+    )
+
+
+def paged_decode_checks(dev) -> dict:
+    p = PAGED
+    host = torch.Generator().manual_seed(SEED)
+    lens = torch.randint(2, p["maxb"] * p["blk"], (p["b"],), generator=host)
+    lens[0], lens[-1] = 1, p["maxb"] * p["blk"]  # one sequence of 1 token, one of 1024
+    errs = {}
+    for dtype, softcap in ((torch.bfloat16, 0.0), (torch.float32, 20.0)):
+        q, view, tables, lens_d = paged_inputs(dev, dtype, lens, SEED)
+        check(not view.is_contiguous(), "the kernel reads a strided per-layer view")
+        got = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"], softcap=softcap)
+        again = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"],
+                                         softcap=softcap)
+        want = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"],
+                                        softcap=softcap, impl="ref")
+        torch.cuda.synchronize()
+        for a, b, w in zip(got, again, want):
+            check(torch.equal(a, b), f"paged_decode {dtype} is bit-identical run to run")
+            torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+        check(torch.equal(got[2][0], torch.ones_like(got[2][0])), "a 1-token sequence has l == 1")
+        pad = (torch.arange(p["maxb"], device=dev)[None, :]
+               >= (lens_d[:, None] + p["blk"] - 1) // p["blk"])
+        garbage = tables.masked_fill(pad, 2**31 - 1)  # out of range: any read would fault
+        unread = ops.paged_decode_partial(q, view, garbage, lens_d, kv_heads=p["kvh"],
+                                          softcap=softcap)
+        check(all(torch.equal(a, b) for a, b in zip(unread, got)),
+              f"paged_decode {dtype} reads no pad table entry")
+        errs[str(dtype)] = max(float((a.float() - w.float()).abs().max())
+                               for a, w in zip(got, want))
+        if dtype == torch.bfloat16:
+            row_t = paged_timings(q, view, tables, lens_d, lens)
+            serve_lens = torch.full((p["b"],), SERVE["prompt_len"] + SERVE["steps"] // 2)
+            at_serving = paged_timings(q, view, tables, serve_lens.int().to(dev), serve_lens)
+        del q, view, tables, got, again, want
+        torch.cuda.empty_cache()
+    row = dict(
+        name="paged_decode", route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:101", launches=0,
+        max_abs_err=errs[str(torch.bfloat16)], **row_t,
+        f32_softcap_max_abs_err=errs[str(torch.float32)],
+        shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16, layer {p['layer']} of a "
+               f"[{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, {p['hd']}] pool, "
+               f"MAXB {p['maxb']}, lens {lens.tolist()}"),
+        at_serving_lens=at_serving,
+    )
+    print(f"paged_decode: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}), max err bf16 "
+          f"{errs[str(torch.bfloat16)]:.3g}, f32 softcap {errs[str(torch.float32)]:.3g}; at "
+          f"serving lens {at_serving['ms']:.4f} ms (bound {at_serving['bound_ms']:.4f})")
+    return row
+
+
+# -- phases 7-8: serving through PagedEngine -----------------------------------
+
+
+def serve_run(dev, cfg, model, pcfg, prompts, steps: int, live: bool, blocking: bool = False):
+    """Admit the prompts (alternating regions), then decode ``steps`` tokens;
+    with ``live``, sequences 0 and 1 leap to the other region after the first
+    step and the session ticks before every later step.  Returns the engine,
+    the sequence ids, the rebalance handles and the timings."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    eng = PagedEngine(cfg, model, pcfg, device=dev)
+    t0 = time.perf_counter()
+    sids = [eng.admit(pr, region=i % pcfg.n_regions) for i, pr in enumerate(prompts)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    handles = []
+    step_s, tick_s = [], 0.0
+    for step in range(steps):
+        if live and step == 1:
+            # after the first step, so that the page holding the append
+            # frontier is among the pages in flight
+            handles = [eng.rebalance(s, 1 - eng.seqs[s].region) for s in sids[:2]]
+        if handles:
+            t1 = time.perf_counter()
+            eng.tick()
+            if blocking:
+                eng.session.poll(block=True)
+            tick_s += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        eng.decode(sids)  # ends in the step's one device-to-host copy
+        step_s.append(time.perf_counter() - t1)
+    if live:
+        check(eng.drain(), "the rebalances drain")
+    times = dict(
+        prefill_s=prefill_s, decode_s=sum(step_s),
+        decode_step_ms_median=statistics.median(step_s) * 1e3,
+        tokens_per_s=len(sids) * steps / sum(step_s), tick_s=tick_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
+    )
+    return eng, sids, handles, times
+
+
+def check_serving(eng, sids, handles) -> dict:
+    drv = eng.driver
+    check(drv.verify_mirror(), "KV pool host table mirror == device table")
+    for s, h in zip(sids, handles):
+        ids = np.asarray(eng.seqs[s].block_ids)
+        check((eng.facade.region_of(ids) == eng.seqs[s].region).all(),
+              f"every page of sequence {s} lives in its new region")
+        p = h.progress()
+        check(p.committed + p.forced + p.cancelled == p.requested, "handle accounting closes")
+    st = drv.stats
+    check(st.blocks_migrated + st.blocks_forced + st.blocks_cancelled == st.blocks_requested,
+          "engine accounting closes")
+    acc = eng.page_accounting()
+    check(acc["used"] + acc["spare"] + acc["free"] == acc["total"], "page accounting closes")
+    return dict(blocks_requested=st.blocks_requested, blocks_migrated=st.blocks_migrated,
+                blocks_forced=st.blocks_forced, dirty_rejections=st.dirty_rejections,
+                ticks=st.ticks, pages=acc)
+
+
+def serving_deployment(dev):
+    """The full-width serving deployment: granite_3_2b with random bf16
+    weights from seed 0 on ``dev``, its paged KV pool's config, and the
+    prompts.  ``scripts/profile_serving.py`` profiles this same deployment."""
+    cfg = get_config("granite_3_2b")
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    pcfg = PagedConfig(block_tokens=16, max_blocks_per_seq=64, n_regions=2, slots_per_region=512,
+                       leap=LeapConfig(initial_area_blocks=4, budget_blocks_per_tick=8,
+                                       tiering=True))
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(SERVE["prompts"], SERVE["prompt_len"]))
+    return cfg, model, pcfg, prompts
+
+
+def serving_full_width(dev) -> dict:
+    t0 = time.perf_counter()
+    cfg, model, pcfg, prompts = serving_deployment(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    runs, out = {}, {}
+    for name in ("undisturbed", "live"):
+        reset_launch_counts()
+        eng, sids, handles, times = serve_run(dev, cfg, model, pcfg, prompts, SERVE["steps"],
+                                              live=name == "live")
+        launches = launch_counts()
+        runs[name] = ([eng.seqs[s].tokens for s in sids], eng.last_logits.clone())
+        out[name] = dict(times, launches=launches)
+        if name == "live":
+            out[name].update(check_serving(eng, sids, handles))
+            check(out[name]["dirty_rejections"] > 0, "decode appends dirtied in-flight pages")
+            check(launches["copy_blocks"] > 0 and launches["heat_scan"] > 0,
+                  "the live run launched copy_blocks and heat_scan")
+        check(launches["paged_decode"] == SERVE["steps"] * cfg.n_layers,
+              f"{name}: one paged-decode launch per layer and step")
+        print(f"serving {name}: prefill {times['prefill_s']:.3f} s, decode step "
+              f"{times['decode_step_ms_median']:.3f} ms (median), {times['tokens_per_s']:.1f} "
+              f"tok/s, decode {times['decode_s']:.3f} s, ticks {times['tick_s']:.3f} s, peak "
+              f"{times['peak_gib']:.2f} GiB, launches {launches}")
+        del eng
+        torch.cuda.empty_cache()
+    check(runs["live"][0] == runs["undisturbed"][0],
+          "tokens are identical with and without live migration")
+    check(torch.equal(runs["live"][1], runs["undisturbed"][1]),
+          "the last step's logits are bit-identical with and without live migration")
+    del model
+    torch.cuda.empty_cache()
+    return dict(config="granite_3_2b", layers=cfg.n_layers, dtype="bfloat16", init_s=init_s,
+                **SERVE, runs=out)
+
+
+def serving_card_matches_cpu(dev) -> None:
+    """Reduced granite, f32 with TF32 off, on the card and on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    models = {"cuda": copy.deepcopy(cpu_model).to(dev), "cpu": cpu_model}
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 12, 16)]
+    pcfg = PagedConfig(block_tokens=4, max_blocks_per_seq=16, n_regions=2, slots_per_region=64,
+                       leap=LeapConfig(initial_area_blocks=2, chunk_blocks=1,
+                                       budget_blocks_per_tick=1, max_attempts_before_force=3,
+                                       tiering=True))
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        eng, sids, _, _ = serve_run(d, cfg, models[name], pcfg, prompts, 10, live=True,
+                                    blocking=True)
+        res[name] = (eng, [eng.seqs[s].tokens for s in sids])
+    (gpu, gtok), (cpu, ctok) = res["cuda"], res["cpu"]
+    check(gtok == ctok, "card and CPU decode the same tokens")
+    check(np.array_equal(gpu.driver.host_table(), cpu.driver.host_table()), "host tables agree")
+    g_state, c_state = gpu.driver.state.to_numpy(), cpu.driver.state.to_numpy()
+    np.testing.assert_allclose(g_state[0], c_state[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(g_state[1:], c_state[1:]):
+        check(np.array_equal(a, b), "card and CPU tables and dirty/in-flight bits agree")
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits, rtol=1e-5, atol=1e-5)
+    check(gpu.driver.stats == cpu.driver.stats, "card and CPU MigrationStats agree")
+    print("reduced granite served on the card and on the CPU agrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -373,13 +652,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     drains["huge"] = main_path_drain(dev, HUGE)
     torch.cuda.empty_cache()
-    for row in rows:
-        row["launches"] = sum(d["launches"][row["name"]] for d in drains.values())
-        check(row["launches"] > 0, f"the drains launched {row['name']}")
     card_matches_cpu(dev)
+    rows.append(paged_decode_checks(dev))
+    serving = serving_full_width(dev)
+    # each path's counts were set to 0 just before it ran and read just after
+    paths = list(drains.values()) + list(serving["runs"].values())
+    for row in rows:
+        row["launches"] = sum(d["launches"][row["name"]] for d in paths)
+        check(row["launches"] > 0, f"the main path launched {row['name']}")
+    check(rows[-1]["launches"] == 2 * SERVE["steps"] * serving["layers"],
+          "paged decode launched once per layer and step in both serving runs")
+    serving_card_matches_cpu(dev)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"drains": drains, "card": smi}))
+    print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

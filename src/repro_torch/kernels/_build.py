@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("leap_copy.cu", "heat_scan.cu")
+SOURCES = ("leap_copy.cu", "heat_scan.cu", "paged_attn.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,9 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "leap_copy_lanes": (_P, _P, _P, _I64, _I64, _I64, _P),
     "leap_heat_scan": (_P, _P, _P, _I64, _I64, ctypes.c_float, _P),
+    "leap_paged_decode": (
+        (_P,) * 7 + (_I64,) * 7 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)
+    ),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,4 @@
-"""Kernel dispatch for the migrator's device programs.
+"""Kernel dispatch for the migrator's device programs and the serving decode.
 
 ``impl`` picks the implementation:
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import heat_scan as heat_mod
-from repro_torch.kernels import leap_copy, ref
+from repro_torch.kernels import leap_copy, paged_attn, ref
 
 IMPLS = (None, "auto", "cuda", "ref")
 
@@ -56,3 +56,44 @@ def heat_scan_impl(heat, ids, w, decay, *, impl: str | None = None):
     if _use_kernel(impl, heat):
         return heat_mod.heat_scan(heat, ids, w, decay)
     return ref.heat_scan_ref(heat, ids, w, decay)
+
+
+# -- paged decode attention ----------------------------------------------------
+
+
+def paged_decode(q, kv_pool, tables, lens, *, kv_heads: int, softcap: float = 0.0,
+                 impl: str | None = None):
+    """One decode step of paged attention; returns ``out [B, H, hd]``."""
+    out, _, _ = paged_decode_partial(
+        q, kv_pool, tables, lens, kv_heads=kv_heads, softcap=softcap, impl=impl
+    )
+    return out
+
+
+def paged_decode_partial(q, kv_pool, tables, lens, *, kv_heads: int, softcap: float = 0.0,
+                         impl: str | None = None):
+    """Paged decode returning flash partials ``(out [B,H,hd], m [B,H], l [B,H])``.
+
+    q: [B, H, hd]; kv_pool: [S, 2, BLK, KVH, hd] (a strided per-layer view is
+    fine); tables: [B, MAXB] slot ids; lens: [B] tokens per sequence, >= 1.
+
+    Table entries at or past ``ceil(lens / BLK)`` are pad and may hold any
+    value.  The kernel never reads them.  The plain version gathers every
+    entry, so for it they are set to slot 0 first, as the JAX wrapper does.
+    """
+    b, h, hd = q.shape
+    g = h // kv_heads
+    assert g * kv_heads == h, (h, kv_heads)
+    if _use_kernel(impl, q):
+        out, m, l = paged_attn.paged_decode(
+            q.reshape(b, kv_heads, g, hd), kv_pool, tables.to(torch.int32).contiguous(),
+            lens.to(torch.int32).contiguous(), softcap=softcap,
+        )
+        return out.reshape(b, h, hd), m.reshape(b, h), l.reshape(b, h)
+    blk = kv_pool.shape[2]
+    n_valid = (lens[:, None] + blk - 1) // blk
+    pad = torch.arange(tables.shape[1], device=tables.device)[None, :] >= n_valid
+    return ref.paged_decode_ref(q, kv_pool, tables.masked_fill(pad, 0), lens, softcap=softcap)
+
+
+combine_partials = ref.combine_partials

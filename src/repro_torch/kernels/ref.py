@@ -2,8 +2,9 @@
 
 Each function computes what its kernel computes, on any device.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold the
-kernels against them.  Like the kernels, they update ``pool`` / ``heat`` in
-place and return it (the JAX package's buffer donation, made explicit).
+kernels against them.  Like the kernels, the copies and the heat scan update
+``pool`` / ``heat`` in place and return it (the JAX package's buffer
+donation, made explicit); paged decode returns new tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +35,62 @@ def copy_runs_ref(
     grouped = pool.view((s // run, run) + tuple(pool.shape[1:]))
     grouped[dst_starts // run] = grouped[src_starts // run]
     return pool
+
+
+# -- paged decode attention ---------------------------------------------------
+
+
+def paged_decode_ref(
+    q: torch.Tensor,  # [B, H, hd]
+    kv_pool: torch.Tensor,  # [S, 2, BLK, KVH, hd], any strides
+    tables: torch.Tensor,  # [B, MAXB] int slot ids, every entry a valid slot
+    lens: torch.Tensor,  # [B] int tokens per sequence, >= 1
+    *,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-precision paged attention for one decode step.
+
+    Returns ``(out [B,H,hd] in q.dtype, m [B,H] fp32, l [B,H] fp32)``: m and l
+    are the softmax max and normalizer, so that shard partials combine as::
+
+        m* = max_i m_i;  l* = sum_i l_i exp(m_i - m*)
+        out* = sum_i out_i l_i exp(m_i - m*) / l*
+
+    The scale is ``1/sqrt(hd)`` whatever the model's ``attn_scale`` says, as
+    in the JAX oracle.
+    """
+    b, h, hd = q.shape
+    _, _, blk, kvh, _ = kv_pool.shape
+    maxb = tables.shape[1]
+    g = h // kvh
+    scale = 1.0 / (hd**0.5)
+    idx = tables.long()
+    k = kv_pool[idx, 0].reshape(b, maxb * blk, kvh, hd).float()
+    v = kv_pool[idx, 1].reshape(b, maxb * blk, kvh, hd).float()
+    qg = (q.float() * scale).reshape(b, kvh, g, hd)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k)  # [B, KVH, G, T]
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    valid = torch.arange(maxb * blk, device=q.device)[None, :] < lens[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1)  # [B, KVH, G]
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v) / l[..., None]
+    return out.reshape(b, h, hd).to(q.dtype), m.reshape(b, h), l.reshape(b, h)
+
+
+def combine_partials(
+    outs: torch.Tensor,  # [P, B, H, hd] per-shard partial outputs
+    ms: torch.Tensor,  # [P, B, H]
+    ls: torch.Tensor,  # [P, B, H]
+) -> torch.Tensor:
+    """Merge flash partials from P shards (sequence-sharded KV)."""
+    m_star = ms.amax(dim=0)  # [B, H]
+    w = ls * torch.exp(ms - m_star[None])  # [P, B, H]
+    l_star = w.sum(dim=0)
+    out = (outs.float() * w[..., None]).sum(dim=0) / l_star[..., None]
+    return out.to(outs.dtype)
 
 
 # -- access-heat scan (closed-loop tiering) -----------------------------------

@@ -1,0 +1,190 @@
+"""Attention: GQA/MQA/MHA with RoPE, sliding windows, logit softcaps, QKV
+bias and QK-norm.
+
+Three execution paths, as in the JAX package's ``models/attention.py``:
+
+  * prefill: query-chunked causal attention in fp32 (a Python loop over
+    query blocks, the JAX ``lax.scan``), so the score matrix never exceeds
+    ``[B, KVH, G, chunk, Sk]``.  It stays plain PyTorch with the reference's
+    chunking and softmax, so that the two packages agree;
+  * decode: single-token attention against a contiguous cache, updated in
+    place (global layers: length S_max; window layers: a rolling buffer);
+  * paged decode (serving engine): the CUDA kernel behind
+    ``repro_torch.kernels.ops.paged_decode_partial``, reading through a leap
+    block table.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import _param, apply_rope, dense_init, rms_norm, softcap
+
+# -- params -------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """Projection weights ``wq [D, H*hd]``, ``wk``/``wv [D, KVH*hd]``,
+    ``wo [H*hd, D]``, and optional biases and QK-norm scales."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, qd, kvd, pd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.pdtype()
+        self.wq = _param((d, qd), pd, device)
+        self.wk = _param((d, kvd), pd, device)
+        self.wv = _param((d, kvd), pd, device)
+        self.wo = _param((qd, d), pd, device)
+        if cfg.qkv_bias:
+            self.bq = _param((qd,), pd, device)
+            self.bk = _param((kvd,), pd, device)
+            self.bv = _param((kvd,), pd, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((cfg.head_dim,), pd, device)
+            self.k_norm = _param((cfg.head_dim,), pd, device)
+
+
+def attn_init(gen, cfg: ModelConfig, device=None) -> Attention:
+    p = Attention(cfg, device)
+    d, qd, kvd, pd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.pdtype()
+    with torch.no_grad():
+        p.wq.copy_(dense_init(gen, (d, qd), pd, device))
+        p.wk.copy_(dense_init(gen, (d, kvd), pd, device))
+        p.wv.copy_(dense_init(gen, (d, kvd), pd, device))
+        p.wo.copy_(dense_init(gen, (qd, d), pd, device))
+        for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+            if hasattr(p, name):
+                getattr(p, name).zero_()
+    return p
+
+
+def _project_qkv(x, params: Attention, cfg: ModelConfig, positions, cos_sin=None):
+    """x: [B,S,D] -> q [B,S,H,hd], k/v [B,S,KVH,hd] (RoPE applied; ``cos_sin``
+    is RoPE's tables for ``positions`` when the caller computed them once)."""
+    b, s, _ = x.shape
+    q = x @ params.wq
+    k = x @ params.wk
+    v = x @ params.wv
+    if cfg.qkv_bias:
+        q, k, v = q + params.bq, k + params.bk, v + params.bv
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, params.q_norm, cfg.norm_eps)
+        k = rms_norm(k, params.k_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
+    k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
+    return q, k, v
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim**-0.5
+
+
+# -- core: chunked causal attention --------------------------------------------
+
+
+def _attend(q_blk, k, v, q_pos, k_pos, cfg: ModelConfig, window: int):
+    """q_blk: [B,Cq,KVH,G,hd]; k/v: [B,Sk,KVH,hd]; positions int [Cq]/[Sk]."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.float() * _scale(cfg), k.float())
+    s = softcap(s, cfg.attn_softcap)
+    mask = k_pos[None, :] <= q_pos[:, None]  # causal
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    mask &= k_pos[None, :] >= 0  # rolling-cache slots not yet written
+    s = torch.where(mask[None, None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.to(q_blk.dtype)
+
+
+def causal_attention(q, k, v, cfg: ModelConfig, window: int = 0):
+    """Full causal (optionally windowed) attention, chunked over queries.
+
+    q: [B,S,H,hd]; k/v: [B,S,KVH,hd].  Returns [B,S,H,hd].
+    """
+    b, s, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, hd)
+    # largest divisor of s not exceeding attn_chunk: no padding, so no
+    # fully-masked softmax rows
+    chunk = next(d for d in range(min(cfg.attn_chunk, s), 0, -1) if s % d == 0)
+    k_pos = torch.arange(s, device=q.device)
+    outs = []
+    for start in range(0, s, chunk):
+        q_blk = qg[:, start : start + chunk]
+        q_pos = start + torch.arange(chunk, device=q.device)
+        if window:
+            # only the last (window + chunk) keys can be visible to this block
+            klen = min(window + chunk, s)
+            k_start = max(start + chunk - klen, 0)
+            kp = k_start + torch.arange(klen, device=q.device)
+            o = _attend(
+                q_blk, k[:, k_start : k_start + klen], v[:, k_start : k_start + klen],
+                q_pos, kp, cfg, window,
+            )
+        else:
+            o = _attend(q_blk, k, v, q_pos, k_pos, cfg, window)
+        outs.append(o)
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+# -- layer-level entry points ---------------------------------------------------
+
+
+def cache_len(cfg: ModelConfig, window: int, max_len: int) -> int:
+    return min(window, max_len) if window else max_len
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, device=None):
+    t = cache_len(cfg, window, max_len)
+    shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype(), device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype(), device=device),
+    }
+
+
+def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
+    """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(x, params, cfg, positions)
+    out = causal_attention(q, k, v, cfg, window)
+    out = out.reshape(b, s, -1) @ params.wo
+    t = cache_len(cfg, window, s)
+    if window and s > t:
+        # rolling layout: absolute position p lands in slot p % W
+        keep = torch.arange(s - t, s, device=x.device)
+        slots = keep % t
+        ck = torch.zeros((b, t) + k.shape[2:], dtype=k.dtype, device=x.device)
+        cv = torch.zeros_like(ck)
+        ck[:, slots] = k[:, keep]
+        cv[:, slots] = v[:, keep]
+    else:
+        ck, cv = k, v
+    return out, {"k": ck, "v": cv}
+
+
+def attn_decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int = 0):
+    """One decode step.  x: [B,1,D]; pos: int (tokens already cached).
+
+    Returns (out [B,1,D], cache), the cache updated in place.
+    """
+    b = x.shape[0]
+    t = cache["k"].shape[1]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(x, params, cfg, positions)
+    slot = pos % t if window else pos
+    cache["k"][:, slot : slot + 1] = k
+    cache["v"][:, slot : slot + 1] = v
+    j = torch.arange(t, device=x.device)
+    kpos = pos - torch.remainder(pos - j, t) if window else j
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, 1, kvh, g, cfg.head_dim)
+    out = _attend(qg, cache["k"], cache["v"], positions[0], kpos, cfg, window)
+    out = out.reshape(b, 1, -1) @ params.wo
+    return out, cache

@@ -11,9 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import heat_scan, leap_copy, ops, ref  # noqa: E402
+from repro_torch.kernels import heat_scan, leap_copy, ops, paged_attn, ref  # noqa: E402
 
 HEAT_TOL = dict(rtol=1e-6, atol=1e-6)  # sums over duplicate ids may associate differently
+# the JAX package's paged-decode kernel tolerances (tests/test_kernels_paged_attn.py)
+PAGED_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +70,71 @@ def test_ops_launch_kernels_on_cuda_and_count_them(cuda):
     assert leap_copy.copy_blocks.launches == before + 2
     with pytest.raises(ValueError, match="int64"):
         leap_copy.copy_blocks(pool, idx.int(), idx.int() + 8)
+
+
+def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1, seed=0):
+    """q, a strided per-layer view of a pool with every layer in each slot,
+    tables of distinct slots and lens from 1 to MAXB * BLK."""
+    gen = torch.Generator().manual_seed(seed)
+    s = b * maxb + 3
+    pool = torch.randn((s, n_layers, 2, blk, kvh, hd), generator=gen).to(dtype).to(dev)
+    q = torch.randn((b, kvh * g, hd), generator=gen).to(dtype).to(dev)
+    tables = torch.randperm(s, generator=gen)[: b * maxb].view(b, maxb).int().to(dev)
+    lens = torch.randint(1, maxb * blk + 1, (b,), generator=gen)
+    lens[0], lens[-1] = 1, maxb * blk
+    return q, pool[:, layer], tables, lens.int().to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 4, 7])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, g, hd, softcap):
+    q, view, tables, lens = _paged_inputs(cuda, dtype, b=5, kvh=2, g=g, hd=hd)
+    assert not view.is_contiguous()
+    before = paged_attn.paged_decode.launches
+    got = ops.paged_decode_partial(q, view, tables, lens, kv_heads=2, softcap=softcap)
+    again = ops.paged_decode_partial(q, view, tables, lens, kv_heads=2, softcap=softcap)
+    want = ops.paged_decode_partial(q, view, tables, lens, kv_heads=2, softcap=softcap,
+                                    impl="ref")
+    torch.cuda.synchronize()
+    assert paged_attn.paged_decode.launches == before + 2  # the plain version is not counted
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)  # no atomics: bit-identical run to run
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert torch.equal(got[2][0], torch.ones_like(got[2][0]))  # lens 1: l is exactly 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_decode_kernel_never_reads_pad_entries(cuda, dtype):
+    """The kernel path hands the raw table over; entries at or past
+    ceil(lens / BLK) may be anything, and only the plain version needs them
+    set to slot 0."""
+    q, view, tables, lens = _paged_inputs(cuda, dtype, b=5, kvh=2, g=4, hd=64)
+    blk, maxb = view.shape[2], tables.shape[1]
+    pad = torch.arange(maxb, device=cuda)[None, :] >= (lens[:, None] + blk - 1) // blk
+    assert pad.any()
+    garbage = tables.masked_fill(pad, 2**31 - 1)  # out of range: any read would fault
+    got = ops.paged_decode_partial(q, view, garbage, lens, kv_heads=2)
+    clean = ops.paged_decode_partial(q, view, tables, lens, kv_heads=2)
+    want = ops.paged_decode_partial(q, view, garbage, lens, kv_heads=2, impl="ref")
+    torch.cuda.synchronize()
+    for a, c, w in zip(got, clean, want):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+
+
+def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q, view, tables, lens = _paged_inputs(cuda, torch.float32, b=2, kvh=2, g=4, hd=64)
+    qg = q.view(2, 2, 4, 64)
+    with pytest.raises(ValueError, match="share"):
+        paged_attn.paged_decode(qg.bfloat16(), view, tables, lens)
+    sliced = torch.zeros(view.shape[:-1] + (128,), device=cuda)[..., :64]  # rows not dense
+    with pytest.raises(ValueError, match="dense"):
+        paged_attn.paged_decode(qg, sliced, tables, lens)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attn.paged_decode(qg, view, tables.long(), lens)
+    q96, view96, t96, l96 = _paged_inputs(cuda, torch.float32, b=2, kvh=2, g=1, hd=96)
+    with pytest.raises(ValueError, match="hd"):
+        paged_attn.paged_decode(q96.view(2, 2, 1, 96), view96, t96, l96)
