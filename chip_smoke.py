@@ -32,13 +32,26 @@ printed):
    leap-migrate to the other region from step 1 on (``tick()`` before every
    step), their append frontier pages among the pages in flight.  Tokens
    and the last step's logits must be bit-identical between the two runs.
-8. The reduced two-layer granite (f32, TF32 off) served on the card
+8. The LRU-scan kernel against its plain version on the card at the
+   recurrent prefill's shapes ([8, 2048, 4096] f32: bit-identical, and
+   bit-identical run to run), a bf16 case within 2e-2 and an odd shape
+   (T = 17, R = 96), timed beside its bound and the plain version (no single
+   PyTorch call computes a linear recurrence, so there is no library time).
+9. recurrentgemma_9b at full width (38 layers, bf16, random weights from a
+   seeded generator) through ``lm.prefill`` and ``lm.decode_step``: 8
+   prompts of 2048 tokens, then 64 greedy decode steps, twice.  Finite
+   logits, exactly one LRU-scan launch per ``rec`` layer in each prefill
+   and none in decode, and the same tokens in both runs.
+10. The reduced two-layer granite (f32, TF32 off) served on the card
    (kernels) and on the CPU (plain versions) under a live rebalance with
    blocking harvest: equal tokens, pools and logits within 1e-5.
+11. The reduced recurrentgemma (f32, TF32 off, ``lru_width`` 128): prefill
+   and 4 decode steps on the card (kernels) and on the CPU (plain
+   versions): equal tokens, logits and every layer's cache within 1e-5.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
-``{"drains": ...}`` line, the ``{"serving": ...}`` line, and last
-``{"ok": true, "device": {...}}``.
+``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
+``{"recurrent": ...}`` line, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -69,7 +82,15 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
-from repro_torch.kernels import _build, heat_scan, leap_copy, ops, paged_attn, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    heat_scan,
+    leap_copy,
+    lru_scan,
+    ops,
+    paged_attn,
+    ref,
+)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 
@@ -89,6 +110,9 @@ PAGED = dict(b=8, h=32, kvh=8, hd=64, blk=16, maxb=64, layers=40, layer=20, slot
 # over the error measured on an H100 (2.44e-4) and well under |out| (~0.05)
 PAGED_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-3)}
 SERVE = dict(prompts=8, prompt_len=512, steps=64)
+# recurrentgemma_9b: 8 prompts of 2048 tokens (its attention window), 64 steps
+RECUR = dict(prompts=8, prompt_len=2048, steps=64)
+LRU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # the JAX package's (tests/test_kernels_lru_scan.py)
 
 
 def check(ok: bool, what: str) -> None:
@@ -134,6 +158,7 @@ def launch_counts() -> dict[str, int]:
         "copy_runs": leap_copy.copy_runs.launches,
         "heat_scan": heat_scan.heat_scan.launches,
         "paged_decode": paged_attn.paged_decode.launches,
+        "lru_scan": lru_scan.lru_scan.launches,
     }
 
 
@@ -165,6 +190,7 @@ def reset_launch_counts() -> None:
     leap_copy.copy_runs.launches = 0
     heat_scan.heat_scan.launches = 0
     paged_attn.paged_decode.launches = 0
+    lru_scan.lru_scan.launches = 0
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -487,7 +513,7 @@ def paged_decode_checks(dev) -> dict:
     return row
 
 
-# -- phases 7-8: serving through PagedEngine -----------------------------------
+# -- phases 7 and 10: serving through PagedEngine ------------------------------
 
 
 def serve_run(dev, cfg, model, pcfg, prompts, steps: int, live: bool, blocking: bool = False):
@@ -630,6 +656,166 @@ def serving_card_matches_cpu(dev) -> None:
     print("reduced granite served on the card and on the CPU agrees")
 
 
+# -- phase 8: the LRU-scan kernel against its plain version --------------------
+
+
+def lru_inputs(dev, b: int, t: int, r: int, seed: int):
+    """Decays in (0, 1) as the RG-LRU gates make them, normal inputs and h0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, t, r), generator=g, device=dev) + 2.0)
+    x = torch.randn((b, t, r), generator=g, device=dev)
+    return a, x, torch.randn((b, r), generator=g, device=dev)
+
+
+def lru_scan_checks(dev) -> dict:
+    b, t, r = RECUR["prompts"], RECUR["prompt_len"], get_config("recurrentgemma_9b").rnn_width
+    a, x, h0 = lru_inputs(dev, b, t, r, SEED)
+    got = ops.lru_scan(a, x, h0)
+    again = ops.lru_scan(a, x, h0)
+    want = ops.lru_scan(a, x, h0, impl="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "lru_scan f32 == plain version, bit for bit")
+    check(torch.equal(got, again), "lru_scan is bit-identical run to run")
+    a16, x16, h16 = a.bfloat16(), x.bfloat16(), h0.bfloat16()
+    got16 = lru_scan.lru_scan(a16, x16, h16)
+    want16 = ref.lru_scan_ref(a16, x16, h16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got16.float(), want16.float(), **LRU_BF16_TOL)
+    bf16_err = float((got16.float() - want16.float()).abs().max())
+    odd = lru_inputs(dev, 3, 17, 96, SEED + 1)
+    check(torch.equal(lru_scan.lru_scan(*odd), ref.lru_scan_ref(*odd)),
+          "lru_scan at T = 17, R = 96 == plain version, bit for bit")
+    # a and b read once, out written once, h0 read once; 2 flops an element
+    bound, by = bound_ms(3 * a.numel() * 4 + h0.numel() * 4, 2.0 * a.numel())
+    bound16, by16 = bound_ms(3 * a.numel() * 2 + h0.numel() * 4, 2.0 * a.numel())
+    row = dict(
+        name="lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan.py:56", launches=0,
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: lru_scan.lru_scan(a, x, h0)),
+        plain_ms=time_ms(lambda: ref.lru_scan_ref(a, x, h0), iters=2, repeats=3),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        library="none (no single PyTorch call computes a linear recurrence)",
+        shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32",
+        bf16=dict(ms=time_ms(lambda: lru_scan.lru_scan(a16, x16, h16)), bound_ms=bound16,
+                  bound_by=by16, max_abs_err=bf16_err),
+    )
+    print(f"lru_scan: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound {bound:.4f}), "
+          f"bit-exact f32; bf16 {row['bf16']['ms']:.4f} ms (bound {bound16:.4f}), max err "
+          f"{bf16_err:.3g}")
+    return row
+
+
+# -- phases 9 and 11: recurrentgemma_9b through lm.prefill and lm.decode_step ----
+
+
+def recurrent_run(model, cfg, prompts: torch.Tensor, steps: int) -> dict:
+    """Prefill the prompts, then ``steps`` greedy decode steps; returns the
+    tokens, the timings and the launch counts of each part."""
+    dev = prompts.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(model, prompts, cfg, prompts.shape[1] + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = launch_counts()
+    finite = torch.isfinite(logits).all()
+    reset_launch_counts()
+    tok = logits.argmax(-1)[:, None]
+    tokens, step_s = [tok.cpu()], []
+    for i in range(steps):
+        t1 = time.perf_counter()
+        logits, cache = lm.decode_step(model, cache, tok, prompts.shape[1] + i, cfg)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+        tokens.append(tok.cpu())  # the step's one device-to-host copy
+        step_s.append(time.perf_counter() - t1)
+    check(bool(finite), "recurrentgemma logits are finite")
+    return dict(
+        tokens=torch.cat(tokens, dim=1), prefill_s=prefill_s,
+        decode_s=sum(step_s), decode_step_ms_median=statistics.median(step_s) * 1e3,
+        tokens_per_s=prompts.shape[0] * steps / sum(step_s),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        prefill_launches=prefill_launches, decode_launches=launch_counts(),
+    )
+
+
+def recurrent_deployment(dev):
+    """recurrentgemma_9b at full width with random bf16 weights from seed 0 on
+    ``dev``, and its prompts.  ``scripts/profile_recurrent.py`` profiles this
+    same run."""
+    cfg = get_config("recurrentgemma_9b")
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(RECUR["prompts"], RECUR["prompt_len"]))).to(dev)
+    return cfg, model, prompts
+
+
+def recurrent_full_width(dev) -> dict:
+    """recurrentgemma_9b at full width and depth, twice over the same prompts."""
+    t0 = time.perf_counter()
+    cfg, model, prompts = recurrent_deployment(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_rec = cfg.layer_kinds.count("rec")
+    runs, tokens = {}, []
+    for name in ("first", "second"):
+        res = recurrent_run(model, cfg, prompts, RECUR["steps"])
+        check(res["prefill_launches"]["lru_scan"] == n_rec,
+              f"{name}: one lru_scan launch per rec layer ({n_rec}) in the prefill")
+        check(res["decode_launches"]["lru_scan"] == 0, f"{name}: decode launches no lru_scan")
+        tokens.append(res.pop("tokens"))
+        # the path's counts: the prefill's and the decode's, each set to 0 before it
+        res["launches"] = {k: v + res["decode_launches"][k]
+                           for k, v in res["prefill_launches"].items()}
+        runs[name] = res
+        print(f"recurrentgemma_9b {name}: prefill {res['prefill_s']:.3f} s, decode step "
+              f"{res['decode_step_ms_median']:.3f} ms (median), {res['tokens_per_s']:.1f} tok/s, "
+              f"decode {res['decode_s']:.3f} s, peak {res['peak_gib']:.2f} GiB, launches "
+              f"{res['launches']}")
+        torch.cuda.empty_cache()
+    check(torch.equal(tokens[0], tokens[1]), "a second identical run decodes the same tokens")
+    del model
+    torch.cuda.empty_cache()
+    return dict(config="recurrentgemma_9b", layers=cfg.n_layers, rec_layers=n_rec,
+                dtype="bfloat16", params=cfg.param_count(), init_s=init_s, **RECUR, runs=runs)
+
+
+def recurrent_card_matches_cpu(dev) -> None:
+    """Reduced recurrentgemma, f32 with TF32 off, on the card and on the CPU,
+    in lockstep: prefill, then 4 decode steps, compared after each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduce(get_config("recurrentgemma_9b")), lru_width=128)
+    cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 16)))
+
+    def agree(g, c) -> None:
+        (glog, gcache), (clog, ccache) = g, c
+        torch.testing.assert_close(glog.cpu(), clog, rtol=1e-5, atol=1e-5)
+        for gl, cl in zip(gcache, ccache):
+            check(set(gl) == set(cl), "card and CPU caches hold the same entries")
+            for k in gl:
+                torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-5, atol=1e-5)
+
+    before = lru_scan.lru_scan.launches
+    g = lm.prefill(gpu_model, prompt.to(dev), cfg, 20)
+    check(lru_scan.lru_scan.launches - before == cfg.layer_kinds.count("rec"),
+          "the card's prefill ran the lru_scan kernel once per rec layer")
+    c = lm.prefill(cpu_model, prompt, cfg, 20)
+    agree(g, c)
+    for pos in range(16, 20):
+        tok = c[0].argmax(-1)[:, None]
+        check(torch.equal(g[0].argmax(-1).cpu(), tok[:, 0]), "card and CPU pick the same tokens")
+        g = lm.decode_step(gpu_model, g[1], tok.to(dev), pos, cfg)
+        c = lm.decode_step(cpu_model, c[1], tok, pos, cfg)
+        agree(g, c)
+    print("reduced recurrentgemma on the card and on the CPU agrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -655,18 +841,27 @@ def main() -> int:
     card_matches_cpu(dev)
     rows.append(paged_decode_checks(dev))
     serving = serving_full_width(dev)
+    rows.append(lru_scan_checks(dev))
+    torch.cuda.empty_cache()
+    recurrent = recurrent_full_width(dev)
     # each path's counts were set to 0 just before it ran and read just after
-    paths = list(drains.values()) + list(serving["runs"].values())
+    paths = (list(drains.values()) + list(serving["runs"].values())
+             + list(recurrent["runs"].values()))
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
-    check(rows[-1]["launches"] == 2 * SERVE["steps"] * serving["layers"],
+    by_name = {row["name"]: row for row in rows}
+    check(by_name["paged_decode"]["launches"] == 2 * SERVE["steps"] * serving["layers"],
           "paged decode launched once per layer and step in both serving runs")
+    check(by_name["lru_scan"]["launches"] == 2 * recurrent["rec_layers"],
+          "lru_scan launched once per rec layer in both recurrent prefills")
     serving_card_matches_cpu(dev)
+    recurrent_card_matches_cpu(dev)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"drains": drains, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
+    print(json.dumps({"recurrent": recurrent, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Where the full-width recurrentgemma_9b prefill and decode steps spend their time.
+
+    python3 scripts/profile_recurrent.py [--trace recurrent_trace.json]
+
+Builds the recurrent run of ``chip_smoke.py`` (recurrentgemma_9b at full
+width and depth, random bf16 weights from seed 0, 8 prompts of 2048 tokens)
+on the current CUDA device, warms up with one prefill and 4 decode steps,
+times 8 decode steps without the profiler, then profiles one prefill and 4
+decode steps with ``torch.profiler``.  Prints for each window what
+``profile_serving.py`` prints: wall time, device time summed over kernels,
+the device's busy share, the kernel count, the 20 host ops with the most
+host time and the 20 kernels with the most device time.  ``--trace`` writes
+a Chrome trace of the decode window.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from chip_smoke import recurrent_deployment  # noqa: E402
+from profile_serving import report  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 4, 8, 4
+
+
+def decode(model, cfg, cache, tok, pos: int, steps: int):
+    for i in range(steps):
+        logits, cache = lm.decode_step(model, cache, tok, pos + i, cfg)
+        tok = logits.argmax(-1)[:, None]
+        tok.cpu()  # the step's one device-to-host copy, as in chip_smoke.py
+    return cache, tok
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--trace", default=None, help="write a Chrome trace of the decode window")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_recurrent: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    cfg, model, prompts = recurrent_deployment(dev)
+    s = prompts.shape[1]
+    max_len = s + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
+    logits, cache = lm.prefill(model, prompts, cfg, max_len)
+    cache, tok = decode(model, cfg, cache, logits.argmax(-1)[:, None], s, WARMUP_STEPS)
+    step_ms = []
+    for i in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, tok = decode(model, cfg, cache, tok, s + WARMUP_STEPS + i, 1)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(torch.cuda.get_device_name(0), f"decode step {statistics.median(step_ms):.3f} ms "
+          f"(median of {TIMED_STEPS}, profiler off)")
+    out = {"decode_step_ms_median": statistics.median(step_ms)}
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(model, prompts, cfg, max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["prefill"] = report(f"one prefill of {tuple(prompts.shape)} tokens", prof, wall)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(model, cfg, cache, tok, s + WARMUP_STEPS + TIMED_STEPS, PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["decode"] = report(f"{PROFILED_STEPS} decode steps, batch {prompts.shape[0]}", prof, wall)
+    if args.trace:
+        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps({"profile_recurrent": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -134,7 +134,7 @@ ARCH_IDS = (
 
 # The architectures whose configs the port carries so far; the others come
 # with the slices that port their block kinds (ROADMAP.md, queue 1).
-PORTED_ARCH_IDS = ("granite_3_2b", "qwen2_7b")
+PORTED_ARCH_IDS = ("granite_3_2b", "qwen2_7b", "recurrentgemma_9b")
 
 
 def canon(arch: str) -> str:

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("leap_copy.cu", "heat_scan.cu", "paged_attn.cu")
+SOURCES = ("leap_copy.cu", "heat_scan.cu", "paged_attn.cu", "lru_scan.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "leap_paged_decode": (
         (_P,) * 7 + (_I64,) * 7 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)
     ),
+    "leap_lru_scan": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,5 @@
-"""Kernel dispatch for the migrator's device programs and the serving decode.
+"""Kernel dispatch for the migrator's device programs, the serving decode and
+the recurrent prefill.
 
 ``impl`` picks the implementation:
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import heat_scan as heat_mod
 from repro_torch.kernels import leap_copy, paged_attn, ref
+from repro_torch.kernels import lru_scan as lru_mod
 
 IMPLS = (None, "auto", "cuda", "ref")
 
@@ -97,3 +99,14 @@ def paged_decode_partial(q, kv_pool, tables, lens, *, kv_heads: int, softcap: fl
 
 
 combine_partials = ref.combine_partials
+
+
+# -- RG-LRU linear-recurrence scan -------------------------------------------------
+
+
+def lru_scan(a, b, h0, *, impl: str | None = None):
+    """``h_t = a_t * h_{t-1} + b_t`` over ``a, b [B, T, R]`` from ``h0 [B, R]``;
+    fp32 carry, ``[B, T, R]`` out in ``a.dtype`` (Griffin RG-LRU hot path)."""
+    if _use_kernel(impl, a):
+        return lru_mod.lru_scan(a, b, h0)
+    return ref.lru_scan_ref(a, b, h0)

@@ -4,7 +4,7 @@ Each function computes what its kernel computes, on any device.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold the
 kernels against them.  Like the kernels, the copies and the heat scan update
 ``pool`` / ``heat`` in place and return it (the JAX package's buffer
-donation, made explicit); paged decode returns new tensors.
+donation, made explicit); paged decode and the LRU scan return new tensors.
 """
 
 from __future__ import annotations
@@ -112,3 +112,23 @@ def heat_scan_ref(
     acc.index_add_(0, ids.clamp(max=length), w.to(torch.float32))
     heat.mul_(np.float32(decay)).add_(acc[:length])
     return heat
+
+
+# -- RG-LRU linear-recurrence scan --------------------------------------------
+
+
+def lru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` over the time axis of ``a, b [B, T, R]``.
+
+    A sequential loop in fp32 from ``h0 [B, R]``, the Pallas kernel body's
+    order: the multiply and the add round separately, as the CUDA kernel
+    does them, so fp32 results agree bit for bit.  Returns ``[B, T, R]`` in
+    ``a.dtype``.
+    """
+    a32, b32 = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h
+    return out

@@ -8,6 +8,10 @@ head and its :class:`~repro_torch.models.blocks.Block` s in layer order
   ``prefill``      tokens -> (last-position logits, decode cache)
   ``decode_step``  one token + cache + pos -> (logits, cache updated in place)
 
+The cache is a list with one entry per layer: ``{"k", "v"}`` for attention
+layers (written in place by decode), ``{"conv", "h"}`` for ``rec`` layers
+(replaced in the list by the new state each decode step returns).
+
 The JAX module's function names (``init_params``, ``prefill``,
 ``decode_step``, ``init_cache``, ``embed_tokens``, ``lm_logits``) remain as
 thin wrappers.  Weights keep the JAX ``[in, out]`` layout, so
@@ -21,7 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.state import _tensor_from_host
+from repro_torch.core.state import _default_device, _tensor_from_host
 from repro_torch.models import blocks as B
 from repro_torch.models.common import _param, dense_init, embed_init, rms_norm, softcap
 
@@ -32,8 +36,12 @@ def _has_head(cfg: ModelConfig) -> bool:
 
 
 class CausalLM(nn.Module):
+    """The model on ``device``: the current CUDA device by default (raises
+    without one)."""
+
     def __init__(self, cfg: ModelConfig, device=None, blocks=None):
         super().__init__()
+        device = _default_device(device)
         self.cfg = cfg
         pd = cfg.pdtype()
         if cfg.embed_inputs:
@@ -70,7 +78,7 @@ class CausalLM(nn.Module):
     # -- cache / prefill / decode ---------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> list[dict]:
-        """One ``{"k", "v"}`` cache per layer, in layer order."""
+        """One empty decode cache per layer, in layer order."""
         return init_cache(self.cfg, batch, max_len, self.device)
 
     @torch.no_grad()
@@ -87,10 +95,12 @@ class CausalLM(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: list[dict], inputs: torch.Tensor, pos: int):
         """One token for every sequence.  inputs: [B,1] ids; pos: int count of
-        already-cached tokens.  Returns (logits [B,V], cache updated in place)."""
+        already-cached tokens.  Returns (logits [B,V], cache updated in place:
+        attention layers write into their k/v tensors, and each ``rec``
+        layer's entry of the list is replaced by the state its step returns)."""
         x = self.embed_tokens(inputs)
-        for blk, c in zip(self.blocks, cache):
-            x, _ = B.block_decode(x, blk, self.cfg, blk.kind, c, pos)
+        for i, blk in enumerate(self.blocks):
+            x, cache[i] = B.block_decode(x, blk, self.cfg, blk.kind, cache[i], pos)
         return self.lm_logits(x)[:, 0], cache
 
 
@@ -98,9 +108,10 @@ def _grow_kv(cache: list[dict], cfg: ModelConfig, max_len: int) -> list[dict]:
     """Pad global-attention prefill caches (length S) out to max_len slots."""
     out = []
     for kind, c in zip(cfg.layer_kinds, cache):
-        pad = max_len - c["k"].shape[1]
-        if kind in ("attn", "moe") and pad > 0:
-            c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) for k, v in c.items()}
+        if kind in ("attn", "moe"):
+            pad = max_len - c["k"].shape[1]
+            if pad > 0:
+                c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) for k, v in c.items()}
         out.append(c)
     return out
 
@@ -109,8 +120,10 @@ def _grow_kv(cache: list[dict], cfg: ModelConfig, max_len: int) -> list[dict]:
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> CausalLM:
-    """Random weights drawn from ``gen`` (on ``device``), the JAX init's
-    distributions: truncated normals, fan-in scaled, zero norms and biases."""
+    """Random weights drawn from ``gen`` (on ``device``, the current CUDA
+    device by default; raises without one), the JAX init's distributions:
+    truncated normals, fan-in scaled, zero norms and biases."""
+    device = _default_device(device)
     model = CausalLM(cfg, device, blocks=[])
     with torch.no_grad():
         if cfg.embed_inputs:
@@ -181,6 +194,7 @@ def lm_logits(params: CausalLM, x, cfg: ModelConfig = None):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict]:
+    device = _default_device(device)
     return [
         B.block_cache_init(cfg, kind, batch, max_len, device) for kind in cfg.layer_kinds
     ]

@@ -11,11 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import heat_scan, leap_copy, ops, paged_attn, ref  # noqa: E402
+from repro_torch.kernels import heat_scan, leap_copy, lru_scan, ops, paged_attn, ref  # noqa: E402
 
 HEAT_TOL = dict(rtol=1e-6, atol=1e-6)  # sums over duplicate ids may associate differently
 # the JAX package's paged-decode kernel tolerances (tests/test_kernels_paged_attn.py)
 PAGED_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the JAX package's LRU-scan tolerance in bf16 (tests/test_kernels_lru_scan.py)
+LRU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 pytestmark = pytest.mark.gpu
 
@@ -138,3 +140,48 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
     q96, view96, t96, l96 = _paged_inputs(cuda, torch.float32, b=2, kvh=2, g=1, hd=96)
     with pytest.raises(ValueError, match="hd"):
         paged_attn.paged_decode(q96.view(2, 2, 1, 96), view96, t96, l96)
+
+
+def _lru_inputs(dev, b, t, r, dtype, seed=0):
+    """Decays in (0, 1), as the RG-LRU gates make them; inputs and h0 normal."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, t, r), generator=gen) + 2.0)
+    x = torch.randn((b, t, r), generator=gen)
+    h0 = torch.randn((b, r), generator=gen)
+    return a.to(dtype).to(dev), x.to(dtype).to(dev), h0.to(dev)
+
+
+@pytest.mark.parametrize("t", [1, 8, 17, 2048])
+@pytest.mark.parametrize("r", [96, 128, 4096])
+def test_lru_scan_kernel_matches_plain(cuda, t, r):
+    b = 8 if t * r <= 2048 * 128 else 2
+    a, x, h0 = _lru_inputs(cuda, b, t, r, torch.float32, seed=t + r)
+    before = lru_scan.lru_scan.launches
+    got = ops.lru_scan(a, x, h0)
+    again = ops.lru_scan(a, x, h0, impl="cuda")
+    want = ops.lru_scan(a, x, h0, impl="ref")  # the plain version: not counted
+    torch.cuda.synchronize()
+    assert lru_scan.lru_scan.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    assert torch.equal(got, want)  # no FMA contraction: bit for bit
+    assert torch.equal(got, again)
+    a16, x16 = a.bfloat16(), x.bfloat16()
+    got16 = lru_scan.lru_scan(a16, x16, h0.bfloat16())
+    want16 = ref.lru_scan_ref(a16, x16, h0.bfloat16())
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want16.float(), **LRU_BF16_TOL)
+
+
+def test_lru_scan_kernel_refuses_what_it_does_not_take(cuda):
+    a, x, h0 = _lru_inputs(cuda, 2, 16, 128, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        lru_scan.lru_scan(a.transpose(1, 2), x.transpose(1, 2), h0)
+    with pytest.raises(ValueError, match="share"):
+        lru_scan.lru_scan(a, x.bfloat16(), h0)
+    with pytest.raises(ValueError, match="share"):
+        lru_scan.lru_scan(a.half(), x.half(), h0)
+    with pytest.raises(ValueError, match="h0"):
+        lru_scan.lru_scan(a, x, h0[:, :64])
+    with pytest.raises(ValueError, match="lies on"):
+        lru_scan.lru_scan(a, x, h0.cpu())

@@ -64,7 +64,7 @@ def test_unported_configs_and_kinds_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_config("gemma2_27b")
     cfg = torch_reduce(torch_config("granite_3_2b"))
-    for kind in ("moe", "rec", "mlstm", "slstm"):
+    for kind in ("moe", "mlstm", "slstm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tblocks.Block(cfg, kind)
 
@@ -172,3 +172,14 @@ def test_init_params_draws_from_the_generator():
             assert not torch.equal(pa, pc), n
             assert pa.abs().max() <= 2.0  # truncated at two standard deviations
     assert sum(p.numel() for p in a.parameters()) == cfg.param_count()
+
+
+def test_init_params_without_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device, so the default is valid")
+    cfg = torch_reduce(torch_config("granite_3_2b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.CausalLM(cfg)
+    assert tlm.count_params(cfg) == cfg.param_count()  # built on "meta", no card needed
