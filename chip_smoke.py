@@ -48,6 +48,25 @@ printed):
 11. The reduced recurrentgemma (f32, TF32 off, ``lru_width`` 128): prefill
    and 4 decode steps on the card (kernels) and on the CPU (plain
    versions): equal tokens, logits and every layer's cache within 1e-5.
+12. The gather and scatter kernels (the ppermute backend's pack and unpack)
+   against their plain versions on the card, bit for bit: on region 1's
+   shard of a 2-region pool of 40,960 slots of 64 KiB f32 (a view at a
+   storage offset) at 256 and 1,024 lanes, on the odd shape (5, 4, 64) in
+   f32, bf16 and int32, and a scatter with duplicate ids (the last lane must
+   win in each of 20 runs); timed beside their bound, their plain versions
+   and ``index_select`` / ``index_copy_`` (timed here only).
+13. A ppermute drain: 4 regions (a four-socket server) on ``make_region_mesh(4)``
+   over the one card, 131,072 blocks of 64 KiB (8 GiB) in 40,960 slots a
+   region (a 10 GiB pool), 32,768 starting in each region and all leaping to
+   the next region at once, through the batched generation (one
+   ``fused_copy_ppermute`` per region pair a tick), under 64 writes and 64
+   reads a tick; the checks of phase 3, and gather and scatter launches equal.
+14. A small ppermute drain on the card and on the CPU: bit for bit as in
+   phase 5.
+15. Megastep against batched on the card, same seed, blocking harvest: on a
+   small-block pool with tiering, bit-identical pools and tables; on a
+   two-tier pool, every block reads back, and the batched drain launches
+   the run copy.  The two batched drains launch K1, K2 and K3.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -61,6 +80,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -79,6 +100,8 @@ from repro_torch.core import (  # noqa: E402
     PoolConfig,
     init_state,
     leap_write,
+    make_region_mesh,
+    state_sharding,
 )
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
@@ -113,6 +136,10 @@ SERVE = dict(prompts=8, prompt_len=512, steps=64)
 # recurrentgemma_9b: 8 prompts of 2048 tokens (its attention window), 64 steps
 RECUR = dict(prompts=8, prompt_len=2048, steps=64)
 LRU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # the JAX package's (tests/test_kernels_lru_scan.py)
+# the ppermute drain: a four-socket server, 40,960 slots of 64 KiB a region
+PP_REGIONS, PP_SLOTS = 4, 40960
+PP_CFG = dict(backend="ppermute", axis_name="data", initial_area_blocks=256,
+              budget_blocks_per_tick=1024, tiering=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -159,6 +186,8 @@ def launch_counts() -> dict[str, int]:
         "heat_scan": heat_scan.heat_scan.launches,
         "paged_decode": paged_attn.paged_decode.launches,
         "lru_scan": lru_scan.lru_scan.launches,
+        "gather_blocks": leap_copy.gather_blocks.launches,
+        "scatter_blocks": leap_copy.scatter_blocks.launches,
     }
 
 
@@ -185,12 +214,21 @@ def distinct_ids(n: int, k: int, gen: torch.Generator) -> torch.Tensor:
             return ids
 
 
+def release() -> None:
+    """Free the card's memory that earlier phases left: a driver sits in
+    reference cycles, which only the garbage collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def reset_launch_counts() -> None:
     leap_copy.copy_blocks.launches = 0
     leap_copy.copy_runs.launches = 0
     heat_scan.heat_scan.launches = 0
     paged_attn.paged_decode.launches = 0
     lru_scan.lru_scan.launches = 0
+    leap_copy.gather_blocks.launches = 0
+    leap_copy.scatter_blocks.launches = 0
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -284,20 +322,126 @@ def kernel_checks(dev) -> list[dict]:
     return rows
 
 
+# -- phase 12: the gather and scatter kernels against their plain versions -----
+
+
+def gather_scatter_checks(dev) -> list[dict]:
+    """K6a and K6b on region 1's shard of a 2-region pool, the shape the
+    ppermute drain hands them (a flat view at a storage offset)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    host = torch.Generator().manual_seed(SEED)
+    pool = torch.randn((2, PP_SLOTS) + BLOCK, generator=g, device=dev)  # 5 GiB
+    shard = pool[1:2].view((PP_SLOTS,) + BLOCK)
+    check(shard.storage_offset() > 0, "the kernels see a region shard at an offset")
+    slot_bytes = shard[0].numel() * shard.element_size()
+    per_k = {"gather_blocks": {}, "scatter_blocks": {}}
+    for k in (256, 1024):  # one drain area; a tick's budget
+        # 8 disjoint id sets (and block sets) in turn, so that what one call
+        # moves is out of the 50 MB L2 by the time the same set comes back
+        sets = torch.randperm(PP_SLOTS, generator=host)[: 8 * k].view(8, k).to(dev)
+        block_sets = torch.randn((8, k) + BLOCK, generator=g, device=dev)
+        idx, blocks = sets[0], block_sets[0]
+        want = ref.gather_blocks_ref(shard, idx)
+        got = leap_copy.gather_blocks(shard, idx)
+        want_pool = ref.scatter_blocks_ref(shard.clone(), idx, blocks)
+        leap_copy.scatter_blocks(shard, idx, blocks)  # in place; scattering again is idempotent
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"gather_blocks at {k} lanes == plain version, bit for bit")
+        check(torch.equal(shard, want_pool), f"scatter_blocks at {k} lanes == plain version")
+        del want_pool
+        # each lane read once and written once, and the ids read once
+        b, by = bound_ms(2 * k * slot_bytes + k * 8)
+        turn = itertools.cycle(range(8))
+        cases = {
+            "gather_blocks": (lambda i: leap_copy.gather_blocks(shard, sets[i]),
+                              lambda i: ref.gather_blocks_ref(shard, sets[i]),
+                              lambda i: torch.index_select(shard, 0, sets[i]),
+                              float((got - want).abs().max())),
+            "scatter_blocks": (lambda i: leap_copy.scatter_blocks(shard, sets[i], block_sets[i]),
+                               lambda i: ref.scatter_blocks_ref(shard, sets[i], block_sets[i]),
+                               lambda i: shard.index_copy_(0, sets[i], block_sets[i]),
+                               float((shard[idx] - blocks).abs().max())),
+        }
+        for name, fns in cases.items():
+            kernel, plain, library = (lambda f=f: f(next(turn)) for f in fns[:3])
+            per_k[name][k] = dict(max_abs_err=fns[3], ms=time_ms(kernel),
+                                  plain_ms=time_ms(plain), library_ms=time_ms(library),
+                                  bound_ms=b, bound_by=by)
+            r = per_k[name][k]
+            print(f"{name} {k} lanes: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+                  f"{r['library_ms']:.4f}, bound {b:.4f}), bit-exact")
+        del got, want, blocks, block_sets
+
+    # duplicate ids: about 16 lanes an id; the last lane must win every run
+    idx = torch.randint(0, 64, (1024,), generator=host).to(dev)
+    blocks = torch.randn((1024,) + BLOCK, generator=g, device=dev)
+    want = ref.scatter_blocks_ref(shard[:64].clone(), idx, blocks)
+    lanes = {int(i): lane for lane, i in enumerate(idx.tolist())}  # the last lane of each id
+    check(all(torch.equal(want[i], blocks[lane]) for i, lane in lanes.items()),
+          "the plain scatter keeps the last duplicate")
+    for run in range(20):
+        leap_copy.scatter_blocks(shard[:64], idx, blocks)
+        check(torch.equal(shard[:64], want), f"scatter_blocks: the last duplicate wins (run {run})")
+    del pool, shard, blocks, want
+    torch.cuda.empty_cache()
+
+    # the JAX sweep's odd shape, in each of its dtypes (byte path: 256-byte slots)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        small = torch.randint(-100, 100, (5, 4, 64), generator=host).to(dtype).to(dev)
+        idx = torch.tensor([4, 0, 4, 2], device=dev)
+        blocks = torch.randint(-100, 100, (4, 4, 64), generator=host).to(dtype).to(dev)
+        check(torch.equal(leap_copy.gather_blocks(small, idx), ref.gather_blocks_ref(small, idx)),
+              f"gather_blocks (5, 4, 64) {dtype} == plain version")
+        want = ref.scatter_blocks_ref(small.clone(), idx, blocks)
+        check(torch.equal(leap_copy.scatter_blocks(small, idx, blocks), want),
+              f"scatter_blocks (5, 4, 64) {dtype} == plain version")
+    print("gather_blocks and scatter_blocks: bit-exact on (5, 4, 64) in f32, bf16 and int32; "
+          "the last of duplicate ids wins in 20 runs")
+
+    rows = []
+    for name, line in (("gather_blocks", 40), ("scatter_blocks", 68)):
+        main = per_k[name][1024]
+        rows.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/leap_copy.cu",
+            replaces=f"src/repro/kernels/leap_copy.py:{line}", launches=0, **main,
+            shape=f"region 1 of a [2, {PP_SLOTS}, 1, 16384] fp32 pool, 1024 lanes x "
+                  f"{slot_bytes} B",
+            at_256_lanes=per_k[name][256],
+        ))
+    return rows
+
+
 # -- phases 3-5: drains through LeapSession -----------------------------------
+
+
+def start_regions(n_blocks: int, n_regions: int) -> np.ndarray:
+    """Where each block starts: all in region 0 on two regions, else evenly
+    spread (block b in region b * n_regions // n_blocks)."""
+    if n_regions == 2:
+        return np.zeros(n_blocks, np.int32)
+    return (np.arange(n_blocks) * n_regions // n_blocks).astype(np.int32)
 
 
 def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
           io_per_tick: int = IO_PER_TICK, cfg_kw=None, blocking: bool = False,
-          values_on=None):
-    """Leap every block from region 0 to region 1 under concurrent writes and
-    reads; return the driver, the shadow of what was written, the handle and
-    the host seconds of the drain: all of it, inside ``session.tick()``, and in
-    the application's writes and reads.  Writes and reads draw their ids from a seeded CPU
-    generator and their values from a seeded generator on ``values_on``
-    (default ``dev``; the CPU where two devices must see the same values)."""
-    pc = PoolConfig(2, slots, block, torch.float32, huge_factor=huge_factor)
-    state = init_state(pc, n_blocks, np.zeros(n_blocks, np.int32), device=dev)
+          values_on=None, n_regions: int = 2, mesh=None, window=None):
+    """Leap every block from its region r to region (r + 1) % n_regions under
+    concurrent writes and reads; return the driver, the shadow of what was
+    written, the handles and the host seconds of the drain: all of it, inside
+    ``session.tick()``, and in the application's writes and reads.  With two
+    regions every block starts in region 0; with more, they start spread
+    evenly, and each region's blocks are one request.  Writes and reads draw
+    their ids from a seeded CPU generator and their values from a seeded
+    generator on ``values_on`` (default ``dev``; the CPU where two devices
+    must see the same values).  ``mesh`` places the state for the ppermute
+    backend; ``window``, a context manager, encloses the timed drain (e.g. a
+    profiler)."""
+    pc = PoolConfig(n_regions, slots, block, torch.float32, huge_factor=huge_factor,
+                    region_axis=mesh.axis_name if mesh else None)
+    place = start_regions(n_blocks, n_regions)
+    state = init_state(pc, n_blocks, place, device=dev)
+    if mesh is not None:
+        state = state.to(state_sharding(pc, mesh))
     values_on = torch.device(values_on or dev)
     g = torch.Generator(device=values_on).manual_seed(seed)
     ids_gen = torch.Generator().manual_seed(seed)
@@ -313,7 +457,7 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
         leap_write(state, ids, shadow[lo : lo + len(ids)])
     cfg = LeapConfig(**(cfg_kw or dict(initial_area_blocks=256, budget_blocks_per_tick=1024,
                                        tiering=True)))
-    drv = MigrationDriver(state, pc, cfg)
+    drv = MigrationDriver(state, pc, cfg, mesh=mesh)
     if huge_factor > 1:
         groups = n_blocks // huge_factor
         check(drv.adopt_huge(np.arange(groups)) == groups, "adopt_huge adopts every group")
@@ -321,91 +465,159 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
     stale_read = torch.zeros((), dtype=torch.bool, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handle = session.leap(np.arange(n_blocks), 1)
-    ticks, tick_s, io_s = 0, 0.0, 0.0
-    while not drv.done and ticks < 20 * n_blocks:
-        t1 = time.perf_counter()
-        with no_host_sync(dev):
-            session.tick()
-        if blocking:
-            session.poll(block=True)
-        t2 = time.perf_counter()
-        wids = distinct_ids(n_blocks, io_per_tick, ids_gen)
-        vals = randn(io_per_tick)
-        drv.write(wids, vals)
-        shadow[wids.to(dev)] = vals
-        rids = distinct_ids(n_blocks, io_per_tick, ids_gen)
-        stale_read |= (drv.read(rids) != shadow[rids.to(dev)]).any()
-        ticks += 1
-        tick_s += t2 - t1
-        io_s += time.perf_counter() - t2
-    check(session.drain(), "the drain completes")
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    seconds = dict(seconds=time.perf_counter() - t0, tick_s=tick_s, io_s=io_s)
+    with window or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        handles = [session.leap(np.nonzero(place == r)[0], (r + 1) % n_regions)
+                   for r in np.unique(place)]
+        ticks, tick_s, io_s = 0, 0.0, 0.0
+        while not drv.done and ticks < 20 * n_blocks:
+            t1 = time.perf_counter()
+            with no_host_sync(dev):
+                session.tick()
+            if blocking:
+                session.poll(block=True)
+            t2 = time.perf_counter()
+            wids = distinct_ids(n_blocks, io_per_tick, ids_gen)
+            vals = randn(io_per_tick)
+            drv.write(wids, vals)
+            shadow[wids.to(dev)] = vals
+            rids = distinct_ids(n_blocks, io_per_tick, ids_gen)
+            stale_read |= (drv.read(rids) != shadow[rids.to(dev)]).any()
+            ticks += 1
+            tick_s += t2 - t1
+            io_s += time.perf_counter() - t2
+        check(session.drain(), "the drain completes")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = dict(seconds=time.perf_counter() - t0, tick_s=tick_s, io_s=io_s)
     check(not bool(stale_read), "every read during the drain saw the latest write")
-    return drv, shadow, handle, seconds
+    return drv, shadow, handles, seconds
 
 
-def check_drain(drv, shadow, handle, huge: bool) -> dict:
-    n = drv.state.n_blocks
+def check_drain(drv, shadow, handles, huge: bool) -> dict:
+    n, regions = drv.state.n_blocks, drv.pool_cfg.n_regions
     for lo in range(0, n, 8192):
         ids = np.arange(lo, min(lo + 8192, n))
         check(torch.equal(drv.read(ids, note=False), shadow[lo : lo + len(ids)]),
               f"blocks {lo}.. read back equal to the shadow")
     check(drv.verify_mirror(), "host table mirror == device table")
     check(drv.verify_tiers(), "two-tier table and allocators consistent")
-    check((drv.host_placement() == 1).all(), "every block lives in region 1")
-    p = handle.progress()
-    check(p.committed + p.forced + p.cancelled == p.requested == n, "request accounting closes")
+    check((drv.host_placement() == (start_regions(n, regions) + 1) % regions).all(),
+          "every block lives in its destination region")
+    p = [h.progress() for h in handles]
+    check(sum(x.committed + x.forced + x.cancelled for x in p) == sum(x.requested for x in p) == n,
+          "request accounting closes")
     s = drv.stats
     check(s.blocks_migrated + s.blocks_forced + s.blocks_cancelled == s.blocks_requested,
           "engine accounting closes")
-    check(0.0 < s.dispatches_per_tick <= 1.0, "at most one megastep per tick")
+    if drv.cfg.dispatch_mode == "megastep":
+        check(0.0 < s.dispatches_per_tick <= 1.0, "at most one megastep per tick")
+    else:
+        check(s.dispatches_per_tick > 1.0, "batched: one program per phase")
     check(s.dirty_rejections > 0, "concurrent writes dirtied some copies")
     if huge:
         check(s.huge_areas_committed > 0, "huge blocks committed as whole runs")
     heat = drv.heat_snapshot()
     check(np.isfinite(heat).all() and (heat > 0).any(), "heat plane finite and warm")
     return dict(
-        ticks=s.ticks, dispatches=s.dispatches, dirty_rejections=s.dirty_rejections,
-        blocks_forced=s.blocks_forced, splits=s.splits, demotions=s.demotions,
-        huge_areas_committed=s.huge_areas_committed, bytes_copied=s.bytes_copied,
+        ticks=s.ticks, dispatches=s.dispatches, dispatches_per_tick=s.dispatches_per_tick,
+        dirty_rejections=s.dirty_rejections, blocks_forced=s.blocks_forced, splits=s.splits,
+        demotions=s.demotions, huge_areas_committed=s.huge_areas_committed,
+        bytes_copied=s.bytes_copied,
     )
 
 
-def main_path_drain(dev, huge_factor: int) -> dict:
+def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
+    """A deployment-size drain: 2 regions through the megastep, or with
+    ``ppermute`` 4 regions on a one-card region mesh through the batched
+    generation's point-to-point copies."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    slots, seed, kw = SLOTS, SEED + huge_factor, {}
+    if ppermute:
+        slots, seed = PP_SLOTS, SEED + 2
+        kw = dict(cfg_kw=PP_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
     reset_launch_counts()
-    drv, shadow, handle, times = drain(dev, N_BLOCKS, SLOTS, BLOCK, huge_factor, SEED + huge_factor)
+    drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
-    out = check_drain(drv, shadow, handle, huge=huge_factor > 1)
+    out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
+    if ppermute:
+        check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
+              "every point-to-point copy gathered and scattered once")
+        check(launches["copy_blocks"] == 0, "the ppermute drain copies only point to point")
     moved = N_BLOCKS * drv.pool_cfg.block_bytes
     out.update(times, gib_per_s=moved / times["seconds"] / 2**30, launches=launches,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    print(f"drain huge_factor={huge_factor}: {times['seconds']:.3f} s (ticks "
-          f"{times['tick_s']:.3f} s, app I/O {times['io_s']:.3f} s), "
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               regions=drv.pool_cfg.n_regions, dispatch=drv.cfg.dispatch_mode,
+               backend=drv.cfg.backend)
+    print(f"drain huge_factor={huge_factor} backend={drv.cfg.backend}: {times['seconds']:.3f} s "
+          f"(ticks {times['tick_s']:.3f} s, app I/O {times['io_s']:.3f} s), "
           f"{out['gib_per_s']:.3f} GiB/s, {out['ticks']} ticks, "
-          f"{out['dirty_rejections']} rejections, launches {launches}")
+          f"{out['dispatches_per_tick']:.2f} dispatches a tick, "
+          f"{out['dirty_rejections']} rejections, peak {out['peak_gib']:.2f} GiB, "
+          f"launches {launches}")
     return out
 
 
-def card_matches_cpu(dev) -> None:
-    """A small drain on the card and on the CPU, with blocking harvest."""
-    kw = dict(initial_area_blocks=16, budget_blocks_per_tick=64, max_attempts_before_force=2,
-              tiering=True)
-    for huge in (1, 4):
-        runs = [drain(d, 512, 544, (2, 64), huge, SEED, io_per_tick=24, cfg_kw=kw,
-                      blocking=True, values_on="cpu")
-                for d in (dev, torch.device("cpu"))]
-        (gpu, _, hg, _), (cpu, _, hc, _) = runs
+SMALL_KW = dict(initial_area_blocks=16, budget_blocks_per_tick=64, max_attempts_before_force=2,
+                tiering=True)
+
+
+def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2):
+    """A small drain with blocking harvest and values drawn on the CPU, so
+    that two devices, or two dispatch generations, see the same schedule."""
+    mesh = make_region_mesh(n_regions, [d] * n_regions) if n_regions > 2 else None
+    slots = 544 if n_regions == 2 else 160
+    return drain(d, 512, slots, (2, 64), huge, SEED, io_per_tick=24, cfg_kw=cfg_kw,
+                 blocking=True, values_on="cpu", n_regions=n_regions, mesh=mesh)
+
+
+def card_matches_cpu(dev, ppermute: bool = False) -> None:
+    """Small drains on the card and on the CPU: megastep on small and on
+    two-tier pools (phase 5), or a 4-region ppermute drain (phase 14)."""
+    cases = ((1, SMALL_KW, 2), (4, SMALL_KW, 2))
+    if ppermute:
+        cases = ((1, dict(SMALL_KW, backend="ppermute", axis_name="data"), PP_REGIONS),)
+    for huge, kw, regions in cases:
+        before = launch_counts()
+        (gpu, _, hg, _), (cpu, _, hc, _) = [small_drain(d, huge, kw, regions)
+                                            for d in (dev, torch.device("cpu"))]
         check(np.array_equal(gpu.host_table(), cpu.host_table()), "host tables agree")
         for a, b in zip(gpu.state.to_numpy(), cpu.state.to_numpy()):
             check(np.array_equal(a, b), "card and CPU states agree bit for bit")
         np.testing.assert_allclose(gpu.heat_snapshot(), cpu.heat_snapshot(), **HEAT_TOL)
         check(gpu.stats == cpu.stats, "card and CPU MigrationStats agree")
-        check(hg.progress() == hc.progress(), "card and CPU request progress agree")
-    print("small drains on the card and on the CPU agree")
+        check([h.progress() for h in hg] == [h.progress() for h in hc],
+              "card and CPU request progress agree")
+        if regions > 2:
+            after = launch_counts()
+            check(after["scatter_blocks"] > before["scatter_blocks"],
+                  "the card's ppermute drain ran the scatter kernel")
+            check(gpu.stats.dirty_rejections > 0, "writes dirtied some ppermute copies")
+    print(f"small {'ppermute' if ppermute else 'megastep'} drains on the card and on the CPU agree")
+
+
+def megastep_matches_batched(dev) -> dict:
+    """The reference's differential oracle on the card: the same seeded drain
+    under the megastep and under the batched generation (xla backend)."""
+    m, _, hm, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="megastep"))
+    reset_launch_counts()
+    b, _, hb, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="batched"))
+    for x, y in zip(m.state.to_numpy(), b.state.to_numpy()):
+        check(np.array_equal(x, y), "megastep and batched leave bit-identical pools and tables")
+    check(np.array_equal(m.host_table(), b.host_table()), "megastep and batched host tables agree")
+    check([h.progress() for h in hm] == [h.progress() for h in hb], "and the same progress")
+    check(m.stats.dirty_rejections == b.stats.dirty_rejections > 0, "the same rejections")
+    small = launch_counts()
+    huge, shadow, handles, _ = small_drain(dev, 4, dict(SMALL_KW, fused_dispatch="batched"))
+    check_drain(huge, shadow, handles, huge=True)
+    launches = launch_counts()
+    check(launches["copy_runs"] > small["copy_runs"], "the two-tier batched drain copied runs")
+    for name in ("copy_blocks", "copy_runs", "heat_scan"):
+        check(launches[name] > 0, f"the batched drains launched {name}")
+    print(f"megastep and batched agree bit for bit; batched launches {launches}")
+    return dict(megastep_dispatches=m.stats.dispatches, batched_dispatches=b.stats.dispatches,
+                ticks=b.stats.ticks, batched_launches=launches)
 
 
 # -- phase 6: the paged-decode kernel against its plain version ----------------
@@ -835,15 +1047,22 @@ def main() -> int:
 
     rows = kernel_checks(dev)
     drains = {"small": main_path_drain(dev, 1)}
-    torch.cuda.empty_cache()
     drains["huge"] = main_path_drain(dev, HUGE)
-    torch.cuda.empty_cache()
     card_matches_cpu(dev)
+    release()  # before the peaks of the serving runs
     rows.append(paged_decode_checks(dev))
     serving = serving_full_width(dev)
     rows.append(lru_scan_checks(dev))
     torch.cuda.empty_cache()
     recurrent = recurrent_full_width(dev)
+    serving_card_matches_cpu(dev)
+    recurrent_card_matches_cpu(dev)
+    rows += gather_scatter_checks(dev)
+    drains["ppermute"] = main_path_drain(dev, 1, ppermute=True)
+    release()
+    card_matches_cpu(dev, ppermute=True)
+    oracle = megastep_matches_batched(dev)
+
     # each path's counts were set to 0 just before it ran and read just after
     paths = (list(drains.values()) + list(serving["runs"].values())
              + list(recurrent["runs"].values()))
@@ -855,11 +1074,9 @@ def main() -> int:
           "paged decode launched once per layer and step in both serving runs")
     check(by_name["lru_scan"]["launches"] == 2 * recurrent["rec_layers"],
           "lru_scan launched once per rec layer in both recurrent prefills")
-    serving_card_matches_cpu(dev)
-    recurrent_card_matches_cpu(dev)
 
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"drains": drains, "card": smi}))
+    print(json.dumps({"drains": drains, "megastep_vs_batched": oracle, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"recurrent": recurrent, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Where a deployment-size drain of ``chip_smoke.py`` spends its time.
+
+    python3 scripts/profile_drains.py
+
+Runs two of the smoke's drains on the current CUDA device, each twice: the
+2-region small-block drain through the megastep and the 4-region ppermute
+drain through the batched generation (131,072 blocks of 64 KiB, 64 writes
+and 64 reads a tick).  The first run has ``LeapConfig(telemetry=True)`` and
+prints the host milliseconds a tick in each pipeline stage (the recorder's
+``stage`` spans; nested spans each count their own whole time).  The second
+runs under ``torch.profiler``, from the first request to the end of the
+drain (the pool's set-up is outside the window), and prints the wall time,
+the device time summed over kernels, their ratio (the device's busy share),
+the kernel count and the kernels with the most device time.  Exits non-zero
+without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import chip_smoke as smoke  # noqa: E402
+from profile_serving import report  # noqa: E402
+
+SMALL = dict(initial_area_blocks=256, budget_blocks_per_tick=1024, tiering=True)
+DRAINS = {
+    "small (megastep, 2 regions)": dict(slots=smoke.SLOTS, cfg_kw=SMALL, n_regions=2),
+    "ppermute (batched, 4 regions)": dict(slots=smoke.PP_SLOTS, cfg_kw=smoke.PP_CFG,
+                                          n_regions=smoke.PP_REGIONS, ppermute=True),
+}
+
+
+def run(dev, slots, cfg_kw, n_regions, ppermute=False, telemetry=False, window=None):
+    mesh = smoke.make_region_mesh(n_regions, [dev] * n_regions) if ppermute else None
+    cfg_kw = dict(cfg_kw, telemetry=telemetry, telemetry_events=1 << 20)
+    return smoke.drain(dev, smoke.N_BLOCKS, slots, smoke.BLOCK, 1, smoke.SEED, cfg_kw=cfg_kw,
+                       n_regions=n_regions, mesh=mesh, window=window)
+
+
+def stage_ms_per_tick(drv) -> dict[str, float]:
+    total = collections.Counter()
+    for ev in drv.telemetry.events():
+        if ev["kind"] == "stage":
+            total[ev["name"]] += ev["dur"]
+    ticks = drv.stats.ticks
+    return {name: us / 1e3 / ticks for name, us in total.most_common()}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_drains: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(torch.cuda.get_device_name(0))
+    out = {}
+    for name, kw in DRAINS.items():
+        drv, _, _, secs = run(dev, telemetry=True, **kw)
+        stages = stage_ms_per_tick(drv)
+        print(f"\n== {name}, telemetry on: {drv.stats.ticks} ticks, {secs['seconds']:.3f} s, "
+              f"tick() {secs['tick_s'] / drv.stats.ticks * 1e3:.3f} ms a tick; host ms a tick "
+              "in each stage:")
+        for stage, ms in stages.items():
+            print(f"   {stage:32s} {ms:8.3f}")
+        del drv
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        drv, _, _, secs = run(dev, window=prof, **kw)
+        prof_out = report(f"{name}, under the profiler", prof, secs["seconds"])
+        out[name] = dict(stage_ms_per_tick=stages, profiled=prof_out, profiled_drain=secs,
+                         stats=dataclasses.asdict(drv.stats) | {"bytes_per_link": None})
+        del drv
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"profile_drains": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,7 @@
 """Core: `page_leap()` on one CUDA device — pooled, reliable, adaptive block
 migration behind a virtual block table, organized as a staged pipeline
 (``repro_torch.core.pipeline``) with pluggable scheduler policies.  The
-JAX package's ``state_sharding`` and ``baselines`` are not ported yet."""
+JAX package's ``baselines`` are not ported yet."""
 
 from repro_torch.core.state import (
     REGION,
@@ -16,6 +16,7 @@ from repro_torch.core.state import (
     leap_write,
     leap_write_rows,
     placement_histogram,
+    state_sharding,
 )
 from repro_torch.core.adaptive import (
     Area,
@@ -40,6 +41,7 @@ from repro_torch.core.pipeline import (
     make_scheduler,
 )
 from repro_torch.core import migrator
+from repro_torch.launch.mesh import RegionMesh, make_region_mesh
 
 __all__ = [
     "REGION",
@@ -51,6 +53,9 @@ __all__ = [
     "leap_write",
     "leap_write_rows",
     "placement_histogram",
+    "state_sharding",
+    "RegionMesh",
+    "make_region_mesh",
     "group_dirty",
     "group_in_flight",
     "huge_read",

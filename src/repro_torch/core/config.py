@@ -77,12 +77,12 @@ class LeapConfig:
             )
         if self.copy_impl not in IMPLS:
             raise ValueError(f"copy_impl must be one of {IMPLS}, got {self.copy_impl!r}")
-        if self.dispatch_mode != "megastep":
-            # The port so far carries only the single-dispatch tick.
+        if self.dispatch_mode == "legacy":
+            # The port carries the megastep and batched generations only.
             raise NotImplementedError(
-                f"dispatch mode {self.dispatch_mode!r} (fused_dispatch="
-                f"{self.fused_dispatch!r}, backend={self.backend!r}) is not "
-                "ported yet; only the megastep generation is"
+                f"the legacy per-area dispatch generation (fused_dispatch="
+                f"{self.fused_dispatch!r}) is not ported yet (ROADMAP queue 1 "
+                "item 4); megastep and batched are"
             )
 
     @property
@@ -95,7 +95,8 @@ class LeapConfig:
         single-dispatch tick.  The ppermute backend routes point-to-point
         copies through shard_map programs with *static* (src, dst) endpoints,
         which cannot fuse into one variant-stable program — megastep falls
-        back to batched there.
+        back to batched there (in the port too, to keep the JAX package's
+        program sequence).
         """
         if self.fused_dispatch in (False, "legacy"):
             return "legacy"

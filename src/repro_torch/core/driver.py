@@ -27,8 +27,8 @@ Compatibility: ``LeapConfig`` / ``MigrationStats`` / ``RequestState`` /
 ``core/queues.py`` and are re-exported here, so
 ``from repro_torch.core.driver import LeapConfig`` keeps working.
 ``request()`` and ``drain()`` survive as deprecation shims over the default
-:class:`repro_torch.api.LeapSession`.  The JAX package's ``mesh`` argument
-waits for the multi-device slice.
+:class:`repro_torch.api.LeapSession`.  ``mesh`` is a
+:class:`repro_torch.launch.mesh.RegionMesh` for the ppermute copy backend.
 """
 
 from __future__ import annotations
@@ -95,9 +95,14 @@ class MigrationDriver:
         state: LeapState,
         pool_cfg: PoolConfig,
         cfg: LeapConfig | None = None,
+        mesh=None,  # RegionMesh (ppermute backend) | None
         scheduler=None,  # SchedulerPolicy | "leap" | "sync" | "sampling" | None
     ):
         cfg = cfg or LeapConfig()
+        if mesh is not None and any(d != state.device for d in mesh.devices):
+            # One controller drives every region: the state must already sit
+            # where the mesh puts it (state.to(state_sharding(pool_cfg, mesh))).
+            raise ValueError(f"state lives on {state.device}, the mesh on {mesh.devices[0]}")
         # Host mirrors (the driver performs every allocation/remap, so these
         # stay exact without device round-trips).
         table = state.table.cpu().numpy().copy()
@@ -107,6 +112,8 @@ class MigrationDriver:
             # Two-tier pool: per-region buddy allocators (FreeList-compatible
             # for order-0 traffic) + the level-1 table.  All groups start
             # small; promote_group / adopt_huge raise them.
+            if cfg.backend == "ppermute":
+                raise ValueError("the two-tier pool requires the xla copy backend")
             free = []
             for r in range(pool_cfg.n_regions):
                 buddy = BuddyAllocator(pool_cfg.slots_per_region, pool_cfg.huge_factor)
@@ -136,6 +143,7 @@ class MigrationDriver:
             state=state,
             pool_cfg=pool_cfg,
             cfg=cfg,
+            mesh=mesh,
             topology=pool_cfg.topology,  # None -> uniform (all links equal)
             scheduler=make_scheduler(scheduler, n_blocks=state.n_blocks),
             table=table,
@@ -177,6 +185,10 @@ class MigrationDriver:
     @property
     def cfg(self) -> LeapConfig:
         return self.ctx.cfg
+
+    @property
+    def mesh(self):
+        return self.ctx.mesh
 
     @property
     def topology(self):

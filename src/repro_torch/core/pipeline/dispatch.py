@@ -1,25 +1,35 @@
-"""Dispatch stage: epoch opens and single-dispatch tick assembly.
+"""Dispatch stage: epoch opens and per-tick device dispatch.
 
 Owns the per-tick scheduling loop (``run_tick``): advances copies of open
 epochs, opens new epochs off the priority queue, and hands the tick's work
-to the device as ONE megastep (:func:`repro_torch.core.migrator.megastep`):
-the previous epoch's commits, then begin/zero/force/copy/runs/heat, over the
-pool in place.  The host side of this stage is pure *plan assembly*: it
-gathers numpy id vectors, checks the copy plan against the copy kernel's
-contract, and moves every index operand to the device in one transfer.  The
+to the device in one of two dispatch generations
+(``LeapConfig.dispatch_mode``):
+
+  * ``"megastep"`` (default) — the whole tick as ONE megastep
+    (:func:`repro_torch.core.migrator.megastep`): the previous epoch's
+    commits, then begin/zero/force/copy/runs/heat, over the pool in place.
+  * ``"batched"`` — one program per tick phase: ``commit_areas``/
+    ``commit_groups`` (from :meth:`commit_ready`), then ``begin_areas``,
+    ``zero_fill`` (one per destination region), ``force_areas``, the copy
+    (``fused_copy``, or one ``fused_copy_ppermute`` per (src, dst) region
+    pair under the ppermute backend), ``fused_copy_runs`` and
+    ``heat_update``.  The ppermute backend always runs this generation.
+
+The host side of this stage is pure *plan assembly*: it gathers numpy id
+vectors, checks each copy plan against the copy kernel's contract, and
+moves each program's index operands to the device in one transfer.  The
 dirty verdict never crosses back here — it travels in the
 :class:`~repro_torch.core.queues.VerdictFuture` of a ``CommitBatch``,
 harvested by the verdict stage off the tick critical path.
 
-The operands have their real lengths.  The JAX package pads every phase to
-a shared bucket with out-of-bounds sentinel lanes so that XLA compiles few
+The operands have their real lengths.  The JAX package pads each program's
+operands to a bucket (lane-0 replication in the batched generation,
+out-of-bounds sentinel lanes in the megastep) so that XLA compiles few
 variants; eager PyTorch compiles nothing, and an out-of-bounds lane would
-raise on the CPU and device-assert on CUDA.  So there are no sentinel lanes
-and no lane-0 replication here, and an empty phase ships an empty tensor
-that the megastep skips.  Padding comes back with CUDA-graph capture,
-together with a trash slot in the pool.  The JAX package's batched and
-legacy dispatch generations are not ported yet (``LeapConfig`` refuses
-them).
+raise on the CPU and device-assert on CUDA.  So there is no padding here,
+and an empty phase dispatches nothing.  Padding comes back with CUDA-graph
+capture, together with a trash slot in the pool.  The JAX package's legacy
+per-area generation is not ported yet (``LeapConfig`` refuses it).
 
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.
@@ -40,6 +50,30 @@ from repro_torch.core.pipeline.context import PipelineContext
 from repro_torch.core.queues import CommitBatch, VerdictFuture
 from repro_torch.core.state import REGION, SLOT, host_to_device
 from repro_torch.kernels.leap_copy import check_copy_plan
+
+
+def _cat(parts: list) -> np.ndarray:
+    """Concatenated int64 ids; an empty list gives an empty array."""
+    return np.concatenate(parts).astype(np.int64) if parts else np.zeros(0, np.int64)
+
+
+def _entries(areas: list[Area]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-block operands of a commit or force: ids, destination regions, slots."""
+    return (
+        _cat([a.block_ids for a in areas]),
+        _cat([np.full(len(a), a.dst_region) for a in areas]),
+        _cat([a.dst_slots for a in areas]),
+    )
+
+
+def _group_entries(areas: list[Area]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Operands of a huge-area commit: member ids (group-major), one
+    destination region and one run start per area."""
+    return (
+        _cat([a.block_ids for a in areas]),
+        _cat([[a.dst_region] for a in areas]),
+        _cat([a.dst_slots[:1] for a in areas]),
+    )
 
 
 def to_device(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
@@ -63,8 +97,10 @@ class DispatchStage:
         self.ctx = ctx
         self.budget = budget
         self.accounting = accounting
+        # Dispatch generation, resolved once ("batched" | "megastep").
+        self._mode = ctx.cfg.dispatch_mode
         # Source slots freed by this tick's forced escalations, quarantined
-        # until the tick's megastep is dispatched (see run_tick).
+        # until the tick's device programs are dispatched (see run_tick).
         self._freed: list[np.ndarray] = []
         # Commit-ready areas staged by commit_ready() for the tick's single
         # dispatch (they stay in ctx.active until it fires).
@@ -74,19 +110,23 @@ class DispatchStage:
     # -- the per-tick scheduling loop --------------------------------------
 
     def commit_ready(self) -> None:
-        """Stage commits for areas whose copy completed in an earlier tick.
-        Deferring the commit by one tick keeps the copy->remap window open
-        across at least one application step, faithfully reproducing the
-        paper's race (its footnote 1: a write can land after the copy but
-        before the remap)."""
+        """Commit areas whose copy completed in an earlier tick: staged for
+        the megastep, or dispatched now under batched.  Deferring the commit
+        by one tick keeps the copy->remap window open across at least one
+        application step, faithfully reproducing the paper's race (its
+        footnote 1: a write can land after the copy but before the remap)."""
         ctx = self.ctx
         with ctx.telemetry.stage("dispatch.commit_ready"):
             ready = [a for a in ctx.active if a.copied == len(a)]
-            # No dispatch here: the commits ride this tick's megastep.
-            # Ready areas stay in ctx.active until it fires, so emptiness
-            # checks (huge stall detection, done()) see them as live.
-            self._staged_small = [a for a in ready if not a.huge]
-            self._staged_huge = [a for a in ready if a.huge]
+            if self._mode == "megastep":
+                # No dispatch here: the commits ride this tick's megastep.
+                # Ready areas stay in ctx.active until it fires, so emptiness
+                # checks (huge stall detection, done()) see them as live.
+                self._staged_small = [a for a in ready if not a.huge]
+                self._staged_huge = [a for a in ready if a.huge]
+            else:
+                self._dispatch_commit_batch([a for a in ready if not a.huge])
+                self._dispatch_commit_groups([a for a in ready if a.huge])
 
     def run_tick(self, tb: TickBudget) -> None:
         """Spend the tick budget: advance open epochs, open new ones."""
@@ -159,22 +199,41 @@ class DispatchStage:
             ctx.queue.appendleft(area)
         for area in reversed(blocked):
             ctx.queue.appendleft(area)
-        # The whole tick — staged commits, begins, zeros, forces, copies,
-        # heat — goes to the device as ONE megastep.  Device order matters
-        # (begin before copy, zero before force and copy, force before copy),
-        # and it is only sound because slots freed by this tick's forces are
-        # QUARANTINED until the flush below: no open in this tick can hand a
-        # force's still-unread source slot to another area as a
+        # Device order matters under both generations: begin before copy
+        # (epoch flags gate dirty tracking), zero-fill before force AND copy
+        # (a fresh area's zero pass must land before its own payload), force
+        # before copy.  It is only sound because slots freed by this tick's
+        # forces are QUARANTINED until the flush below: no open in this tick
+        # can hand a force's still-unread source slot to another area as a
         # zero/force/copy destination.
-        with ctx.telemetry.stage(
-            "dispatch.device",
-            opened=len(opened),
-            forced=len(forced),
-            copy_chunks=len(plan),
-            huge_runs=len(run_plan),
-            committed=len(self._staged_small) + len(self._staged_huge),
-        ):
-            self._dispatch_megastep(opened, zeros, forced, plan, run_plan)
+        if self._mode == "megastep":
+            # The whole tick — staged commits, begins, zeros, forces,
+            # copies, heat — goes to the device as ONE megastep.
+            with ctx.telemetry.stage(
+                "dispatch.device",
+                opened=len(opened),
+                forced=len(forced),
+                copy_chunks=len(plan),
+                huge_runs=len(run_plan),
+                committed=len(self._staged_small) + len(self._staged_huge),
+            ):
+                self._dispatch_megastep(opened, zeros, forced, plan, run_plan)
+        else:
+            with ctx.telemetry.stage(
+                "dispatch.device",
+                opened=len(opened),
+                forced=len(forced),
+                copy_chunks=len(plan),
+                huge_runs=len(run_plan),
+            ):
+                self._dispatch_begin_batch(opened)
+                self._dispatch_zero_batch(zeros)
+                self._dispatch_force_batch(forced)
+                self._dispatch_copy_batch(plan)
+                self._dispatch_copy_runs(run_plan)
+            # The tick's access-heat samples flush as their own program
+            # (the megastep folds them into its single dispatch).
+            self._flush_heat()
         # End of tick: every program that reads a forced area's old source
         # slots is dispatched; release them for the next tick's allocations.
         for old in self._freed:
@@ -184,8 +243,8 @@ class DispatchStage:
 
     def quarantined_slots(self) -> np.ndarray:
         """Copy of the current force-freed slot quarantine: ``(region, slot)``
-        rows held back until this tick's megastep dispatches.  Empty between
-        ticks; exposed (read-only) for pipeline introspection."""
+        rows held back until this tick's device programs dispatch.  Empty
+        between ticks; exposed (read-only) for pipeline introspection."""
         if not self._freed:
             return np.zeros((0, 2), dtype=np.int32)
         return np.concatenate([f.copy() for f in self._freed]).astype(np.int32)
@@ -258,7 +317,7 @@ class DispatchStage:
         if area.fresh_alloc:
             # Fresh-destination policies (move_pages()/autonuma analogues)
             # pay the kernel's zero-fill pass before their copy/force lands:
-            # the megastep's zero phase, sequenced before force and copy.
+            # the tick's zero phase, sequenced before force and copy.
             zeros.append(area)
         if area.attempts >= cfg.max_attempts_before_force:
             # Write-through escalation: fused copy+flip, cannot be dirtied.
@@ -276,13 +335,13 @@ class DispatchStage:
                 attempts=area.attempts,
                 forced=True,
             )
-            forced.append(area)  # the megastep's force phase, end of tick
+            forced.append(area)  # the tick's force phase, end of tick
             self._finalize_success(area)
             return True
         ctx.telemetry.request_phase(
             area.request_id, "EPOCH_OPEN", n=len(area), attempts=area.attempts
         )
-        opened.append(area)  # the megastep's begin phase, before copies
+        opened.append(area)  # the tick's begin phase, before copies
         ctx.active.append(area)
         return True
 
@@ -317,7 +376,7 @@ class DispatchStage:
         return True
 
     def _finalize_success(self, area: Area) -> None:
-        # Force path: all blocks flip on device in this tick's megastep;
+        # Force path: all blocks flip on device in this tick's force phase;
         # mirror it now and quarantine the freed sources.  Never a relay hop
         # (escalation forces direct to the final destination), so the credit
         # is always terminal.  The force phase itself runs at end of tick, so
@@ -346,6 +405,22 @@ class DispatchStage:
             [np.full(len(s), wt, np.float32) for s, wt in samples]
         )
         return ids, w
+
+    def _flush_heat(self) -> None:
+        """Batched: fold the tick's heat samples as their own program."""
+        ctx = self.ctx
+        ids, w = self._pop_heat()
+        if not len(ids):
+            return
+        dev = ctx.state.device
+        ctx.heat = migrator.heat_update(
+            ctx.heat,
+            host_to_device(torch.from_numpy(ids), dev),
+            host_to_device(torch.from_numpy(w), dev),
+            ctx.cfg.tier_heat_decay,
+            impl=ctx.cfg.copy_impl,
+        )
+        ctx.count("dispatches", 1, program="heat_update")
 
     # -- megastep dispatch (one program per tick) ---------------------------
 
@@ -378,67 +453,20 @@ class DispatchStage:
             or len(heat_ids)
         ):
             return
-        pc = ctx.pool_cfg
-        S = pc.slots_per_region
-        G = pc.huge_factor
-
-        def cat(parts: list[np.ndarray]) -> np.ndarray:
-            if not parts:
-                return np.zeros(0, np.int64)
-            return np.concatenate(parts).astype(np.int64)
-
-        commit_ids = cat([a.block_ids for a in small])
-        commit_regions = cat([np.full(len(a), a.dst_region) for a in small])
-        commit_slots = cat([a.dst_slots for a in small])
+        S = ctx.pool_cfg.slots_per_region
+        G = ctx.pool_cfg.huge_factor
         offsets = np.cumsum([0] + [len(a) for a in small])
-        begin_ids = cat([a.block_ids for a in opened])
-        zero_flat = cat([a.dst_region * S + a.dst_slots.astype(np.int64) for a in zeros])
-        force_ids = cat([a.block_ids for a in forced])
-        force_regions = cat([np.full(len(a), a.dst_region) for a in forced])
-        force_slots = cat([a.dst_slots for a in forced])
-        # Copy plan: flat slot ids from the exact host mirror — table entries
-        # of in-flight blocks cannot change until their commit, which this
-        # driver issues (and this tick's commits target disjoint blocks).
-        copy_ids = cat([ids for _, ids, _ in plan])
-        copy_regions = cat([np.full(len(c), a.dst_region) for a, c, _ in plan])
-        copy_slots = cat([s for _, _, s in plan])
-        copy_src = ctx.table[copy_ids, REGION].astype(np.int64) * S + ctx.table[copy_ids, SLOT]
-        copy_dst = copy_regions * S + copy_slots
-        check_copy_plan(copy_src, copy_dst, pc.n_regions * S)
-        if len(copy_ids):
-            ctx.count("bytes_copied", len(copy_ids) * pc.block_bytes)
-
-        k = len(huge)
-        grp_members = cat([a.block_ids for a in huge])
-        grp_regions = cat([[a.dst_region] for a in huge])
-        grp_starts = cat([a.dst_slots[:1] for a in huge])
-        firsts = cat([a.block_ids[:1] for a in run_plan])
-        run_src = ctx.table[firsts, REGION].astype(np.int64) * S + ctx.table[firsts, SLOT]
-        run_dst = cat([a.dst_region * S + a.dst_slots[:1].astype(np.int64) for a in run_plan])
-        check_copy_plan(run_src, run_dst, pc.n_regions * S, run=G)
-        if run_plan:
-            nbytes = len(run_plan) * G * pc.block_bytes
-            ctx.count("bytes_copied", nbytes)
-            ctx.count("bytes_copied_huge", nbytes)
-
+        zero_flat = _cat([a.dst_region * S + a.dst_slots.astype(np.int64) for a in zeros])
         dev = ctx.state.device
         operands = to_device(
             [
-                commit_ids,
-                commit_regions,
-                commit_slots,
-                grp_members,
-                grp_regions,
-                grp_starts,
-                begin_ids,
+                *_entries(small),
+                *_group_entries(huge),
+                _cat([a.block_ids for a in opened]),
                 zero_flat,
-                force_ids,
-                force_regions,
-                force_slots,
-                copy_src,
-                copy_dst,
-                run_src,
-                run_dst,
+                *_entries(forced),
+                *self._copy_flat(plan),
+                *self._run_flat(run_plan),
                 heat_ids,
             ],
             dev,
@@ -465,8 +493,164 @@ class DispatchStage:
             ctx.pending.append(CommitBatch(small, offsets, VerdictFuture(verdict_small)))
         if huge:
             ctx.pending.append(
-                CommitBatch(huge, np.arange(k + 1), VerdictFuture(verdict_groups))
+                CommitBatch(huge, np.arange(len(huge) + 1), VerdictFuture(verdict_groups))
             )
+
+    # -- copy plans (shared by both generations) -----------------------------
+
+    def _copy_flat(self, plan: list[tuple[Area, np.ndarray, np.ndarray]]):
+        """The tick's chunk plan as flat slot ids ``(src, dst)``, checked
+        against the copy kernel's contract; counts the bytes it moves.
+
+        Sources come from the exact host mirror: table entries of in-flight
+        blocks cannot change until their commit, which this driver issues
+        (and this tick's commits target disjoint blocks).
+        """
+        ctx = self.ctx
+        pc = ctx.pool_cfg
+        S = pc.slots_per_region
+        ids = _cat([ids for _, ids, _ in plan])
+        dst_regions = _cat([np.full(len(c), a.dst_region) for a, c, _ in plan])
+        src = ctx.table[ids, REGION].astype(np.int64) * S + ctx.table[ids, SLOT]
+        dst = dst_regions * S + _cat([s for _, _, s in plan])
+        check_copy_plan(src, dst, pc.n_regions * S)
+        if len(ids):
+            ctx.count("bytes_copied", len(ids) * pc.block_bytes)
+        return src, dst
+
+    def _run_flat(self, run_plan: list[Area]):
+        """Flat first slots ``(src, dst)`` of the huge blocks copied as whole
+        runs this tick, checked; counts the bytes they move."""
+        ctx = self.ctx
+        pc = ctx.pool_cfg
+        S, G = pc.slots_per_region, pc.huge_factor
+        firsts = _cat([a.block_ids[:1] for a in run_plan])
+        src = ctx.table[firsts, REGION].astype(np.int64) * S + ctx.table[firsts, SLOT]
+        dst = _cat([a.dst_region * S + a.dst_slots[:1].astype(np.int64) for a in run_plan])
+        check_copy_plan(src, dst, pc.n_regions * S, run=G)
+        if run_plan:
+            nbytes = len(run_plan) * G * pc.block_bytes
+            ctx.count("bytes_copied", nbytes)
+            ctx.count("bytes_copied_huge", nbytes)
+        return src, dst
+
+    # -- batched dispatch (one program per phase) ---------------------------
+
+    def _dispatch_zero_batch(self, zeros: list[Area]) -> None:
+        """One zero-fill program per destination region covers every
+        fresh-destination area opened this tick, escalated and epoch alike."""
+        if not zeros:
+            return
+        ctx = self.ctx
+        by_region: dict[int, list[np.ndarray]] = {}
+        for a in zeros:
+            by_region.setdefault(int(a.dst_region), []).append(a.dst_slots)
+        for region, slot_lists in by_region.items():
+            (slots,) = to_device([_cat(slot_lists)], ctx.state.device)
+            ctx.state = migrator.zero_fill(ctx.state, slots, region)
+            ctx.count("dispatches", 1, program="zero_fill")
+
+    def _dispatch_begin_batch(self, opened: list[Area]) -> None:
+        if not opened:
+            return
+        ctx = self.ctx
+        ids = _cat([a.block_ids for a in opened])
+        ctx.state = migrator.begin_areas(ctx.state, *to_device([ids], ctx.state.device))
+        ctx.count("dispatches", 1, program="begin_areas")
+
+    def _dispatch_force_batch(self, forced: list[Area]) -> None:
+        if not forced:
+            return
+        ctx = self.ctx
+        ctx.state = migrator.force_areas(ctx.state, *to_device(_entries(forced), ctx.state.device))
+        ctx.count("dispatches", 1, program="force_areas")
+
+    def _dispatch_copy_batch(self, plan: list[tuple[Area, np.ndarray, np.ndarray]]) -> None:
+        if not plan:
+            return
+        ctx = self.ctx
+        if ctx.cfg.backend == "ppermute":
+            self._dispatch_copy_batch_ppermute(plan)
+            return
+        ctx.state = migrator.fused_copy(
+            ctx.state, *to_device(self._copy_flat(plan), ctx.state.device), impl=ctx.cfg.copy_impl
+        )
+        ctx.count("dispatches", 1, program="fused_copy")
+
+    def _dispatch_copy_batch_ppermute(
+        self, plan: list[tuple[Area, np.ndarray, np.ndarray]]
+    ) -> None:
+        ctx = self.ctx
+        n_blocks = sum(len(ids) for _, ids, _ in plan)
+        ctx.count("bytes_copied", n_blocks * ctx.pool_cfg.block_bytes)
+        if ctx.mesh is None or ctx.cfg.axis_name is None:
+            raise ValueError("ppermute backend requires mesh and axis_name")
+        S = ctx.pool_cfg.slots_per_region
+        # One point-to-point program per (src, dst) region pair this tick;
+        # areas are single-source so chunks group cleanly.
+        pairs: dict[tuple[int, int], list[tuple[np.ndarray, np.ndarray]]] = {}
+        for area, ids, slots in plan:
+            pairs.setdefault((area.src_region, area.dst_region), []).append(
+                (ctx.table[ids, SLOT], slots)
+            )
+        for (src, dst), chunks in pairs.items():
+            src_slots = _cat([c[0] for c in chunks])
+            dst_slots = _cat([c[1] for c in chunks])
+            # The gather and the scatter see one region's shard each; as flat
+            # ids the pair's plan must meet the in-pool copy's contract.
+            check_copy_plan(src * S + src_slots, dst * S + dst_slots, ctx.pool_cfg.n_regions * S)
+            ctx.state = migrator.fused_copy_ppermute(
+                ctx.state,
+                *to_device([src_slots, dst_slots], ctx.state.device),
+                int(src),
+                int(dst),
+                ctx.mesh,
+                impl=ctx.cfg.copy_impl,
+            )
+            ctx.count("dispatches", 1, program="fused_copy_ppermute")
+
+    def _dispatch_commit_batch(self, ready: list[Area]) -> None:
+        if not ready:
+            return
+        ctx = self.ctx
+        offsets = np.cumsum([0] + [len(a) for a in ready])
+        ctx.state, verdict = migrator.commit_areas(
+            ctx.state, *to_device(_entries(ready), ctx.state.device)
+        )
+        ctx.count("dispatches", 1, program="commit_areas")
+        for a in ready:
+            ctx.active.remove(a)
+        ctx.pending.append(CommitBatch(ready, offsets, VerdictFuture(verdict)))
+
+    def _dispatch_copy_runs(self, run_plan: list[Area]) -> None:
+        """One program copies every huge block scheduled this tick, each as a
+        single contiguous-run move, not G per-slot copies."""
+        if not run_plan:
+            return
+        ctx = self.ctx
+        ctx.state = migrator.fused_copy_runs(
+            ctx.state,
+            *to_device(self._run_flat(run_plan), ctx.state.device),
+            ctx.pool_cfg.huge_factor,
+            impl=ctx.cfg.copy_impl,
+        )
+        ctx.count("dispatches", 1, program="fused_copy_runs")
+
+    def _dispatch_commit_groups(self, ready: list[Area]) -> None:
+        """All-or-nothing commit of every copy-complete huge area (one
+        program, one verdict lane per huge block)."""
+        if not ready:
+            return
+        ctx = self.ctx
+        ctx.state, verdict = migrator.commit_groups(
+            ctx.state,
+            *to_device(_group_entries(ready), ctx.state.device),
+            group=ctx.pool_cfg.huge_factor,
+        )
+        ctx.count("dispatches", 1, program="commit_groups")
+        for a in ready:
+            ctx.active.remove(a)
+        ctx.pending.append(CommitBatch(ready, np.arange(len(ready) + 1), VerdictFuture(verdict)))
 
     # -- tier transitions (two-tier pool) ----------------------------------
 

@@ -46,8 +46,9 @@ class PoolConfig:
       block_shape: shape of one block's payload (e.g. ``(rows, cols)`` for a
         morsel pool or ``(blk_tokens, 2, kv_heads, head_dim)`` for KV).
       dtype: payload dtype (a ``torch.dtype``).
-      region_axis: mesh axis of the region dim in the JAX package; unused
-        until the port's multi-device slice, kept for config parity.
+      region_axis: name of the mesh axis the region dim lies along, or None
+        for a pool that no mesh describes; :func:`state_sharding` checks it
+        against the mesh of the ppermute copy backend.
       huge_factor: G — small slots per huge block (two-tier pool; 1 = small
         only).  A huge block is G physically-contiguous, G-aligned slots in
         one region whose G logical blocks share one level-1 table entry.
@@ -129,6 +130,14 @@ class LeapState:
             table=_tensor_from_host(np.asarray(table, np.int32), device),
             dirty=_tensor_from_host(np.asarray(dirty, bool), device),
             in_flight=_tensor_from_host(np.asarray(in_flight, bool), device),
+        )
+
+    def to(self, placement: "LeapState") -> "LeapState":
+        """This state with each tensor on the device that ``placement`` (from
+        :func:`state_sharding`) names for it; a tensor already there is kept."""
+        return LeapState(
+            *(getattr(self, f.name).to(getattr(placement, f.name))
+              for f in dataclasses.fields(self))
         )
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -216,6 +225,25 @@ def init_state(
         dirty=torch.zeros(n_blocks, dtype=torch.bool, device=device),
         in_flight=torch.zeros(n_blocks, dtype=torch.bool, device=device),
     )
+
+
+def state_sharding(cfg: PoolConfig, mesh) -> LeapState:
+    """Where each tensor of a :class:`LeapState` lives on a region ``mesh``
+    (a :class:`repro_torch.launch.mesh.RegionMesh`), as a ``LeapState`` of
+    ``torch.device`` s for :meth:`LeapState.to`.
+
+    The JAX package shards the pool's region dim over ``cfg.region_axis``
+    and replicates the table and flag vectors.  The port's meshes hold every
+    region on one device so far, so all four tensors go to that device.
+    """
+    if cfg.region_axis != mesh.axis_name:
+        raise ValueError(
+            f"pool region_axis {cfg.region_axis!r} is not the mesh axis {mesh.axis_name!r}"
+        )
+    if mesh.size != cfg.n_regions:
+        raise ValueError(f"mesh has {mesh.size} entries for {cfg.n_regions} regions")
+    dev = mesh.device(0)
+    return LeapState(pool=dev, table=dev, dirty=dev, in_flight=dev)
 
 
 # --------------------------------------------------------------------------

@@ -43,6 +43,8 @@ _I64 = ctypes.c_longlong
 # never cuts a 64-bit address to a 32-bit int.
 _SIGNATURES = {
     "leap_copy_lanes": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "leap_gather_blocks": (_P, _P, _P, _I64, _I64, _P),
+    "leap_scatter_blocks": (_P, _P, _P, _I64, _I64, _P),
     "leap_heat_scan": (_P, _P, _P, _I64, _I64, ctypes.c_float, _P),
     "leap_paged_decode": (
         (_P,) * 7 + (_I64,) * 7 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)

@@ -1,15 +1,18 @@
-"""Intra-pool block and run copies: the physical-copy hot path of migration.
+"""Block copies: the physical-copy hot path of migration.
 
-``copy_blocks`` and ``copy_runs`` wrap one hand-written CUDA kernel,
-``csrc/leap_copy.cu``, which replaces the TPU kernels
-``copy_blocks_pallas`` and ``copy_runs_pallas`` of the JAX package's
+``copy_blocks``, ``copy_runs``, ``gather_blocks`` and ``scatter_blocks``
+wrap one hand-written CUDA kernel, ``csrc/leap_copy.cu``, which replaces the
+TPU kernels ``copy_blocks_pallas``, ``copy_runs_pallas``,
+``gather_blocks_pallas`` and ``scatter_blocks_pallas`` of the JAX package's
 ``kernels/leap_copy.py``.  A CUDA tensor launches the kernel on the current
-stream; a CPU tensor takes the plain version in :mod:`.ref`.  Both update
-the flat ``[S, rows, cols]`` pool in place and return it.
+stream; a CPU tensor takes the plain version in :mod:`.ref`.  The copies
+and the scatter update the flat ``[S, rows, cols]`` pool in place and return
+it; the gather returns a new ``[K, rows, cols]`` staging buffer.
 
-The kernel's CTAs run in any order, so the lanes of one launch must not
-overlap and no destination may be a source.  :func:`check_copy_plan` checks
-that on the host, where the dispatch stage builds the plan.
+The kernel's CTAs run in any order, so the lanes of one in-pool copy must
+not overlap and no destination may be a source.  :func:`check_copy_plan`
+checks that on the host, where the dispatch stage builds the plan.  The
+scatter keeps the last of duplicate ids on the device, as the TPU grid does.
 """
 
 from __future__ import annotations
@@ -48,36 +51,54 @@ def check_copy_plan(src, dst, n_slots: int, run: int = 1) -> None:
         raise ValueError("copy plan destination is also a source")
 
 
-def _check_operands(pool, src, dst, run: int) -> None:
+def _check_pool(pool) -> None:
     if not pool.is_cuda:
         raise ValueError(f"the CUDA copy kernel needs a CUDA pool, got {pool.device}")
     if pool.ndim != 3 or not pool.is_contiguous():
         raise ValueError(f"pool must be a contiguous [slots, rows, cols], got {pool.shape}")
+
+
+def _check_index(name: str, t, pool) -> None:
+    if t.device != pool.device or t.dtype != torch.int64:
+        raise ValueError(f"{name} must be int64 on {pool.device}, got {t.dtype} on {t.device}")
+    if t.ndim != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+
+
+def _check_operands(pool, src, dst, run: int) -> None:
+    _check_pool(pool)
     if run < 1 or pool.shape[0] % run:
         raise ValueError(f"run {run} must divide slot count {pool.shape[0]}")
-    for name, t in (("src", src), ("dst", dst)):
-        if t.device != pool.device or t.dtype != torch.int64:
-            raise ValueError(f"{name} must be int64 on {pool.device}, got {t.dtype} on {t.device}")
-        if t.ndim != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    _check_index("src", src, pool)
+    _check_index("dst", dst, pool)
     if src.shape != dst.shape:
         raise ValueError(f"src {tuple(src.shape)} and dst {tuple(dst.shape)} differ")
 
 
-def _launch(pool, src, dst, run: int) -> None:
-    slot_bytes = pool[0].numel() * pool.element_size()
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the bytes of two contiguous tensors share any address."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def _slot_bytes(pool) -> int:
+    return pool[0].numel() * pool.element_size()
+
+
+def _call(name: str, pool, *args) -> None:
+    """Launch entry point ``name`` on ``pool``'s device and current stream."""
     with torch.cuda.device(pool.device):
-        err = _build.load().leap_copy_lanes(
-            pool.data_ptr(),
-            src.data_ptr(),
-            dst.data_ptr(),
-            src.shape[0],
-            slot_bytes,
-            run * slot_bytes,
-            torch.cuda.current_stream(pool.device).cuda_stream,
+        err = getattr(_build.load(), name)(
+            *args, torch.cuda.current_stream(pool.device).cuda_stream
         )
     if err:
-        raise RuntimeError(f"leap_copy_lanes launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch(pool, src, dst, run: int) -> None:
+    slot_bytes = _slot_bytes(pool)
+    _call("leap_copy_lanes", pool, pool.data_ptr(), src.data_ptr(), dst.data_ptr(),
+          src.shape[0], slot_bytes, run * slot_bytes)
 
 
 def copy_blocks(pool: torch.Tensor, src_idx: torch.Tensor, dst_idx: torch.Tensor):
@@ -104,5 +125,48 @@ def copy_runs(
     return pool
 
 
+def gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` packed into a new contiguous ``[K, rows, cols]`` buffer.
+
+    ``pool`` may be a view with a storage offset (one region's shard of the
+    flat pool); duplicate ids read the same slot twice.
+    """
+    if pool.device.type == "cpu":
+        return ref.gather_blocks_ref(pool, idx)
+    _check_pool(pool)
+    _check_index("idx", idx, pool)
+    out = torch.empty((idx.shape[0],) + tuple(pool.shape[1:]), dtype=pool.dtype,
+                      device=pool.device)
+    if idx.shape[0]:
+        _call("leap_gather_blocks", pool, out.data_ptr(), pool.data_ptr(), idx.data_ptr(),
+              idx.shape[0], _slot_bytes(pool))
+        gather_blocks.launches += 1
+    return out
+
+
+def scatter_blocks(pool: torch.Tensor, idx: torch.Tensor, blocks: torch.Tensor):
+    """In-place ``pool[idx[i]] = blocks[i]``; of duplicate ids the last lane
+    wins.  ``blocks`` must not share memory with ``pool``.  Returns ``pool``."""
+    if pool.device.type == "cpu":
+        return ref.scatter_blocks_ref(pool, idx, blocks)
+    _check_pool(pool)
+    _check_index("idx", idx, pool)
+    want = (idx.shape[0],) + tuple(pool.shape[1:])
+    if blocks.device != pool.device or blocks.dtype != pool.dtype:
+        raise ValueError(f"blocks must be {pool.dtype} on {pool.device}, "
+                         f"got {blocks.dtype} on {blocks.device}")
+    if tuple(blocks.shape) != want or not blocks.is_contiguous():
+        raise ValueError(f"blocks must be a contiguous {list(want)}, got {list(blocks.shape)}")
+    if idx.shape[0]:
+        if _overlap(blocks, pool):
+            raise ValueError("blocks and pool share memory; scatter from a separate buffer")
+        _call("leap_scatter_blocks", pool, pool.data_ptr(), blocks.data_ptr(), idx.data_ptr(),
+              idx.shape[0], _slot_bytes(pool))
+        scatter_blocks.launches += 1
+    return pool
+
+
 copy_blocks.launches = 0  # kernel launches in this process (read by chip_smoke.py)
 copy_runs.launches = 0
+gather_blocks.launches = 0
+scatter_blocks.launches = 0

@@ -33,6 +33,30 @@ def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def gather_blocks_impl(pool, idx, *, impl: str | None = None):
+    """``pool[idx]``: pack migration blocks into a new contiguous staging buffer."""
+    if _use_kernel(impl, pool):
+        return leap_copy.gather_blocks(pool, idx)
+    return ref.gather_blocks_ref(pool, idx)
+
+
+def scatter_blocks_impl(pool, idx, blocks, *, impl: str | None = None):
+    """Unpack a staging buffer into pool slots, in place; duplicate ids: last wins."""
+    if _use_kernel(impl, pool):
+        return leap_copy.scatter_blocks(pool, idx, blocks)
+    return ref.scatter_blocks_ref(pool, idx, blocks)
+
+
+def gather_blocks(pool, idx, *, impl: str | None = None):
+    """Standalone :func:`gather_blocks_impl` for ids of any integer type."""
+    return gather_blocks_impl(pool, idx.long().contiguous(), impl=impl)
+
+
+def scatter_blocks(pool, idx, blocks, *, impl: str | None = None):
+    """Standalone :func:`scatter_blocks_impl` for ids of any integer type."""
+    return scatter_blocks_impl(pool, idx.long().contiguous(), blocks.contiguous(), impl=impl)
+
+
 def copy_blocks_impl(pool, src_idx, dst_idx, *, impl: str | None = None):
     """Intra-pool block copy ``pool[dst_idx[i]] = pool[src_idx[i]]``, in place."""
     if _use_kernel(impl, pool):

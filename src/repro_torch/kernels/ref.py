@@ -15,6 +15,27 @@ import torch
 # -- leap_copy ---------------------------------------------------------------
 
 
+def gather_blocks_ref(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]``: a new ``[K, rows, cols]`` staging buffer."""
+    return pool[idx]
+
+
+def scatter_blocks_ref(
+    pool: torch.Tensor, idx: torch.Tensor, blocks: torch.Tensor
+) -> torch.Tensor:
+    """``pool[idx[i]] = blocks[i]`` in place; of duplicate ids the last lane wins.
+
+    Indexed assignment leaves the winner among duplicate ids unspecified, so
+    every lane first takes the block of the last lane with its id: duplicate
+    lanes then write equal values, in any order, without a host sync.
+    """
+    lanes = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((pool.shape[0],), -1, dtype=lanes.dtype, device=idx.device)
+    last.scatter_reduce_(0, idx, lanes, reduce="amax")
+    pool[idx] = blocks[last[idx]]
+    return pool
+
+
 def copy_blocks_ref(
     pool: torch.Tensor, src_idx: torch.Tensor, dst_idx: torch.Tensor
 ) -> torch.Tensor:

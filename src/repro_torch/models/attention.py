@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.state import _default_device
 from repro_torch.models.common import _param, apply_rope, dense_init, rms_norm, softcap
 
 # -- params -------------------------------------------------------------------
@@ -31,6 +32,7 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        device = _default_device(device)
         d, qd, kvd, pd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.pdtype()
         self.wq = _param((d, qd), pd, device)
         self.wk = _param((d, kvd), pd, device)
@@ -46,6 +48,7 @@ class Attention(nn.Module):
 
 
 def attn_init(gen, cfg: ModelConfig, device=None) -> Attention:
+    device = _default_device(device)
     p = Attention(cfg, device)
     d, qd, kvd, pd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.pdtype()
     with torch.no_grad():
@@ -140,6 +143,7 @@ def cache_len(cfg: ModelConfig, window: int, max_len: int) -> int:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, device=None):
+    device = _default_device(device)
     t = cache_len(cfg, window, max_len)
     shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
     return {

@@ -10,6 +10,7 @@ from __future__ import annotations
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.state import _default_device
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import MLP, _param, mlp_forward, mlp_init, rms_norm
@@ -40,6 +41,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, device=None, mixer=None, mlp=None):
         super().__init__()
         _check_kind(kind)
+        device = _default_device(device)
         self.kind = kind
         d, pd = cfg.d_model, cfg.pdtype()
         self.norm1 = _param((d,), pd, device)
@@ -53,6 +55,7 @@ class Block(nn.Module):
 
 def block_init(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
     _check_kind(kind)
+    device = _default_device(device)
     init = rec.rglru_init if kind == "rec" else attn.attn_init
     blk = Block(
         cfg, kind, device,
@@ -66,6 +69,7 @@ def block_init(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
     _check_kind(kind)
+    device = _default_device(device)
     if kind == "rec":
         return rec.init_rec_cache(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_len, _window(cfg, kind), device)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.state import _default_device
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in fp32 with a ``(1 + weight)`` scale (zero-initialised weight)."""
@@ -81,11 +83,11 @@ def _truncated_normal(shape, gen: torch.Generator, device) -> torch.Tensor:
 def dense_init(gen, shape, dtype, device=None, scale_axis: int = 0) -> torch.Tensor:
     """Truncated-normal fan-in init (stddev 1/sqrt(fan_in)), drawn in fp32."""
     std = 1.0 / math.sqrt(shape[scale_axis])
-    return (_truncated_normal(shape, gen, device) * std).to(dtype)
+    return (_truncated_normal(shape, gen, _default_device(device)) * std).to(dtype)
 
 
 def embed_init(gen, shape, dtype, device=None) -> torch.Tensor:
-    return _truncated_normal(shape, gen, device).to(dtype)
+    return _truncated_normal(shape, gen, _default_device(device)).to(dtype)
 
 
 # -- MLPs -----------------------------------------------------------------------
@@ -97,6 +99,7 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, kind: str, dtype, device=None):
         super().__init__()
+        device = _default_device(device)
         self.w_in = _param((d_model, d_ff), dtype, device)
         self.w_out = _param((d_ff, d_model), dtype, device)
         if kind in ("swiglu", "geglu"):
@@ -120,6 +123,7 @@ def mlp_forward(x: torch.Tensor, params, kind: str) -> torch.Tensor:
 
 
 def mlp_init(gen, d_model: int, d_ff: int, kind: str, dtype, device=None) -> MLP:
+    device = _default_device(device)
     mlp = MLP(d_model, d_ff, kind, dtype, device)
     with torch.no_grad():
         mlp.w_in.copy_(dense_init(gen, (d_model, d_ff), dtype, device))

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.state import _default_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import _param, dense_init
 
@@ -35,6 +36,7 @@ class RGLRU(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        device = _default_device(device)
         d, r, w, pd = cfg.d_model, cfg.rnn_width, cfg.conv_width, cfg.pdtype()
         f32 = torch.float32
         self.w_x = _param((d, r), pd, device)
@@ -50,6 +52,7 @@ class RGLRU(nn.Module):
 
 
 def rglru_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> RGLRU:
+    device = _default_device(device)
     p = RGLRU(cfg, device)
     d, r, w, pd = cfg.d_model, cfg.rnn_width, cfg.conv_width, cfg.pdtype()
     with torch.no_grad():
@@ -116,6 +119,7 @@ def rglru_step(xc: torch.Tensor, params: RGLRU, h: torch.Tensor):
 
 
 def init_rec_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    device = _default_device(device)
     r, w = cfg.rnn_width, cfg.conv_width
     return {
         "conv": torch.zeros((batch, w - 1, r), dtype=cfg.dtype(), device=device),

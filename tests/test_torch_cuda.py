@@ -74,6 +74,86 @@ def test_ops_launch_kernels_on_cuda_and_count_them(cuda):
         leap_copy.copy_blocks(pool, idx.int(), idx.int() + 8)
 
 
+# the JAX sweep (tests/test_kernels_leap_copy.py), plus unaligned bytes and
+# a region shard of 64 KiB slots
+GATHER_SHAPES = [(8, 8, 128), (16, 16, 256), (5, 4, 64), (32, 1, 512), (64, 3, 5)]
+
+
+def _shard_pool(dev, dtype, shape, regions=3, seed=0):
+    """A pool of ``regions`` regions and region 1's flat view, which starts at
+    a non-zero storage offset."""
+    g = torch.Generator().manual_seed(seed)
+    pool = torch.randint(-100, 100, (regions,) + shape, generator=g).to(dtype).to(dev)
+    return pool, pool[1:2].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "i32"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_gather_scatter_kernels_match_plain(cuda, dtype, shape):
+    pool, shard = _shard_pool(cuda, dtype, shape)
+    assert shard.storage_offset() > 0
+    g = torch.Generator().manual_seed(1)
+    for k in (1, 3, shape[0]):
+        idx = torch.randint(0, shape[0], (k,), generator=g).to(cuda)  # duplicates allowed
+        before = leap_copy.gather_blocks.launches
+        got = ops.gather_blocks_impl(shard, idx)
+        want = ops.gather_blocks_impl(shard, idx, impl="ref")
+        torch.cuda.synchronize()
+        assert leap_copy.gather_blocks.launches == before + 1
+        assert torch.equal(got, want)
+        ids = torch.randperm(shape[0], generator=g)[:k].to(cuda)
+        blocks = torch.randint(-100, 100, (k,) + shape[1:], generator=g).to(dtype).to(cuda)
+        before = leap_copy.scatter_blocks.launches
+        got = ops.scatter_blocks_impl(pool.clone()[1:2].view(shape), ids, blocks)
+        want = ops.scatter_blocks_impl(shard.clone(), ids, blocks, impl="ref")
+        torch.cuda.synchronize()
+        assert leap_copy.scatter_blocks.launches == before + 1
+        assert torch.equal(got, want)
+    out = pool.clone()
+    leap_copy.scatter_blocks(out[1:2].view(shape), ids, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], pool[0]) and torch.equal(out[2], pool[2])  # other regions untouched
+
+
+def test_scatter_kernel_last_duplicate_wins(cuda):
+    """Lanes with equal ids: the last lane's block lands, every run (CTAs run
+    in no order; the kernel, not the schedule, picks the winner)."""
+    for shape in ((64, 1, 16384), (64, 3, 5)):  # 16-byte words, bytes
+        pool = torch.zeros(shape, device=cuda)
+        g = torch.Generator().manual_seed(2)
+        idx = torch.randint(0, 8, (256,), generator=g).to(cuda)  # about 32 lanes an id
+        blocks = torch.arange(256, dtype=torch.float32, device=cuda)[:, None, None].expand(
+            (256,) + shape[1:]).contiguous()
+        want = ref.scatter_blocks_ref(pool.clone(), idx, blocks)
+        last = {int(i): lane for lane, i in enumerate(idx.tolist())}
+        for slot, lane in last.items():
+            assert torch.equal(want[slot], blocks[lane])
+        for _ in range(20):
+            got = leap_copy.scatter_blocks(pool.clone(), idx, blocks)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+def test_gather_scatter_kernels_refuse_what_they_do_not_take(cuda):
+    pool = torch.zeros(16, 2, 8, device=cuda)
+    idx = torch.tensor([0, 1], device=cuda)
+    blocks = torch.ones(2, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="int64"):
+        leap_copy.gather_blocks(pool, idx.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        leap_copy.gather_blocks(pool.transpose(1, 2), idx)
+    with pytest.raises(ValueError, match="blocks must be"):
+        leap_copy.scatter_blocks(pool, idx, blocks.bfloat16())
+    with pytest.raises(ValueError, match="blocks must be"):
+        leap_copy.scatter_blocks(pool, idx, blocks[:1])
+    with pytest.raises(ValueError, match="share memory"):
+        leap_copy.scatter_blocks(pool, idx, pool[4:6])
+    with pytest.raises(ValueError, match="int64"):
+        leap_copy.scatter_blocks(pool, idx.cpu(), blocks)
+    assert leap_copy.gather_blocks(pool, idx[:0]).shape == (0, 2, 8)  # nothing to launch
+
+
 def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1, seed=0):
     """q, a strided per-layer view of a pool with every layer in each slot,
     tables of distinct slots and lens from 1 to MAXB * BLK."""

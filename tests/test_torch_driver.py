@@ -169,12 +169,16 @@ def test_tiering_drain_with_reads_and_promotion():
 
 
 def test_port_refuses_dispatch_generations_it_lacks():
-    for kw in (dict(fused_dispatch="batched"), dict(fused_dispatch=False),
-               dict(backend="ppermute")):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(fused_dispatch="legacy"), dict(fused_dispatch=False),
+               dict(fused_dispatch="legacy", backend="ppermute")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.LeapConfig(**kw)
     with pytest.raises(ValueError):
         T.LeapConfig(copy_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # a pool sharded per device
+        T.make_region_mesh(2, ["cpu", "meta"])
+    assert T.LeapConfig(fused_dispatch="batched").dispatch_mode == "batched"
+    assert T.LeapConfig(backend="ppermute").dispatch_mode == "batched"
 
 
 # ---------------------------------------------------------------------------
