@@ -11,7 +11,9 @@ printed):
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the drains give it, with timings (median of CUDA-event times) of the
    kernel, the plain version and a PyTorch library call for the same
-   function (timed here only; the port never calls it).
+   function (timed here only; the port never calls it).  The heat scan
+   takes two sample sets at K = 128 and 1,024: uniform over the blocks,
+   drawn as a drain tick draws them, and skewed into two of its tiles.
 3. A small-page drain through ``LeapSession``: 131,072 blocks of 64 KiB
    (8 GiB) from region 0 to region 1 under 64 random writes and 64 reads per
    tick, with tiering on; every write is mirrored into a device-side shadow.
@@ -24,7 +26,8 @@ printed):
    layer-20 strided view of a 40-layer bf16 pool at granite_3_2b's decode
    shapes (bf16 within rtol 2e-2 and atol 2e-3, an f32 case with softcap 20
    within 2e-5, bit-identical run to run, and unchanged when the pad table
-   entries point out of range), timed beside a gather plus
+   entries point out of range), at mixed lens and at lens on the kernel's
+   split boundaries, timed beside a gather plus
    ``scaled_dot_product_attention`` (timed here only; the port never calls it).
 7. Serving at full width: granite_3_2b (40 layers, bf16, random weights from
    a seeded generator) through ``PagedEngine``: 8 prompts of 512 tokens,
@@ -286,40 +289,55 @@ def kernel_checks(dev) -> list[dict]:
     del pool
     torch.cuda.empty_cache()
 
+    rows.append(heat_scan_checks(dev, g, host))
+    return rows
+
+
+def heat_scan_checks(dev, g, host) -> dict:
+    """The heat scan on the drains' plane, at K = 128 and 1,024, on two
+    sample sets each; ``g`` and ``host`` are the phase's generators."""
     L = heat_scan.padded_heat_len(N_BLOCKS)
     heat0 = torch.rand(L, generator=g, device=dev) * 10
-    per_k = {}
+    cases, results = {}, {}
     for k in (2 * IO_PER_TICK, 1024):
-        ids = torch.randint(0, N_BLOCKS // 64, (k,), generator=g, device=dev)  # duplicates
+        # skewed: every sample in the plane's first 2,048 entries (two of the
+        # kernel's tiles), with duplicates and inert lanes
+        ids = torch.randint(0, N_BLOCKS // 64, (k,), generator=g, device=dev)
         ids[::9] = L + torch.arange(len(ids[::9]), device=dev)  # inert lanes
         w = torch.rand(k, generator=g, device=dev) + 0.5
+        # uniform: drawn as a drain tick draws them, k / 2 distinct writes and
+        # k / 2 distinct reads over the blocks, each weighing 1.0
+        uids = torch.cat([distinct_ids(N_BLOCKS, k // 2, host) for _ in range(2)]).to(dev)
+        cases[f"uniform_k{k}"] = (uids, torch.ones(k, device=dev))
+        cases[f"skewed_k{k}"] = (ids, w)
+    for name, (ids, w) in cases.items():
+        k = ids.shape[0]
         want = ref.heat_scan_ref(heat0.clone(), ids, w, 0.9)
         got = heat_scan.heat_scan(heat0.clone(), ids, w, 0.9)
         again = heat_scan.heat_scan(heat0.clone(), ids, w, 0.9)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **HEAT_TOL)
-        check(torch.equal(got, again), "heat_scan is bit-identical run to run")
+        check(torch.equal(got, again), f"heat_scan {name} is bit-identical run to run")
         h = heat0.clone()
         padded = torch.zeros(L + 1, device=dev)
         clamped = ids.clamp(max=L)
         b, by = bound_ms(2 * L * 4 + k * 12, 2 * L + k)
-        per_k[k] = dict(
+        results[name] = r = dict(
             max_abs_err=float((got - want).abs().max()),
             ms=time_ms(lambda: heat_scan.heat_scan(h, ids, w, 0.9)),
             plain_ms=time_ms(lambda: ref.heat_scan_ref(h, ids, w, 0.9)),
             library_ms=time_ms(lambda: padded.mul_(0.9).index_add_(0, clamped, w)),
-            bound_ms=b, bound_by=by,
+            bound_ms=b, bound_by=by, ctas=heat_scan.scan_tiles(L),
         )
-        r = per_k[k]
-        print(f"heat_scan K={k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        print(f"heat_scan {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {b:.6f}), max err {r['max_abs_err']:.3g}")
-    main = per_k[2 * IO_PER_TICK]
-    rows.append(dict(
+    return dict(
         name="heat_scan", route="cuda", source="src/repro_torch/kernels/csrc/heat_scan.cu",
-        replaces="src/repro/kernels/heat_scan.py:58", launches=0, **main,
-        shape=f"heat [{L}] f32, K={2 * IO_PER_TICK}", at_k1024=per_k[1024],
-    ))
-    return rows
+        replaces="src/repro/kernels/heat_scan.py:58", launches=0,
+        **results[f"uniform_k{2 * IO_PER_TICK}"],
+        shape=f"heat [{L}] f32, K={2 * IO_PER_TICK} uniform (a drain tick's samples)",
+        cases=results,
+    )
 
 
 # -- phase 12: the gather and scatter kernels against their plain versions -----
@@ -670,7 +688,10 @@ def paged_timings(q, view, tables, lens, lens_host) -> dict:
         plain_ms=time_ms(lambda: ref.paged_decode_ref(q, view, tables, lens)),
         library_ms=time_ms(library), bound_ms=b, bound_by=by,
         library_max_abs_err=float((library().float() - want.float()).abs().max()),
-        tokens=int(lens_host.sum()),
+        tokens=int(lens_host.sum()), split_tokens=paged_attn.SPLIT_TOKENS,
+        # the kernel's grid, and the CTAs in it that do work (the rest exit at once)
+        ctas=p["b"] * p["kvh"] * paged_attn.decode_splits(p["maxb"], p["blk"]),
+        live_ctas=p["kvh"] * sum(paged_attn.live_splits(lens_host.tolist(), p["maxb"], p["blk"])),
     )
 
 
@@ -679,49 +700,63 @@ def paged_decode_checks(dev) -> dict:
     host = torch.Generator().manual_seed(SEED)
     lens = torch.randint(2, p["maxb"] * p["blk"], (p["b"],), generator=host)
     lens[0], lens[-1] = 1, p["maxb"] * p["blk"]  # one sequence of 1 token, one of 1024
+    split = paged_attn.SPLIT_TOKENS  # lens on and around the kernel's split boundaries
+    split_lens = torch.tensor([1, split - 1, split, split + 1, 2 * split, 3 * split + 1,
+                               9 * split, p["maxb"] * p["blk"]])
     errs = {}
     for dtype, softcap in ((torch.bfloat16, 0.0), (torch.float32, 20.0)):
         q, view, tables, lens_d = paged_inputs(dev, dtype, lens, SEED)
         check(not view.is_contiguous(), "the kernel reads a strided per-layer view")
-        got = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"], softcap=softcap)
-        again = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"],
-                                         softcap=softcap)
-        want = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"],
-                                        softcap=softcap, impl="ref")
-        torch.cuda.synchronize()
-        for a, b, w in zip(got, again, want):
-            check(torch.equal(a, b), f"paged_decode {dtype} is bit-identical run to run")
-            torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
-        check(torch.equal(got[2][0], torch.ones_like(got[2][0])), "a 1-token sequence has l == 1")
-        pad = (torch.arange(p["maxb"], device=dev)[None, :]
-               >= (lens_d[:, None] + p["blk"] - 1) // p["blk"])
-        garbage = tables.masked_fill(pad, 2**31 - 1)  # out of range: any read would fault
-        unread = ops.paged_decode_partial(q, view, garbage, lens_d, kv_heads=p["kvh"],
-                                          softcap=softcap)
-        check(all(torch.equal(a, b) for a, b in zip(unread, got)),
-              f"paged_decode {dtype} reads no pad table entry")
-        errs[str(dtype)] = max(float((a.float() - w.float()).abs().max())
-                               for a, w in zip(got, want))
+        for name, lh in (("mixed", lens), ("split boundaries", split_lens)):
+            ld = lh.int().to(dev)
+            got = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"], softcap=softcap)
+            again = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"],
+                                             softcap=softcap)
+            want = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"],
+                                            softcap=softcap, impl="ref")
+            torch.cuda.synchronize()
+            for a, b, w in zip(got, again, want):
+                check(torch.equal(a, b), f"paged_decode {dtype} {name} is bit-identical run to run")
+                torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+            check(torch.equal(got[2][0], torch.ones_like(got[2][0])),
+                  "a 1-token sequence has l == 1")
+            pad = (torch.arange(p["maxb"], device=dev)[None, :]
+                   >= (ld[:, None] + p["blk"] - 1) // p["blk"])
+            garbage = tables.masked_fill(pad, 2**31 - 1)  # out of range: any read would fault
+            unread = ops.paged_decode_partial(q, view, garbage, ld, kv_heads=p["kvh"],
+                                              softcap=softcap)
+            check(all(torch.equal(a, b) for a, b in zip(unread, got)),
+                  f"paged_decode {dtype} {name} reads no pad table entry")
+            errs[(str(dtype), name)] = max(float((a.float() - w.float()).abs().max())
+                                           for a, w in zip(got, want))
+            del got, again, want, unread
         if dtype == torch.bfloat16:
             row_t = paged_timings(q, view, tables, lens_d, lens)
             serve_lens = torch.full((p["b"],), SERVE["prompt_len"] + SERVE["steps"] // 2)
             at_serving = paged_timings(q, view, tables, serve_lens.int().to(dev), serve_lens)
-        del q, view, tables, got, again, want
+        del q, view, tables
         torch.cuda.empty_cache()
+    bf16, f32 = str(torch.bfloat16), str(torch.float32)
     row = dict(
         name="paged_decode", route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
         replaces="src/repro/kernels/paged_attn.py:101", launches=0,
-        max_abs_err=errs[str(torch.bfloat16)], **row_t,
-        f32_softcap_max_abs_err=errs[str(torch.float32)],
+        max_abs_err=errs[(bf16, "mixed")], **row_t,
+        f32_softcap_max_abs_err=errs[(f32, "mixed")],
+        split_boundaries=dict(lens=split_lens.tolist(), bf16_max_abs_err=errs[(bf16, "split boundaries")],
+                              f32_softcap_max_abs_err=errs[(f32, "split boundaries")]),
         shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16, layer {p['layer']} of a "
                f"[{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, {p['hd']}] pool, "
                f"MAXB {p['maxb']}, lens {lens.tolist()}"),
         at_serving_lens=at_serving,
     )
     print(f"paged_decode: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
-          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}), max err bf16 "
-          f"{errs[str(torch.bfloat16)]:.3g}, f32 softcap {errs[str(torch.float32)]:.3g}; at "
-          f"serving lens {at_serving['ms']:.4f} ms (bound {at_serving['bound_ms']:.4f})")
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, {row['live_ctas']} of "
+          f"{row['ctas']} CTAs live), max err bf16 {errs[(bf16, 'mixed')]:.3g}, f32 softcap "
+          f"{errs[(f32, 'mixed')]:.3g}; at serving lens {at_serving['ms']:.4f} ms (library "
+          f"{at_serving['library_ms']:.4f}, bound {at_serving['bound_ms']:.4f}, "
+          f"{at_serving['live_ctas']} CTAs live); at split boundaries {split_lens.tolist()} max "
+          f"err bf16 {errs[(bf16, 'split boundaries')]:.3g}, f32 softcap "
+          f"{errs[(f32, 'split boundaries')]:.3g}")
     return row
 
 
@@ -1042,7 +1077,7 @@ def main() -> int:
     _build.load()
     print(f"kernels built in {_build.build_info['seconds']:.2f} s: {_build.build_info['path']}")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     rows = kernel_checks(dev)

@@ -10,6 +10,11 @@ replaces the TPU kernel ``heat_scan_pallas`` of the JAX package's
 ``kernels/heat_scan.py``.  A CUDA tensor launches the kernel on the current
 stream; a CPU tensor takes the plain version in :mod:`.ref`.  Either way the
 plane is updated in place and returned, and ids ``>= len(heat)`` are inert.
+
+The kernel gives each CTA a tile of :data:`TILE_ENTRIES` entries
+(:func:`scan_tiles` sizes the grid from ``L``); a CTA keeps the samples that
+fall in its tile, in sample order, in a shared buffer of
+:data:`SAMPLE_BUFFER` samples, folded in rounds when more arrive.
 """
 
 from __future__ import annotations
@@ -20,11 +25,19 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _TILE = 1024  # the JAX plane's tile (8 sublanes x 128 lanes); kept for parity
+TILE_ENTRIES = 1024  # heat entries per CTA: csrc/heat_scan.cu's kTileEntries
+SAMPLE_BUFFER = 2048  # samples a CTA's shared buffer holds: its kBuf
+SAMPLE_CHUNK = 256  # samples the CTA filters at a time: its kThreads
 
 
 def padded_heat_len(n_blocks: int) -> int:
     """Smallest multiple of 1024 holding ``n_blocks`` (the JAX plane's length)."""
     return max(1, (max(n_blocks, 1) + _TILE - 1) // _TILE) * _TILE
+
+
+def scan_tiles(n_heat: int) -> int:
+    """CTAs in the kernel's grid: one per ``TILE_ENTRIES`` entries of the plane."""
+    return -(-n_heat // TILE_ENTRIES)
 
 
 def heat_scan(heat: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, decay: float):
@@ -47,6 +60,7 @@ def heat_scan(heat: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, decay: flo
             w.data_ptr(),
             heat.shape[0],
             ids.shape[0],
+            scan_tiles(heat.shape[0]),
             float(np.float32(decay)),
             torch.cuda.current_stream(heat.device).cuda_stream,
         )

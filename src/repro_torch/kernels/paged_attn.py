@@ -12,6 +12,9 @@ stream; a CPU tensor takes the plain version in :mod:`.ref`.
 
 What bounds it on the card is the bytes of K and V it reads,
 ``sum(lens) * KVH * hd * 2 * dtype bytes``; its flops are a few per byte.
+The kernel splits each sequence into :data:`SPLIT_TOKENS`-token splits, one
+CTA each, and merges the splits' flash partials inside the same launch
+(:func:`decode_splits` sizes the grid from ``MAXB * BLK`` alone).
 
 The pool operand is ``[S, 2, BLK, KVH, hd]`` with dense inner dims and any
 slot stride: the serving engine hands it one layer of a pool whose slots hold
@@ -28,6 +31,34 @@ from repro_torch.kernels import _build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)  # 64 and 128 are the models'; 16 the reduced configs'
 MAX_GROUP = 16  # query rows per kv head the kernel holds
+SPLIT_TOKENS = 64  # tokens per CTA: csrc/paged_attn.cu's kSplit
+
+
+def decode_splits(maxb: int, blk: int) -> int:
+    """Splits per (sequence, kv head) in the kernel's grid: ``ceil(MAXB * BLK
+    / SPLIT_TOKENS)``, from the table's width alone (no read of ``lens``)."""
+    return max(1, -(-maxb * blk // SPLIT_TOKENS))
+
+
+def live_splits(lens, maxb: int, blk: int) -> list[int]:
+    """The splits that do work for each sequence (the rest exit at once):
+    ``ceil(min(len, MAXB * BLK) / SPLIT_TOKENS)``, at least 1."""
+    cap = maxb * blk
+    return [max(1, -(-min(int(n), cap) // SPLIT_TOKENS)) for n in lens]
+
+
+# per (device, stream): an int32 ticket per (sequence, kv head), zero
+# between launches (the kernel returns each to zero), grown on demand
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def _check_operands(q, kv_pool, tables, lens) -> None:
@@ -79,10 +110,18 @@ def paged_decode(
         )
         return out.reshape(b, kvh, g, hd), m.reshape(b, kvh, g), l.reshape(b, kvh, g)
     _check_operands(q, kv_pool, tables, lens)
+    blk, maxb = kv_pool.shape[2], tables.shape[1]
+    n_split = decode_splits(maxb, blk)
     out = torch.empty_like(q)
     m = torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    # the splits' partials: written by every live split of a sequence with
+    # more than one, read by its last; never read before written
+    part_o = torch.empty((b * kvh, n_split, g, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b * kvh, n_split, g, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        tickets = _ticket_buffer(q.device, stream, b * kvh)
         err = _build.load().leap_paged_decode(
             q.data_ptr(),
             kv_pool.data_ptr(),
@@ -91,17 +130,21 @@ def paged_decode(
             out.data_ptr(),
             m.data_ptr(),
             l.data_ptr(),
+            part_o.data_ptr(),
+            part_ml.data_ptr(),
+            tickets.data_ptr(),
             b,
             kvh,
             g,
             hd,
-            kv_pool.shape[2],
-            tables.shape[1],
+            blk,
+            maxb,
+            n_split,
             kv_pool.stride(0),
             float(np.float32(softcap)),
             float(np.float32(1.0 / (hd**0.5))),  # the fp32 scale the plain version uses
             _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            stream,
         )
     if err:
         raise RuntimeError(f"leap_paged_decode launch failed: CUDA error {err}")

@@ -62,6 +62,53 @@ def test_heat_scan_matches_plain_and_repeats_bit_for_bit(cuda):
     assert torch.equal(got, again)  # no atomics: bit-identical run to run
 
 
+def _heat_case(dev, n_heat, k, where, seed):
+    """A plane of ``n_heat`` entries and ``k`` samples: ``uniform`` over the
+    plane, ``skewed`` into its first 2,048 entries, or ``one_tile`` into
+    entries 1024..2047; every 9th lane inert (an id at or past the plane)."""
+    g = torch.Generator().manual_seed(seed)
+    heat = torch.rand(n_heat, generator=g) * 10
+    hi = {"uniform": (0, n_heat), "skewed": (0, 2048), "one_tile": (1024, 2048)}[where]
+    ids = torch.randint(*hi, (k,), generator=g)
+    ids[::9] = n_heat + torch.arange(len(ids[::9]))
+    w = torch.rand(k, generator=g) + 0.5
+    return heat.to(dev), ids.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("where", ["uniform", "skewed", "one_tile"])
+@pytest.mark.parametrize("k", [128, 1024, 4096])  # 4096 in one tile: the buffer folds in rounds
+def test_heat_scan_binned_matches_plain(cuda, where, k):
+    heat, ids, w = _heat_case(cuda, heat_scan.padded_heat_len(131072), k, where, seed=k)
+    want = ref.heat_scan_ref(heat.clone(), ids, w, 0.9)
+    before = heat_scan.heat_scan.launches
+    got = heat_scan.heat_scan(heat.clone(), ids, w, 0.9)
+    again = heat_scan.heat_scan(heat.clone(), ids, w, 0.9)
+    torch.cuda.synchronize()
+    assert heat_scan.heat_scan.launches == before + 2
+    torch.testing.assert_close(got, want, **HEAT_TOL)
+    assert torch.equal(got, again)
+    untouched = torch.ones_like(heat, dtype=torch.bool)
+    untouched[ids[ids < heat.numel()]] = False
+    assert torch.equal(got[untouched], heat[untouched] * 0.9)  # decay alone: no sample
+
+
+@pytest.mark.parametrize("n_heat, offset", [(3000, 0), (4096, 1)])
+def test_heat_scan_ragged_and_unaligned_planes(cuda, n_heat, offset):
+    """A plane that is no multiple of the tile, and one that starts off a
+    16-byte boundary (the kernel's scalar path)."""
+    base, ids, w = _heat_case(cuda, n_heat + offset, 600, "uniform", seed=n_heat)
+    ids = ids - offset
+    ids[ids < 0] = n_heat  # inert
+    before = base.clone()
+    heat = base[offset:]
+    assert (heat.data_ptr() % 16 == 0) == (offset == 0)
+    want = ref.heat_scan_ref(heat.clone(), ids, w, 0.5)
+    got = heat_scan.heat_scan(heat, ids, w, 0.5)  # in place on the view
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **HEAT_TOL)
+    assert torch.equal(base[:offset], before[:offset])  # nothing before the view is written
+
+
 def test_ops_launch_kernels_on_cuda_and_count_them(cuda):
     pool = torch.zeros(16, 1, 64, device=cuda)
     idx = torch.tensor([0, 1], device=cuda)
@@ -168,7 +215,7 @@ def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("g", [1, 4, 7])
+@pytest.mark.parametrize("g", [1, 4, 7, 16])  # each of the kernel's G bounds (4, 8, 16)
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("softcap", [0.0, 20.0])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, g, hd, softcap):
@@ -203,6 +250,72 @@ def test_paged_decode_kernel_never_reads_pad_entries(cuda, dtype):
     want = ops.paged_decode_partial(q, view, garbage, lens, kv_heads=2, impl="ref")
     torch.cuda.synchronize()
     for a, c, w in zip(got, clean, want):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+
+
+def _split_lens(maxb, blk, b):
+    """Lens on and around the kernel's split boundaries, 1 and MAXB * BLK."""
+    split = paged_attn.SPLIT_TOKENS
+    lens = [1, split - 1, split, split + 1, 2 * split, 3 * split + 1, maxb * blk]
+    return torch.tensor((lens * b)[:b], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+def test_paged_decode_kernel_at_split_boundaries(cuda, dtype, hd, softcap):
+    b, kvh, g, blk, maxb = 7, 2, 4, 16, 16
+    q, view, tables, _ = _paged_inputs(cuda, dtype, b=b, kvh=kvh, g=g, hd=hd, blk=blk, maxb=maxb)
+    lens = _split_lens(maxb, blk, b).to(cuda)
+    assert paged_attn.live_splits(lens.tolist(), maxb, blk) == [1, 1, 1, 2, 2, 4, 4]
+    got = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=softcap)
+    again = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=softcap)
+    want = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=softcap,
+                                    impl="ref")
+    torch.cuda.synchronize()
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)  # the merge runs in split order: bit-identical
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+    assert torch.equal(got[2][0], torch.ones_like(got[2][0]))  # lens 1: l is exactly 1
+    # every ticket went back to zero for the next launch
+    assert all(int(t.count_nonzero()) == 0 for t in paged_attn._tickets.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_decode_kernel_mixed_lens_never_reads_pads(cuda, dtype):
+    """granite's widths (8 kv heads of 64, G 4) over a 1,024-token table,
+    lens from 1 to 1,024, pad entries out of range."""
+    b, kvh, g, hd, blk, maxb = 8, 8, 4, 64, 16, 64
+    q, view, tables, lens = _paged_inputs(cuda, dtype, b=b, kvh=kvh, g=g, hd=hd, blk=blk,
+                                          maxb=maxb, n_layers=2, seed=3)
+    pad = torch.arange(maxb, device=cuda)[None, :] >= (lens[:, None] + blk - 1) // blk
+    garbage = tables.masked_fill(pad, 2**31 - 1)  # out of range: any read would fault
+    got = ops.paged_decode_partial(q, view, garbage, lens, kv_heads=kvh, softcap=20.0)
+    clean = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=20.0)
+    want = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=20.0,
+                                    impl="ref")
+    torch.cuda.synchronize()
+    for a, c, w in zip(got, clean, want):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_decode_kernel_merges_more_than_32_splits(cuda, dtype):
+    """Sequences of 40 and 33 splits: the merge takes its weights 32 splits
+    at a time, and its prefetched partials cover only the first few."""
+    b, kvh, g, hd, blk, maxb = 2, 2, 4, 64, 16, 160
+    q, view, tables, _ = _paged_inputs(cuda, dtype, b=b, kvh=kvh, g=g, hd=hd, blk=blk, maxb=maxb)
+    lens = torch.tensor([maxb * blk, 32 * paged_attn.SPLIT_TOKENS + 1], dtype=torch.int32)
+    assert paged_attn.live_splits(lens.tolist(), maxb, blk) == [40, 33]
+    lens = lens.to(cuda)
+    got = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=20.0)
+    again = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=20.0)
+    want = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, softcap=20.0,
+                                    impl="ref")
+    torch.cuda.synchronize()
+    for a, c, w in zip(got, again, want):
         assert torch.equal(a, c)
         torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
 

@@ -116,6 +116,72 @@ def test_padded_heat_len_matches_jax():
         assert heat_scan.padded_heat_len(n) == jax_padded_heat_len(n)
 
 
+def test_scan_tiles_sizes_the_grid_from_the_plane():
+    assert heat_scan.TILE_ENTRIES == 1024
+    assert heat_scan.scan_tiles(131072) == 128  # the drains' plane: one wave of CTAs
+    assert [heat_scan.scan_tiles(n) for n in (0, 1, 1024, 1025, 3000)] == [0, 1, 1, 2, 3]
+    # a chunk always fits in the buffer once it has been folded in
+    assert heat_scan.SAMPLE_BUFFER % heat_scan.SAMPLE_CHUNK == 0
+    assert heat_scan.SAMPLE_BUFFER >= 2 * heat_scan.SAMPLE_CHUNK
+
+
+def _binned_plan(heat, ids, w, decay):
+    """The CUDA kernel's plan in float32 numpy: per tile of TILE_ENTRIES, the
+    samples that hit it in sample order, buffered SAMPLE_CHUNK at a time and
+    folded in when the next chunk might not fit; each entry sums its weights
+    in that order from zero, then ``heat * decay + acc``.  Returns the plane
+    and the number of folds before the last, over all tiles."""
+    tile, buf, chunk = heat_scan.TILE_ENTRIES, heat_scan.SAMPLE_BUFFER, heat_scan.SAMPLE_CHUNK
+    out = heat.copy()
+    early_folds = 0
+    for t in range(heat_scan.scan_tiles(len(heat))):
+        lo = t * tile
+        acc = np.zeros(min(tile, len(heat) - lo), np.float32)
+        pending = []
+
+        def fold():
+            for off, x in pending:
+                acc[off] = np.float32(acc[off] + x)
+            pending.clear()
+
+        for base in range(0, len(ids), chunk):
+            if len(pending) > buf - chunk:
+                fold()
+                early_folds += 1
+            pending += [(int(i) - lo, x) for i, x in zip(ids[base:base + chunk], w[base:base + chunk])
+                        if 0 <= int(i) - lo < len(acc)]
+        fold()
+        out[lo:lo + len(acc)] = heat[lo:lo + len(acc)] * np.float32(decay) + acc
+    return out, early_folds
+
+
+@pytest.mark.parametrize(
+    "where, k",
+    [("uniform", 128), ("uniform", 1024), ("skewed", 1024), ("one_tile", 700),
+     ("one_tile", 2600), ("inert", 300)],
+)
+def test_binned_plan_matches_pallas(where, k):
+    """Uniform samples, samples skewed into two tiles, all in one tile, more
+    in one tile than its buffer holds (folded in rounds), and ids >= L."""
+    rng = np.random.default_rng(k)
+    L = 4096
+    heat = rng.gamma(1.0, 1.0, size=L).astype(np.float32)
+    lo, hi = {"uniform": (0, L), "skewed": (0, 2048), "one_tile": (1024, 2048),
+              "inert": (0, L)}[where]
+    ids = rng.integers(lo, hi, size=k)
+    if where == "inert":
+        ids[rng.random(k) < 0.5] = L + rng.integers(0, 1000)
+    w = rng.uniform(0.25, 2.0, size=k).astype(np.float32)
+    got, early_folds = _binned_plan(heat, ids, w, 0.9)
+    assert (early_folds > 0) == (where == "one_tile" and k > heat_scan.SAMPLE_BUFFER)
+    want = heat_scan_pallas(jnp.asarray(heat), jnp.asarray(ids, jnp.int32), jnp.asarray(w),
+                            0.9, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **HEAT_TOL)
+    plain = ref.heat_scan_ref(torch.from_numpy(heat.copy()), torch.from_numpy(ids),
+                              torch.from_numpy(w), 0.9)
+    np.testing.assert_allclose(got, plain.numpy(), **HEAT_TOL)
+
+
 # ---------------------------------------------------------------------------
 # Dispatcher: CPU tensors take the plain version, "cuda" on the CPU raises
 # ---------------------------------------------------------------------------

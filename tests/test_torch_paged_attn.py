@@ -163,3 +163,84 @@ def test_strided_layer_view_equals_the_contiguous_copy(softcap):
     torch.testing.assert_close(out.reshape(b, h, hd), got[0], rtol=0, atol=0)
     torch.testing.assert_close(m.reshape(b, h), got[1], rtol=0, atol=0)
     assert paged_attn.paged_decode.launches == 0  # no card, no launch
+
+
+# -- the CUDA kernel's split over the sequence, modelled with the plain version --
+
+SPLIT = paged_attn.SPLIT_TOKENS
+# (B, H, KVH, hd, BLK, MAXB) with tables longer than one split, and the lens
+# each case takes: split boundaries, 1-token sequences and the full table
+SPLIT_CASES = [
+    ((6, 8, 2, 64, 16, 12), [1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT, 12 * 16]),
+    ((4, 4, 1, 128, 8, 20), [SPLIT + 1, 2 * SPLIT + 1, 1, 20 * 8]),  # MQA, hd 128
+    ((3, 12, 4, 64, 16, 9), [3 * SPLIT, 1, 2 * SPLIT - 1]),  # GQA g = 3
+]
+
+
+def test_decode_splits_sizes_the_grid_from_the_table():
+    assert SPLIT % 16 == 0  # a split holds whole pages of the models' 16 tokens
+    assert paged_attn.decode_splits(64, 16) == 16  # granite serving: 1,024-token tables
+    assert paged_attn.decode_splits(12, 16) == 3
+    assert paged_attn.decode_splits(4, 8) == 1
+    assert paged_attn.decode_splits(5, 13) == 2  # 65 tokens: a page may straddle two splits
+    assert paged_attn.decode_splits(1, 1) == 1
+    assert paged_attn.live_splits([1, 63, 64, 65, 128, 1024, 5000], 64, 16) == [
+        1, 1, 1, 2, 2, 16, 16]  # lens past the table are cut to MAXB * BLK
+    assert paged_attn.live_splits(torch.tensor([0, 576]), 64, 16) == [1, 9]
+
+
+def _split_plan(q, kv, tables, lens, softcap=0.0):
+    """What the kernel computes: each live split of SPLIT tokens through the
+    plain version in fp32, then ``combine_partials`` over the live splits
+    (empty splits skipped; a sequence of one split keeps its partials)."""
+    b, h, hd = q.shape
+    blk, maxb = kv.shape[2], tables.shape[1]
+    pages = SPLIT // blk
+    qf, kvf = q.float(), kv.float()
+    live = paged_attn.live_splits(lens, maxb, blk)
+    outs, ms, ls = [], [], []
+    for i in range(b):
+        parts = []
+        for j in range(live[i]):
+            n = min(SPLIT, int(lens[i]) - j * SPLIT)
+            parts.append(ref.paged_decode_ref(
+                qf[i:i + 1], kvf, tables[i:i + 1, j * pages:(j + 1) * pages],
+                torch.tensor([n], dtype=torch.int32), softcap=softcap))
+        if len(parts) == 1:
+            o, m, l = parts[0]
+        else:
+            po, pm, pl = (torch.stack([p[k] for p in parts]) for k in range(3))
+            o = ref.combine_partials(po, pm, pl)
+            m = pm.amax(dim=0)
+            l = (pl * torch.exp(pm - m[None])).sum(dim=0)
+        outs.append(o)
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs).to(q.dtype), torch.cat(ms), torch.cat(ls)
+
+
+@pytest.mark.parametrize("case_lens", SPLIT_CASES + [(c, None) for c in CASES],
+                         ids=lambda c: "x".join(map(str, c[0])))
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+def test_split_plan_matches_pallas_and_the_whole_sequence(case_lens, bf16, softcap):
+    case, lens = case_lens
+    b, h, kvh, hd, blk, maxb = case
+    q, kv, tables, drawn = _inputs(*case, seed=b + maxb, bf16=bf16)
+    lens = drawn if lens is None else np.asarray(lens, np.int32)
+    assert SPLIT % blk == 0
+    out, m, l = paged_decode_pallas(
+        jnp.asarray(q).reshape(b, kvh, h // kvh, hd), jnp.asarray(kv), jnp.asarray(tables),
+        jnp.asarray(lens), softcap=softcap, interpret=True,
+    )
+    args = (_torch(q), _torch(kv), _torch(tables), _torch(lens))
+    got = _split_plan(*args, softcap=softcap)
+    whole = ref.paged_decode_ref(*args, softcap=softcap)
+    tol = BF16_TOL if bf16 else F32_TOL
+    for x, y in zip(got, whole):
+        np.testing.assert_allclose(_np(x), _np(y), **tol)
+    np.testing.assert_allclose(_np(got[0]), np.asarray(out, np.float32).reshape(b, h, hd), **tol)
+    np.testing.assert_allclose(_np(got[1]), np.asarray(m).reshape(b, h), **tol)
+    np.testing.assert_allclose(_np(got[2]), np.asarray(l).reshape(b, h), **tol)
+    ones = lens == 1
+    np.testing.assert_array_equal(_np(got[2])[ones], 1.0)  # a 1-token sequence keeps l == 1
