@@ -327,7 +327,7 @@ def heat_scan_checks(dev, g, host) -> dict:
             ms=time_ms(lambda: heat_scan.heat_scan(h, ids, w, 0.9)),
             plain_ms=time_ms(lambda: ref.heat_scan_ref(h, ids, w, 0.9)),
             library_ms=time_ms(lambda: padded.mul_(0.9).index_add_(0, clamped, w)),
-            bound_ms=b, bound_by=by, ctas=heat_scan.scan_tiles(L),
+            bound_ms=b, bound_by=by,
         )
         print(f"heat_scan {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {b:.6f}), max err {r['max_abs_err']:.3g}")
@@ -688,11 +688,17 @@ def paged_timings(q, view, tables, lens, lens_host) -> dict:
         plain_ms=time_ms(lambda: ref.paged_decode_ref(q, view, tables, lens)),
         library_ms=time_ms(library), bound_ms=b, bound_by=by,
         library_max_abs_err=float((library().float() - want.float()).abs().max()),
-        tokens=int(lens_host.sum()), split_tokens=paged_attn.SPLIT_TOKENS,
-        # the kernel's grid, and the CTAs in it that do work (the rest exit at once)
-        ctas=p["b"] * p["kvh"] * paged_attn.decode_splits(p["maxb"], p["blk"]),
-        live_ctas=p["kvh"] * sum(paged_attn.live_splits(lens_host.tolist(), p["maxb"], p["blk"])),
+        tokens=int(lens_host.sum()),
     )
+
+
+def paged_grid(lens_host) -> str:
+    """The grid the wrapper launches and, by the kernel's exit rule, the CTAs
+    in it that do work: derived from the shapes, not measured."""
+    p, split = PAGED, paged_attn.SPLIT_TOKENS
+    live = p["kvh"] * sum(max(1, -(-int(n) // split)) for n in lens_host)
+    return (f"{live} of {p['b'] * p['kvh'] * paged_attn.decode_splits(p['maxb'], p['blk'])} "
+            f"CTAs live by the {split}-token split rule")
 
 
 def paged_decode_checks(dev) -> dict:
@@ -742,7 +748,8 @@ def paged_decode_checks(dev) -> dict:
         replaces="src/repro/kernels/paged_attn.py:101", launches=0,
         max_abs_err=errs[(bf16, "mixed")], **row_t,
         f32_softcap_max_abs_err=errs[(f32, "mixed")],
-        split_boundaries=dict(lens=split_lens.tolist(), bf16_max_abs_err=errs[(bf16, "split boundaries")],
+        split_boundaries=dict(lens=split_lens.tolist(),
+                              bf16_max_abs_err=errs[(bf16, "split boundaries")],
                               f32_softcap_max_abs_err=errs[(f32, "split boundaries")]),
         shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16, layer {p['layer']} of a "
                f"[{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, {p['hd']}] pool, "
@@ -750,11 +757,11 @@ def paged_decode_checks(dev) -> dict:
         at_serving_lens=at_serving,
     )
     print(f"paged_decode: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
-          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, {row['live_ctas']} of "
-          f"{row['ctas']} CTAs live), max err bf16 {errs[(bf16, 'mixed')]:.3g}, f32 softcap "
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, {paged_grid(lens)}), max err "
+          f"bf16 {errs[(bf16, 'mixed')]:.3g}, f32 softcap "
           f"{errs[(f32, 'mixed')]:.3g}; at serving lens {at_serving['ms']:.4f} ms (library "
           f"{at_serving['library_ms']:.4f}, bound {at_serving['bound_ms']:.4f}, "
-          f"{at_serving['live_ctas']} CTAs live); at split boundaries {split_lens.tolist()} max "
+          f"{paged_grid(serve_lens)}); at split boundaries {split_lens.tolist()} max "
           f"err bf16 {errs[(bf16, 'split boundaries')]:.3g}, f32 softcap "
           f"{errs[(f32, 'split boundaries')]:.3g}")
     return row

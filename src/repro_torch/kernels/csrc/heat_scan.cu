@@ -41,9 +41,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 4;
-constexpr int kTileEntries = kThreads * kPerThread;  // heat_scan.py TILE_ENTRIES
+constexpr int kTileEntries = kThreads * kPerThread;
 constexpr int kBatch = 4;     // chunks of kThreads samples loaded at once
-constexpr int kBuf = 2048;    // compacted samples a tile holds (heat_scan.py SAMPLE_BUFFER)
+constexpr int kBuf = 2048;    // compacted samples a tile holds
 
 // acc[e] += w of every buffered sample that hits entry tid * 4 + e, in
 // sample order.  Warp `warp` owns the tile's entries [128 warp, 128 warp +
@@ -151,14 +151,13 @@ heat_scan_kernel(float* __restrict__ heat, const long long* __restrict__ ids,
 
 }  // namespace
 
-// In place on heat[0:n_heat]; ids and w hold n_samples entries.  n_tiles
-// must be ceil(n_heat / 1024), one CTA each.  Returns a cudaError_t.
+// In place on heat[0:n_heat]; ids and w hold n_samples entries.  One CTA
+// per tile of 1024 entries.  Returns a cudaError_t.
 extern "C" int leap_heat_scan(void* heat, const void* ids, const void* w, long long n_heat,
-                              long long n_samples, long long n_tiles, float decay,
-                              void* stream) {
+                              long long n_samples, float decay, void* stream) {
   if (n_heat <= 0) return 0;
-  if (n_tiles != (n_heat + kTileEntries - 1) / kTileEntries || n_tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (n_heat + kTileEntries - 1) / kTileEntries;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   heat_scan_kernel<<<(unsigned)n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(heat), static_cast<const long long*>(ids),
       static_cast<const float*>(w), n_heat, n_samples, decay);

@@ -41,8 +41,8 @@
 //   shuffles, so a tile costs two barriers.  P . V: a thread per (pair of
 //   columns, group of tokens) keeps the sums of every query row, so each V
 //   element is read from shared memory once; the groups' sums are added in
-//   group order at the end.  The per-row work is sized by GM, the smallest
-//   of 4, 8 and 16 that holds G, not by the largest G.
+//   group order at the end.  The per-row work is sized by GM, 4 where G
+//   fits in 4 (granite) and 16 above, not always by the largest G.
 // - Merge in the same launch.  A sequence with one live split writes its
 //   result directly.  Otherwise each split writes its partials (acc / l,
 //   m, l) to scratch, and the last CTA of each (b, kv head), found by an
@@ -61,8 +61,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kSplit = 64;           // tokens per split (paged_attn.py SPLIT_TOKENS)
-constexpr int kMaxG = 16;            // query rows per kv head (the kernels' GM is 4, 8 or 16)
+constexpr int kSplit = 64;           // tokens per split
+constexpr int kMaxG = 16;            // query rows per kv head (the kernels' GM is 4 or 16)
 constexpr int kMaxHalfBytes = 8192;  // one stage's K (or V) rows in shared memory
 
 template <typename T, int HD>
@@ -149,7 +149,7 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// The kernel's body; GM (4, 8 or 16) bounds G and sizes the per-row work.
+// The kernel's body; GM (4 or 16) bounds G and sizes the per-row work.
 template <typename T, int HD, int GM>
 __device__ __forceinline__ void paged_decode_split(
     const T* __restrict__ q,         // [B, KVH, G, HD]
@@ -511,9 +511,10 @@ int launch(const void* q, const void* kv, const void* tables, const void* lens, 
 // ceil(lens / BLK) is a valid slot.  out [B, KVH, G, HD] in q's dtype, m and
 // l [B, KVH, G] float32.  Scratch: part_o [B * KVH, n_split, G, HD] and
 // part_ml [B * KVH, n_split, G, 2] float32, any contents; tickets [B * KVH]
-// int32, zero, which the kernel leaves zero.  n_split must be
-// ceil(MAXB * BLK / 64).  Every pointer 16-byte aligned where it is read as
-// vectors (q, kv, part_ml); slot_stride in elements.  Returns a cudaError_t.
+// int32, zero, which the kernel leaves zero.  The grid is (B * KVH,
+// n_split); n_split splits of 64 tokens must cover MAXB * BLK.  Every
+// pointer 16-byte aligned where it is read as vectors (q, kv, part_ml);
+// slot_stride in elements.  Returns a cudaError_t.
 extern "C" int leap_paged_decode(const void* q, const void* kv, const void* tables,
                                  const void* lens, void* out, void* m, void* l, void* part_o,
                                  void* part_ml, void* tickets, long long b, long long kvh,
@@ -522,12 +523,12 @@ extern "C" int leap_paged_decode(const void* q, const void* kv, const void* tabl
                                  float scale, int dtype, void* stream) {
   if (b <= 0 || kvh <= 0) return 0;
   if (g < 1 || g > kMaxG || blk < 1 || maxb < 1 || b * kvh > 0x7fffffffLL ||
-      maxb * blk > 0x7fffffffLL - kSplit || n_split != (maxb * blk + kSplit - 1) / kSplit ||
+      maxb * blk > 0x7fffffffLL - kSplit || n_split * kSplit < maxb * blk ||
       n_split > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the smallest of 4, 8 and 16 that holds G sizes the kernel's per-row work
-  const int gm = g <= 4 ? 4 : g <= 8 ? 8 : 16;
+  // G <= 4 takes the small instance, any larger G the one sized for 16
+  const int gm = g <= 4 ? 4 : 16;
 #define LEAP_PAGED_DECODE_GM(T, HD, GM)                                                        \
   if (gm == GM)                                                                                \
     return launch<T, HD, GM>(q, kv, tables, lens, out, m, l, part_o, part_ml, tickets, b, kvh, \
@@ -535,7 +536,6 @@ extern "C" int leap_paged_decode(const void* q, const void* kv, const void* tabl
 #define LEAP_PAGED_DECODE_CASE(CODE, T, HD) \
   if (dtype == CODE && hd == HD) {          \
     LEAP_PAGED_DECODE_GM(T, HD, 4)          \
-    LEAP_PAGED_DECODE_GM(T, HD, 8)          \
     LEAP_PAGED_DECODE_GM(T, HD, 16)         \
   }
   LEAP_PAGED_DECODE_CASE(0, float, 16)

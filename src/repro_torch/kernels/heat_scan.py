@@ -11,10 +11,9 @@ replaces the TPU kernel ``heat_scan_pallas`` of the JAX package's
 stream; a CPU tensor takes the plain version in :mod:`.ref`.  Either way the
 plane is updated in place and returned, and ids ``>= len(heat)`` are inert.
 
-The kernel gives each CTA a tile of :data:`TILE_ENTRIES` entries
-(:func:`scan_tiles` sizes the grid from ``L``); a CTA keeps the samples that
-fall in its tile, in sample order, in a shared buffer of
-:data:`SAMPLE_BUFFER` samples, folded in rounds when more arrive.
+The kernel gives each CTA a tile of :data:`TILE_ENTRIES` entries (its grid
+is :func:`scan_tiles` CTAs); a CTA keeps the samples that fall in its tile,
+in sample order, in a shared buffer that it folds in rounds when more arrive.
 """
 
 from __future__ import annotations
@@ -24,19 +23,19 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_TILE = 1024  # the JAX plane's tile (8 sublanes x 128 lanes); kept for parity
-TILE_ENTRIES = 1024  # heat entries per CTA: csrc/heat_scan.cu's kTileEntries
-SAMPLE_BUFFER = 2048  # samples a CTA's shared buffer holds: its kBuf
-SAMPLE_CHUNK = 256  # samples the CTA filters at a time: its kThreads
+# the plane's padding unit (the JAX plane's tile, 8 sublanes x 128 lanes),
+# and the entries each CTA of csrc/heat_scan.cu owns (its kTileEntries)
+TILE_ENTRIES = 1024
 
 
 def padded_heat_len(n_blocks: int) -> int:
     """Smallest multiple of 1024 holding ``n_blocks`` (the JAX plane's length)."""
-    return max(1, (max(n_blocks, 1) + _TILE - 1) // _TILE) * _TILE
+    return max(1, (max(n_blocks, 1) + TILE_ENTRIES - 1) // TILE_ENTRIES) * TILE_ENTRIES
 
 
 def scan_tiles(n_heat: int) -> int:
-    """CTAs in the kernel's grid: one per ``TILE_ENTRIES`` entries of the plane."""
+    """CTAs in the kernel's grid, which the kernel's C entry sizes itself:
+    one per ``TILE_ENTRIES`` entries of the plane."""
     return -(-n_heat // TILE_ENTRIES)
 
 
@@ -60,7 +59,6 @@ def heat_scan(heat: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, decay: flo
             w.data_ptr(),
             heat.shape[0],
             ids.shape[0],
-            scan_tiles(heat.shape[0]),
             float(np.float32(decay)),
             torch.cuda.current_stream(heat.device).cuda_stream,
         )

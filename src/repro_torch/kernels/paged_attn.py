@@ -40,13 +40,6 @@ def decode_splits(maxb: int, blk: int) -> int:
     return max(1, -(-maxb * blk // SPLIT_TOKENS))
 
 
-def live_splits(lens, maxb: int, blk: int) -> list[int]:
-    """The splits that do work for each sequence (the rest exit at once):
-    ``ceil(min(len, MAXB * BLK) / SPLIT_TOKENS)``, at least 1."""
-    cap = maxb * blk
-    return [max(1, -(-min(int(n), cap) // SPLIT_TOKENS)) for n in lens]
-
-
 # per (device, stream): an int32 ticket per (sequence, kv head), zero
 # between launches (the kernel returns each to zero), grown on demand
 _tickets: dict[tuple[int, int], torch.Tensor] = {}

@@ -116,13 +116,20 @@ def test_padded_heat_len_matches_jax():
         assert heat_scan.padded_heat_len(n) == jax_padded_heat_len(n)
 
 
+# csrc/heat_scan.cu's shared sample buffer (kBuf) and the samples it filters
+# at a time (kThreads), as the plan below models them
+SAMPLE_BUFFER, SAMPLE_CHUNK = 2048, 256
+
+
 def test_scan_tiles_sizes_the_grid_from_the_plane():
     assert heat_scan.TILE_ENTRIES == 1024
     assert heat_scan.scan_tiles(131072) == 128  # the drains' plane: one wave of CTAs
     assert [heat_scan.scan_tiles(n) for n in (0, 1, 1024, 1025, 3000)] == [0, 1, 1, 2, 3]
+    for n in (1, 1000, 131072):  # a padded plane is whole tiles
+        assert heat_scan.padded_heat_len(n) == heat_scan.scan_tiles(n) * heat_scan.TILE_ENTRIES
     # a chunk always fits in the buffer once it has been folded in
-    assert heat_scan.SAMPLE_BUFFER % heat_scan.SAMPLE_CHUNK == 0
-    assert heat_scan.SAMPLE_BUFFER >= 2 * heat_scan.SAMPLE_CHUNK
+    assert SAMPLE_BUFFER % SAMPLE_CHUNK == 0
+    assert SAMPLE_BUFFER >= 2 * SAMPLE_CHUNK
 
 
 def _binned_plan(heat, ids, w, decay):
@@ -131,7 +138,7 @@ def _binned_plan(heat, ids, w, decay):
     folded in when the next chunk might not fit; each entry sums its weights
     in that order from zero, then ``heat * decay + acc``.  Returns the plane
     and the number of folds before the last, over all tiles."""
-    tile, buf, chunk = heat_scan.TILE_ENTRIES, heat_scan.SAMPLE_BUFFER, heat_scan.SAMPLE_CHUNK
+    tile, buf, chunk = heat_scan.TILE_ENTRIES, SAMPLE_BUFFER, SAMPLE_CHUNK
     out = heat.copy()
     early_folds = 0
     for t in range(heat_scan.scan_tiles(len(heat))):
@@ -148,8 +155,8 @@ def _binned_plan(heat, ids, w, decay):
             if len(pending) > buf - chunk:
                 fold()
                 early_folds += 1
-            pending += [(int(i) - lo, x) for i, x in zip(ids[base:base + chunk], w[base:base + chunk])
-                        if 0 <= int(i) - lo < len(acc)]
+            part = zip(ids[base:base + chunk], w[base:base + chunk])
+            pending += [(int(i) - lo, x) for i, x in part if 0 <= int(i) - lo < len(acc)]
         fold()
         out[lo:lo + len(acc)] = heat[lo:lo + len(acc)] * np.float32(decay) + acc
     return out, early_folds
@@ -173,7 +180,7 @@ def test_binned_plan_matches_pallas(where, k):
         ids[rng.random(k) < 0.5] = L + rng.integers(0, 1000)
     w = rng.uniform(0.25, 2.0, size=k).astype(np.float32)
     got, early_folds = _binned_plan(heat, ids, w, 0.9)
-    assert (early_folds > 0) == (where == "one_tile" and k > heat_scan.SAMPLE_BUFFER)
+    assert (early_folds > 0) == (where == "one_tile" and k > SAMPLE_BUFFER)
     want = heat_scan_pallas(jnp.asarray(heat), jnp.asarray(ids, jnp.int32), jnp.asarray(w),
                             0.9, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), **HEAT_TOL)

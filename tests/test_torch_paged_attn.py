@@ -177,6 +177,13 @@ SPLIT_CASES = [
 ]
 
 
+def _live_splits(lens, maxb: int, blk: int) -> list[int]:
+    """The splits of each sequence that do work, by the kernel's exit rule:
+    ``ceil(min(len, MAXB * BLK) / SPLIT)``, at least 1; the rest exit at once."""
+    cap = maxb * blk
+    return [max(1, -(-min(int(n), cap) // SPLIT)) for n in lens]
+
+
 def test_decode_splits_sizes_the_grid_from_the_table():
     assert SPLIT % 16 == 0  # a split holds whole pages of the models' 16 tokens
     assert paged_attn.decode_splits(64, 16) == 16  # granite serving: 1,024-token tables
@@ -184,9 +191,9 @@ def test_decode_splits_sizes_the_grid_from_the_table():
     assert paged_attn.decode_splits(4, 8) == 1
     assert paged_attn.decode_splits(5, 13) == 2  # 65 tokens: a page may straddle two splits
     assert paged_attn.decode_splits(1, 1) == 1
-    assert paged_attn.live_splits([1, 63, 64, 65, 128, 1024, 5000], 64, 16) == [
+    assert _live_splits([1, 63, 64, 65, 128, 1024, 5000], 64, 16) == [
         1, 1, 1, 2, 2, 16, 16]  # lens past the table are cut to MAXB * BLK
-    assert paged_attn.live_splits(torch.tensor([0, 576]), 64, 16) == [1, 9]
+    assert _live_splits(torch.tensor([0, 576]), 64, 16) == [1, 9]
 
 
 def _split_plan(q, kv, tables, lens, softcap=0.0):
@@ -197,7 +204,7 @@ def _split_plan(q, kv, tables, lens, softcap=0.0):
     blk, maxb = kv.shape[2], tables.shape[1]
     pages = SPLIT // blk
     qf, kvf = q.float(), kv.float()
-    live = paged_attn.live_splits(lens, maxb, blk)
+    live = _live_splits(lens, maxb, blk)
     outs, ms, ls = [], [], []
     for i in range(b):
         parts = []
