@@ -69,11 +69,38 @@ printed):
 15. Megastep against batched on the card, same seed, blocking harvest: on a
    small-block pool with tiering, bit-identical pools and tables; on a
    two-tier pool, every block reads back, and the batched drain launches
-   the run copy.  The two batched drains launch K1, K2 and K3.
+   the run copy.  The two batched drains launch K1, K2 and K3.  Then
+   megastep against legacy, on a small and on a two-tier pool: pools,
+   tables and flags bit-identical, heat within 1e-6.  (Phase 5 also holds a
+   legacy drain on the card against the same drain on the CPU.)
+16. The contest (fig5's setup at the drains' size): the 8 GiB pool of phase
+   3 leaves region 0 for region 1 under 64 writes and 64 reads a tick, four
+   ways: ``page_leap`` through the megastep; through the legacy generation
+   (``chunk_blocks`` 16); ``SyncResharder.migrate_driver`` (one blocking
+   call while a live leap holds the first 4,096 blocks; its ``failed`` set
+   must be exactly the busy set); and 64 ``AutoBalancer.scan_driver`` scans.
+   No lost write in any arm; each records blocks moved, bytes copied and
+   touched, dispatches a tick and wall time.
+17. The tiering loop (fig11's shape): ``cxl_pooled(2, 1)``, 2 MiB huge
+   blocks, 131,072 blocks of 64 KiB, half far; a working set of 512 far
+   blocks read every tick rotates to 512 others at tick 80 of 160, with 64
+   writes a tick; ``TieringPolicy.maybe_apply`` every tick.  Promotions and
+   demotions happen, most of the rotated set ends near, no write is lost,
+   and the ``tier_resident_bytes`` gauges cover the pool.
+18. A failed-region drain: ``quad_socket``, 32,768 blocks of 64 KiB in each
+   of 4 regions of 45,056 slots (an 11 GiB pool); ``drain_region`` empties
+   region 3 by ``drain_plan`` under 64 writes and 64 reads a tick.
+19. TPC-H Q1 and Q6 over a morsel store (fig8 at 1 GB): 33,554,432 rows of
+   ``gen_lineitem`` in 16,384 morsels of 64 KiB, queried at rest (against
+   the float64 numpy references within rtol 1e-3, and bit-identical when
+   repeated), then every tick while all morsels leap from region 0 to 1
+   under 16 ``L_ORDERKEY`` field writes a tick (bit-identical to the result
+   at rest: the writer touches no column the queries read).
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
-``{"recurrent": ...}`` line, and last ``{"ok": true, "device": {...}}``.
+``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
+16-19), and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -98,9 +125,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (  # noqa: E402
+    AutoBalanceConfig,
+    AutoBalancer,
     LeapConfig,
     MigrationDriver,
     PoolConfig,
+    SyncResharder,
     init_state,
     leap_write,
     make_region_mesh,
@@ -108,6 +138,10 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
+from repro_torch.core.pipeline import busy_mask  # noqa: E402
+from repro_torch.data import tpch  # noqa: E402
+from repro_torch.data.morsels import MorselStore  # noqa: E402
+from repro_torch.distributed.fault import drain_region  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     heat_scan,
@@ -119,6 +153,8 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
+from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
+from repro_torch.topology import NumaTopology  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -143,6 +179,18 @@ LRU_BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # the JAX package's (tests/test_kerne
 PP_REGIONS, PP_SLOTS = 4, 40960
 PP_CFG = dict(backend="ppermute", axis_name="data", initial_area_blocks=256,
               budget_blocks_per_tick=1024, tiering=True)
+DRAIN_CFG = dict(initial_area_blocks=256, budget_blocks_per_tick=1024, tiering=True)
+# the contest: SyncResharder's busy set is a live leap of this many blocks;
+# AutoBalancer runs this many scans (each reading IO_PER_TICK blocks from region 1)
+CONTEST = dict(busy_blocks=4096, scans=64)
+# the tiering loop (cxl_pooled(2, 1): regions 0, 1 near, 2 far): slots a region
+# (2,560 runs of 32), ticks, the tick the working set rotates at, its size
+TIER = dict(slots=81920, ticks=160, rotate=80, working_set=512)
+# the failed-region drain: quad_socket, 32,768 blocks a region in 45,056 slots
+FAILED = dict(regions=4, slots=45056, region=3)
+# TPC-H: 33,554,432 lineitem rows of 32 B (1 GiB, about SF 5.6) in morsels of
+# 2,048 rows (64 KiB): 16,384 morsels; fig8's writer does 16 field writes a tick
+TPCH = dict(rows=33_554_432, rows_per_morsel=2048, q1_cutoff=2400.0, q6_year=730.0, writes=16)
 
 
 def check(ok: bool, what: str) -> None:
@@ -440,6 +488,64 @@ def start_regions(n_blocks: int, n_regions: int) -> np.ndarray:
     return (np.arange(n_blocks) * n_regions // n_blocks).astype(np.int32)
 
 
+class AppIO:
+    """The application beside the migration: a device-side shadow of every
+    block's latest value, distinct random writes mirrored into it, and random
+    reads checked against it.  A stale read sets a device flag, so the check
+    never makes the host wait.  Ids come from a seeded CPU generator, values
+    from a seeded generator on ``values_on`` (default ``dev``; the CPU where
+    two devices must see the same values)."""
+
+    def __init__(self, dev, n_blocks: int, block, seed: int, k: int = IO_PER_TICK,
+                 values_on=None):
+        self.dev, self.n, self.block, self.k = dev, n_blocks, tuple(block), k
+        self.values_on = torch.device(values_on or dev)
+        self.g = torch.Generator(device=self.values_on).manual_seed(seed)
+        self.ids_gen = torch.Generator().manual_seed(seed)
+        self.shadow = torch.empty((n_blocks,) + self.block, device=dev)
+        self.stale = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def randn(self, k: int) -> torch.Tensor:
+        return torch.randn((k,) + self.block, generator=self.g, device=self.values_on).to(self.dev)
+
+    def fill(self, state) -> None:
+        """Write every block once, 16,384 at a time."""
+        for lo in range(0, self.n, 16384):
+            ids = np.arange(lo, min(lo + 16384, self.n))
+            self.shadow[lo : lo + len(ids)] = self.randn(len(ids))
+            leap_write(state, ids, self.shadow[lo : lo + len(ids)])
+
+    def write(self, drv) -> None:
+        wids = distinct_ids(self.n, self.k, self.ids_gen)
+        vals = self.randn(self.k)
+        drv.write(wids, vals)
+        self.shadow[wids.to(self.dev)] = vals
+
+    def read(self, drv, rids=None) -> torch.Tensor:
+        """Read ``rids`` (default: ``k`` random ids) and check them."""
+        rids = distinct_ids(self.n, self.k, self.ids_gen) if rids is None else rids
+        self.stale |= (drv.read(rids) != self.shadow[torch.as_tensor(rids).to(self.dev)]).any()
+        return rids
+
+    def step(self, drv) -> torch.Tensor:
+        """One application step: the writes, then the reads."""
+        self.write(drv)
+        return self.read(drv)
+
+    def check(self, drv) -> None:
+        """No stale read, and every block reads back its latest write."""
+        check(not bool(self.stale), "every read during the run saw the latest write")
+        check_payload(drv, self.shadow)
+
+
+def check_payload(drv, shadow) -> None:
+    n = drv.state.n_blocks
+    for lo in range(0, n, 8192):
+        ids = np.arange(lo, min(lo + 8192, n))
+        check(torch.equal(drv.read(ids, note=False), shadow[lo : lo + len(ids)]),
+              f"blocks {lo}.. read back equal to the shadow")
+
+
 def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
           io_per_tick: int = IO_PER_TICK, cfg_kw=None, blocking: bool = False,
           values_on=None, n_regions: int = 2, mesh=None, window=None):
@@ -460,19 +566,8 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
     state = init_state(pc, n_blocks, place, device=dev)
     if mesh is not None:
         state = state.to(state_sharding(pc, mesh))
-    values_on = torch.device(values_on or dev)
-    g = torch.Generator(device=values_on).manual_seed(seed)
-    ids_gen = torch.Generator().manual_seed(seed)
-
-    def randn(k: int) -> torch.Tensor:
-        return torch.randn((k,) + tuple(block), generator=g, device=values_on).to(dev)
-
-    shadow = torch.empty((n_blocks,) + tuple(block), device=dev)
-    step = 16384
-    for lo in range(0, n_blocks, step):
-        ids = np.arange(lo, min(lo + step, n_blocks))
-        shadow[lo : lo + len(ids)] = randn(len(ids))
-        leap_write(state, ids, shadow[lo : lo + len(ids)])
+    io = AppIO(dev, n_blocks, block, seed, io_per_tick, values_on)
+    io.fill(state)
     cfg = LeapConfig(**(cfg_kw or dict(initial_area_blocks=256, budget_blocks_per_tick=1024,
                                        tiering=True)))
     drv = MigrationDriver(state, pc, cfg, mesh=mesh)
@@ -480,7 +575,6 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
         groups = n_blocks // huge_factor
         check(drv.adopt_huge(np.arange(groups)) == groups, "adopt_huge adopts every group")
     session = drv.default_session()
-    stale_read = torch.zeros((), dtype=torch.bool, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     with window or contextlib.nullcontext():
@@ -495,12 +589,7 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
             if blocking:
                 session.poll(block=True)
             t2 = time.perf_counter()
-            wids = distinct_ids(n_blocks, io_per_tick, ids_gen)
-            vals = randn(io_per_tick)
-            drv.write(wids, vals)
-            shadow[wids.to(dev)] = vals
-            rids = distinct_ids(n_blocks, io_per_tick, ids_gen)
-            stale_read |= (drv.read(rids) != shadow[rids.to(dev)]).any()
+            io.step(drv)
             ticks += 1
             tick_s += t2 - t1
             io_s += time.perf_counter() - t2
@@ -508,16 +597,13 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
         if dev.type == "cuda":
             torch.cuda.synchronize()
         seconds = dict(seconds=time.perf_counter() - t0, tick_s=tick_s, io_s=io_s)
-    check(not bool(stale_read), "every read during the drain saw the latest write")
-    return drv, shadow, handles, seconds
+    check(not bool(io.stale), "every read during the drain saw the latest write")
+    return drv, io.shadow, handles, seconds
 
 
 def check_drain(drv, shadow, handles, huge: bool) -> dict:
     n, regions = drv.state.n_blocks, drv.pool_cfg.n_regions
-    for lo in range(0, n, 8192):
-        ids = np.arange(lo, min(lo + 8192, n))
-        check(torch.equal(drv.read(ids, note=False), shadow[lo : lo + len(ids)]),
-              f"blocks {lo}.. read back equal to the shadow")
+    check_payload(drv, shadow)
     check(drv.verify_mirror(), "host table mirror == device table")
     check(drv.verify_tiers(), "two-tier table and allocators consistent")
     check((drv.host_placement() == (start_regions(n, regions) + 1) % regions).all(),
@@ -592,8 +678,9 @@ def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2):
 
 def card_matches_cpu(dev, ppermute: bool = False) -> None:
     """Small drains on the card and on the CPU: megastep on small and on
-    two-tier pools (phase 5), or a 4-region ppermute drain (phase 14)."""
-    cases = ((1, SMALL_KW, 2), (4, SMALL_KW, 2))
+    two-tier pools and legacy on a small pool (phase 5), or a 4-region
+    ppermute drain (phase 14)."""
+    cases = ((1, SMALL_KW, 2), (4, SMALL_KW, 2), (1, dict(SMALL_KW, fused_dispatch="legacy"), 2))
     if ppermute:
         cases = ((1, dict(SMALL_KW, backend="ppermute", axis_name="data"), PP_REGIONS),)
     for huge, kw, regions in cases:
@@ -612,20 +699,29 @@ def card_matches_cpu(dev, ppermute: bool = False) -> None:
             check(after["scatter_blocks"] > before["scatter_blocks"],
                   "the card's ppermute drain ran the scatter kernel")
             check(gpu.stats.dirty_rejections > 0, "writes dirtied some ppermute copies")
-    print(f"small {'ppermute' if ppermute else 'megastep'} drains on the card and on the CPU agree")
+    print(f"small {'ppermute' if ppermute else 'megastep and legacy'} drains on the card and on "
+          "the CPU agree")
+
+
+def same_state(a, b, what: str) -> None:
+    """Two small drains that must end bit-identical: pools, tables, flags,
+    host tables and rejections; heat within 1e-6."""
+    for x, y in zip(a.state.to_numpy(), b.state.to_numpy()):
+        check(np.array_equal(x, y), f"{what}: bit-identical pools, tables and flags")
+    check(np.array_equal(a.host_table(), b.host_table()), f"{what}: host tables agree")
+    np.testing.assert_allclose(b.heat_snapshot(), a.heat_snapshot(), **HEAT_TOL)
+    check(a.stats.dirty_rejections == b.stats.dirty_rejections > 0, f"{what}: the same rejections")
 
 
 def megastep_matches_batched(dev) -> dict:
     """The reference's differential oracle on the card: the same seeded drain
-    under the megastep and under the batched generation (xla backend)."""
+    under the megastep and under the batched generation (xla backend); then
+    megastep against legacy on a small and on a two-tier pool."""
     m, _, hm, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="megastep"))
     reset_launch_counts()
     b, _, hb, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="batched"))
-    for x, y in zip(m.state.to_numpy(), b.state.to_numpy()):
-        check(np.array_equal(x, y), "megastep and batched leave bit-identical pools and tables")
-    check(np.array_equal(m.host_table(), b.host_table()), "megastep and batched host tables agree")
+    same_state(m, b, "megastep and batched")
     check([h.progress() for h in hm] == [h.progress() for h in hb], "and the same progress")
-    check(m.stats.dirty_rejections == b.stats.dirty_rejections > 0, "the same rejections")
     small = launch_counts()
     huge, shadow, handles, _ = small_drain(dev, 4, dict(SMALL_KW, fused_dispatch="batched"))
     check_drain(huge, shadow, handles, huge=True)
@@ -633,9 +729,322 @@ def megastep_matches_batched(dev) -> dict:
     check(launches["copy_runs"] > small["copy_runs"], "the two-tier batched drain copied runs")
     for name in ("copy_blocks", "copy_runs", "heat_scan"):
         check(launches[name] > 0, f"the batched drains launched {name}")
-    print(f"megastep and batched agree bit for bit; batched launches {launches}")
+    legacy_kw = dict(SMALL_KW, fused_dispatch="legacy")
+    legacy, _, hl, _ = small_drain(dev, 1, legacy_kw)
+    same_state(m, legacy, "megastep and legacy")
+    check([h.progress() for h in hm] == [h.progress() for h in hl], "and the same progress")
+    same_state(small_drain(dev, 4, SMALL_KW)[0], small_drain(dev, 4, legacy_kw)[0],
+               "megastep and legacy on a two-tier pool")
+    print(f"megastep and batched agree bit for bit (batched launches {launches}); so do "
+          f"megastep and legacy, on small and two-tier pools")
     return dict(megastep_dispatches=m.stats.dispatches, batched_dispatches=b.stats.dispatches,
-                ticks=b.stats.ticks, batched_launches=launches)
+                legacy_dispatches=legacy.stats.dispatches, ticks=b.stats.ticks,
+                batched_launches=launches)
+
+
+# -- phases 16-19: the contenders, the tiering loop, a failed-region drain ------
+
+
+def contest_pool(dev, seed: int, cfg_kw=DRAIN_CFG):
+    """The drains' 8 GiB pool (131,072 blocks of 64 KiB, all in region 0 of
+    2), every block written once, and a driver over it."""
+    pc = PoolConfig(2, SLOTS, BLOCK, torch.float32)
+    state = init_state(pc, N_BLOCKS, np.zeros(N_BLOCKS, np.int32), device=dev)
+    io = AppIO(dev, N_BLOCKS, BLOCK, seed)
+    io.fill(state)
+    drv = MigrationDriver(state, pc, LeapConfig(**cfg_kw))
+    torch.cuda.synchronize()
+    return pc, drv, io
+
+
+def arm_record(drv, seconds: float, moved: int, zeroed: int, launches) -> dict:
+    """One contest arm's numbers; ``zeroed`` is the bytes of its
+    fresh-destination zero pass, which ``bytes_touched`` adds to the copies."""
+    s = drv.stats
+    return dict(blocks_moved=moved, bytes_copied=s.bytes_copied,
+                bytes_touched=s.bytes_copied + zeroed, ticks=s.ticks,
+                dispatches=s.dispatches, dispatches_per_tick=s.dispatches / max(s.ticks, 1),
+                dirty_rejections=s.dirty_rejections, blocks_forced=s.blocks_forced,
+                seconds=seconds, launches=launches)
+
+
+def contest(dev) -> dict:
+    """fig5's setup at the drains' size: 131,072 blocks of 64 KiB leave region
+    0 for region 1 under 64 writes and 64 reads a tick, four ways."""
+    arms = {}
+    for name, kw in (("page_leap_megastep", DRAIN_CFG),
+                     ("page_leap_legacy", dict(DRAIN_CFG, fused_dispatch="legacy",
+                                               chunk_blocks=16))):
+        release()
+        reset_launch_counts()
+        drv, shadow, handles, times = drain(dev, N_BLOCKS, SLOTS, BLOCK, 1, SEED + 3, cfg_kw=kw)
+        launches = launch_counts()
+        check_drain(drv, shadow, handles, huge=False)
+        arms[name] = arm_record(drv, times["seconds"], N_BLOCKS, 0, launches)
+        del drv, shadow
+
+    # move_pages(): one blocking call; the application's writes stop while it
+    # runs.  A live leap of the first blocks makes the busy set it must skip.
+    release()
+    pc, drv, io = contest_pool(dev, SEED + 3)
+    session = drv.default_session()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    session.leap(np.arange(CONTEST["busy_blocks"]), 1)
+    for _ in range(2):
+        with no_host_sync(dev):
+            session.tick()
+        io.step(drv)
+    ids = np.arange(N_BLOCKS)
+    busy = np.nonzero(busy_mask(drv.state, ids).cpu().numpy() | drv.in_migration(ids))[0]
+    t1 = time.perf_counter()
+    res = SyncResharder(pc).migrate_driver(drv, ids, 1)
+    call_s = time.perf_counter() - t1
+    check(np.array_equal(res.failed, busy) and len(busy) > 0,
+          "SyncResharder failed exactly the busy set it saw")
+    check(len(res.migrated) + len(res.failed) == N_BLOCKS, "and moved every other block")
+    while not drv.done:  # the live leap finishes under writes
+        with no_host_sync(dev):
+            session.tick()
+        io.step(drv)
+    check(session.drain(), "the live leap drains")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    io.check(drv)
+    check(drv.verify_mirror() and (drv.host_placement() == 1).all(), "every block in region 1")
+    arms["sync_resharder"] = dict(
+        arm_record(drv, seconds, len(res.migrated), res.bytes_touched - res.bytes_copied,
+                   launches), call_s=call_s,
+        failed=len(res.failed), bytes_copied_call=res.bytes_copied,
+        bytes_touched_call=res.bytes_touched)
+    del drv, io
+
+    # auto-NUMA: a fixed number of scans; each sees one tick's writes and
+    # reads (from region 1) and forces its hot picks into fresh slots
+    release()
+    pc, drv, io = contest_pool(dev, SEED + 3)
+    ab = AutoBalancer(pc, N_BLOCKS, AutoBalanceConfig(hot_threshold=1))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    moved = 0
+    for _ in range(CONTEST["scans"]):
+        io.write(drv)
+        rids = io.read(drv)
+        ab.observe_driver(drv, rids.numpy(), reader_region=1)
+        ab.observe_writes(IO_PER_TICK)
+        moved += ab.scan_driver(drv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    io.check(drv)
+    check(drv.verify_mirror() and int((drv.host_placement() == 1).sum()) == moved,
+          "the balancer's moves, and only they, live in region 1")
+    arms["autobalancer"] = dict(arm_record(drv, seconds, moved, moved * pc.block_bytes, launches),
+                                scans=CONTEST["scans"])
+    del drv, io
+    for name, a in arms.items():
+        print(f"contest {name}: {a['blocks_moved']} blocks moved in {a['seconds']:.3f} s, "
+              f"{a['bytes_copied']} B copied, {a['bytes_touched']} B touched, "
+              f"{a['dispatches_per_tick']:.2f} dispatches a tick over {a['ticks']} ticks, "
+              f"{a['dirty_rejections']} rejections, launches {a['launches']}")
+    return arms
+
+
+def tiering_loop(dev) -> dict:
+    """fig11's shape at full size: 131,072 blocks of 64 KiB on a cxl_pooled
+    (2, 1) pool with 2 MiB huge blocks, half of them far; a working set of
+    far blocks read every tick rotates onto other far blocks mid-run, with
+    writes; ``TieringPolicy.maybe_apply`` every tick."""
+    release()
+    topo = NumaTopology.cxl_pooled(2, 1)
+    pc = PoolConfig(3, TIER["slots"], BLOCK, torch.float32, huge_factor=HUGE, topology=topo)
+    half = N_BLOCKS // 2
+    place = np.concatenate([np.repeat([0, 1], half // 2), np.full(half, 2)]).astype(np.int32)
+    state = init_state(pc, N_BLOCKS, place, device=dev)
+    io = AppIO(dev, N_BLOCKS, BLOCK, SEED + 4)
+    io.fill(state)
+    drv = MigrationDriver(state, pc, LeapConfig(**DRAIN_CFG))
+    near_groups = half // HUGE
+    check(drv.adopt_huge(np.arange(near_groups)) == near_groups, "the near groups are huge")
+    policy = TieringPolicy(drv, TieringConfig(max_promotions=TIER["working_set"]))
+    far = np.random.default_rng(SEED).permutation(np.arange(half, N_BLOCKS))
+    sets = [far[: TIER["working_set"]], far[TIER["working_set"] : 2 * TIER["working_set"]]]
+    session = drv.default_session()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tick_s = epoch_s = 0.0
+    for t in range(TIER["ticks"]):
+        io.write(drv)
+        io.read(drv, torch.from_numpy(sets[t >= TIER["rotate"]]))
+        t1 = time.perf_counter()
+        policy.maybe_apply(session)  # an epoch's heat read is a host sync by design
+        t2 = time.perf_counter()
+        with no_host_sync(dev):
+            session.tick()
+        tick_s += time.perf_counter() - t2
+        epoch_s += t2 - t1
+    check(session.drain(), "the policy's moves drain")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    io.check(drv)
+    check(drv.verify_mirror() and drv.verify_tiers(), "mirror and two-tier table consistent")
+    s = drv.stats
+    check(s.tier_promotions > 0 and s.tier_demotions > 0, "hot blocks promoted, cold runs demoted")
+    placement = drv.host_placement()
+    hot_near = float(np.isin(placement[sets[1]], (0, 1)).mean())
+    check(hot_near > 0.5, "most of the rotated working set now lives near")
+    text = session.telemetry().metrics_text()
+    gauges = {line.split()[0]: int(float(line.split()[1])) for line in text.splitlines()
+              if line.startswith("tier_resident_bytes")}
+    check(sum(gauges.values()) == N_BLOCKS * pc.block_bytes, "the residency gauges cover the pool")
+    check(launches["copy_blocks"] > 0 and launches["copy_runs"] > 0 and launches["heat_scan"] > 0,
+          "promotions copied blocks, demotions copied runs, and every tick scanned heat")
+    out = dict(ticks=s.ticks, seconds=seconds, tick_s=tick_s, epoch_s=epoch_s,
+               tier_promotions=s.tier_promotions, tier_demotions=s.tier_demotions,
+               ping_pong_migrations=s.ping_pong_migrations, blocks_migrated=s.blocks_migrated,
+               dirty_rejections=s.dirty_rejections, bytes_copied=s.bytes_copied,
+               bytes_copied_huge=s.bytes_copied_huge, rotated_set_near=hot_near,
+               per_region=np.bincount(placement, minlength=3).tolist(), gauges=gauges,
+               launches=launches)
+    print(f"tiering loop: {s.ticks} ticks in {seconds:.3f} s (ticks {tick_s:.3f} s, epochs "
+          f"{epoch_s:.3f} s), {s.tier_promotions} promoted, {s.tier_demotions} demoted, "
+          f"{s.ping_pong_migrations} ping-pongs, rotated set {hot_near:.3f} near, blocks a "
+          f"region {out['per_region']}, {gauges}, launches {launches}")
+    del drv, io
+    return out
+
+
+def failed_region_drain(dev) -> dict:
+    """A four-socket server loses region 3: ``drain_region`` evacuates its
+    32,768 blocks of 64 KiB by ``drain_plan`` while the application writes
+    and reads."""
+    release()
+    pc = PoolConfig(FAILED["regions"], FAILED["slots"], BLOCK, torch.float32,
+                    topology=NumaTopology.quad_socket())
+    place = start_regions(N_BLOCKS, FAILED["regions"])
+    state = init_state(pc, N_BLOCKS, place, device=dev)
+    io = AppIO(dev, N_BLOCKS, BLOCK, SEED + 5)
+    io.fill(state)
+    drv = MigrationDriver(state, pc, LeapConfig(**DRAIN_CFG))
+    session = drv.default_session()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n = drain_region(drv, FAILED["region"])
+    while not drv.done:
+        with no_host_sync(dev):
+            session.tick()
+        io.step(drv)
+    check(session.drain(), "the evacuation drains")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    io.check(drv)
+    placement = drv.host_placement()
+    check(n == N_BLOCKS // FAILED["regions"] and not (placement == FAILED["region"]).any(),
+          "every block left the failed region")
+    check(drv.verify_mirror(), "host table mirror == device table")
+    s = drv.stats
+    check(s.blocks_migrated + s.blocks_forced == n == s.blocks_requested, "accounting closes")
+    out = dict(blocks=n, seconds=seconds, ticks=s.ticks, dirty_rejections=s.dirty_rejections,
+               blocks_forced=s.blocks_forced, bytes_copied=s.bytes_copied,
+               gib_per_s=n * pc.block_bytes / seconds / 2**30,
+               per_region=np.bincount(placement, minlength=4).tolist(),
+               bytes_per_link={f"{a}->{b}": v for (a, b), v in sorted(s.bytes_per_link.items())},
+               launches=launches)
+    print(f"failed-region drain: {n} blocks off region {FAILED['region']} in {seconds:.3f} s "
+          f"({out['gib_per_s']:.3f} GiB/s), {s.ticks} ticks, {s.dirty_rejections} rejections, "
+          f"blocks a region {out['per_region']}, links {out['bytes_per_link']}, "
+          f"launches {launches}")
+    del drv, io
+    return out
+
+
+def timed_query(store, which: str, param: float):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tpch.run_query(store, which, param)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tpch_over_a_leap(dev) -> dict:
+    """fig8 at its 1 GB size: Q1 and Q6 over a morsel store at rest, then
+    while every morsel leaps from region 0 to 1 under the L_ORDERKEY writer."""
+    release()
+    t0 = time.perf_counter()
+    data = tpch.gen_lineitem(TPCH["rows"], seed=SEED)
+    params = {"q1": TPCH["q1_cutoff"], "q6": TPCH["q6_year"]}
+    want = {"q1": tpch.q1_reference(data, params["q1"]),
+            "q6": tpch.q6_reference(data, params["q6"])}
+    # Q1's count column is exact in fp32 below 2**24 rows a group
+    check(want["q1"][:, 5].max() < 2**24, "each Q1 group stays under 2**24 rows")
+    store = MorselStore.create(data, TPCH["rows_per_morsel"], 2,
+                               leap=LeapConfig(initial_area_blocks=256, budget_blocks_per_tick=1024))
+    check(store.driver.state.device.type == "cuda", "the store lives on the card")
+    del data
+    setup_s = time.perf_counter() - t0
+
+    def agrees(which, got) -> None:
+        torch.testing.assert_close(got.double().cpu(),
+                                   torch.tensor(want[which], dtype=torch.float64),
+                                   rtol=1e-3, atol=0)
+
+    rest, rest_ms = {}, {}
+    for which, p in params.items():
+        got, sec = timed_query(store, which, p)
+        again, sec2 = timed_query(store, which, p)
+        agrees(which, got)
+        check(torch.equal(got, again), f"{which} repeats bit for bit on the card")
+        if which == "q1":
+            check(torch.equal(got[:, 5].double().cpu(), torch.from_numpy(want["q1"][:, 5])),
+                  "Q1's counts are exact")
+        rest[which], rest_ms[which] = got, [sec * 1e3, sec2 * 1e3]
+    reset_launch_counts()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    store.steal(np.arange(store.n_morsels), 1)
+    during_ms = {"q1": [], "q6": []}
+    tick_s = 0.0
+    while not store.driver.done:
+        t1 = time.perf_counter()
+        with no_host_sync(dev):
+            store.tick()
+        tick_s += time.perf_counter() - t1
+        store.write_random_fields(rng, TPCH["writes"], tpch.ORDERKEY, -1.0)
+        for which, p in params.items():
+            got, sec = timed_query(store, which, p)
+            # the writer touches no column Q1 or Q6 reads: the same bits as at rest
+            check(torch.equal(got, rest[which]), f"{which} during the leap equals {which} at rest")
+            during_ms[which].append(sec * 1e3)
+    check(store.drain(), "the leap drains")
+    torch.cuda.synchronize()
+    leap_s = time.perf_counter() - t0
+    launches = launch_counts()
+    drv = store.driver
+    check(drv.verify_mirror() and (store.placement() == 1).all(), "every morsel in region 1")
+    written = drv.read(np.arange(store.n_morsels), note=False)[..., tpch.ORDERKEY]
+    check(bool((written == -1.0).any()), "the writer's field writes landed")
+    s = drv.stats
+    out = dict(rows=TPCH["rows"], morsels=store.n_morsels, setup_s=setup_s,
+               rest_ms=rest_ms, during_leap_ms=during_ms,
+               during_leap_ms_median={k: statistics.median(v) for k, v in during_ms.items()},
+               leap_s=leap_s, tick_s=tick_s, ticks=s.ticks, dirty_rejections=s.dirty_rejections,
+               q1_max_rel_err=float(np.max(np.abs(rest["q1"].double().cpu().numpy() - want["q1"])
+                                           / np.abs(want["q1"]))),
+               q6_rel_err=abs(float(rest["q6"]) - want["q6"]) / abs(want["q6"]),
+               launches=launches)
+    print(f"TPC-H over {store.n_morsels} morsels: Q1 {rest_ms['q1'][0]:.1f} ms and Q6 "
+          f"{rest_ms['q6'][0]:.1f} ms at rest; during the leap (median of {len(during_ms['q1'])}) "
+          f"Q1 {out['during_leap_ms_median']['q1']:.1f} ms, Q6 "
+          f"{out['during_leap_ms_median']['q6']:.1f} ms; leap {leap_s:.3f} s over {s.ticks} "
+          f"ticks, {s.dirty_rejections} rejections; Q1 max rel err {out['q1_max_rel_err']:.3g}, "
+          f"Q6 {out['q6_rel_err']:.3g}; launches {launches}")
+    del store, drv
+    return out
 
 
 # -- phase 6: the paged-decode kernel against its plain version ----------------
@@ -1104,10 +1513,15 @@ def main() -> int:
     release()
     card_matches_cpu(dev, ppermute=True)
     oracle = megastep_matches_batched(dev)
+    contenders = contest(dev)
+    tiering = tiering_loop(dev)
+    failed = failed_region_drain(dev)
+    queries = tpch_over_a_leap(dev)
 
     # each path's counts were set to 0 just before it ran and read just after
     paths = (list(drains.values()) + list(serving["runs"].values())
-             + list(recurrent["runs"].values()))
+             + list(recurrent["runs"].values()) + list(contenders.values())
+             + [tiering, failed, queries])
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
@@ -1121,6 +1535,8 @@ def main() -> int:
     print(json.dumps({"drains": drains, "megastep_vs_batched": oracle, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"recurrent": recurrent, "card": smi}))
+    print(json.dumps({"contenders": contenders, "tiering": tiering,
+                      "failed_region_drain": failed, "tpch": queries, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -100,18 +100,17 @@ class PoolFacade:
         """Read-only :class:`repro.obs.TelemetryView` over the driver's
         recorder.  Everything it returns is a copy or fresh rendering, so
         the facade stays a pure observation surface.  On a pool with a
-        topology the JAX package adds tier-residency gauges from its tiering
-        package; the port does not carry that package yet and raises."""
+        topology the view carries the ``tier_resident_bytes{tier=near|far}``
+        residency gauges (extras stack, so callers may add their own)."""
         from repro_torch.obs import TelemetryView  # deferred: keep facade import-light
 
         view = TelemetryView(
             self._driver.telemetry, lambda: self._driver.stats.snapshot()
         )
         if self._driver.topology is not None:
-            raise NotImplementedError(
-                "the tier-residency gauges come from the tiering package, "
-                "which the port does not carry yet"
-            )
+            from repro_torch.tiering import residency_extra
+
+            view = view.with_extra(residency_extra(self._driver))
         return view
 
     # -- debug invariants (read-only checks; safe to expose) ---------------

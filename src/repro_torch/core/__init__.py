@@ -1,7 +1,7 @@
 """Core: `page_leap()` on one CUDA device — pooled, reliable, adaptive block
 migration behind a virtual block table, organized as a staged pipeline
-(``repro_torch.core.pipeline``) with pluggable scheduler policies.  The
-JAX package's ``baselines`` are not ported yet."""
+(``repro_torch.core.pipeline``) with pluggable scheduler policies, and the
+paper's contenders (``baselines``) as configurations of that pipeline."""
 
 from repro_torch.core.state import (
     REGION,
@@ -39,6 +39,12 @@ from repro_torch.core.pipeline import (
     SchedulerPolicy,
     SyncScheduler,
     make_scheduler,
+)
+from repro_torch.core.baselines import (
+    AutoBalanceConfig,
+    AutoBalancer,
+    SyncResharder,
+    SyncReshardResult,
 )
 from repro_torch.core import migrator
 from repro_torch.launch.mesh import RegionMesh, make_region_mesh
@@ -80,5 +86,9 @@ __all__ = [
     "SchedulerPolicy",
     "SyncScheduler",
     "make_scheduler",
+    "AutoBalanceConfig",
+    "AutoBalancer",
+    "SyncResharder",
+    "SyncReshardResult",
     "migrator",
 ]

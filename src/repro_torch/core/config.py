@@ -77,13 +77,6 @@ class LeapConfig:
             )
         if self.copy_impl not in IMPLS:
             raise ValueError(f"copy_impl must be one of {IMPLS}, got {self.copy_impl!r}")
-        if self.dispatch_mode == "legacy":
-            # The port carries the megastep and batched generations only.
-            raise NotImplementedError(
-                f"the legacy per-area dispatch generation (fused_dispatch="
-                f"{self.fused_dispatch!r}) is not ported yet (ROADMAP queue 1 "
-                "item 4); megastep and batched are"
-            )
 
     @property
     def dispatch_mode(self) -> str:

@@ -10,8 +10,15 @@ An area's life cycle (driven from the host by :mod:`repro_torch.core.driver`):
                their destination, return the dirty verdict so the host can
                requeue dirty blocks with adaptive splitting
 
-Two dispatch generations of the JAX package are ported:
+The JAX package's three dispatch generations are ported:
 
+  * the per-area programs (``begin_area``/``copy_chunk``/
+    ``copy_chunk_ppermute``/``commit_area``/``force_migrate``, with
+    ``zero_fill``): one program per chunk and per area, with the
+    destination region a plain argument; the legacy baseline that the
+    paper's figures measure the fused generations against.  They are plain
+    tensor indexing, as in the JAX package, and launch none of the
+    hand-written kernels;
   * the batched programs (``begin_areas``/``zero_fill``/``force_areas``/
     ``fused_copy``/``fused_copy_runs``/``fused_copy_ppermute``/
     ``commit_areas``/``commit_groups``/``heat_update``): one program per
@@ -24,7 +31,8 @@ Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
 ``copy_blocks`` kernel over the flat pool view), and ``ppermute`` moves one
 (src, dst) region pair at a time through ``fused_copy_ppermute`` (the
 ``gather_blocks`` and ``scatter_blocks`` kernels around a point-to-point
-transfer on a region mesh).
+transfer on a region mesh).  The legacy generation's counterparts are
+``copy_chunk`` and ``copy_chunk_ppermute``.
 
 Operands have their real lengths.  The JAX package pads every phase to a
 bucket (lane-0 replication in the batched generation, out-of-bounds
@@ -49,6 +57,79 @@ from repro_torch.kernels import ops
 
 def _entries(regions: torch.Tensor, slots: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([regions, slots], dim=-1).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Per-area dispatch (the legacy generation): one program per chunk and per
+# area, the destination region a plain argument.
+# --------------------------------------------------------------------------
+
+
+def begin_area(state: LeapState, block_ids: torch.Tensor) -> LeapState:
+    """Open a copy epoch: mark blocks in flight, clear their dirty bits."""
+    return begin_areas(state, block_ids)
+
+
+def copy_chunk(
+    state: LeapState,
+    block_ids: torch.Tensor,
+    dst_slots: torch.Tensor,
+    dst_region: int,
+) -> LeapState:
+    """Physical copy of ``block_ids`` into ``(dst_region, dst_slots)``.
+
+    Pure data movement — the table is untouched, so readers keep hitting the
+    source location (non-atomic copy phase, exactly as in the paper).  The
+    payload is gathered into a new tensor before it is scattered.
+    """
+    loc = state.table[block_ids].long()
+    state.pool[dst_region][dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
+    return state
+
+
+def copy_chunk_ppermute(
+    state: LeapState,
+    block_ids: torch.Tensor,
+    dst_slots: torch.Tensor,
+    src_region: int,
+    dst_region: int,
+    mesh,
+) -> LeapState:
+    """Point-to-point copy of exactly one area chunk's bytes.
+
+    The single-controller form of the JAX package's ``shard_map`` +
+    ``ppermute`` program with static ``(src_region, dst_region)``: the
+    chunk's source slots are packed by plain indexing on the source
+    region's device, the buffer moves to the destination region's device
+    (on a one-device mesh it is already there), and it is unpacked into the
+    destination slots.
+    """
+    slots = state.table[block_ids, SLOT].long()
+    buf = state.pool[src_region][slots].to(mesh.device(dst_region), non_blocking=True)
+    state.pool[dst_region][dst_slots] = buf
+    return state
+
+
+def commit_area(
+    state: LeapState,
+    block_ids: torch.Tensor,
+    dst_slots: torch.Tensor,
+    dst_region: int,
+) -> tuple[LeapState, torch.Tensor]:
+    """The atomic remap of one area: flip the table entries of clean blocks;
+    return the dirty verdict (True = copy invalidated)."""
+    return commit_areas(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
+
+
+def force_migrate(
+    state: LeapState,
+    block_ids: torch.Tensor,
+    dst_slots: torch.Tensor,
+    dst_region: int,
+) -> LeapState:
+    """Fused copy+remap of one area (write-through escalation): no race
+    window exists.  The payload is gathered before it is scattered."""
+    return force_areas(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
 
 
 # --------------------------------------------------------------------------
@@ -263,6 +344,11 @@ _PROGRAMS = (
     "megastep",
     "heat_update",
     "zero_fill",
+    "begin_area",
+    "copy_chunk",
+    "copy_chunk_ppermute",
+    "commit_area",
+    "force_migrate",
     "begin_areas",
     "fused_copy",
     "fused_copy_runs",

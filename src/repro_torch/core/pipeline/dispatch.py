@@ -2,7 +2,7 @@
 
 Owns the per-tick scheduling loop (``run_tick``): advances copies of open
 epochs, opens new epochs off the priority queue, and hands the tick's work
-to the device in one of two dispatch generations
+to the device in one of three dispatch generations
 (``LeapConfig.dispatch_mode``):
 
   * ``"megastep"`` (default) — the whole tick as ONE megastep
@@ -13,7 +13,15 @@ to the device in one of two dispatch generations
     ``zero_fill`` (one per destination region), ``force_areas``, the copy
     (``fused_copy``, or one ``fused_copy_ppermute`` per (src, dst) region
     pair under the ppermute backend), ``fused_copy_runs`` and
-    ``heat_update``.  The ppermute backend always runs this generation.
+    ``heat_update``.  The ppermute backend runs this generation unless
+    legacy is asked for.
+  * ``"legacy"`` — per-chunk/per-area dispatch (the benchmark baseline):
+    ``begin_area``/``force_migrate``/``zero_fill`` as each epoch opens,
+    one ``copy_chunk`` (or ``copy_chunk_ppermute``) per ``chunk_blocks``
+    chunk, one ``commit_area`` per area, huge areas through
+    ``fused_copy_runs``/``commit_groups`` one area at a time, and the
+    tick's ``heat_update``.  Its programs are plain tensor indexing, as in
+    the JAX package; only the huge-run copy and the heat pass launch kernels.
 
 The host side of this stage is pure *plan assembly*: it gathers numpy id
 vectors, checks each copy plan against the copy kernel's contract, and
@@ -28,8 +36,7 @@ out-of-bounds sentinel lanes in the megastep) so that XLA compiles few
 variants; eager PyTorch compiles nothing, and an out-of-bounds lane would
 raise on the CPU and device-assert on CUDA.  So there is no padding here,
 and an empty phase dispatches nothing.  Padding comes back with CUDA-graph
-capture, together with a trash slot in the pool.  The JAX package's legacy
-per-area generation is not ported yet (``LeapConfig`` refuses it).
+capture, together with a trash slot in the pool.
 
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.
@@ -97,8 +104,11 @@ class DispatchStage:
         self.ctx = ctx
         self.budget = budget
         self.accounting = accounting
-        # Dispatch generation, resolved once ("batched" | "megastep").
+        # Dispatch generation, resolved once ("legacy"|"batched"|"megastep").
+        # cfg.fused_dispatch is a bool-or-string knob and the string "legacy"
+        # is truthy, so every branch below compares modes, never truthiness.
         self._mode = ctx.cfg.dispatch_mode
+        self._fused = self._mode != "legacy"
         # Source slots freed by this tick's forced escalations, quarantined
         # until the tick's device programs are dispatched (see run_tick).
         self._freed: list[np.ndarray] = []
@@ -111,7 +121,8 @@ class DispatchStage:
 
     def commit_ready(self) -> None:
         """Commit areas whose copy completed in an earlier tick: staged for
-        the megastep, or dispatched now under batched.  Deferring the commit
+        the megastep, or dispatched now under batched (one program a kind)
+        and legacy (one program an area).  Deferring the commit
         by one tick keeps the copy->remap window open across at least one
         application step, faithfully reproducing the paper's race (its
         footnote 1: a write can land after the copy but before the remap)."""
@@ -124,9 +135,15 @@ class DispatchStage:
                 # checks (huge stall detection, done()) see them as live.
                 self._staged_small = [a for a in ready if not a.huge]
                 self._staged_huge = [a for a in ready if a.huge]
-            else:
+            elif self._mode == "batched":
                 self._dispatch_commit_batch([a for a in ready if not a.huge])
                 self._dispatch_commit_groups([a for a in ready if a.huge])
+            else:
+                for area in ready:
+                    if area.huge:
+                        self._dispatch_commit_groups([area])
+                    else:
+                        self._dispatch_commit(area)
 
     def run_tick(self, tb: TickBudget) -> None:
         """Spend the tick budget: advance open epochs, open new ones."""
@@ -135,12 +152,13 @@ class DispatchStage:
 
     def _run_tick(self, tb: TickBudget) -> None:
         ctx = self.ctx
+        fused = self._fused
         skipped: set[int] = set()  # active areas deferred this tick (link dry)
-        opened: list[Area] = []  # epochs opened this tick (batch begin)
-        forced: list[Area] = []  # escalations this tick (batch force)
+        opened: list[Area] = []  # epochs opened this tick (fused: batch begin)
+        forced: list[Area] = []  # escalations this tick (fused: batch force)
         blocked: list[Area] = []  # areas whose destination is out of slots
         congested: list[Area] = []  # queued areas whose link budget ran dry
-        zeros: list[Area] = []  # fresh-alloc epochs (batch zero-fill)
+        zeros: list[Area] = []  # fresh-alloc epochs (fused: batch zero-fill)
         plan: list[tuple[Area, np.ndarray, np.ndarray]] = []  # copy chunks
         run_plan: list[Area] = []  # huge areas copied as whole contiguous runs
         while tb.blocks > 0:
@@ -151,18 +169,25 @@ class DispatchStage:
                     if self.budget.grant_huge(tb, area, need) == 0:
                         skipped.add(id(area))
                         continue
-                    run_plan.append(area)
+                    if fused:
+                        run_plan.append(area)
+                    else:
+                        self._dispatch_copy_runs([area])
                     tb.blocks -= need
                     area.copied = len(area)
                     continue
-                want = min(len(area) - area.copied, tb.blocks)
+                per_area = len(area) - area.copied if fused else ctx.cfg.chunk_blocks
+                want = min(per_area, len(area) - area.copied, tb.blocks)
                 n = self.budget.grant_copy(tb, area, want)
                 if n == 0:
                     skipped.add(id(area))
                     continue
                 ids = area.block_ids[area.copied : area.copied + n]
                 slots = area.dst_slots[area.copied : area.copied + n]
-                plan.append((area, ids, slots))
+                if fused:
+                    plan.append((area, ids, slots))
+                else:
+                    self._dispatch_copy(area, ids, slots)
                 area.copied += n
                 tb.blocks -= n
                 continue
@@ -199,13 +224,14 @@ class DispatchStage:
             ctx.queue.appendleft(area)
         for area in reversed(blocked):
             ctx.queue.appendleft(area)
-        # Device order matters under both generations: begin before copy
+        # Device order matters under the fused generations: begin before copy
         # (epoch flags gate dirty tracking), zero-fill before force AND copy
         # (a fresh area's zero pass must land before its own payload), force
         # before copy.  It is only sound because slots freed by this tick's
         # forces are QUARANTINED until the flush below: no open in this tick
         # can hand a force's still-unread source slot to another area as a
-        # zero/force/copy destination.
+        # zero/force/copy destination.  Legacy dispatched each program as
+        # its epoch opened or its chunk was granted, in that order.
         if self._mode == "megastep":
             # The whole tick — staged commits, begins, zeros, forces,
             # copies, heat — goes to the device as ONE megastep.
@@ -218,7 +244,7 @@ class DispatchStage:
                 committed=len(self._staged_small) + len(self._staged_huge),
             ):
                 self._dispatch_megastep(opened, zeros, forced, plan, run_plan)
-        else:
+        elif fused:
             with ctx.telemetry.stage(
                 "dispatch.device",
                 opened=len(opened),
@@ -231,8 +257,9 @@ class DispatchStage:
                 self._dispatch_force_batch(forced)
                 self._dispatch_copy_batch(plan)
                 self._dispatch_copy_runs(run_plan)
-            # The tick's access-heat samples flush as their own program
-            # (the megastep folds them into its single dispatch).
+        if self._mode != "megastep":
+            # Batched/legacy: the tick's access-heat samples flush as their
+            # own program (the megastep folds them into its single dispatch).
             self._flush_heat()
         # End of tick: every program that reads a forced area's old source
         # slots is dispatched; release them for the next tick's allocations.
@@ -316,9 +343,13 @@ class DispatchStage:
         area.copied = 0
         if area.fresh_alloc:
             # Fresh-destination policies (move_pages()/autonuma analogues)
-            # pay the kernel's zero-fill pass before their copy/force lands:
-            # the tick's zero phase, sequenced before force and copy.
-            zeros.append(area)
+            # pay the kernel's zero-fill pass before their copy/force lands.
+            # Fused: the tick's zero phase, sequenced before force and copy;
+            # legacy: immediate, in open order.
+            if self._fused:
+                zeros.append(area)
+            else:
+                self._dispatch_zero_fill(area)
         if area.attempts >= cfg.max_attempts_before_force:
             # Write-through escalation: fused copy+flip, cannot be dirtied.
             # Deliberately exempt from the per-link budgets (escalation must
@@ -335,13 +366,24 @@ class DispatchStage:
                 attempts=area.attempts,
                 forced=True,
             )
-            forced.append(area)  # the tick's force phase, end of tick
+            if self._fused:
+                forced.append(area)  # the tick's force phase, end of tick
+            else:
+                ctx.state = migrator.force_migrate(
+                    ctx.state,
+                    *to_device([area.block_ids, area.dst_slots], ctx.state.device),
+                    int(area.dst_region),
+                )
+                ctx.count("dispatches", 1, program="force_migrate")
             self._finalize_success(area)
             return True
         ctx.telemetry.request_phase(
             area.request_id, "EPOCH_OPEN", n=len(area), attempts=area.attempts
         )
-        opened.append(area)  # the tick's begin phase, before copies
+        if self._fused:
+            opened.append(area)  # the tick's begin phase, before copies
+        else:
+            self._dispatch_begin(area)
         ctx.active.append(area)
         return True
 
@@ -371,25 +413,32 @@ class DispatchStage:
         ctx.telemetry.request_phase(
             area.request_id, "EPOCH_OPEN", n=len(area), attempts=area.attempts, huge=True
         )
-        opened.append(area)  # members share the tick's begin phase
+        if self._fused:
+            opened.append(area)  # members share the tick's begin phase
+        else:
+            self._dispatch_begin(area)
         ctx.active.append(area)
         return True
 
     def _finalize_success(self, area: Area) -> None:
-        # Force path: all blocks flip on device in this tick's force phase;
-        # mirror it now and quarantine the freed sources.  Never a relay hop
-        # (escalation forces direct to the final destination), so the credit
-        # is always terminal.  The force phase itself runs at end of tick, so
-        # the freed source slots are quarantined (self._freed) instead of
-        # released: handing one out to a later open this tick would let that
-        # area's zero/force/copy write the slot before this force has read it.
+        # Force path: all blocks flipped on device; mirror and free sources.
+        # Never a relay hop (escalation forces direct to the final
+        # destination), so the credit is always terminal.  Fused, the force
+        # phase itself runs at end of tick, so the freed source slots are
+        # quarantined (self._freed) instead of released: handing one out to a
+        # later open this tick would let that area's zero/force/copy write
+        # the slot before this force has read it.  Legacy already dispatched
+        # the force, so its sources free at once.
         ctx = self.ctx
-        ids = area.block_ids
-        self._freed.append(ctx.table[ids].copy())
-        ctx.table[ids, REGION] = area.dst_region
-        ctx.table[ids, SLOT] = area.dst_slots
-        ctx.migrating[ids] = False
-        ctx.note_migrated(ids)
+        if self._fused:
+            ids = area.block_ids
+            self._freed.append(ctx.table[ids].copy())
+            ctx.table[ids, REGION] = area.dst_region
+            ctx.table[ids, SLOT] = area.dst_slots
+            ctx.migrating[ids] = False
+            ctx.note_migrated(ids)
+        else:
+            ctx.remap_host(area.block_ids, area.dst_region, area.dst_slots)
         self.accounting.credit(area, forced=len(area))
 
     # -- access-heat plane (closed-loop tiering) ----------------------------
@@ -651,6 +700,47 @@ class DispatchStage:
         for a in ready:
             ctx.active.remove(a)
         ctx.pending.append(CommitBatch(ready, np.arange(len(ready) + 1), VerdictFuture(verdict)))
+
+    # -- legacy per-area dispatch (fused_dispatch=False baseline) ----------
+
+    def _dispatch_begin(self, area: Area) -> None:
+        ctx = self.ctx
+        (ids,) = to_device([area.block_ids], ctx.state.device)
+        ctx.state = migrator.begin_area(ctx.state, ids)
+        ctx.count("dispatches", 1, program="begin_area")
+
+    def _dispatch_zero_fill(self, area: Area) -> None:
+        ctx = self.ctx
+        (slots,) = to_device([area.dst_slots], ctx.state.device)
+        ctx.state = migrator.zero_fill(ctx.state, slots, int(area.dst_region))
+        ctx.count("dispatches", 1, program="zero_fill")
+
+    def _dispatch_copy(self, area: Area, ids: np.ndarray, slots: np.ndarray) -> None:
+        ctx = self.ctx
+        operands = to_device([ids, slots], ctx.state.device)
+        if ctx.cfg.backend == "ppermute":
+            if ctx.mesh is None or ctx.cfg.axis_name is None:
+                raise ValueError("ppermute backend requires mesh and axis_name")
+            ctx.state = migrator.copy_chunk_ppermute(
+                ctx.state, *operands, int(area.src_region), int(area.dst_region), ctx.mesh
+            )
+        else:
+            ctx.state = migrator.copy_chunk(ctx.state, *operands, int(area.dst_region))
+        ctx.count("dispatches", 1, program="copy_chunk")
+        ctx.count("bytes_copied", len(ids) * ctx.pool_cfg.block_bytes)
+
+    def _dispatch_commit(self, area: Area) -> None:
+        ctx = self.ctx
+        ctx.state, verdict = migrator.commit_area(
+            ctx.state,
+            *to_device([area.block_ids, area.dst_slots], ctx.state.device),
+            int(area.dst_region),
+        )
+        ctx.count("dispatches", 1, program="commit_area")
+        ctx.active.remove(area)
+        ctx.pending.append(
+            CommitBatch([area], np.asarray([0, len(area)]), VerdictFuture(verdict))
+        )
 
     # -- tier transitions (two-tier pool) ----------------------------------
 

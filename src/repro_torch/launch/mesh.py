@@ -9,7 +9,7 @@ the staging buffer to the destination region's device and unpacks it there.
 So far every region lives on one device (one card, or the CPU for tests):
 the pool is one tensor, and the move between regions is ``Tensor.to`` of a
 buffer that is already there.  A mesh over several cards needs a pool split
-into per-card shards (ROADMAP queue 1 item 2) and raises until then.
+into per-card shards (ROADMAP queue 1 item 5) and raises until then.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class RegionMesh:
             raise NotImplementedError(
                 f"a region mesh over several devices ({sorted(map(str, set(devices)))}) "
                 "needs a pool sharded per device, which is not ported yet "
-                "(ROADMAP queue 1 item 2)"
+                "(ROADMAP queue 1 item 5)"
             )
         object.__setattr__(self, "devices", devices)
 

@@ -17,9 +17,9 @@ from repro_torch.models.common import MLP, _param, mlp_forward, mlp_init, rms_no
 
 # Block kinds the port does not carry yet, and the ROADMAP item that ports each.
 _NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1: models/moe.py (serving, MoE stacks)",
-    "mlstm": "ROADMAP.md queue 1: models/xlstm.py",
-    "slstm": "ROADMAP.md queue 1: models/xlstm.py",
+    "moe": "ROADMAP.md queue 1 item 3: models/moe.py (serving, MoE stacks)",
+    "mlstm": "ROADMAP.md queue 1 item 6: models/xlstm.py",
+    "slstm": "ROADMAP.md queue 1 item 6: models/xlstm.py",
 }
 
 

@@ -378,3 +378,107 @@ def test_lru_scan_kernel_refuses_what_it_does_not_take(cuda):
         lru_scan.lru_scan(a, x, h0[:, :64])
     with pytest.raises(ValueError, match="lies on"):
         lru_scan.lru_scan(a, x, h0.cpu())
+
+
+# -- the contenders, the tiering loop and TPC-H on the card ----------------------
+
+
+def _driver(dev, n, slots, placement, cfg_kw, *, n_regions=2, topology=None, huge=1, seed=0):
+    from repro_torch.core import LeapConfig, MigrationDriver, PoolConfig, init_state, leap_write
+
+    pc = PoolConfig(n_regions, slots, (2, 64), topology=topology, huge_factor=huge)
+    gen = torch.Generator().manual_seed(seed)
+    data = torch.randn((n, 2, 64), generator=gen)
+    state = leap_write(init_state(pc, n, placement, device=dev), torch.arange(n), data.to(dev))
+    return MigrationDriver(state, pc, LeapConfig(**cfg_kw)), data
+
+
+@pytest.mark.parametrize("huge", [1, 4])
+def test_legacy_matches_megastep_on_the_card(cuda, huge):
+    """One seeded drain under writes through the legacy and the megastep
+    generation, blocking harvest: pools, tables and flags bit for bit."""
+    import numpy as np
+
+    runs = {}
+    for mode in ("legacy", "megastep"):
+        drv, data = _driver(cuda, 256, 320, np.zeros(256, np.int32), dict(
+            initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+            tiering=True, fused_dispatch=mode), huge=huge)
+        if huge > 1:
+            assert drv.adopt_huge(np.arange(256 // huge)) == 256 // huge
+        s = drv.default_session()
+        s.leap(np.arange(256), 1)
+        gen = torch.Generator().manual_seed(1)
+        while not drv.done:
+            s.tick()
+            s.poll(block=True)
+            ids = torch.randperm(256, generator=gen)[:12]
+            vals = torch.randn((12, 2, 64), generator=gen)
+            drv.write(ids, vals.to(cuda))
+            data[ids] = vals
+        assert s.drain() and drv.verify_mirror()
+        assert torch.equal(drv.read(torch.arange(256), note=False).cpu(), data)
+        runs[mode] = drv
+    for a, b in zip(runs["legacy"].state.to_numpy(), runs["megastep"].state.to_numpy()):
+        assert (a == b).all()
+    assert runs["legacy"].stats.dirty_rejections == runs["megastep"].stats.dirty_rejections > 0
+    assert runs["legacy"].stats.dispatches > runs["megastep"].stats.dispatches
+
+
+def test_tpch_queries_repeat_bit_for_bit_on_the_card(cuda):
+    from repro_torch.data import tpch
+    from repro_torch.data.morsels import MorselStore
+
+    data = tpch.gen_lineitem(64 * 2048, seed=0)
+    store = MorselStore.create(data, 2048, 2)  # on the card by default
+    assert store.driver.state.device.type == "cuda"
+    for which, p, want in (("q1", 2400.0, tpch.q1_reference(data, 2400.0)),
+                           ("q6", 730.0, tpch.q6_reference(data, 730.0))):
+        got = tpch.run_query(store, which, p)
+        again = tpch.run_query(store, which, p)
+        assert got.is_cuda and torch.equal(got, again)
+        want = torch.tensor(want, dtype=torch.float64)
+        torch.testing.assert_close(got.double().cpu(), want, rtol=1e-3, atol=0)
+
+
+def test_sync_resharder_fails_exactly_the_busy_set_on_the_card(cuda):
+    import numpy as np
+
+    from repro_torch.core import SyncResharder
+    from repro_torch.core.pipeline import busy_mask
+
+    drv, data = _driver(cuda, 64, 128, np.zeros(64, np.int32), dict(initial_area_blocks=8))
+    s = drv.default_session()
+    s.leap(np.arange(16), 1)
+    s.tick()  # epochs open: blocks 0..15 are in flight or claimed
+    drv.write(torch.tensor([3, 40]), torch.ones((2, 2, 64), device=cuda))
+    data[[3, 40]] = 1.0
+    ids = np.arange(64)
+    busy = busy_mask(drv.state, ids).cpu().numpy() | drv.in_migration(ids)
+    res = SyncResharder(drv.pool_cfg).migrate_driver(drv, ids, 1)
+    assert res.failed.tolist() == np.nonzero(busy)[0].tolist()
+    assert sorted(res.migrated.tolist() + res.failed.tolist()) == ids.tolist()
+    assert s.drain() and (drv.host_placement() == 1).all()
+    assert torch.equal(drv.read(torch.arange(64), note=False).cpu(), data)
+
+
+def test_tiering_policy_promotes_a_hot_far_block_on_the_card(cuda):
+    import numpy as np
+
+    from repro_torch.tiering import TieringConfig, TieringPolicy
+    from repro_torch.topology import NumaTopology
+
+    before = heat_scan.heat_scan.launches
+    drv, _ = _driver(cuda, 48, 64, np.full(48, 2, np.int32), dict(tiering=True),
+                     n_regions=3, topology=NumaTopology.cxl_pooled(2, 1))
+    pol = TieringPolicy(drv, TieringConfig(hot_watermark=2.0, epoch_ticks=4))
+    s = drv.default_session()
+    for _ in range(24):
+        drv.read(np.array([20]))
+        pol.maybe_apply(s)
+        s.tick()
+    assert s.drain()
+    assert drv.host_placement()[20] in (0, 1) and drv.stats.tier_promotions >= 1
+    assert heat_scan.heat_scan.launches > before  # the plane the policy read
+    txt = s.telemetry().metrics_text()
+    assert 'tier_resident_bytes{tier="far"}' in txt

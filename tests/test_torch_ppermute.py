@@ -205,16 +205,17 @@ def test_batched_tiering_drain_with_reads_and_promotion():
     assert p.t.stats.promotions > 0 and p.t.stats.deferred_congested > 0
 
 
-def _port_interleaved(mode, seed=3, n=32):
-    """``tests/test_megastep.py``'s ``_run_interleaved`` on the port."""
+def _port_interleaved(mode, seed=3, n=32, **cfg):
+    """``tests/test_megastep.py``'s ``_run_interleaved`` on the port; ``cfg``
+    overrides ``LeapConfig`` fields."""
     rng = np.random.default_rng(seed)
     pc = T.PoolConfig(2, 2 * n, (4,))
     data = rng.normal(size=(n, 4)).astype(np.float32)
     state = T.leap_write(T.init_state(pc, n, np.zeros(n, np.int32), device="cpu"),
                          np.arange(n), torch.from_numpy(data))
-    drv = T.MigrationDriver(state, pc, T.LeapConfig(
-        initial_area_blocks=8, budget_blocks_per_tick=8, max_attempts_before_force=3,
-        fused_dispatch=mode, tiering=True))
+    drv = T.MigrationDriver(state, pc, T.LeapConfig(**{
+        **dict(initial_area_blocks=8, budget_blocks_per_tick=8, max_attempts_before_force=3,
+               fused_dispatch=mode, tiering=True), **cfg}))
     s = drv.default_session()
     h = s.leap(np.arange(n), 1)
     for _ in range(1000):
