@@ -96,11 +96,36 @@ printed):
    repeated), then every tick while all morsels leap from region 0 to 1
    under 16 ``L_ORDERKEY`` field writes a tick (bit-identical to the result
    at rest: the writer touches no column the queries read).
+20. The chaos sweep: ``sample_spec`` seeds 0-7 (megastep, as sampled) and
+   seed 2 under batched and legacy through ``ChaosDriver`` on the card and
+   on the CPU (the same ``ChaosReport``, ``MigrationStats``,
+   host table, pool, flags and shadow, bit for bit); the
+   ``skip_quarantine`` sabotage caught on the card as a payload violation,
+   and its serialized spec replayed to the same violation; a chaos
+   ``serving`` scenario (the tiny two-layer model, through K4).
+21. A chaos scenario at the failed-region drain's size: ``quad_socket``, 4
+   regions of 45,056 slots of 64 KiB (11 GiB), 2 GiB of payload spread over
+   them, every region's blocks leaping to the next under 64 writes a tick,
+   with a congested link, a 512-block write burst, region 3's loss, a
+   cancel storm and the topology restored; every standing invariant after
+   every tick and event (payload every 8th tick, compared on the card), and
+   ``check_final`` after the drain.  Prints the report, the wall seconds
+   and the seconds in the checker.
+22. granite_3_2b at full width (phase 7's deployment, ``scheduler="slo"``)
+   served by ``LoadGenerator`` for 48 ticks: two tenants (512-token
+   prompts; gold at 0.9 requests a tick, 32 tokens, SLO 2.5; batch at 0.6,
+   64 tokens, SLO 10), two sequences churned to the other region every
+   second tick, the structural invariants and the page accounting after
+   every tick.  Twice: ``gen.report()`` and every sequence's tokens must be
+   identical.  Then the reduced load run (``benchmarks/serving_slo.py``'s
+   setting, f32, TF32 off) on the card and on the CPU: the same report,
+   tick log, tokens and host table.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
-16-19), and last ``{"ok": true, "device": {...}}``.
+16-19), the ``{"chaos": ...}`` line (phases 20-22), and last
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -116,6 +141,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -136,6 +162,16 @@ from repro_torch.core import (  # noqa: E402
     make_region_mesh,
     state_sharding,
 )
+from repro_torch.chaos import (  # noqa: E402
+    ChaosDriver,
+    FaultEvent,
+    InvariantChecker,
+    InvariantViolation,
+    ScenarioSpec,
+    run_scenario,
+    run_with_repro,
+    sample_spec,
+)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
 from repro_torch.core.pipeline import busy_mask  # noqa: E402
@@ -151,6 +187,7 @@ from repro_torch.kernels import (  # noqa: E402
     paged_attn,
     ref,
 )
+from repro_torch.load import LoadGenerator, TenantSpec, WorkloadSpec  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
@@ -191,6 +228,37 @@ FAILED = dict(regions=4, slots=45056, region=3)
 # TPC-H: 33,554,432 lineitem rows of 32 B (1 GiB, about SF 5.6) in morsels of
 # 2,048 rows (64 KiB): 16,384 morsels; fig8's writer does 16 field writes a tick
 TPCH = dict(rows=33_554_432, rows_per_morsel=2048, q1_cutoff=2400.0, q6_year=730.0, writes=16)
+# the chaos sweep: tests/test_chaos.py's seeds; the sabotage spec of that file
+CHAOS_SEEDS = range(8)
+SABOTAGE_SPEC = ScenarioSpec(seed=0, ticks=4, n_regions=2, slots_per_region=16, n_blocks=8,
+                             placement="spread", scheduler="sync", workload="exchange")
+# tests/test_load.py's chaos serving scenario (the tiny two-layer model, K4)
+SERVING_CHAOS = ScenarioSpec(
+    seed=5, ticks=10, n_regions=2, slots_per_region=32, workload="serving", scheduler="slo",
+    serving_rate=0.5, serving_churn_every=2,
+    faults=(FaultEvent("cancel_storm", tick=5, args={"frac": 0.5}),))
+# the failed-region drain's pool under the chaos harness: quad_socket, 2 GiB of
+# 64 KiB blocks spread over 4 regions of 45,056 slots (an 11 GiB pool)
+CHAOS_AT_SCALE = ScenarioSpec(
+    seed=0, ticks=40, n_regions=4, topology="quad_socket", slots_per_region=45056,
+    n_blocks=32768, block_elems=16384, placement="spread", workload="exchange",
+    initial_area_blocks=256, budget_blocks_per_tick=1024, writes_per_tick=64, tiering=True,
+    payload_every=8,
+    faults=(FaultEvent("congest_link", 4, {"src": 0, "dst": 1, "factor": 4.0}),
+            FaultEvent("write_burst", 8, {"blocks": 512}),
+            FaultEvent("drain_region", 12, {"region": 3}),
+            FaultEvent("cancel_storm", 20, {"frac": 0.25}),
+            FaultEvent("restore_topology", 28)))
+# open-loop load (benchmarks/serving_slo.py's two tenants at load 2.0) against
+# full-width granite: 512-token prompts, 48 ticks, 2 sequences churned a 2nd tick
+LOAD = dict(ticks=48, seed=11, churn_every=2, churn_count=2)
+LOAD_WARMUP = 16  # serving_slo's: the pacing loop needs a latency window first
+LOAD_TENANTS = (
+    TenantSpec("gold", rate=0.9, prompt_tokens=512, decode_tokens=32, slo_latency=2.5,
+               priority=2, region=0),
+    TenantSpec("batch", rate=0.6, prompt_tokens=512, decode_tokens=64, slo_latency=10.0,
+               priority=0, region=1),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1047,6 +1115,256 @@ def tpch_over_a_leap(dev) -> dict:
     return out
 
 
+# -- phases 20-22: the chaos harness and the load generator ----------------------
+
+
+def run_chaos(spec, dev):
+    """Run ``spec`` on ``dev``: the driver, its report and the wall seconds."""
+    chaos = ChaosDriver(spec, device=dev)
+    t0 = time.perf_counter()
+    report = chaos.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return chaos, report, time.perf_counter() - t0
+
+
+def chaos_state(chaos, report) -> tuple:
+    """What a chaos run must agree on across devices: its report, stats, host
+    table, state leaves and (without serving) the shadow, on the host."""
+    drv = chaos.driver
+    shadow = () if chaos.shadow is None else (chaos.shadow.cpu().numpy(),)
+    return (dataclasses.asdict(report), dataclasses.asdict(drv.stats),
+            (drv.host_table(),) + drv.state.to_numpy() + shadow)
+
+
+def chaos_card_matches_cpu(dev, spec) -> dict:
+    """One scenario on the card and on the CPU: the same report, stats, host
+    table, pool, flags and shadow, bit for bit."""
+    *card, card_s = run_chaos(spec, dev)
+    *host, cpu_s = run_chaos(spec, torch.device("cpu"))
+    (rep, stats, leaves), (rep_c, stats_c, leaves_c) = chaos_state(*card), chaos_state(*host)
+    what = f"seed {spec.seed} ({spec.dispatch})"
+    check(rep == rep_c, f"{what}: the same ChaosReport on the card and on the CPU")
+    check(stats == stats_c, f"{what}: the same MigrationStats")
+    check(all(np.array_equal(a, b) for a, b in zip(leaves, leaves_c)),
+          f"{what}: host table, pool, flags and shadow bit for bit")
+    check(rep["completed"], f"{what}: the final drain completes")
+    print(f"chaos seed {spec.seed} ({spec.workload}/{spec.scheduler}, {spec.dispatch}): "
+          f"{rep['ticks_run']} ticks, {rep['checks_run']} checks, events "
+          f"{rep['events_fired']}, card {card_s:.3f} s, CPU {cpu_s:.3f} s, the same")
+    return dict(seed=spec.seed, workload=spec.workload, dispatch=spec.dispatch,
+                scheduler=spec.scheduler, regions=spec.n_regions, ticks=rep["ticks_run"],
+                checks=rep["checks_run"], events=rep["events_fired"],
+                migrated=rep["blocks_migrated"], forced=rep["blocks_forced"],
+                cancelled=rep["blocks_cancelled"], card_s=card_s, cpu_s=cpu_s)
+
+
+def chaos_sweep(dev) -> dict:
+    """Phase 20: ``sample_spec`` seeds 0-7 (megastep, as sampled), and seed 2
+    under batched and legacy, on the card and on the CPU; the
+    ``skip_quarantine`` sabotage caught and replayed on the card; and a
+    chaos serving scenario on the card."""
+    reset_launch_counts()
+    specs = [sample_spec(seed) for seed in CHAOS_SEEDS]
+    specs += [dataclasses.replace(sample_spec(2), dispatch=m) for m in ("batched", "legacy")]
+    seeds = [chaos_card_matches_cpu(dev, spec) for spec in specs]
+    with tempfile.TemporaryDirectory() as repro_dir:
+        try:
+            run_with_repro(SABOTAGE_SPEC, repro_dir, sabotage="skip_quarantine", device=dev)
+            raise RuntimeError("check failed: the sabotage went unnoticed on the card")
+        except InvariantViolation as e:
+            caught = e
+        replay = ScenarioSpec.from_json((Path(repro_dir) / "last_failure.json").read_text())
+    check(caught.invariant == "payload" and replay == SABOTAGE_SPEC,
+          "the sabotage is caught as a payload violation and its spec serialized")
+    try:
+        run_scenario(replay, sabotage="skip_quarantine", device=dev)
+        raise RuntimeError("check failed: the replayed sabotage went unnoticed")
+    except InvariantViolation as e:
+        check(str(e) == str(caught.__cause__), "the replay reproduces the same violation")
+    check(run_scenario(replay, device=dev).completed, "the clean replay passes")
+    before = launch_counts()["paged_decode"]
+    serving, rep, serving_s = run_chaos(SERVING_CHAOS, dev)
+    served = launch_counts()["paged_decode"] - before
+    check(rep.completed and rep.checks_run > SERVING_CHAOS.ticks and rep.blocks_requested > 0,
+          "the chaos serving scenario drains, checked every tick, under churn")
+    check(served > 0 and served % 2 == 0, "the serving scenario decoded through K4")
+    launches = launch_counts()
+    print(f"chaos sabotage caught on the card: {caught.invariant}; serving scenario "
+          f"{serving_s:.3f} s, {rep.ticks_run} ticks, {rep.checks_run} checks, "
+          f"{rep.blocks_migrated} migrated, launches {launches}")
+    return dict(seeds=seeds, sabotage=caught.invariant,
+                serving=dict(seconds=serving_s, ticks=rep.ticks_run, checks=rep.checks_run,
+                             blocks_requested=rep.blocks_requested,
+                             blocks_migrated=rep.blocks_migrated,
+                             load=serving.generator.report()),
+                launches=launches)
+
+
+def chaos_at_scale(dev) -> dict:
+    """Phase 21: the failed-region drain's pool under the chaos harness: a
+    four-region exchange of 2 GiB under writes, a congested link, a write
+    burst, region 3's loss, a cancel storm and the topology restored."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chaos = ChaosDriver(CHAOS_AT_SCALE, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    checker_s = [0.0]
+    for name in ("check_all", "check_final"):
+        inner = getattr(chaos.checker, name)
+
+        def timed(*args, _inner=inner, **kw):
+            t = time.perf_counter()
+            try:
+                return _inner(*args, **kw)
+            finally:
+                checker_s[0] += time.perf_counter() - t
+
+        setattr(chaos.checker, name, timed)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = chaos.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rep.completed, "the scenario drains and check_final holds")
+    s = chaos.driver.stats
+    check(rep.blocks_migrated + rep.blocks_forced + rep.blocks_cancelled == rep.blocks_requested,
+          "accounting closes")
+    check(len(rep.events_fired) == len(CHAOS_AT_SCALE.faults), "every fault fired")
+    check(launches["copy_blocks"] > 0 and launches["heat_scan"] > 0,
+          "the scenario copied through K1 and scanned heat through K3")
+    out = dict(setup_s=setup_s, seconds=seconds, checker_s=checker_s[0],
+               tick_s=seconds / rep.ticks_run, checks=rep.checks_run, ticks=rep.ticks_run,
+               events=rep.events_fired, drain_refusals=rep.drain_refusals,
+               handles=rep.handles_issued, blocks_requested=rep.blocks_requested,
+               blocks_migrated=rep.blocks_migrated, blocks_forced=rep.blocks_forced,
+               blocks_cancelled=rep.blocks_cancelled, dirty_rejections=s.dirty_rejections,
+               payload_gib=CHAOS_AT_SCALE.n_blocks * chaos.driver.pool_cfg.block_bytes / 2**30,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    print(f"chaos at scale: {dataclasses.asdict(rep) | {'spec': 'CHAOS_AT_SCALE'}}")
+    print(f"chaos at scale: {seconds:.3f} s over {rep.ticks_run} ticks "
+          f"({out['tick_s'] * 1e3:.1f} ms a tick), checker {checker_s[0]:.3f} s in "
+          f"{rep.checks_run} checks, setup {setup_s:.3f} s, peak {out['peak_gib']:.2f} GiB, "
+          f"launches {launches}")
+    del chaos
+    return out
+
+
+def load_run(dev, cfg, model, pcfg, spec):
+    """Drive ``spec`` through a ``LoadGenerator`` over a fresh engine, with
+    blocking harvest, the chaos harness's structural invariants and the
+    generator's page accounting after every tick.  Returns the generator,
+    every sequence's tokens and the timings."""
+    eng = PagedEngine(cfg, model, pcfg, device=dev)
+    gen = LoadGenerator(eng, spec, scheduler=eng.driver.scheduler)
+    checker = InvariantChecker(eng.driver)
+    tokens, release_seq = {}, eng.release
+
+    def keep_tokens(sid):
+        tokens[sid] = list(eng.seqs[sid].tokens)
+        release_seq(sid)
+
+    eng.release = keep_tokens
+    tick_s, check_s = [], 0.0
+    for _ in range(spec.ticks):
+        t0 = time.perf_counter()
+        gen.step()
+        eng.session.poll(block=True)
+        tick_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        checker.check_all(payload=False)
+        gen.verify_accounting()
+        check_s += time.perf_counter() - t0
+    tokens.update({sid: list(seq.tokens) for sid, seq in eng.seqs.items()})
+    return gen, tokens, dict(tick_s=tick_s, check_s=check_s)
+
+
+def load_full_width(dev) -> dict:
+    """Phase 22: granite_3_2b at full width served by the open-loop load
+    generator under the SLO scheduler, with live KV churn, twice."""
+    release()
+    cfg, model, pcfg, _ = serving_deployment(dev)
+    pcfg = dataclasses.replace(pcfg, scheduler="slo")
+    spec = WorkloadSpec(tenants=LOAD_TENANTS, **LOAD)
+    runs, out = [], {}
+    for i in range(2):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        gen, tokens, times = load_run(dev, cfg, model, pcfg, spec)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        rep = gen.report(warmup=LOAD_WARMUP)
+        runs.append((rep, tokens))
+        s = gen.engine.driver.stats
+        check(launches["paged_decode"] > 0 and launches["paged_decode"] % cfg.n_layers == 0,
+              "paged decode launched once per layer and decode call")
+        check(rep["blocks_copied"] > 0 and s.blocks_requested > 0, "churn migrated KV pages")
+        out[f"run{i}"] = dict(
+            seconds=seconds, tick_ms_median=statistics.median(times["tick_s"]) * 1e3,
+            tick_ms_max=max(times["tick_s"]) * 1e3, check_s=times["check_s"],
+            admitted=len(gen.done) + len(gen.live), completed=rep["completed"],
+            dropped=rep["dropped"], queued=rep["queued"], p50=rep["p50"], p99=rep["p99"],
+            gold_p99=rep["tenants"]["gold"]["p99"], gold_slo_met=rep["tenants"]["gold"]["slo_met"],
+            mig_rate=rep["mig_rate"], blocks_copied=rep["blocks_copied"],
+            max_running=max(e["n_running"] for e in gen.tick_log),
+            dirty_rejections=s.dirty_rejections, launches=launches)
+        o = out[f"run{i}"]
+        print(f"load run {i}: modeled p50 {rep['p50']:.4f} p99 {rep['p99']:.4f} (gold p99 "
+              f"{o['gold_p99']:.4f}, SLO met {o['gold_slo_met']}), mig_rate "
+              f"{rep['mig_rate']:.4f}, admitted {o['admitted']}, dropped {rep['dropped']}, "
+              f"at most {o['max_running']} running; wall {seconds:.3f} s, tick "
+              f"{o['tick_ms_median']:.1f} ms median ({o['tick_ms_max']:.1f} max), checks "
+              f"{times['check_s']:.3f} s; launches {launches}")
+        del gen
+    check(runs[0][0] == runs[1][0], "gen.report() is bit-identical run to run")
+    check(runs[0][1] == runs[1][1], "every sequence's tokens are identical run to run")
+    del model
+    release()
+    return dict(config="granite_3_2b", layers=cfg.n_layers,
+                dtype=str(cfg.dtype()).removeprefix("torch."), spec=json.loads(spec.to_json()),
+                warmup=LOAD_WARMUP, report=runs[0][0], runs=out)
+
+
+def load_card_matches_cpu(dev) -> dict:
+    """The reduced load run (benchmarks/serving_slo.py's setting: two-layer
+    granite, f32, TF32 off, the same weights) on the card and on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    models = {"cuda": copy.deepcopy(cpu_model).to(dev), "cpu": cpu_model}
+    pcfg = PagedConfig(block_tokens=4, max_blocks_per_seq=16, n_regions=2, slots_per_region=96,
+                       leap=LeapConfig(initial_area_blocks=2, chunk_blocks=1,
+                                       budget_blocks_per_tick=8, max_attempts_before_force=4),
+                       scheduler="slo")
+    spec = WorkloadSpec(**LOAD, tenants=(
+        TenantSpec("gold", rate=0.45, prompt_tokens=6, decode_tokens=10, slo_latency=2.5,
+                   priority=2, region=0),
+        TenantSpec("batch", rate=0.3, prompt_tokens=8, decode_tokens=14, slo_latency=10.0,
+                   priority=0, region=1)))
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        if name == "cuda":
+            reset_launch_counts()
+        gen, tokens, _ = load_run(d, cfg, models[name], pcfg, spec)
+        res[name] = (gen, tokens, launch_counts() if name == "cuda" else None)
+    (gpu, gtok, launches), (cpu, ctok, _) = res["cuda"], res["cpu"]
+    rep = gpu.report(warmup=LOAD_WARMUP)
+    check(rep == cpu.report(warmup=LOAD_WARMUP), "card and CPU give the same gen.report()")
+    check(gpu.tick_log == cpu.tick_log, "and the same tick log")
+    check(gtok == ctok, "card and CPU decode the same tokens")
+    check(np.array_equal(gpu.engine.driver.host_table(), cpu.engine.driver.host_table()),
+          "host tables agree")
+    check(launches["paged_decode"] > 0, "the card's run decoded through K4")
+    print(f"reduced load run on the card and on the CPU agrees: p99 {rep['p99']:.4f}, "
+          f"mig_rate {rep['mig_rate']:.4f}, {len(gtok)} sequences, launches {launches}")
+    return dict(report=rep, sequences=len(gtok), launches=launches)
+
+
 # -- phase 6: the paged-decode kernel against its plain version ----------------
 
 
@@ -1517,18 +1835,24 @@ def main() -> int:
     tiering = tiering_loop(dev)
     failed = failed_region_drain(dev)
     queries = tpch_over_a_leap(dev)
+    chaos = chaos_sweep(dev)
+    at_scale = chaos_at_scale(dev)
+    load = load_full_width(dev)
+    load_cpu = load_card_matches_cpu(dev)
 
     # each path's counts were set to 0 just before it ran and read just after
     paths = (list(drains.values()) + list(serving["runs"].values())
              + list(recurrent["runs"].values()) + list(contenders.values())
-             + [tiering, failed, queries])
+             + [tiering, failed, queries, chaos, at_scale] + list(load["runs"].values())
+             + [load_cpu])
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
-    by_name = {row["name"]: row for row in rows}
-    check(by_name["paged_decode"]["launches"] == 2 * SERVE["steps"] * serving["layers"],
+    check(sum(r["launches"]["paged_decode"] for r in serving["runs"].values())
+          == 2 * SERVE["steps"] * serving["layers"],
           "paged decode launched once per layer and step in both serving runs")
-    check(by_name["lru_scan"]["launches"] == 2 * recurrent["rec_layers"],
+    check(sum(r["launches"]["lru_scan"] for r in recurrent["runs"].values())
+          == 2 * recurrent["rec_layers"],
           "lru_scan launched once per rec layer in both recurrent prefills")
 
     print(json.dumps({"kernels": rows}))
@@ -1537,6 +1861,8 @@ def main() -> int:
     print(json.dumps({"recurrent": recurrent, "card": smi}))
     print(json.dumps({"contenders": contenders, "tiering": tiering,
                       "failed_region_drain": failed, "tpch": queries, "card": smi}))
+    print(json.dumps({"chaos": chaos, "chaos_at_scale": at_scale, "load": load,
+                      "load_card_matches_cpu": load_cpu, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

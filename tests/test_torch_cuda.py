@@ -482,3 +482,52 @@ def test_tiering_policy_promotes_a_hot_far_block_on_the_card(cuda):
     assert heat_scan.heat_scan.launches > before  # the plane the policy read
     txt = s.telemetry().metrics_text()
     assert 'tier_resident_bytes{tier="far"}' in txt
+
+
+# -- the chaos harness on the card ------------------------------------------------
+
+
+def _chaos_on(dev, spec, **kw):
+    import dataclasses
+
+    from repro_torch.chaos import ChaosDriver
+
+    chaos = ChaosDriver(spec, device=dev, **kw)
+    report = dataclasses.asdict(chaos.run())
+    stats = dataclasses.asdict(chaos.driver.stats)
+    return report, stats, chaos.driver.host_table(), chaos.driver.state.to_numpy()
+
+
+@pytest.mark.parametrize("mode", ["megastep", "batched", "legacy"])
+def test_chaos_seed_matches_cpu_on_the_card(cuda, mode):
+    """``sample_spec(2)`` (a 4-region exchange under faults, tiering on)
+    through each dispatch generation: the same report, stats, host table
+    and state, bit for bit, on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.chaos import sample_spec
+
+    spec = dataclasses.replace(sample_spec(2), dispatch=mode)
+    before = leap_copy.copy_blocks.launches
+    got = _chaos_on(cuda, spec)
+    assert got[0]["completed"]
+    if mode != "legacy":  # legacy copies by plain indexing
+        assert leap_copy.copy_blocks.launches > before
+    want = _chaos_on("cpu", spec)
+    assert got[:2] == want[:2]
+    for a, b in zip(got[2:3] + got[3], want[2:3] + want[3]):
+        assert (a == b).all()
+
+
+def test_chaos_sabotage_is_caught_on_the_card(cuda, tmp_path):
+    from repro_torch.chaos import InvariantViolation, ScenarioSpec, run_scenario, run_with_repro
+
+    spec = ScenarioSpec(seed=0, ticks=4, n_regions=2, slots_per_region=16, n_blocks=8,
+                        placement="spread", scheduler="sync", workload="exchange")
+    with pytest.raises(InvariantViolation) as exc:
+        run_with_repro(spec, str(tmp_path), sabotage="skip_quarantine")
+    assert exc.value.invariant == "payload"
+    replayed = ScenarioSpec.from_json((tmp_path / "last_failure.json").read_text())
+    with pytest.raises(InvariantViolation, match="payload"):
+        run_scenario(replayed, sabotage="skip_quarantine")
+    assert run_scenario(replayed).completed

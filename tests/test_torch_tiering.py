@@ -5,8 +5,10 @@ package surface (``test_torch_baselines.Pkg``) and run over both packages:
 the port passes the reference test's own assertions and ends in the same
 state (pools, tables, flags, host table, ``MigrationStats`` but
 ``jit_cache_misses``, scenario results) bit for bit, with heat planes within
-rtol = atol = 1e-6.  The heat-kernel cases hold K3's plain version against
-the numpy oracle and against ``heat_scan_pallas`` in interpret mode.
+rtol = atol = 1e-6.  Every tick is followed by a blocking harvest
+(:func:`step`) on both sides.  The heat-kernel cases hold K3's plain
+version against the numpy oracle and against ``heat_scan_pallas`` in
+interpret mode.
 
 Last, a ``Pair`` drain with ``TieringPolicy.maybe_apply`` every tick, whose
 state, stats and every handle (the policy's included) match at every tick.
@@ -44,6 +46,13 @@ def cxl_pool(P, n_blocks=48, slots=64, far_share=1.0, seed=0, leap=None):
     init_regions[: int(n_blocks * (1.0 - far_share))] = 0
     data = np.random.default_rng(seed).normal(size=(n_blocks, 4)).astype(np.float32)
     return cfg, P.driver(cfg, n_blocks, init_regions, data, leap=leap), data
+
+
+def step(drv):
+    """One tick, then blocking harvest: verdicts land at the same tick in
+    both packages, whatever the JAX package's async timing (ROADMAP R2)."""
+    drv.tick()
+    drv.poll(block=True)
 
 
 def host(x) -> np.ndarray:
@@ -124,7 +133,7 @@ def _drain_with_reads(P, tiering, seed=11, n_blocks=32, reads_per_tick=4):
     steps = 0
     while not drv.done and steps < 500:
         drv.read(rng.choice(n_blocks, size=reads_per_tick, replace=False))
-        drv.tick()
+        step(drv)
         steps += 1
     assert drv.default_session().drain()
     return drv
@@ -165,7 +174,7 @@ def _warm_path(P):
     sess.leap(np.arange(32), 1)
     while not drv.done:
         drv.read(rng.choice(32, size=8, replace=False))
-        drv.tick()
+        step(drv)
     assert sess.drain()
     before = P.core.migrator.program_cache_sizes()["megastep"]
     misses = drv.stats.jit_cache_misses
@@ -173,7 +182,7 @@ def _warm_path(P):
     steps = 0
     while not drv.done and steps < 500:
         drv.read(rng.choice(32, size=8, replace=False))
-        drv.tick()
+        step(drv)
         steps += 1
     assert sess.drain()
     assert P.core.migrator.program_cache_sizes()["megastep"] == before
@@ -195,7 +204,7 @@ def _heat_flush(P):
                            leap=P.core.LeapConfig(tiering=True, fused_dispatch=mode))
         for _ in range(4):
             drv.read(np.array([3, 3, 9]))
-            drv.tick()
+            step(drv)
         heat = drv.heat_snapshot()
         assert heat[3] > heat[9] > 0 and heat[4] == 0
         out[mode] = outcome(drv)
@@ -210,10 +219,10 @@ def _heat_decay(P):
     cfg, drv, _ = make(P, n_blocks=16, slots=32, seed=6,
                        leap=P.core.LeapConfig(tiering=True, tier_heat_decay=0.5))
     drv.read(np.array([1]))
-    drv.tick()
+    step(drv)
     for _ in range(4):
         drv.read(np.array([2]))
-        drv.tick()
+        step(drv)
     heat = drv.heat_snapshot()
     assert heat[2] > heat[1] > 0
     return heat
@@ -252,7 +261,7 @@ def run_policy(drv, pol, hot_ids, ticks):
         if len(hot_ids):
             drv.read(hot_ids)
         pol.maybe_apply(sess)
-        drv.tick()
+        step(drv)
     sess.drain()
     return drv.host_placement()
 
@@ -281,15 +290,15 @@ def _cooldown(P):
     sess = drv.default_session()
     for _ in range(4):
         drv.read(np.array([30]))
-        drv.tick()
+        step(drv)
     pol.maybe_apply(sess)
     for _ in range(10):
-        drv.tick()
+        step(drv)
     assert sess.drain()
     assert drv.host_placement()[30] in (0, 1)
     for _ in range(30):  # heat now ~0 — decisively cold
         pol.maybe_apply(sess)
-        drv.tick()
+        step(drv)
     assert sess.drain()
     assert drv.host_placement()[30] in (0, 1), "cooldown must prevent demotion"
     assert drv.stats.tier_demotions == 0
@@ -309,7 +318,7 @@ def _aligned_runs(P):
     hot = np.array([4], np.int32)  # group 1 is half-hot; groups 0, 2, 3 all-cold
     for _ in range(6):
         drv.read(hot)
-        drv.tick()
+        step(drv)
     placement = run_policy(drv, pol, hot, 30)
     assert (placement[4:8] != 2).all(), "half-hot run must stay near"
     demoted = [g for g in (0, 2, 3) if (placement[g * G : (g + 1) * G] == 2).all()]
@@ -348,7 +357,7 @@ def _ping_pong(P):
     assert drv.stats.ping_pong_migrations == 2 * len(ids)
     before = drv.stats.ping_pong_migrations
     for _ in range(20):
-        drv.tick()
+        step(drv)
     sess.leap(ids, 0)
     assert sess.drain()
     assert drv.stats.ping_pong_migrations == before
@@ -408,7 +417,7 @@ def test_with_extra_stacks_not_replaces():
 def _facade_heat(P):
     cfg, drv, _ = make(P, n_blocks=8, slots=16, leap=P.core.LeapConfig(tiering=True))
     drv.read(np.array([2, 2, 5]))
-    drv.tick()
+    step(drv)
     heat = drv.default_session().facade.heat()
     assert heat.shape == (8,) and heat[2] > heat[5] > 0 and heat[0] == 0
     return heat
