@@ -121,10 +121,35 @@ printed):
    setting, f32, TF32 off) on the card and on the CPU: the same report,
    tick log, tokens and host table.
 
+23. The MoE stacks at their published widths through ``PagedEngine`` on
+   phase 7's pool (bf16, random weights from a seeded generator, the depth
+   cut): qwen3_moe_235b_a22b with 8 of its 94 layers (128 experts top-8,
+   expert d_ff 1536, QK-norm; 8 prompts of 512 tokens, 64 decode steps) and
+   dbrx_132b with 4 of its 40 layers (16 experts top-4, expert d_ff 10752;
+   16 steps), each once undisturbed and once while two sequences leap from
+   step 1 on.  Tokens and the last step's logits bit-identical between the
+   runs, one paged-decode launch per layer and step, peak under 60 GB; the
+   picks that capacity drops at prefill and at decode are counted (at batch
+   8 qwen3's decode capacity is 1).  Phase 6 also times the paged-decode
+   kernel at both stacks' decode shapes.
+24. The reduced qwen3_moe (f32, TF32 off) served on the card and on the CPU
+   under a live rebalance with blocking harvest, at the smoke capacity
+   factor 8.0 and at the published 1.25 (where decode drops picks): every
+   routing call's slots equal (a mismatch prints the token's gate gap),
+   equal tokens, tables and flags, pools and logits within 1e-5.
+25. xlstm_125m in full (12 layers, d 768, sLSTM at layers 3, 7 and 11, bf16)
+   through ``lm.prefill`` and ``lm.decode_step``: 8 prompts of 2048 tokens
+   (the chunked mLSTM), then 64 greedy decode steps, twice, with the sLSTM
+   layers' per-token prefill loops timed; finite logits and the same tokens.
+   Then the reduced config on the card and on the CPU in lockstep (f32, TF32
+   off): prefills of 192 (chunked) and 64 tokens (sequential), each followed
+   by 4 decode steps; equal tokens, logits and every cache within 1e-5.
+
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
-16-19), the ``{"chaos": ...}`` line (phases 20-22), and last
+16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
+line (phases 23-25 and their wall seconds), and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -188,7 +213,7 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
 )
 from repro_torch.load import LoadGenerator, TenantSpec, WorkloadSpec  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, moe, xlstm  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
 from repro_torch.topology import NumaTopology  # noqa: E402
@@ -253,6 +278,23 @@ CHAOS_AT_SCALE = ScenarioSpec(
 # full-width granite: 512-token prompts, 48 ticks, 2 sequences churned a 2nd tick
 LOAD = dict(ticks=48, seed=11, churn_every=2, churn_count=2)
 LOAD_WARMUP = 16  # serving_slo's: the pacing loop needs a latency window first
+# phase 23: the MoE stacks at their published widths, depth cut to fit one card
+# (8 of qwen3's 94 layers: 38.7 GB of experts; 4 of dbrx's 40: 25.4 GB)
+MOE_SERVE = (
+    dict(config="qwen3_moe_235b_a22b", layers=8, prompts=8, prompt_len=512, steps=64),
+    dict(config="dbrx_132b", layers=4, prompts=8, prompt_len=512, steps=16),
+)
+MOE_PEAK_BYTES = 60e9  # qwen3's 8 layers hold about 42.4 GB of weights
+# paged decode at those stacks' decode shapes (phase 6): phase 23's pools
+PAGED_MOE = {
+    "qwen3_moe_235b_a22b": dict(b=8, h=64, kvh=4, hd=128, blk=16, maxb=64, layers=8, layer=4,
+                                slots=1024),
+    "dbrx_132b": dict(b=8, h=48, kvh=8, hd=128, blk=16, maxb=64, layers=4, layer=2, slots=1024),
+}
+# phase 25: xlstm_125m in full, prompts long enough for the chunked mLSTM; the
+# reduced config's prefills on either side of the chunked cell's threshold
+XLSTM = dict(prompts=8, prompt_len=2048, steps=64)
+XLSTM_REDUCED_LENS = (192, 64)
 LOAD_TENANTS = (
     TenantSpec("gold", rate=0.9, prompt_tokens=512, decode_tokens=32, slo_latency=2.5,
                priority=2, region=0),
@@ -1368,10 +1410,10 @@ def load_card_matches_cpu(dev) -> dict:
 # -- phase 6: the paged-decode kernel against its plain version ----------------
 
 
-def paged_inputs(dev, dtype, lens: torch.Tensor, seed: int):
-    """q, the layer-20 strided view of a 40-layer pool, tables of distinct
-    slots, and ``lens``; everything from seeded generators."""
-    p = PAGED
+def paged_inputs(dev, dtype, lens: torch.Tensor, seed: int, p=PAGED):
+    """q, the strided view of layer ``p["layer"]`` of a ``p["layers"]``-layer
+    pool, tables of distinct slots, and ``lens``; everything from seeded
+    generators."""
     g = torch.Generator(device=dev).manual_seed(seed)
     host = torch.Generator().manual_seed(seed)
     pool = torch.randn((p["slots"], p["layers"], 2, p["blk"], p["kvh"], p["hd"]),
@@ -1382,11 +1424,10 @@ def paged_inputs(dev, dtype, lens: torch.Tensor, seed: int):
     return q, pool[:, p["layer"]], tables, lens.int().to(dev)
 
 
-def paged_bound(q, view, lens_host) -> tuple[float, str]:
+def paged_bound(q, view, lens_host, p=PAGED) -> tuple[float, str]:
     """Each input byte read once and each output written once: the K and V
     rows of every token below len, q, the valid table entries and lens; out,
     m and l.  Operations: 4 flops per token, query head and head element."""
-    p = PAGED
     toks = int(lens_host.sum())
     kv_bytes = toks * p["kvh"] * p["hd"] * 2 * view.element_size()
     pages = int(((lens_host + p["blk"] - 1) // p["blk"]).sum())
@@ -1395,8 +1436,7 @@ def paged_bound(q, view, lens_host) -> tuple[float, str]:
     return bound_ms(n_bytes, 4.0 * toks * p["h"] * p["hd"])
 
 
-def paged_timings(q, view, tables, lens, lens_host) -> dict:
-    p = PAGED
+def paged_timings(q, view, tables, lens, lens_host, p=PAGED) -> dict:
     qg = q.view(p["b"], p["kvh"], p["h"] // p["kvh"], p["hd"])
     tok = torch.arange(p["maxb"] * p["blk"], device=q.device)
     mask = (tok[None, :] < lens[:, None].long())[:, None, None, :]  # [B, 1, 1, T]
@@ -1409,7 +1449,7 @@ def paged_timings(q, view, tables, lens, lens_host) -> dict:
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
 
     want = ref.paged_decode_ref(q, view, tables, lens)[0]
-    b, by = paged_bound(q, view, lens_host)
+    b, by = paged_bound(q, view, lens_host, p)
     return dict(
         ms=time_ms(lambda: paged_attn.paged_decode(qg, view, tables, lens)),
         plain_ms=time_ms(lambda: ref.paged_decode_ref(q, view, tables, lens)),
@@ -1419,10 +1459,10 @@ def paged_timings(q, view, tables, lens, lens_host) -> dict:
     )
 
 
-def paged_grid(lens_host) -> str:
+def paged_grid(lens_host, p=PAGED) -> str:
     """The grid the wrapper launches and, by the kernel's exit rule, the CTAs
     in it that do work: derived from the shapes, not measured."""
-    p, split = PAGED, paged_attn.SPLIT_TOKENS
+    split = paged_attn.SPLIT_TOKENS
     live = p["kvh"] * sum(max(1, -(-int(n) // split)) for n in lens_host)
     return (f"{live} of {p['b'] * p['kvh'] * paged_attn.decode_splits(p['maxb'], p['blk'])} "
             f"CTAs live by the {split}-token split rule")
@@ -1482,6 +1522,7 @@ def paged_decode_checks(dev) -> dict:
                f"[{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, {p['hd']}] pool, "
                f"MAXB {p['maxb']}, lens {lens.tolist()}"),
         at_serving_lens=at_serving,
+        at_moe_decode_shapes=paged_moe_rows(dev),
     )
     print(f"paged_decode: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
           f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, {paged_grid(lens)}), max err "
@@ -1492,6 +1533,33 @@ def paged_decode_checks(dev) -> dict:
           f"err bf16 {errs[(bf16, 'split boundaries')]:.3g}, f32 softcap "
           f"{errs[(f32, 'split boundaries')]:.3g}")
     return row
+
+
+def paged_moe_rows(dev) -> dict:
+    """Phase 6 at the MoE stacks' decode shapes (phase 23's pools, the lens of
+    its middle decode step): bf16 against the plain version, then timed."""
+    out = {}
+    for spec in MOE_SERVE:
+        p = PAGED_MOE[spec["config"]]
+        lens = torch.full((p["b"],), spec["prompt_len"] + spec["steps"] // 2)
+        q, view, tables, lens_d = paged_inputs(dev, torch.bfloat16, lens, SEED, p)
+        got = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"])
+        want = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"], impl="ref")
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[torch.bfloat16])
+        row = dict(
+            shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16 (G {p['h'] // p['kvh']}), layer "
+                   f"{p['layer']} of a [{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, "
+                   f"{p['hd']}] pool, lens {int(lens[0])} each"),
+            max_abs_err=max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)),
+            **paged_timings(q, view, tables, lens_d, lens, p))
+        print(f"paged_decode at {spec['config']}'s decode shape: {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}, {paged_grid(lens, p)}), max err {row['max_abs_err']:.3g}")
+        out[spec["config"]] = row
+        del q, view, tables, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phases 7 and 10: serving through PagedEngine ------------------------------
@@ -1563,12 +1631,17 @@ def serving_deployment(dev):
     prompts.  ``scripts/profile_serving.py`` profiles this same deployment."""
     cfg = get_config("granite_3_2b")
     model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
-    pcfg = PagedConfig(block_tokens=16, max_blocks_per_seq=64, n_regions=2, slots_per_region=512,
-                       leap=LeapConfig(initial_area_blocks=4, budget_blocks_per_tick=8,
-                                       tiering=True))
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, size=(SERVE["prompts"], SERVE["prompt_len"]))
-    return cfg, model, pcfg, prompts
+    return cfg, model, serving_pool(), prompts
+
+
+def serving_pool() -> PagedConfig:
+    """Phase 7's paged KV pool: pages of 16 tokens, 64 a sequence, 2 regions
+    of 512 slots, tiering on (phase 23 serves the MoE stacks on it too)."""
+    return PagedConfig(block_tokens=16, max_blocks_per_seq=64, n_regions=2, slots_per_region=512,
+                       leap=LeapConfig(initial_area_blocks=4, budget_blocks_per_tick=8,
+                                       tiering=True))
 
 
 def serving_full_width(dev) -> dict:
@@ -1713,7 +1786,7 @@ def recurrent_run(model, cfg, prompts: torch.Tensor, steps: int) -> dict:
         tok = logits.argmax(-1)[:, None]
         tokens.append(tok.cpu())  # the step's one device-to-host copy
         step_s.append(time.perf_counter() - t1)
-    check(bool(finite), "recurrentgemma logits are finite")
+    check(bool(finite), f"{cfg.name} logits are finite")
     return dict(
         tokens=torch.cat(tokens, dim=1), prefill_s=prefill_s,
         decode_s=sum(step_s), decode_step_ms_median=statistics.median(step_s) * 1e3,
@@ -1764,6 +1837,16 @@ def recurrent_full_width(dev) -> dict:
                 dtype="bfloat16", params=cfg.param_count(), init_s=init_s, **RECUR, runs=runs)
 
 
+def caches_agree(g, c) -> None:
+    """Card and CPU (logits, per-layer cache) within 1e-5."""
+    (glog, gcache), (clog, ccache) = g, c
+    torch.testing.assert_close(glog.cpu(), clog, rtol=1e-5, atol=1e-5)
+    for gl, cl in zip(gcache, ccache):
+        check(set(gl) == set(cl), "card and CPU caches hold the same entries")
+        for k in gl:
+            torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-5, atol=1e-5)
+
+
 def recurrent_card_matches_cpu(dev) -> None:
     """Reduced recurrentgemma, f32 with TF32 off, on the card and on the CPU,
     in lockstep: prefill, then 4 decode steps, compared after each."""
@@ -1773,28 +1856,294 @@ def recurrent_card_matches_cpu(dev) -> None:
     cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 16)))
-
-    def agree(g, c) -> None:
-        (glog, gcache), (clog, ccache) = g, c
-        torch.testing.assert_close(glog.cpu(), clog, rtol=1e-5, atol=1e-5)
-        for gl, cl in zip(gcache, ccache):
-            check(set(gl) == set(cl), "card and CPU caches hold the same entries")
-            for k in gl:
-                torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-5, atol=1e-5)
-
     before = lru_scan.lru_scan.launches
     g = lm.prefill(gpu_model, prompt.to(dev), cfg, 20)
     check(lru_scan.lru_scan.launches - before == cfg.layer_kinds.count("rec"),
           "the card's prefill ran the lru_scan kernel once per rec layer")
     c = lm.prefill(cpu_model, prompt, cfg, 20)
-    agree(g, c)
+    caches_agree(g, c)
     for pos in range(16, 20):
         tok = c[0].argmax(-1)[:, None]
         check(torch.equal(g[0].argmax(-1).cpu(), tok[:, 0]), "card and CPU pick the same tokens")
         g = lm.decode_step(gpu_model, g[1], tok.to(dev), pos, cfg)
         c = lm.decode_step(cpu_model, c[1], tok, pos, cfg)
-        agree(g, c)
+        caches_agree(g, c)
     print("reduced recurrentgemma on the card and on the CPU agrees")
+
+
+# -- phases 23 and 24: MoE stacks through PagedEngine ---------------------------
+
+
+class RouteTap:
+    """While active, wraps ``moe.route_slots`` to count the (token, expert)
+    picks that capacity drops, keyed by the tokens a routing group holds (a
+    prompt's length at prefill, the batch at decode), on the device and with
+    no host sync; with ``record`` it also keeps every call's gates and slots
+    on the host."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
+        self.calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self._dropped: dict[int, torch.Tensor] = {}
+        self._route = moe.route_slots
+
+    def __enter__(self):
+        moe.route_slots = self._tap
+        return self
+
+    def __exit__(self, *exc):
+        moe.route_slots = self._route
+
+    def _tap(self, gates, mc, cap):
+        out = self._route(gates, mc, cap)
+        n = (out[0] == mc.n_experts * cap).sum()
+        t = gates.shape[1]
+        self._dropped[t] = self._dropped[t] + n if t in self._dropped else n
+        if self.record:
+            self.calls.append((gates.cpu(), out[0].cpu()))
+        return out
+
+    def dropped(self, tokens: int) -> int:
+        return int(self._dropped[tokens]) if tokens in self._dropped else 0
+
+
+def moe_deployment(dev, spec):
+    """A MoE stack at its published widths with the depth of ``spec``, random
+    bf16 weights from seed 0 on ``dev``, phase 7's pool and the prompts."""
+    cfg = dataclasses.replace(get_config(spec["config"]), n_layers=spec["layers"])
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(spec["prompts"], spec["prompt_len"]))
+    return cfg, model, serving_pool(), prompts
+
+
+def moe_full_width(dev) -> dict:
+    """Phase 23: each MoE stack served undisturbed and under live migration."""
+    out = {}
+    for spec in MOE_SERVE:
+        t0 = time.perf_counter()
+        cfg, model, pcfg, prompts = moe_deployment(dev, spec)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        full = get_config(spec["config"])
+        name_of = spec["config"]
+        decode_picks = spec["steps"] * spec["prompts"] * cfg.moe.top_k * cfg.n_layers
+        runs, res = {}, {}
+        for name in ("undisturbed", "live"):
+            reset_launch_counts()
+            with RouteTap() as tap:
+                eng, sids, handles, times = serve_run(dev, cfg, model, pcfg, prompts,
+                                                      spec["steps"], live=name == "live")
+            launches = launch_counts()
+            runs[name] = ([eng.seqs[s].tokens for s in sids], eng.last_logits.clone())
+            res[name] = dict(times, launches=launches,
+                             dropped_picks_prefill=tap.dropped(spec["prompt_len"]),
+                             dropped_picks_decode=tap.dropped(spec["prompts"]),
+                             decode_picks=decode_picks)
+            if name == "live":
+                res[name].update(check_serving(eng, sids, handles))
+                check(res[name]["dirty_rejections"] > 0, "decode appends dirtied in-flight pages")
+                check(launches["copy_blocks"] > 0 and launches["heat_scan"] > 0,
+                      f"{name_of} live run launched copy_blocks and heat_scan")
+            check(launches["paged_decode"] == spec["steps"] * cfg.n_layers,
+                  f"{name_of} {name}: one paged-decode launch per layer and step")
+            check(bool(torch.isfinite(eng.last_logits).all()), f"{name_of} logits are finite")
+            print(f"{name_of} ({cfg.n_layers} of {full.n_layers} layers) {name}: prefill "
+                  f"{times['prefill_s']:.3f} s, decode step "
+                  f"{times['decode_step_ms_median']:.3f} ms (median), "
+                  f"{times['tokens_per_s']:.1f} tok/s, decode {times['decode_s']:.3f} s, "
+                  f"ticks {times['tick_s']:.3f} s, peak {times['peak_gib']:.2f} GiB, dropped "
+                  f"picks {res[name]['dropped_picks_decode']} of {decode_picks} at decode and "
+                  f"{res[name]['dropped_picks_prefill']} at prefill, launches {launches}")
+            del eng
+            torch.cuda.empty_cache()
+        check(runs["live"][0] == runs["undisturbed"][0],
+              f"{name_of}: tokens are identical with and without live migration")
+        check(torch.equal(runs["live"][1], runs["undisturbed"][1]),
+              f"{name_of}: the last step's logits are bit-identical with and without live "
+              f"migration")
+        check(res["live"]["dropped_picks_decode"] == res["undisturbed"]["dropped_picks_decode"],
+              f"{name_of}: both runs drop the same picks")
+        check(res["live"]["peak_gib"] * 2**30 < MOE_PEAK_BYTES, f"{name_of}: peak under 60 GB")
+        del model
+        release()
+        out[name_of] = dict(
+            config=name_of, layers=cfg.n_layers,
+            reduced=f"layers {cfg.n_layers} of {full.n_layers}",
+            dtype="bfloat16", params=cfg.param_count(), active_params=cfg.active_param_count(),
+            decode_capacity=moe.capacity(cfg.moe, spec["prompts"]),
+            prefill_capacity=moe.capacity(cfg.moe, spec["prompt_len"]), init_s=init_s,
+            **{k: v for k, v in spec.items() if k not in ("config", "layers")}, runs=res)
+    return out
+
+
+def route_gap(gates: torch.Tensor, k: int) -> float:
+    """The smallest gap between a token's adjacent gates among its top k + 1:
+    how near a tie came to reordering its picks."""
+    top = torch.sort(gates, dim=-1, descending=True).values[..., : k + 1]
+    return float((top[..., :-1] - top[..., 1:]).min())
+
+
+def moe_card_matches_cpu(dev) -> dict:
+    """Phase 24: the reduced qwen3_moe (f32, TF32 off) served on the card and
+    on the CPU under a live rebalance with blocking harvest, at the smoke
+    capacity factor and at the published one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = reduce(get_config("qwen3_moe_235b_a22b"))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, base.vocab_size, size=n) for n in (5, 9, 12, 16)]
+    pcfg = PagedConfig(block_tokens=4, max_blocks_per_seq=16, n_regions=2, slots_per_region=64,
+                       leap=LeapConfig(initial_area_blocks=2, chunk_blocks=1,
+                                       budget_blocks_per_tick=1, max_attempts_before_force=3,
+                                       tiering=True))
+    out = {}
+    for factor in (base.moe.capacity_factor, get_config("qwen3_moe_235b_a22b").moe.capacity_factor):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=factor))
+        cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        models = {"cuda": copy.deepcopy(cpu_model).to(dev), "cpu": cpu_model}
+        res = {}
+        for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            reset_launch_counts()
+            with RouteTap(record=True) as tap:
+                eng, sids, _, _ = serve_run(d, cfg, models[name], pcfg, prompts, 10, live=True,
+                                            blocking=True)
+            res[name] = (eng, [eng.seqs[s].tokens for s in sids], tap, launch_counts())
+        (gpu, gtok, gtap, launches), (cpu, ctok, ctap, _) = res["cuda"], res["cpu"]
+        check(len(gtap.calls) == len(ctap.calls), "card and CPU route as often")
+        for i, ((gg, gs), (cg, cs)) in enumerate(zip(gtap.calls, ctap.calls)):
+            if not torch.equal(gs, cs):
+                t = int((gs != cs).any(-1).nonzero()[0, 0])
+                k = cfg.moe.top_k
+                print(f"routing call {i} differs at token {t}: gate gap "
+                      f"{route_gap(gg[0, t], k):.3g} on the card, {route_gap(cg[0, t], k):.3g} "
+                      f"on the CPU")
+            check(torch.equal(gs, cs), f"card and CPU route call {i} alike (capacity factor "
+                                       f"{factor})")
+        check(gtok == ctok, "card and CPU decode the same tokens")
+        check(np.array_equal(gpu.driver.host_table(), cpu.driver.host_table()), "host tables agree")
+        g_state, c_state = gpu.driver.state.to_numpy(), cpu.driver.state.to_numpy()
+        np.testing.assert_allclose(g_state[0], c_state[0], rtol=1e-5, atol=1e-5)
+        for a, b in zip(g_state[1:], c_state[1:]):
+            check(np.array_equal(a, b), "card and CPU tables and dirty/in-flight bits agree")
+        torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits, rtol=1e-5, atol=1e-5)
+        check(gpu.driver.stats == cpu.driver.stats, "card and CPU MigrationStats agree")
+        drops = gtap.dropped(len(prompts))
+        check((drops > 0) == (factor < base.moe.capacity_factor),
+              f"decode drops picks exactly at the published factor ({drops} at {factor})")
+        check(launches["paged_decode"] == 10 * cfg.n_layers, "the card's run launched K4")
+        gaps = [route_gap(g, cfg.moe.top_k) for g, _ in gtap.calls]
+        out[f"capacity_factor_{factor}"] = dict(
+            route_calls=len(gtap.calls), dropped_picks_decode=drops,
+            dropped_picks_prefill=sum(gtap.dropped(len(p)) for p in prompts),
+            smallest_gate_gap=min(gaps),
+            pool_bit_identical=bool(np.array_equal(g_state[0], c_state[0])),
+            pool_max_abs_diff=float(np.abs(g_state[0] - c_state[0]).max()),
+            logits_max_abs_diff=float((gpu.last_logits.cpu() - cpu.last_logits).abs().max()),
+            launches=launches)
+        print(f"reduced qwen3_moe at capacity factor {factor} on the card and on the CPU agrees: "
+              f"{len(gtap.calls)} routing calls equal, {drops} picks dropped at decode, smallest "
+              f"gate gap {min(gaps):.3g}, pools bit-identical "
+              f"{out[f'capacity_factor_{factor}']['pool_bit_identical']}")
+        del gpu, cpu, res, models
+    return out
+
+
+# -- phase 25: xlstm_125m through lm.prefill and lm.decode_step -------------------
+
+
+class SlstmTimer:
+    """While active, times every sLSTM prefill (its per-token loop) with a
+    synchronise on each side; the arithmetic is untouched."""
+
+    def __init__(self):
+        self.prefill_s = 0.0
+        self._block = xlstm.slstm_block
+
+    def __enter__(self):
+        xlstm.slstm_block = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        xlstm.slstm_block = self._block
+
+    def _timed(self, x, params, cfg, cache=None, *, mode):
+        if mode != "prefill":
+            return self._block(x, params, cfg, cache, mode=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._block(x, params, cfg, cache, mode=mode)
+        torch.cuda.synchronize()
+        self.prefill_s += time.perf_counter() - t0
+        return out
+
+
+def xlstm_deployment(dev):
+    """xlstm_125m in full with random bf16 weights from seed 0 on ``dev``, and
+    its prompts.  ``scripts/profile_recurrent.py`` profiles this same run."""
+    cfg = get_config("xlstm_125m")
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(XLSTM["prompts"], XLSTM["prompt_len"]))).to(dev)
+    return cfg, model, prompts
+
+
+def xlstm_full_width(dev) -> dict:
+    """xlstm_125m in full, twice over the same prompts."""
+    t0 = time.perf_counter()
+    cfg, model, prompts = xlstm_deployment(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    runs, tokens = {}, []
+    for name in ("first", "second"):
+        with SlstmTimer() as timer:
+            res = recurrent_run(model, cfg, prompts, XLSTM["steps"])
+        res["slstm_prefill_s"] = timer.prefill_s
+        tokens.append(res.pop("tokens"))
+        res["launches"] = {k: v + res["decode_launches"][k]
+                           for k, v in res["prefill_launches"].items()}
+        check(not any(res["launches"].values()), "the xLSTM path runs none of the port's kernels")
+        runs[name] = res
+        print(f"xlstm_125m {name}: prefill {res['prefill_s']:.3f} s (sLSTM layers "
+              f"{timer.prefill_s:.3f} s), decode step {res['decode_step_ms_median']:.3f} ms "
+              f"(median), {res['tokens_per_s']:.1f} tok/s, decode {res['decode_s']:.3f} s, peak "
+              f"{res['peak_gib']:.2f} GiB")
+        torch.cuda.empty_cache()
+    check(torch.equal(tokens[0], tokens[1]), "a second identical xLSTM run decodes the same tokens")
+    del model
+    torch.cuda.empty_cache()
+    return dict(config="xlstm_125m", layers=cfg.n_layers, kinds=list(cfg.layer_kinds),
+                dtype="bfloat16", params=cfg.param_count(), init_s=init_s, **XLSTM, runs=runs)
+
+
+def xlstm_card_matches_cpu(dev) -> dict:
+    """The reduced xlstm_125m (f32, TF32 off) on the card and on the CPU in
+    lockstep: a chunked (192-token) and a sequential (64-token) prefill, each
+    followed by 4 decode steps, compared after every call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = reduce(get_config("xlstm_125m"))
+    cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for s in XLSTM_REDUCED_LENS:
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)))
+        g = lm.prefill(gpu_model, prompt.to(dev), cfg, s + 4)
+        c = lm.prefill(cpu_model, prompt, cfg, s + 4)
+        for pos in range(s, s + 5):
+            caches_agree(g, c)
+            worst = max(worst, float((g[0].cpu() - c[0]).abs().max()))
+            if pos == s + 4:
+                break
+            tok = c[0].argmax(-1)[:, None]
+            check(torch.equal(g[0].argmax(-1).cpu(), tok[:, 0]),
+                  "card and CPU pick the same tokens")
+            g = lm.decode_step(gpu_model, g[1], tok.to(dev), pos, cfg)
+            c = lm.decode_step(cpu_model, c[1], tok, pos, cfg)
+    print(f"reduced xlstm_125m on the card and on the CPU agrees (prefills of "
+          f"{list(XLSTM_REDUCED_LENS)}, logits within {worst:.3g})")
+    return dict(prefill_lens=list(XLSTM_REDUCED_LENS), decode_steps=4, logits_max_abs_diff=worst)
 
 
 def main() -> int:
@@ -1839,12 +2188,27 @@ def main() -> int:
     at_scale = chaos_at_scale(dev)
     load = load_full_width(dev)
     load_cpu = load_card_matches_cpu(dev)
+    release()
+    wall = {}
+    t0 = time.perf_counter()
+    moe_res = moe_full_width(dev)
+    wall["phase_23_moe_full_width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_cpu = moe_card_matches_cpu(dev)
+    wall["phase_24_moe_card_matches_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xl = xlstm_full_width(dev)
+    xl_cpu = xlstm_card_matches_cpu(dev)
+    wall["phase_25_xlstm"] = time.perf_counter() - t0
+    for phase, sec in wall.items():
+        print(f"{phase}: {sec:.1f} s wall")
 
     # each path's counts were set to 0 just before it ran and read just after
     paths = (list(drains.values()) + list(serving["runs"].values())
              + list(recurrent["runs"].values()) + list(contenders.values())
              + [tiering, failed, queries, chaos, at_scale] + list(load["runs"].values())
-             + [load_cpu])
+             + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
+             + [r for r in moe_cpu.values()] + list(xl["runs"].values()))
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
@@ -1863,6 +2227,8 @@ def main() -> int:
                       "failed_region_drain": failed, "tpch": queries, "card": smi}))
     print(json.dumps({"chaos": chaos, "chaos_at_scale": at_scale, "load": load,
                       "load_card_matches_cpu": load_cpu, "card": smi}))
+    print(json.dumps({"moe": moe_res, "moe_card_matches_cpu": moe_cpu, "xlstm": xl,
+                      "xlstm_card_matches_cpu": xl_cpu, "wall_s": wall, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the full-width recurrentgemma_9b prefill and decode steps spend their time.
+"""Where a full-width recurrent prefill and its decode steps spend their time.
 
-    python3 scripts/profile_recurrent.py [--trace recurrent_trace.json]
+    python3 scripts/profile_recurrent.py [--deployment recurrentgemma_9b] [--trace trace.json]
 
-Builds the recurrent run of ``chip_smoke.py`` (recurrentgemma_9b at full
-width and depth, random bf16 weights from seed 0, 8 prompts of 2048 tokens)
-on the current CUDA device, warms up with one prefill and 4 decode steps,
+Builds a recurrent run of ``chip_smoke.py`` (random bf16 weights from seed
+0, 8 prompts of 2048 tokens): recurrentgemma_9b at full width and depth
+(phase 9, the default) or xlstm_125m in full (phase 25), on the current
+CUDA device, warms up with one prefill and 4 decode steps,
 times 8 decode steps without the profiler, then profiles one prefill and 4
 decode steps with ``torch.profiler``.  Prints for each window what
 ``profile_serving.py`` prints: wall time, device time summed over kernels,
@@ -28,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import recurrent_deployment  # noqa: E402
+from chip_smoke import recurrent_deployment, xlstm_deployment  # noqa: E402
 from profile_serving import report  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
@@ -45,13 +46,16 @@ def decode(model, cfg, cache, tok, pos: int, steps: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--deployment", default="recurrentgemma_9b",
+                    choices=["recurrentgemma_9b", "xlstm_125m"])
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the decode window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_recurrent: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    cfg, model, prompts = recurrent_deployment(dev)
+    deployment = xlstm_deployment if args.deployment == "xlstm_125m" else recurrent_deployment
+    cfg, model, prompts = deployment(dev)
     s = prompts.shape[1]
     max_len = s + WARMUP_STEPS + TIMED_STEPS + PROFILED_STEPS
     logits, cache = lm.prefill(model, prompts, cfg, max_len)
@@ -62,7 +66,8 @@ def main() -> int:
         t0 = time.perf_counter()
         cache, tok = decode(model, cfg, cache, tok, s + WARMUP_STEPS + i, 1)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    print(torch.cuda.get_device_name(0), f"decode step {statistics.median(step_ms):.3f} ms "
+    print(torch.cuda.get_device_name(0), cfg.name,
+          f"decode step {statistics.median(step_ms):.3f} ms "
           f"(median of {TIMED_STEPS}, profiler off)")
     out = {"decode_step_ms_median": statistics.median(step_ms)}
 

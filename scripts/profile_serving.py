@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a full-width decode step of the port's ``PagedEngine`` spends its time.
 
-    python3 scripts/profile_serving.py [--trace serving_trace.json]
+    python3 scripts/profile_serving.py [--deployment granite_3_2b] [--trace serving_trace.json]
 
-Builds the serving deployment of ``chip_smoke.py`` (granite_3_2b at full
-width and depth, random bf16 weights from seed 0, 8 prompts of 512 tokens)
-on the current CUDA device, admits the prompts, warms up with 8 decode
+Builds a serving deployment of ``chip_smoke.py`` on the current CUDA device
+(random bf16 weights from seed 0, 8 prompts of 512 tokens): granite_3_2b at
+full width and depth (phase 7, the default), or one of phase 23's MoE
+stacks at published widths with the depth cut (``qwen3_moe_235b_a22b``,
+``dbrx_132b``).  It admits the prompts, warms up with 8 decode
 steps, times 8 more without the profiler, then profiles one more admission
 and 4 decode steps with ``torch.profiler``.  Prints, for each window, the
 wall time, the device time summed over kernels and their ratio (the
@@ -29,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import serving_deployment  # noqa: E402
+from chip_smoke import MOE_SERVE, moe_deployment, serving_deployment  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
 
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 8, 8, 4
@@ -65,13 +67,18 @@ def report(name: str, prof, wall_s: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    moe = {spec["config"]: spec for spec in MOE_SERVE}
+    ap.add_argument("--deployment", default="granite_3_2b", choices=["granite_3_2b", *moe])
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the decode window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    cfg, model, pcfg, prompts = serving_deployment(dev)
+    if args.deployment in moe:
+        cfg, model, pcfg, prompts = moe_deployment(dev, moe[args.deployment])
+    else:
+        cfg, model, pcfg, prompts = serving_deployment(dev)
     eng = PagedEngine(cfg, model, pcfg, device=dev)
     sids = [eng.admit(p, region=i % pcfg.n_regions) for i, p in enumerate(prompts)]
     for _ in range(WARMUP_STEPS):
@@ -82,7 +89,8 @@ def main() -> int:
         t0 = time.perf_counter()
         eng.decode(sids)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    print(torch.cuda.get_device_name(0), f"decode step {statistics.median(step_ms):.3f} ms "
+    print(torch.cuda.get_device_name(0), cfg.name,
+          f"decode step {statistics.median(step_ms):.3f} ms "
           f"(median of {TIMED_STEPS}, profiler off)")
     out = {"decode_step_ms_median": statistics.median(step_ms)}
 

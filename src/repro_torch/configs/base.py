@@ -118,6 +118,12 @@ class ModelConfig:
 
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of n_experts)."""
+        from repro_torch.models.lm import count_params
+
+        return count_params(self, active_only=True)
+
 
 ARCH_IDS = (
     "nemotron_4_340b",
@@ -134,7 +140,14 @@ ARCH_IDS = (
 
 # The architectures whose configs the port carries so far; the others come
 # with the slices that port their block kinds (ROADMAP.md, queue 1).
-PORTED_ARCH_IDS = ("granite_3_2b", "qwen2_7b", "recurrentgemma_9b")
+PORTED_ARCH_IDS = (
+    "granite_3_2b",
+    "qwen2_7b",
+    "recurrentgemma_9b",
+    "qwen3_moe_235b_a22b",
+    "dbrx_132b",
+    "xlstm_125m",
+)
 
 
 def canon(arch: str) -> str:

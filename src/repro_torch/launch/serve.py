@@ -6,7 +6,9 @@ cache, with optional live rebalancing.
 
 runs the full configuration on the current CUDA device (random weights from
 ``--seed``).  ``--smoke`` serves the reduced two-layer configuration and
-``--device cpu`` runs on the CPU with the kernels' plain versions.
+``--device cpu`` runs on the CPU with the kernels' plain versions.  Dense
+and MoE stacks serve; recurrent ones (recurrentgemma_9b, xlstm_125m) run
+through ``lm.prefill`` and ``lm.decode_step`` instead.
 """
 
 from __future__ import annotations

@@ -1,32 +1,30 @@
-"""Per-layer block assembly: one (mixer + FFN) residual block per kind.
+"""Per-layer block assembly: one residual block per kind.
 
 Blocks receive the residual-stream input and return the *new* stream (and,
-in prefill/decode modes, the layer cache).  The port carries the kinds
-``attn``, ``win`` and ``rec``; the others raise until their slices land.
+in prefill/decode modes, the layer cache).  Every kind of the JAX package's
+``models/blocks.py`` is here: ``attn``, ``win`` and ``moe`` (attention, then
+a dense or a mixture-of-experts FFN), ``rec`` (RG-LRU, then a dense FFN), and
+the self-contained xLSTM kinds ``mlstm`` and ``slstm``.  The MoE aux loss
+belongs to training; prefill and decode drop it, as the reference does.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BLOCK_KINDS, ModelConfig
 from repro_torch.core.state import _default_device
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
+from repro_torch.models import xlstm
 from repro_torch.models.common import MLP, _param, mlp_forward, mlp_init, rms_norm
+from repro_torch.models.moe import MoE, moe_ffn, moe_init
 
-# Block kinds the port does not carry yet, and the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1 item 3: models/moe.py (serving, MoE stacks)",
-    "mlstm": "ROADMAP.md queue 1 item 6: models/xlstm.py",
-    "slstm": "ROADMAP.md queue 1 item 6: models/xlstm.py",
-}
+_CELLS = {"mlstm": (xlstm.MLSTM, xlstm.mlstm_init), "slstm": (xlstm.SLSTM, xlstm.slstm_init)}
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind not in ("attn", "win", "rec"):
+    if kind not in BLOCK_KINDS:
         raise ValueError(kind)
 
 
@@ -35,35 +33,47 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 class Block(nn.Module):
-    """``norm1 -> mixer -> residual -> norm2 -> MLP -> residual``; the mixer
-    is ``attn`` (kinds ``attn``, ``win``) or the RG-LRU ``rec`` (kind ``rec``)."""
+    """``norm1 -> mixer -> residual -> norm2 -> FFN -> residual``.  The mixer
+    is ``attn`` (kinds ``attn``, ``win``, ``moe``) or the RG-LRU ``rec``
+    (kind ``rec``); the FFN is ``mlp``, or ``moe`` for kind ``moe``.  The
+    xLSTM kinds hold ``norm1`` and one ``cell`` that carries its own
+    expansion."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None, mixer=None, mlp=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None, mixer=None, ffn=None):
         super().__init__()
         _check_kind(kind)
         device = _default_device(device)
         self.kind = kind
         d, pd = cfg.d_model, cfg.pdtype()
         self.norm1 = _param((d,), pd, device)
+        if kind in _CELLS:
+            self.cell = mixer if mixer is not None else _CELLS[kind][0](cfg, device)
+            return
         if kind == "rec":
             self.rec = mixer if mixer is not None else rec.RGLRU(cfg, device)
         else:
             self.attn = mixer if mixer is not None else attn.Attention(cfg, device)
         self.norm2 = _param((d,), pd, device)
-        self.mlp = mlp if mlp is not None else MLP(d, cfg.d_ff, cfg.mlp_kind, pd, device)
+        if kind == "moe":
+            self.moe = ffn if ffn is not None else MoE(cfg, device)
+        else:
+            self.mlp = ffn if ffn is not None else MLP(d, cfg.d_ff, cfg.mlp_kind, pd, device)
 
 
 def block_init(gen, cfg: ModelConfig, kind: str, device=None) -> Block:
     _check_kind(kind)
     device = _default_device(device)
-    init = rec.rglru_init if kind == "rec" else attn.attn_init
-    blk = Block(
-        cfg, kind, device,
-        mixer=init(gen, cfg, device),
-        mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.pdtype(), device),
-    )
+    if kind in _CELLS:
+        blk = Block(cfg, kind, device, mixer=_CELLS[kind][1](gen, cfg, device))
+    else:
+        mixer = (rec.rglru_init if kind == "rec" else attn.attn_init)(gen, cfg, device)
+        if kind == "moe":
+            ffn = moe_init(gen, cfg, device)
+        else:
+            ffn = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.pdtype(), device)
+        blk = Block(cfg, kind, device, mixer=mixer, ffn=ffn)
+        blk.norm2.data.zero_()
     blk.norm1.data.zero_()
-    blk.norm2.data.zero_()
     return blk
 
 
@@ -72,12 +82,33 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int, devi
     device = _default_device(device)
     if kind == "rec":
         return rec.init_rec_cache(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, batch, device)
     return attn.init_kv_cache(cfg, batch, max_len, _window(cfg, kind), device)
+
+
+def ffn_forward(x, params: Block, cfg: ModelConfig):
+    """The block's FFN on the normed stream: the dense MLP, or the MoE FFN
+    with its aux loss dropped."""
+    if params.kind == "moe":
+        return moe_ffn(x, params.moe, cfg)[0]
+    return mlp_forward(x, params.mlp, cfg.mlp_kind)
+
+
+def _cell(x, params: Block, cfg: ModelConfig, kind: str, cache, mode: str):
+    block = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
+    h = rms_norm(x, params.norm1, cfg.norm_eps)
+    y, cache = block(h, params.cell, cfg, cache, mode=mode)
+    return x + y, cache
 
 
 def block_prefill(x, params: Block, cfg: ModelConfig, kind: str):
     """[B,S,D] -> (x', cache) building the decode cache as it goes."""
     _check_kind(kind)
+    if kind in _CELLS:
+        return _cell(x, params, cfg, kind, None, "prefill")
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     if kind == "rec":
         y, cache = rec.rec_block_prefill(h, params.rec, cfg)
@@ -85,14 +116,15 @@ def block_prefill(x, params: Block, cfg: ModelConfig, kind: str):
         y, cache = attn.attn_prefill(h, params.attn, cfg, _window(cfg, kind))
     x = x + y
     h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-    x = x + mlp_forward(h2, params.mlp, cfg.mlp_kind)
-    return x, cache
+    return x + ffn_forward(h2, params, cfg), cache
 
 
 def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int):
     """[B,1,D] -> (x', cache').  An attention cache is updated in place and
-    returned; a ``rec`` layer returns a new ``{"conv", "h"}``."""
+    returned; a ``rec``, ``mlstm`` or ``slstm`` layer returns a new state."""
     _check_kind(kind)
+    if kind in _CELLS:
+        return _cell(x, params, cfg, kind, cache, "decode")
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     if kind == "rec":
         y, cache = rec.rec_block_decode(h, params.rec, cfg, cache)
@@ -100,5 +132,4 @@ def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int)
         y, cache = attn.attn_decode(h, params.attn, cfg, cache, pos, _window(cfg, kind))
     x = x + y
     h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-    x = x + mlp_forward(h2, params.mlp, cfg.mlp_kind)
-    return x, cache
+    return x + ffn_forward(h2, params, cfg), cache

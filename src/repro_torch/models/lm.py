@@ -9,8 +9,10 @@ head and its :class:`~repro_torch.models.blocks.Block` s in layer order
   ``decode_step``  one token + cache + pos -> (logits, cache updated in place)
 
 The cache is a list with one entry per layer: ``{"k", "v"}`` for attention
-layers (written in place by decode), ``{"conv", "h"}`` for ``rec`` layers
-(replaced in the list by the new state each decode step returns).
+and ``moe`` layers (written in place by decode); ``{"conv", "h"}`` for
+``rec``, ``{"conv", "c", "n", "m"}`` for ``mlstm`` and ``{"conv", "c", "n",
+"m", "h"}`` for ``slstm`` layers (each replaced in the list by the new state
+its decode step returns).
 
 The JAX module's function names (``init_params``, ``prefill``,
 ``decode_step``, ``init_cache``, ``embed_tokens``, ``lm_logits``) remain as
@@ -96,7 +98,7 @@ class CausalLM(nn.Module):
     def decode_step(self, cache: list[dict], inputs: torch.Tensor, pos: int):
         """One token for every sequence.  inputs: [B,1] ids; pos: int count of
         already-cached tokens.  Returns (logits [B,V], cache updated in place:
-        attention layers write into their k/v tensors, and each ``rec``
+        attention layers write into their k/v tensors, and each recurrent
         layer's entry of the list is replaced by the state its step returns)."""
         x = self.embed_tokens(inputs)
         for i, blk in enumerate(self.blocks):
@@ -177,9 +179,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> CausalLM:
     return model
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count, from the model built on the meta device."""
-    return sum(p.numel() for p in CausalLM(cfg, device="meta").parameters())
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count, from the model built on the meta device.
+    ``active_only`` counts the expert weights a token touches: ``top_k`` of
+    ``n_experts`` of each expert leaf, as the reference counts them."""
+    total = 0
+    for name, p in CausalLM(cfg, device="meta").named_parameters():
+        n = p.numel()
+        expert = name.rsplit(".", 1)[-1] in ("e_gate", "e_in", "e_out")
+        if active_only and cfg.moe is not None and expert:
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
+    return total
 
 
 # -- the JAX package's function names ----------------------------------------------

@@ -1,0 +1,164 @@
+"""Mixture-of-experts FFN: top-k token-choice routing with per-expert
+capacity buffers (GShard/Switch semantics), for dbrx (16e top-4) and
+qwen3-moe (128e top-8).
+
+The JAX package builds one-hot ``[T, E, C]`` dispatch and combine tensors
+and moves tokens with einsums.  Here routing yields, for every (token,
+rank), the buffer slot ``e * C + position`` its token fills, or a trash slot
+when the expert's capacity is full; dispatch is a scatter of token rows into
+``[G, E*C + 1, D]`` buffers and combine a gather of the expert outputs.  The
+kept set, the positions and the weights are the reference's, so the result
+is the same arithmetic up to the order of sums.  :func:`route` rebuilds the
+reference's dense tensors from the slots, for tests.
+
+The JAX package's sharding constraints and its two ``dispatch_mode``
+branches (experts gathered or tokens moved) are the same arithmetic on one
+device, so there is one path here.  The expert products are batched matrix
+products over the expert axis, as the reference's are einsums outside any
+Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.core.state import _default_device
+from repro_torch.models.common import _param, dense_init
+
+
+class MoE(nn.Module):
+    """The JAX ``moe_init`` tree as parameters: ``router [D, E]`` fp32,
+    ``e_gate``/``e_in [E, D, F]`` and ``e_out [E, F, D]`` in the param dtype."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        device = _default_device(device)
+        mc, d, pd = cfg.moe, cfg.d_model, cfg.pdtype()
+        e, f = mc.n_experts, mc.d_ff
+        self.router = _param((d, e), torch.float32, device)
+        self.e_gate = _param((e, d, f), pd, device)
+        self.e_in = _param((e, d, f), pd, device)
+        self.e_out = _param((e, f, d), pd, device)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> MoE:
+    """The reference's distributions: fan-in truncated normals over axis 0
+    (``router``, ``e_gate``, ``e_in``) and axis 1 (``e_out``)."""
+    device = _default_device(device)
+    p = MoE(cfg, device)
+    pd = cfg.pdtype()
+    with torch.no_grad():
+        p.router.copy_(dense_init(gen, tuple(p.router.shape), torch.float32, device))
+        p.e_gate.copy_(dense_init(gen, tuple(p.e_gate.shape), pd, device))
+        p.e_in.copy_(dense_init(gen, tuple(p.e_in.shape), pd, device))
+        p.e_out.copy_(dense_init(gen, tuple(p.e_out.shape), pd, device, scale_axis=1))
+    return p
+
+
+def capacity(mc: MoEConfig, n_tokens: int) -> int:
+    c = int(mc.capacity_factor * mc.top_k * n_tokens / mc.n_experts)
+    return max(c, 1)
+
+
+def _pick_groups(t: int, target: int) -> int:
+    return next(g for g in range(min(target, t), 0, -1) if t % g == 0)
+
+
+def route_slots(gates: torch.Tensor, mc: MoEConfig, cap: int):
+    """Token-choice top-k routing with per-expert capacity, in slot form.
+
+    gates: [G, T, E] fp32 softmax probabilities.  Returns ``(slot [G, T, k]
+    int64, weight [G, T, k] fp32, aux [G] fp32)``: ``slot`` is ``e * cap +
+    position`` for a kept pick and ``E * cap`` (the trash slot) for a pick
+    over its expert's capacity; ``weight`` is the (renormalised) gate of a
+    kept pick and 0 for a dropped one.
+
+    Ranks pick experts in descending gate order, an exact tie taking the
+    lower expert id first, as ``jax.lax.top_k`` orders them.  Positions are
+    rank-major: every token's first pick is placed before any second pick,
+    then token order within a rank.
+    """
+    g, t, e = gates.shape
+    k = mc.top_k
+    # a stable descending sort puts equal gates in expert order
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]  # [G, T, k]
+    if mc.norm_topk:
+        topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+    # A pick's position is the number of earlier picks of its expert in
+    # rank-major order (the reference's cumsum over one-hot [k*T, E] rows).
+    # A stable sort by expert keeps that order within each expert, so the
+    # position is the pick's index in the sorted order less its expert's
+    # first index there.
+    flat = topi.transpose(1, 2).reshape(g, k * t)  # expert of each pick, rank-major
+    order = torch.sort(flat, dim=1, stable=True).indices
+    counts = torch.zeros((g, e), dtype=torch.int64, device=gates.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))  # picks of each expert
+    first = torch.cumsum(counts, dim=1) - counts  # [G, E]
+    ranks = torch.arange(k * t, device=gates.device).expand(g, k * t)
+    pos = torch.empty_like(flat).scatter_(
+        1, order, ranks - torch.gather(first, 1, torch.gather(flat, 1, order)))
+    pos = pos.reshape(g, k, t).transpose(1, 2)  # [G, T, k]
+    keep = pos < cap
+    slot = torch.where(keep, topi * cap + pos, e * cap)
+    weight = torch.where(keep, topv, torch.zeros_like(topv))
+    # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e, where f_e
+    # counts every pick of e, the dropped ones too
+    frac_tokens = counts.float() / t  # [G, E]
+    frac_probs = torch.mean(gates, dim=1)
+    aux = e * torch.sum(frac_tokens * frac_probs, dim=-1)
+    return slot, weight, aux
+
+
+def route(gates: torch.Tensor, mc: MoEConfig, cap: int):
+    """The reference's ``route`` for one group: gates [T, E] -> (dispatch
+    [T, E, C] bool, combine [T, E, C] fp32, aux scalar), from
+    :func:`route_slots`."""
+    t, e = gates.shape
+    slot, weight, aux = route_slots(gates[None], mc, cap)
+    combine = torch.zeros((t, e * cap + 1), dtype=torch.float32, device=gates.device)
+    combine.scatter_(1, slot[0], weight[0])
+    dispatch = torch.zeros((t, e * cap + 1), dtype=torch.bool, device=gates.device)
+    dispatch.scatter_(1, slot[0], True)
+    combine = combine[:, : e * cap].reshape(t, e, cap)
+    return dispatch[:, : e * cap].reshape(t, e, cap), combine, aux[0]
+
+
+def moe_ffn(x: torch.Tensor, params: MoE, cfg: ModelConfig):
+    """x: [B, S, D] -> (out [B, S, D], aux loss scalar).
+
+    Tokens split into ``moe.groups`` routing groups (the largest divisor of
+    B*S not above it); capacity applies per group.  Each group's buffers
+    hold ``E * C`` expert rows and one trash row that takes the dropped
+    picks, which :func:`moe_ffn` never reads back.
+    """
+    mc = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    g = _pick_groups(t, mc.groups)
+    tg = t // g
+    xt = x.reshape(g, tg, d)
+    gates = torch.softmax(xt.float() @ params.router, dim=-1)
+    cap = capacity(mc, tg)
+    slot, weight, aux = route_slots(gates, mc, cap)
+    e, k = mc.n_experts, mc.top_k
+    rows = e * cap + 1  # buffer rows a group, the last the trash row
+    flat = (torch.arange(g, device=x.device)[:, None, None] * rows + slot).reshape(-1)
+    # dispatch: every pick's token row into its slot (only the trash row is
+    # written twice, and nothing reads it)
+    xe = x.new_zeros((g * rows, d))
+    xe[flat] = xt[:, :, None, :].expand(g, tg, k, d).reshape(-1, d)
+    xe = xe.view(g, rows, d)[:, : e * cap].reshape(g, e, cap, d)
+    xe = xe.transpose(0, 1).reshape(e, g * cap, d)  # expert-major for the products
+    h = F.silu(torch.bmm(xe, params.e_gate)) * torch.bmm(xe, params.e_in)
+    ye = torch.bmm(h, params.e_out)  # [E, G*C, D]
+    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    ye = torch.cat([ye, ye.new_zeros((g, 1, d))], dim=1).reshape(g * rows, d)
+    # combine: each token's kept picks, weighted by their gates cast to the
+    # compute dtype as the reference casts its combine tensor, summed in fp32
+    w = weight.to(x.dtype).float().reshape(-1, 1)
+    y = (ye[flat].float() * w).reshape(g, tg, k, d).sum(dim=2)
+    return y.to(x.dtype).reshape(b, s, d), torch.mean(aux)

@@ -9,8 +9,8 @@ The decode hot loop goes through ``repro_torch.kernels.ops.paged_decode_partial`
 the hand-written CUDA kernel on the card, its plain version on the CPU.  Each
 layer hands the kernel a strided view of its own slice of every slot, and
 the new token's K/V is written into the pool in place through that view.
-Supported stacks: uniform global-attention patterns (``attn``; ``moe``
-raises until ``models/moe.py`` is ported).
+Supported stacks: uniform global-attention patterns, each layer's FFN dense
+(``attn``) or a mixture of experts (``moe``).
 
 Regions are logical rows of one pool on one device.
 """
@@ -28,7 +28,8 @@ from repro_torch.core import LeapConfig, MigrationDriver, PoolConfig, init_state
 from repro_torch.core.state import REGION, SLOT, _default_device, host_to_device
 from repro_torch.kernels import ops
 from repro_torch.models.attention import _project_qkv
-from repro_torch.models.common import mlp_forward, rms_norm, rope_cos_sin
+from repro_torch.models.blocks import ffn_forward
+from repro_torch.models.common import rms_norm, rope_cos_sin
 from repro_torch.models.lm import CausalLM
 from repro_torch.obs.metrics import LATENCY_TICK_BUCKETS, Histogram
 
@@ -79,12 +80,7 @@ class PagedEngine:
 
     def __init__(self, cfg: ModelConfig, model: CausalLM, pcfg: PagedConfig, device=None):
         for kind in cfg.layer_pattern + cfg.tail_pattern:
-            if kind == "moe":
-                raise NotImplementedError(
-                    f"{cfg.name}: MoE stacks serve once models/moe.py is ported "
-                    f"(ROADMAP.md queue 1)"
-                )
-            if kind != "attn":
+            if kind not in ("attn", "moe"):
                 raise ValueError(
                     f"PagedEngine supports uniform global-attention stacks; "
                     f"{cfg.name} has kind {kind!r} (serve via contiguous path)"
@@ -490,7 +486,7 @@ def _paged_step(model: CausalLM, state, tables, lens, toks, cfg: ModelConfig, bl
         )
         x = x + out.reshape(b, 1, -1) @ blk_mod.attn.wo
         h2 = rms_norm(x, blk_mod.norm2, cfg.norm_eps)
-        x = x + mlp_forward(h2, blk_mod.mlp, cfg.mlp_kind)
+        x = x + ffn_forward(h2, blk_mod, cfg)
     logits = model.lm_logits(x)[:, 0]
     state.dirty[append_block] = state.dirty[append_block] | state.in_flight[append_block]
     return logits

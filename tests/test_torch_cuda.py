@@ -215,7 +215,7 @@ def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("g", [1, 4, 7, 16])  # both of the kernel's G bounds (4, 16)
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 16])  # both G bounds (4, 16); dbrx's 6
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("softcap", [0.0, 20.0])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, g, hd, softcap):
@@ -531,3 +531,97 @@ def test_chaos_sabotage_is_caught_on_the_card(cuda, tmp_path):
     with pytest.raises(InvariantViolation, match="payload"):
         run_scenario(replayed, sabotage="skip_quarantine")
     assert run_scenario(replayed).completed
+
+
+# -- the MoE and xLSTM stacks on the card ------------------------------------------
+
+
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("factor", [8.0, 1.25])  # the smoke factor, and the published one
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "dbrx_132b"])
+def test_reduced_moe_serves_on_the_card_like_the_cpu(cuda, arch, factor, monkeypatch):
+    """The reduced two-layer MoE stack (f32, TF32 off) served on the card and
+    on the CPU while one sequence's pages leap, blocking harvest: equal
+    tokens, tables and flags; pools and logits within 1e-5."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.core import LeapConfig
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PagedConfig, PagedEngine
+
+    _no_tf32(monkeypatch)
+    cfg = dataclasses.replace(reduce(get_config(arch)), n_layers=2)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+    cpu_model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 12)]
+    leap = LeapConfig(initial_area_blocks=2, chunk_blocks=1, budget_blocks_per_tick=1,
+                      max_attempts_before_force=3, tiering=True)
+    pcfg = PagedConfig(block_tokens=4, max_blocks_per_seq=16, n_regions=2, slots_per_region=64,
+                       leap=leap)
+    engines, tokens = {}, {}
+    before = paged_attn.paged_decode.launches
+    for name, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        eng = PagedEngine(cfg, models[name], pcfg, device=dev)
+        sids = [eng.admit(p, region=0) for p in prompts]
+        eng.rebalance(sids[0], dst_region=1)
+        for _ in range(8):
+            eng.tick()
+            eng.session.poll(block=True)
+            eng.decode(sids)
+        assert eng.drain()
+        engines[name], tokens[name] = eng, [eng.seqs[s].tokens for s in sids]
+        if name == "cuda":
+            assert paged_attn.paged_decode.launches - before == 8 * cfg.n_layers
+    gpu, cpu = engines["cuda"], engines["cpu"]
+    assert tokens["cuda"] == tokens["cpu"]
+    assert np.array_equal(gpu.driver.host_table(), cpu.driver.host_table())
+    g_state, c_state = gpu.driver.state.to_numpy(), cpu.driver.state.to_numpy()
+    np.testing.assert_allclose(g_state[0], c_state[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(g_state[1:], c_state[1:]):
+        assert np.array_equal(a, b)
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits, rtol=1e-5, atol=1e-5)
+    assert gpu.driver.stats == cpu.driver.stats
+
+
+@pytest.mark.parametrize("s", [64, 192])  # the sequential mLSTM prefill, then the chunked one
+def test_reduced_xlstm_on_the_card_like_the_cpu(cuda, s, monkeypatch):
+    """The reduced xlstm_125m (f32, TF32 off): prefill and 4 decode steps in
+    lockstep; tokens equal, logits and every layer's cache within 1e-5."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.models import lm
+
+    _no_tf32(monkeypatch)
+    cfg = reduce(get_config("xlstm_125m"))
+    cpu_model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(s).integers(0, cfg.vocab_size, (2, s)))
+    g = lm.prefill(gpu_model, prompt.to(cuda), cfg, s + 4)
+    c = lm.prefill(cpu_model, prompt, cfg, s + 4)
+    for pos in range(s, s + 5):
+        torch.testing.assert_close(g[0].cpu(), c[0], rtol=1e-5, atol=1e-5)
+        for gl, cl in zip(g[1], c[1]):
+            assert set(gl) == set(cl)
+            for k in gl:
+                torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-5, atol=1e-5)
+        if pos == s + 4:
+            break
+        tok = c[0].argmax(-1)[:, None]
+        assert torch.equal(g[0].argmax(-1).cpu(), tok[:, 0])
+        g = lm.decode_step(gpu_model, g[1], tok.to(cuda), pos, cfg)
+        c = lm.decode_step(cpu_model, c[1], tok, pos, cfg)

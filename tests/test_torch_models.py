@@ -61,12 +61,16 @@ def test_configs_and_reductions_match(arch):
 
 
 def test_unported_configs_and_kinds_raise():
+    """Configs not ported yet raise, naming ROADMAP; every block kind of the
+    JAX package constructs, with the parameters of its kind."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_config("gemma2_27b")
-    cfg = torch_reduce(torch_config("granite_3_2b"))
-    for kind in ("moe", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tblocks.Block(cfg, kind)
+    cfg = torch_reduce(torch_config("qwen3_moe_235b_a22b"))
+    for kind, holds in (("moe", {"attn", "moe"}), ("mlstm", {"cell"}), ("slstm", {"cell"})):
+        blk = tblocks.Block(cfg, kind, device="cpu")
+        assert blk.kind == kind and {n for n, _ in blk.named_children()} == holds
+    with pytest.raises(ValueError):
+        tblocks.Block(cfg, "lstm", device="cpu")
 
 
 def test_rope_is_half_split_and_matches_jax():

@@ -171,10 +171,17 @@ def test_huge_pages_promote_behind_the_frontier(models):
 
 
 def test_engine_refuses_what_it_cannot_serve(models, monkeypatch):
+    """MoE stacks serve; kinds without a global KV cache do not."""
     _, tc, _, model = models
     pcfg = _pcfg(PagedConfig, LeapConfig())
-    with pytest.raises(NotImplementedError, match="moe"):
-        PagedEngine(dataclasses.replace(tc, layer_pattern=("moe",)), model, pcfg, device="cpu")
+    moe_cfg = dataclasses.replace(torch_reduce(torch_config("qwen3_moe_235b_a22b")), n_layers=2)
+    moe_model = tlm.init_params(torch.Generator().manual_seed(0), moe_cfg, "cpu")
+    eng = PagedEngine(moe_cfg, moe_model, pcfg, device="cpu")
+    sid = eng.admit(np.arange(6) % moe_cfg.vocab_size)
+    assert len(eng.decode([sid])) == 1
+    for kind in ("win", "rec", "mlstm", "slstm"):
+        with pytest.raises(ValueError, match=kind):
+            PagedEngine(dataclasses.replace(tc, layer_pattern=(kind,)), model, pcfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedEngine(tc, model, pcfg)  # no device given: CUDA, and there is none
