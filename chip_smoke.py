@@ -145,11 +145,37 @@ printed):
    off): prefills of 192 (chunked) and 64 tokens (sequential), each followed
    by 4 decode steps; equal tokens, logits and every cache within 1e-5.
 
+26. K5's backward kernel against its plain version on the card, at the
+   timed forward shape ([8, 2048, 4096] f32) and at phase 28's training
+   shape ([4, 2048, 4096]): da, db and dh0 bit-identical (the same order of
+   operations) and run to run, timed against its byte bound (g, a and h
+   read, da and db written: 5 B·T·R·4 bytes); and at a tiny f32 shape the
+   autograd Function's gradient (both kernels) against float64 central
+   differences, within 1e-4 relative.
+27. granite_3_2b trained at full width and all 40 layers (bf16 weights, fp32
+   Adam moments and accumulator): ``Trainer`` on ``SyntheticLM`` (seed 0),
+   batch 8 × 1,024 in 2 microbatches, lr 3e-3 with warmup 2, 20 steps, no
+   checkpoint; finite losses and the last below the first; the loss curve,
+   median step ms, tokens/s and peak GiB; one more step profiled (kernels,
+   device time, busy share).
+28. recurrentgemma_9b at full width, one period plus the tail (4 ``rec``, 1
+   ``win``), batch 4 × 2,048, 6 steps: K5's forward launched twice (the
+   block recompute) and its backward once per rec layer and step, and
+   nonzero, finite gradients on every rec layer's ``wr``, ``wi`` and ``lam``.
+29. The reduced config of each of the six ported archs (f32, TF32 off) takes
+   2 train steps on the card and on the CPU from one state: losses within
+   1e-5 at step 1 and 1e-4 at step 2 (after an Adam step).  The reduced
+   granite checkpoints at step 1, fails at step 2 and restarts: the step-2
+   loss within 1e-5 of the uninterrupted run's (bit-identical or not is
+   printed); a checkpoint written on the card restores on the CPU and on the
+   card bit for bit.
+
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
 16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
-line (phases 23-25 and their wall seconds), and last
+line (phases 23-25 and the wall seconds of phases 23-29), the
+``{"training": ...}`` line (phases 27-29), and last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -187,6 +213,7 @@ from repro_torch.core import (  # noqa: E402
     make_region_mesh,
     state_sharding,
 )
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.chaos import (  # noqa: E402
     ChaosDriver,
     FaultEvent,
@@ -197,10 +224,11 @@ from repro_torch.chaos import (  # noqa: E402
     run_with_repro,
     sample_spec,
 )
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import PORTED_ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
 from repro_torch.core.pipeline import busy_mask  # noqa: E402
 from repro_torch.data import tpch  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.data.morsels import MorselStore  # noqa: E402
 from repro_torch.distributed.fault import drain_region  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -217,6 +245,15 @@ from repro_torch.models import lm, moe, xlstm  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
 from repro_torch.topology import NumaTopology  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    TrainConfig,
+    TrainState,
+    grad_accum,
+    init_train_state,
+    train_step,
+)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -294,6 +331,18 @@ PAGED_MOE = {
 # phase 25: xlstm_125m in full, prompts long enough for the chunked mLSTM; the
 # reduced config's prefills on either side of the chunked cell's threshold
 XLSTM = dict(prompts=8, prompt_len=2048, steps=64)
+# phase 27: granite_3_2b trained at full width and depth
+TRAIN_GRANITE = dict(batch=8, seq=1024, n_micro=2, lr=3e-3, warmup=2, steps=20)
+# phase 28: recurrentgemma_9b at full width, one period plus the tail (4 rec, 1 win)
+TRAIN_RECUR = dict(batch=4, seq=2048, n_micro=1, lr=1e-3, warmup=2, steps=6)
+TRAIN_RECUR_LAYERS = 5
+# phase 29: the reduced configs on the card and on the CPU
+TRAIN_REDUCED = dict(batch=4, seq=32, n_micro=2, lr=1e-3, warmup=1, steps=2)
+# step 1's loss comes before any update; step 2's follows an Adam step, whose
+# update g / (sqrt(v) + eps) turns a last-bit gradient difference into a
+# larger one where |g| is near eps
+TRAIN_LOSS_TOL = (dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-4, atol=1e-4))
+LRU_FD_TOL = 1e-4  # the Function's gradient against float64 central differences
 XLSTM_REDUCED_LENS = (192, 64)
 LOAD_TENANTS = (
     TenantSpec("gold", rate=0.9, prompt_tokens=512, decode_tokens=32, slo_latency=2.5,
@@ -347,6 +396,7 @@ def launch_counts() -> dict[str, int]:
         "heat_scan": heat_scan.heat_scan.launches,
         "paged_decode": paged_attn.paged_decode.launches,
         "lru_scan": lru_scan.lru_scan.launches,
+        "lru_scan_bwd": lru_scan.lru_scan_bwd.launches,
         "gather_blocks": leap_copy.gather_blocks.launches,
         "scatter_blocks": leap_copy.scatter_blocks.launches,
     }
@@ -388,6 +438,7 @@ def reset_launch_counts() -> None:
     heat_scan.heat_scan.launches = 0
     paged_attn.paged_decode.launches = 0
     lru_scan.lru_scan.launches = 0
+    lru_scan.lru_scan_bwd.launches = 0
     leap_copy.gather_blocks.launches = 0
     leap_copy.scatter_blocks.launches = 0
 
@@ -2146,6 +2197,300 @@ def xlstm_card_matches_cpu(dev) -> dict:
     return dict(prefill_lens=list(XLSTM_REDUCED_LENS), decode_steps=4, logits_max_abs_diff=worst)
 
 
+# -- phase 26: K5's backward against its plain version ---------------------------
+
+
+def lru_fd_rel_err(dev) -> float:
+    """The LRU-scan Function's gradient (both kernels) at a tiny f32 shape
+    against float64 central differences of the same loss along a random
+    direction; returns the relative error."""
+    a, x, h0 = lru_inputs(dev, 2, 33, 40, SEED + 7)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    w = torch.randn(a.shape, generator=g, device=dev)
+    dirs = [torch.randn(v.shape, generator=g, device=dev, dtype=torch.float64)
+            for v in (a, x, h0)]
+    leaves = [v.clone().requires_grad_() for v in (a, x, h0)]
+    grads = torch.autograd.grad((ops.lru_scan(*leaves) * w).sum(), leaves)
+    analytic = sum(float((gr.double() * d).sum()) for gr, d in zip(grads, dirs))
+
+    def loss64(a, x, h0):
+        h, total = h0, 0.0
+        for t in range(a.shape[1]):
+            h = a[:, t] * h + x[:, t]
+            total = total + (h * w[:, t].double()).sum()
+        return float(total)
+
+    eps = 1e-3
+    base = [v.double() for v in (a, x, h0)]
+    fd = (loss64(*(v + eps * d for v, d in zip(base, dirs)))
+          - loss64(*(v - eps * d for v, d in zip(base, dirs)))) / (2 * eps)
+    return abs(fd - analytic) / abs(fd)
+
+
+def lru_scan_bwd_checks(dev) -> dict:
+    """The backward kernel at the timed forward shape and at phase 28's
+    training shape, bit for bit against its plain version, timed against its
+    byte bound; and the Function's gradient against finite differences."""
+    r = get_config("recurrentgemma_9b").rnn_width
+    shapes = {"timed": (RECUR["prompts"], RECUR["prompt_len"], r),
+              "training": (TRAIN_RECUR["batch"], TRAIN_RECUR["seq"], r)}
+    out = {}
+    for name, (b, t, rr) in shapes.items():
+        a, x, h0 = lru_inputs(dev, b, t, rr, SEED + b)
+        gy = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+        h = lru_scan.lru_scan(a, x, h0)
+        got = lru_scan.lru_scan_bwd(gy, a, h, h0)
+        again = lru_scan.lru_scan_bwd(gy, a, h, h0)
+        want = ref.lru_scan_bwd_ref(gy, a, h, h0)
+        torch.cuda.synchronize()
+        for what, k, z, p in zip(("da", "db", "dh0"), got, again, want):
+            check(torch.equal(k, p), f"lru_scan_bwd {what} at {name} == plain version, bit for bit")
+            check(torch.equal(k, z), f"lru_scan_bwd {what} is bit-identical run to run")
+        n = a.numel()
+        # g, a and h read once, da and db written once; h0 read, dh0 written
+        bound, by = bound_ms(5 * n * 4 + 2 * b * rr * 4, 3.0 * n)
+        out[name] = dict(
+            shape=f"g, a, h, da, db [{b}, {t}, {rr}] f32, h0, dh0 [{b}, {rr}] f32",
+            max_abs_err=max(float((k - p).abs().max()) for k, p in zip(got, want)),
+            ms=time_ms(lambda: lru_scan.lru_scan_bwd(gy, a, h, h0)),
+            plain_ms=time_ms(lambda: ref.lru_scan_bwd_ref(gy, a, h, h0), iters=2, repeats=3),
+            bound_ms=bound, bound_by=by,
+        )
+        del a, x, h0, gy, h, got, again, want
+        torch.cuda.empty_cache()
+    fd_err = lru_fd_rel_err(dev)
+    check(fd_err < LRU_FD_TOL, f"LRU-scan gradient within {LRU_FD_TOL} of finite differences "
+          f"(got {fd_err:.3g})")
+    main = out["timed"]
+    row = dict(
+        name="lru_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan.py:56", launches=0,
+        max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+        library="none (no single PyTorch call computes a linear recurrence's adjoint)",
+        note="K5's backward: the TPU side differentiates lru_scan_pallas's oracle by autodiff",
+        shape=main["shape"], training_shape=out["training"], finite_difference_rel_err=fd_err,
+    )
+    print(f"lru_scan_bwd: {main['ms']:.4f} ms (plain {main['plain_ms']:.4f}, bound "
+          f"{main['bound_ms']:.4f}), bit-exact; at the training shape "
+          f"{out['training']['ms']:.4f} ms (bound {out['training']['bound_ms']:.4f}); "
+          f"gradient against finite differences {fd_err:.3g}")
+    return row
+
+
+# -- phases 27 to 29: training -------------------------------------------------------
+
+
+def profile_step(tr: Trainer) -> dict:
+    """One more training step under ``torch.profiler``: kernels launched,
+    their device time and the busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(until=tr.step + 1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return dict(wall_ms=wall_s * 1e3, device_ms=device_ms, busy_share=device_ms / (wall_s * 1e3),
+                kernels=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:80], launches=e.count, device_ms=dev_us(e) / 1e3)
+                     for e in top])
+
+
+def train_run(dev, cfg, spec: dict, data_seed: int = SEED) -> tuple[Trainer, dict]:
+    """``spec["steps"]`` steps of ``Trainer`` on ``SyntheticLM`` at full width
+    on the card, logging (one host sync) every step; no checkpoint."""
+    data = SyntheticLM(DataConfig(cfg.vocab_size, spec["seq"], spec["batch"], seed=data_seed))
+    tcfg = TrainConfig(n_micro=spec["n_micro"], accum_dtype=cfg.grad_accum_dtype,
+                       optimizer=OptimizerConfig(peak_lr=spec["lr"], warmup_steps=spec["warmup"],
+                                                 total_steps=spec["steps"],
+                                                 state_dtype=cfg.opt_state_dtype))
+    with tempfile.TemporaryDirectory() as d:  # empty: restore_or_init initialises
+        tr = Trainer(cfg, tcfg, TrainerConfig(total_steps=spec["steps"], ckpt_every=10**9,
+                                              ckpt_dir=d, log_every=1),
+                     data, seed=SEED, device=dev)
+        t0 = time.perf_counter()
+        tr.restore_or_init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stamps = [time.perf_counter()]
+    tr.run(on_step=lambda s, m: stamps.append(time.perf_counter()))
+    launches = launch_counts()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    losses = [m["loss"] for m in tr.history]
+    check(len(losses) == spec["steps"] and all(np.isfinite(losses)),
+          f"{cfg.name}: {spec['steps']} finite losses")
+    tokens = spec["batch"] * spec["seq"]
+    res = dict(
+        config=cfg.name, layers=cfg.n_layers, params=cfg.param_count(), dtype=cfg.param_dtype,
+        **spec, init_s=init_s, losses=losses, grad_norms=[m["grad_norm"] for m in tr.history],
+        step_ms=[x * 1e3 for x in step_s], step_ms_median=statistics.median(step_s) * 1e3,
+        first_step_ms=step_s[0] * 1e3,
+        tokens_per_s=tokens / statistics.median(step_s),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+    )
+    print(f"{cfg.name} training ({cfg.n_layers} layers, {res['params']:,} params): losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  step {res['step_ms_median']:.1f} ms (median; first {res['first_step_ms']:.1f}), "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB, init "
+          f"{init_s:.1f} s, launches {launches}")
+    return tr, res
+
+
+def granite_training(dev) -> dict:
+    """Phase 27: granite_3_2b at full width and all 40 layers, 20 steps."""
+    tr, res = train_run(dev, get_config("granite_3_2b"), TRAIN_GRANITE)
+    check(res["losses"][-1] < res["losses"][0], "granite_3_2b's loss falls over 20 steps")
+    res["profiled_step"] = prof = profile_step(tr)
+    print(f"  one more step profiled: {prof['kernels']} kernels, {prof['device_ms']:.1f} ms of "
+          f"device time in {prof['wall_ms']:.1f} ms (busy {prof['busy_share']:.3f}); top: "
+          + "; ".join(f"{k['name'][:40]} {k['device_ms']:.1f} ms" for k in prof["top"][:4]))
+    del tr
+    release()
+    return res
+
+
+def recurrent_training(dev) -> dict:
+    """Phase 28: recurrentgemma_9b at full width, one period plus the tail
+    (4 rec, 1 win): K5 forward and backward launches as the block recompute
+    implies, and nonzero, finite gradients on the RG-LRU gates."""
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b"), n_layers=TRAIN_RECUR_LAYERS)
+    tr, res = train_run(dev, cfg, TRAIN_RECUR)
+    n_rec = cfg.layer_kinds.count("rec")
+    micro = TRAIN_RECUR["steps"] * TRAIN_RECUR["n_micro"]
+    # each rec layer runs forward, again in the backward's recompute, then back
+    check(res["launches"]["lru_scan"] == 2 * n_rec * micro,
+          f"lru_scan launched twice per rec layer and microbatch ({2 * n_rec * micro})")
+    check(res["launches"]["lru_scan_bwd"] == n_rec * micro,
+          f"lru_scan_bwd launched once per rec layer and microbatch ({n_rec * micro})")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tr.data.batch(tr.step).items()}
+    grads, _ = grad_accum(tr.state.params, batch, cfg, tr.tcfg)
+    gate_norms = {}
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind != "rec":
+            continue
+        for name in ("wr", "wi", "lam"):
+            g = grads[f"blocks.{i}.rec.{name}"].float()
+            check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                  f"layer {i} {name} gets a nonzero, finite gradient")
+            gate_norms[f"{i}.{name}"] = float(g.norm())
+    res["gate_grad_norms"] = gate_norms
+    res["rec_layers"] = n_rec
+    print("  rec gate gradient norms: " + ", ".join(f"{k} {v:.3g}" for k, v in gate_norms.items()))
+    del grads
+    res["profiled_step"] = prof = profile_step(tr)
+    print(f"  one more step profiled: {prof['kernels']} kernels, {prof['device_ms']:.1f} ms of "
+          f"device time in {prof['wall_ms']:.1f} ms (busy {prof['busy_share']:.3f})")
+    del tr
+    release()
+    return res
+
+
+def _to_card(state: TrainState, dev) -> TrainState:
+    """A copy of a CPU train state on ``dev``."""
+    state = copy.deepcopy(state)
+    state.params.to(dev)
+    state.opt = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+                 for k, v in state.opt.items()}
+    return state
+
+
+def _reduced_tcfg() -> TrainConfig:
+    spec = TRAIN_REDUCED
+    return TrainConfig(n_micro=spec["n_micro"], optimizer=OptimizerConfig(
+        peak_lr=spec["lr"], warmup_steps=spec["warmup"], total_steps=spec["steps"]))
+
+
+def restart_on_the_card(dev) -> dict:
+    """The reduced granite on the card: checkpoint at step 1, a failure at
+    step 2, a restart from the checkpoint; then the card's checkpoint
+    restored on the CPU and back."""
+    cfg, tcfg = reduce(get_config("granite_3_2b")), _reduced_tcfg()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_REDUCED["seq"], TRAIN_REDUCED["batch"],
+                                  seed=SEED))
+    with tempfile.TemporaryDirectory() as d:
+        mk = lambda sub: Trainer(  # noqa: E731
+            cfg, tcfg, TrainerConfig(total_steps=2, ckpt_every=1, ckpt_dir=f"{d}/{sub}",
+                                     log_every=1), data, seed=SEED, device=dev)
+        a = mk("a")
+        a.run()
+        b = mk("b")
+        try:
+            b.run(fail_at=2)
+        except RuntimeError as e:
+            check("simulated node failure" in str(e), "the failure is the simulated one")
+        else:
+            check(False, "run(fail_at=2) raises")
+        c = mk("b")
+        check(c.restore_or_init() == 1, "the restart resumes from step 1")
+        c.run()
+        want, got = a.history[-1]["loss"], c.history[-1]["loss"]
+        torch.testing.assert_close(torch.tensor(got), torch.tensor(want), rtol=1e-5, atol=1e-5)
+        ckpt.save(f"{d}/card", 2, a.state).wait()
+        model = lm.CausalLM(cfg, device="meta")
+        template = TrainState(params=model, opt=init_opt_state(model, tcfg.optimizer))
+        on_cpu, _ = ckpt.restore(f"{d}/card", template, device="cpu")
+        model = lm.CausalLM(cfg, device="meta")
+        template = TrainState(params=model, opt=init_opt_state(model, tcfg.optimizer))
+        back, _ = ckpt.restore(f"{d}/card", template, device=dev)
+    for (name, x), (_, y), (_, z) in zip(ckpt._flatten(a.state), ckpt._flatten(on_cpu),
+                                         ckpt._flatten(back)):
+        check(y.device.type == "cpu" and torch.equal(x.cpu(), y), f"{name} restores on the CPU "
+              "bit for bit")
+        check(z.device == x.device and torch.equal(x, z), f"{name} restores on the card bit for bit")
+    res = dict(loss_uninterrupted=want, loss_restarted=got, bit_identical=got == want)
+    print(f"reduced granite restart on the card: step-2 loss {got!r} against {want!r} "
+          f"({'bit-identical' if got == want else 'not bit-identical'}); the card's "
+          f"checkpoint restores on the CPU and on the card bit for bit")
+    return res
+
+
+def training_card_matches_cpu(dev) -> dict:
+    """Phase 29: the reduced config of every ported arch (f32, TF32 off) takes
+    2 train steps on the card and on the CPU from one state; losses within
+    TRAIN_LOSS_TOL.  Then the restart and the checkpoint on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    tcfg, out = _reduced_tcfg(), {}
+    for arch in PORTED_ARCH_IDS:
+        cfg = reduce(get_config(arch))
+        cpu = init_train_state(torch.Generator().manual_seed(SEED), cfg, tcfg, "cpu")
+        gpu = _to_card(cpu, dev)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_REDUCED["seq"],
+                                      TRAIN_REDUCED["batch"], seed=SEED))
+        diffs = []
+        for step in range(TRAIN_REDUCED["steps"]):
+            batch = data.batch(step)
+            _, mc = train_step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg, tcfg)
+            _, mg = train_step(gpu, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                               cfg, tcfg)
+            torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], **TRAIN_LOSS_TOL[step])
+            diffs.append(abs(float(mg["loss"]) - float(mc["loss"])))
+        out[arch] = dict(loss_abs_diff=diffs, loss=float(mc["loss"]))
+    res = dict(archs=out, launches=launch_counts())
+    n_rec = reduce(get_config("recurrentgemma_9b")).layer_kinds.count("rec")
+    micro = TRAIN_REDUCED["steps"] * TRAIN_REDUCED["n_micro"]
+    check(res["launches"]["lru_scan_bwd"] == n_rec * micro,
+          "the reduced recurrentgemma's card steps launched lru_scan_bwd once per rec layer "
+          "and microbatch")
+    print("reduced archs train on the card like the CPU: " + ", ".join(
+        f"{a} {max(v['loss_abs_diff']):.2g}" for a, v in out.items()))
+    res["restart"] = restart_on_the_card(dev)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2200,6 +2545,18 @@ def main() -> int:
     xl = xlstm_full_width(dev)
     xl_cpu = xlstm_card_matches_cpu(dev)
     wall["phase_25_xlstm"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    rows.append(lru_scan_bwd_checks(dev))
+    wall["phase_26_lru_scan_bwd"] = time.perf_counter() - t0
+    training = {}
+    for phase, name, fn in (("phase_27_granite_training", "granite", granite_training),
+                            ("phase_28_recurrent_training", "recurrent", recurrent_training),
+                            ("phase_29_training_card_matches_cpu", "card_matches_cpu",
+                             training_card_matches_cpu)):
+        t0 = time.perf_counter()
+        training[name] = fn(dev)
+        wall[phase] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -2208,7 +2565,8 @@ def main() -> int:
              + list(recurrent["runs"].values()) + list(contenders.values())
              + [tiering, failed, queries, chaos, at_scale] + list(load["runs"].values())
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
-             + [r for r in moe_cpu.values()] + list(xl["runs"].values()))
+             + [r for r in moe_cpu.values()] + list(xl["runs"].values())
+             + list(training.values()))
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
@@ -2229,6 +2587,7 @@ def main() -> int:
                       "load_card_matches_cpu": load_cpu, "card": smi}))
     print(json.dumps({"moe": moe_res, "moe_card_matches_cpu": moe_cpu, "xlstm": xl,
                       "xlstm_card_matches_cpu": xl_cpu, "wall_s": wall, "card": smi}))
+    print(json.dumps({"training": training, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,6 +50,7 @@ _SIGNATURES = {
         (_P,) * 10 + (_I64,) * 8 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)
     ),
     "leap_lru_scan": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P),
+    "leap_lru_scan_bwd": (_P,) * 7 + (_I64, _I64, _I64, ctypes.c_int, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -98,6 +98,75 @@ int launch(const void* a, const void* b, const void* h0, void* out, long long n_
   return (int)cudaGetLastError();
 }
 
+// Steps t0, t0 - 1, .., t0 - kDepth + 1 of one channel for the backward: g_t,
+// a_t and h_{t-1} (h0 at t = 0); steps below 0 read 0.
+template <typename T>
+__device__ __forceinline__ void load_steps_rev(const T* __restrict__ g, const T* __restrict__ a,
+                                               const T* __restrict__ h, float h0, long long base,
+                                               long long t0, long long n_r, float* gv,
+                                               float* av, float* hv) {
+#pragma unroll
+  for (int k = 0; k < kDepth; ++k) {
+    const long long t = t0 - k;
+    const long long off = base + t * n_r;
+    gv[k] = t >= 0 ? load(g + off) : 0.0f;
+    av[k] = t >= 0 ? load(a + off) : 0.0f;
+    hv[k] = t > 0 ? load(h + off - n_r) : (t == 0 ? h0 : 0.0f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lru_scan_bwd_kernel(const T* __restrict__ g, const T* __restrict__ a, const T* __restrict__ h,
+                    const float* __restrict__ h0, T* __restrict__ da, T* __restrict__ db,
+                    float* __restrict__ dh0, long long n_t, long long n_r) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_r) return;
+  const long long batch = blockIdx.y;
+  const long long base = batch * n_t * n_r + r;  // element (batch, 0, r)
+  const float h_init = h0[batch * n_r + r];
+  float lam = 0.0f, a_next = 0.0f;  // lambda_T and a_T: the carry past the end
+  float g_cur[kDepth], a_cur[kDepth], h_cur[kDepth];
+  float g_next[kDepth], a_next_v[kDepth], h_next[kDepth];
+  load_steps_rev(g, a, h, h_init, base, n_t - 1, n_r, g_cur, a_cur, h_cur);
+  for (long long t0 = n_t - 1; t0 >= 0; t0 -= kDepth) {
+    load_steps_rev(g, a, h, h_init, base, t0 - kDepth, n_r, g_next, a_next_v, h_next);
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      const long long t = t0 - k;
+      if (t >= 0) {
+        lam = __fadd_rn(g_cur[k], __fmul_rn(a_next, lam));
+        store(db + base + t * n_r, lam);
+        store(da + base + t * n_r, __fmul_rn(lam, h_cur[k]));
+        a_next = a_cur[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      g_cur[k] = g_next[k];
+      a_cur[k] = a_next_v[k];
+      h_cur[k] = h_next[k];
+    }
+  }
+  dh0[batch * n_r + r] = __fmul_rn(a_next, lam);
+}
+
+template <typename T>
+int launch_bwd(const void* g, const void* a, const void* h, const void* h0, void* da, void* db,
+               void* dh0, long long n_b, long long n_t, long long n_r, cudaStream_t stream) {
+  const dim3 grid((unsigned)((n_r + kThreads - 1) / kThreads), (unsigned)n_b);
+  lru_scan_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(a), static_cast<const T*>(h),
+      static_cast<const float*>(h0), static_cast<T*>(da), static_cast<T*>(db),
+      static_cast<float*>(dh0), n_t, n_r);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(long long n_b, long long n_t, long long n_r) {
+  return n_b < 1 || n_t < 1 || n_r < 1 || n_b > 65535 ||
+         (n_r + kThreads - 1) / kThreads > 0x7fffffffLL;
+}
+
 }  // namespace
 
 // a, b, out: [n_b, n_t, n_r] contiguous, dtype 0 = float32, 1 = bfloat16;
@@ -105,11 +174,23 @@ int launch(const void* a, const void* b, const void* h0, void* out, long long n_
 extern "C" int leap_lru_scan(const void* a, const void* b, const void* h0, void* out,
                              long long n_b, long long n_t, long long n_r, int dtype,
                              void* stream) {
-  if (n_b < 1 || n_t < 1 || n_r < 1 || n_b > 65535 ||
-      (n_r + kThreads - 1) / kThreads > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_b, n_t, n_r)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, b, h0, out, n_b, n_t, n_r, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, b, h0, out, n_b, n_t, n_r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward.  g (the gradient of out), a, h (the forward's out), da, db:
+// [n_b, n_t, n_r] contiguous, dtype 0 = float32, 1 = bfloat16; h0, dh0:
+// [n_b, n_r] contiguous float32.  Returns a cudaError_t.
+extern "C" int leap_lru_scan_bwd(const void* g, const void* a, const void* h, const void* h0,
+                                 void* da, void* db, void* dh0, long long n_b, long long n_t,
+                                 long long n_r, int dtype, void* stream) {
+  if (bad_shape(n_b, n_t, n_r)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(g, a, h, h0, da, db, dh0, n_b, n_t, n_r, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g, a, h, h0, da, db, dh0, n_b, n_t, n_r, s);
   return (int)cudaErrorInvalidValue;
 }

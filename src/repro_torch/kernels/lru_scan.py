@@ -13,6 +13,12 @@ stream; a CPU tensor takes the plain version in :mod:`.ref`.
 What bounds it on the card is bytes: a and b read once, the output written
 once, 2 flops an element.  Unlike the TPU kernel it takes any T and R (the
 Pallas tiling needed ``T % chunk == 0`` and ``R % tile == 0``).
+
+``lru_scan_bwd`` wraps the backward of the same source,
+``leap_lru_scan_bwd``: the reverse-time adjoint scan, which the JAX package
+gets from autodiff of its scan and has no kernel for.  :class:`LruScan`, an
+autograd Function, joins the two: forward the forward kernel, backward the
+backward kernel, and on CPU tensors the plain versions of both.
 """
 
 from __future__ import annotations
@@ -74,3 +80,51 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor
 
 
 lru_scan.launches = 0  # kernel launches in this process (read by chip_smoke.py)
+
+
+def lru_scan_bwd(g: torch.Tensor, a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor):
+    """The scan's backward: ``g`` the gradient of ``h = lru_scan(a, b, h0)``,
+    all ``[B, T, R]`` in ``a.dtype``.  Returns ``(da, db)`` in ``a.dtype`` and
+    ``dh0 [B, R]`` fp32, with an fp32 carry (see ``csrc/lru_scan.cu``)."""
+    if a.device.type == "cpu":
+        return ref.lru_scan_bwd_ref(g, a, h, h0)
+    if not a.is_cuda:
+        raise ValueError(f"the CUDA LRU-scan kernel needs CUDA tensors, got {a.device}")
+    _check_operands(a, h, h0)
+    _check_operands(a, g, h0)
+    h0 = h0.to(torch.float32).contiguous()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    bb, t, r = a.shape
+    with torch.cuda.device(a.device):
+        err = _build.load().leap_lru_scan_bwd(
+            g.data_ptr(), a.data_ptr(), h.data_ptr(), h0.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), bb, t, r, _DTYPES[a.dtype],
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"leap_lru_scan_bwd launch failed: CUDA error {err}")
+    lru_scan_bwd.launches += 1
+    return da, db, dh0
+
+
+lru_scan_bwd.launches = 0  # kernel launches in this process (read by chip_smoke.py)
+
+
+class LruScan(torch.autograd.Function):
+    """``lru_scan`` with a gradient: the forward kernel, then the backward
+    kernel over the saved ``a``, ``h`` and ``h0``.  CPU tensors take the
+    plain versions of both, so the CPU tests reach the same backward
+    formula.  ``h0``'s gradient comes back in ``h0``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = lru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = lru_scan_bwd(g.contiguous(), a, h, h0)
+        return da, db, dh0.to(h0.dtype)

@@ -130,7 +130,13 @@ combine_partials = ref.combine_partials
 
 def lru_scan(a, b, h0, *, impl: str | None = None):
     """``h_t = a_t * h_{t-1} + b_t`` over ``a, b [B, T, R]`` from ``h0 [B, R]``;
-    fp32 carry, ``[B, T, R]`` out in ``a.dtype`` (Griffin RG-LRU hot path)."""
-    if _use_kernel(impl, a):
-        return lru_mod.lru_scan(a, b, h0)
-    return ref.lru_scan_ref(a, b, h0)
+    fp32 carry, ``[B, T, R]`` out in ``a.dtype`` (Griffin RG-LRU hot path).
+
+    Differentiable: the default goes through ``lru_scan.LruScan``, whose
+    forward and backward are the two kernels on the card and their plain
+    versions on the CPU; ``impl="ref"`` is the plain loop under PyTorch's
+    own autograd, the oracle."""
+    _use_kernel(impl, a)  # checks impl, and that "cuda" gets CUDA tensors
+    if impl == "ref":
+        return ref.lru_scan_ref(a, b, h0)
+    return lru_mod.LruScan.apply(a, b, h0)

@@ -153,3 +153,26 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Te
         h = a32[:, t] * h + b32[:, t]
         out[:, t] = h
     return out
+
+
+def lru_scan_bwd_ref(g: torch.Tensor, a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor):
+    """The adjoint of :func:`lru_scan_ref`: ``g`` is the gradient of its output
+    ``h``.  A reverse loop in fp32 from ``lambda_T = 0``::
+
+        lambda_t = g_t + a_{t+1} * lambda_{t+1}
+        db_t = lambda_t,  da_t = lambda_t * h_{t-1}  (h_{-1} = h0),  dh0 = a_0 * lambda_0
+
+    each multiply and add rounded on its own, the CUDA kernel's order.
+    Returns ``(da, db)`` in ``a.dtype`` and ``dh0 [B, R]`` fp32.
+    """
+    g32, a32, h32, h0_32 = g.float(), a.float(), h.float(), h0.float()
+    lam = torch.zeros_like(h0_32)
+    a_next = torch.zeros_like(h0_32)
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    db = torch.empty_like(da)
+    for t in range(a.shape[1] - 1, -1, -1):
+        lam = g32[:, t] + a_next * lam
+        db[:, t] = lam
+        da[:, t] = lam * (h32[:, t - 1] if t else h0_32)
+        a_next = a32[:, t]
+    return da, db, a_next * lam

@@ -3,7 +3,7 @@ bias and QK-norm.
 
 Three execution paths, as in the JAX package's ``models/attention.py``:
 
-  * prefill: query-chunked causal attention in fp32 (a Python loop over
+  * train and prefill: query-chunked causal attention in fp32 (a Python loop over
     query blocks, the JAX ``lax.scan``), so the score matrix never exceeds
     ``[B, KVH, G, chunk, Sk]``.  It stays plain PyTorch with the reference's
     chunking and softmax, so that the two packages agree;
@@ -152,13 +152,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, d
     }
 
 
-def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
-    """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys."""
+def _attn_seq(x, params: Attention, cfg: ModelConfig, window: int):
+    """Full-sequence attention: (out [B,S,D] @wo applied, RoPE'd k, v)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(x, params, cfg, positions)
     out = causal_attention(q, k, v, cfg, window)
-    out = out.reshape(b, s, -1) @ params.wo
+    return out.reshape(b, s, -1) @ params.wo, k, v
+
+
+def attn_train(x, params: Attention, cfg: ModelConfig, window: int = 0):
+    """[B,S,D] -> [B,S,D]: the training forward (no cache), differentiable."""
+    return _attn_seq(x, params, cfg, window)[0]
+
+
+def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
+    """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys."""
+    b, s, _ = x.shape
+    out, k, v = _attn_seq(x, params, cfg, window)
     t = cache_len(cfg, window, s)
     if window and s > t:
         # rolling layout: absolute position p lands in slot p % W

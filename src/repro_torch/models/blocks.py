@@ -1,15 +1,18 @@
 """Per-layer block assembly: one residual block per kind.
 
-Blocks receive the residual-stream input and return the *new* stream (and,
-in prefill/decode modes, the layer cache).  Every kind of the JAX package's
+Blocks receive the residual-stream input and return the *new* stream (plus,
+in training, the MoE aux-loss contribution and, in prefill/decode modes, the
+layer cache).  Every kind of the JAX package's
 ``models/blocks.py`` is here: ``attn``, ``win`` and ``moe`` (attention, then
 a dense or a mixture-of-experts FFN), ``rec`` (RG-LRU, then a dense FFN), and
 the self-contained xLSTM kinds ``mlstm`` and ``slstm``.  The MoE aux loss
-belongs to training; prefill and decode drop it, as the reference does.
+belongs to training (:func:`block_train`); prefill and decode drop it, as
+the reference does.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.configs.base import BLOCK_KINDS, ModelConfig
@@ -102,6 +105,26 @@ def _cell(x, params: Block, cfg: ModelConfig, kind: str, cache, mode: str):
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     y, cache = block(h, params.cell, cfg, cache, mode=mode)
     return x + y, cache
+
+
+def block_train(x, params: Block, cfg: ModelConfig, kind: str):
+    """[B,S,D] -> ([B,S,D], aux loss fp32 scalar), differentiable; no cache."""
+    _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, params.norm1, cfg.norm_eps)
+    if kind in _CELLS:
+        block = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
+        return x + block(h, params.cell, cfg, mode="train"), aux
+    if kind == "rec":
+        x = x + rec.rec_block_train(h, params.rec, cfg)
+    else:
+        x = x + attn.attn_train(h, params.attn, cfg, _window(cfg, kind))
+    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+    if kind == "moe":
+        y, aux = moe_ffn(h2, params.moe, cfg)
+    else:
+        y = mlp_forward(h2, params.mlp, cfg.mlp_kind)
+    return x + y, aux
 
 
 def block_prefill(x, params: Block, cfg: ModelConfig, kind: str):

@@ -1,12 +1,19 @@
-"""Causal LM over a stack of blocks, for inference.
+"""Causal LM over a stack of blocks.
 
 :class:`CausalLM` holds the embedding, the final norm, an optional untied
 head and its :class:`~repro_torch.models.blocks.Block` s in layer order
 (the JAX package's ``[repeats, ...]`` period stacks, unstacked to layer
 ``rep * period + pos``, then the tail).  Entry points:
 
+  ``train_loss``   tokens/embeds + labels -> (scalar loss, metrics)
   ``prefill``      tokens -> (last-position logits, decode cache)
   ``decode_step``  one token + cache + pos -> (logits, cache updated in place)
+
+Parameters are built with ``requires_grad=False``, for inference; training
+(``repro_torch.train``) switches them on.  ``train_loss`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, non-reentrant), the
+counterpart of the reference's ``jax.checkpoint(..., nothing_saveable)``
+around each period: only the blocks' inputs stay alive between the passes.
 
 The cache is a list with one entry per layer: ``{"k", "v"}`` for attention
 and ``moe`` layers (written in place by decode); ``{"conv", "h"}`` for
@@ -14,9 +21,9 @@ and ``moe`` layers (written in place by decode); ``{"conv", "h"}`` for
 "m", "h"}`` for ``slstm`` layers (each replaced in the list by the new state
 its decode step returns).
 
-The JAX module's function names (``init_params``, ``prefill``,
-``decode_step``, ``init_cache``, ``embed_tokens``, ``lm_logits``) remain as
-thin wrappers.  Weights keep the JAX ``[in, out]`` layout, so
+The JAX module's function names (``init_params``, ``train_loss``,
+``prefill``, ``decode_step``, ``init_cache``, ``embed_tokens``,
+``lm_logits``) remain as thin wrappers.  Weights keep the JAX ``[in, out]`` layout, so
 :func:`params_from_numpy` carries a JAX parameter tree across exactly.
 """
 
@@ -25,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device, _tensor_from_host
@@ -76,6 +84,38 @@ class CausalLM(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.lm_head if _has_head(self.cfg) else self.embed.T
         return softcap((x @ head).float(), self.cfg.final_softcap)
+
+    # -- training -------------------------------------------------------------------
+
+    def train_loss(self, batch: dict):
+        """batch: {"inputs": [B,S] int (or [B,S,D] embeds), "labels": [B,S] int}.
+
+        Returns (loss, metrics): the mean NLL over fp32 logits of positions
+        whose label is >= 0 (label -100 is masked), plus for MoE stacks
+        ``aux_loss_weight * aux / n_layers``.  Differentiable; with grad
+        enabled each block is recomputed in the backward pass.
+        """
+        cfg = self.cfg
+        x = self.embed_tokens(batch["inputs"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            if torch.is_grad_enabled():
+                x, a = checkpoint(B.block_train, x, blk, cfg, blk.kind,
+                                  use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = B.block_train(x, blk, cfg, blk.kind)
+            aux = aux + a
+        logits = self.lm_logits(x)  # [B,S,V] fp32
+        labels = batch["labels"].long()
+        mask = (labels >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        nll = (lse - ll) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = nll.sum() / denom
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux / max(cfg.n_layers, 1)
+        return loss, {"nll": loss, "tokens": denom}
 
     # -- cache / prefill / decode ---------------------------------------------------
 
@@ -137,22 +177,50 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> CausalLM
     return model
 
 
+def _walk(tree: dict, prefix: str = "", index=None):
+    """(dotted name, host array) of every leaf of a nested dict; ``index``
+    picks one entry of each leaf's leading axis."""
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            yield from _walk(val, f"{prefix}{name}.", index)
+        else:
+            yield prefix + name, np.asarray(val) if index is None else np.asarray(val)[index]
+
+
+def _set_param(module: nn.Module, name: str, arr, device) -> None:
+    """Replace the parameter at dotted ``name`` by host array ``arr`` on ``device``."""
+    owner, _, leaf = name.rpartition(".")
+    sub = module.get_submodule(owner)
+    param = getattr(sub, leaf)
+    t = _tensor_from_host(arr, device)
+    if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
+        raise ValueError(
+            f"{name}: tree leaf {tuple(t.shape)} {t.dtype} does not fit "
+            f"parameter {tuple(param.shape)} {param.dtype}"
+        )
+    setattr(sub, leaf, nn.Parameter(t, requires_grad=False))
+
+
 def _load_tree(module: nn.Module, tree: dict, device, index=None) -> None:
     """Copy a nested dict of host arrays into the like-named parameters of
     ``module``; ``index`` picks one entry of each leaf's leading axis."""
-    for name, val in tree.items():
-        if isinstance(val, dict):
-            _load_tree(getattr(module, name), val, device, index)
-            continue
-        arr = np.asarray(val) if index is None else np.asarray(val)[index]
-        param = getattr(module, name)
-        t = _tensor_from_host(arr, device)
-        if tuple(t.shape) != tuple(param.shape) or t.dtype != param.dtype:
-            raise ValueError(
-                f"{name}: tree leaf {tuple(t.shape)} {t.dtype} does not fit "
-                f"parameter {tuple(param.shape)} {param.dtype}"
-            )
-        setattr(module, name, nn.Parameter(t, requires_grad=False))
+    for name, arr in _walk(tree, index=index):
+        _set_param(module, name, arr, device)
+
+
+def named_leaves(tree: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's ``init_params``-shaped ``tree`` (or any tree of that
+    shape, such as its optimizer's m and v) as ``{parameter name: host
+    array}`` in this module's names: the ``[repeats, ...]`` period leaves
+    unstack into layer ``rep * period + pos``, the tail follows."""
+    out = dict(_walk({k: tree[k] for k in ("embed", "lm_head", "final_norm") if k in tree}))
+    per = len(cfg.layer_pattern)
+    for rep in range(cfg.repeats):
+        for pos in range(per):
+            out.update(_walk(tree["period"][pos], f"blocks.{rep * per + pos}.", rep))
+    for i, sub in enumerate(tree.get("tail", [])):
+        out.update(_walk(sub, f"blocks.{cfg.repeats * per + i}."))
+    return out
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> CausalLM:
@@ -162,17 +230,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> CausalLM:
     each).  The ``[repeats, ...]`` period leaves unstack into layer order
     ``rep * period + pos``; bfloat16 leaves (``ml_dtypes``) cross as raw bits.
     """
-    device = torch.device(device)
     model = CausalLM(cfg, device="meta")
-    for name in ("embed", "lm_head", "final_norm"):
-        if name in tree:
-            _load_tree(model, {name: tree[name]}, device)
-    per = len(cfg.layer_pattern)
-    for rep in range(cfg.repeats):
-        for pos in range(per):
-            _load_tree(model.blocks[rep * per + pos], tree["period"][pos], device, rep)
-    for i, sub in enumerate(tree.get("tail", [])):
-        _load_tree(model.blocks[cfg.repeats * per + i], sub, device)
+    for name, arr in named_leaves(tree, cfg).items():
+        _set_param(model, name, arr, torch.device(device))
     leftover = [n for n, p in model.named_parameters() if p.device.type == "meta"]
     if leftover:
         raise ValueError(f"tree lacks parameters {leftover}")
@@ -209,6 +269,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[
     return [
         B.block_cache_init(cfg, kind, batch, max_len, device) for kind in cfg.layer_kinds
     ]
+
+
+def train_loss(params: CausalLM, batch: dict, cfg: ModelConfig = None):
+    return params.train_loss(batch)
 
 
 def prefill(params: CausalLM, inputs, cfg: ModelConfig, max_len: int):

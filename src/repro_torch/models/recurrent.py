@@ -6,8 +6,9 @@ as ``jax.nn.gelu`` computes it); merged elementwise, projected back to
 d_model.
 
 The recurrence ``h_t = a_t h_{t-1} + sqrt(1-a_t^2) (i_t ⊙ x_t)`` is linear in
-``h``, so prefill runs it through :func:`repro_torch.kernels.ops.lru_scan`:
-the hand-written CUDA kernel for a CUDA tensor, its plain sequential version
+``h``, so prefill and training run it through
+:func:`repro_torch.kernels.ops.lru_scan`: the hand-written CUDA kernels
+(forward and backward) for a CUDA tensor, their plain sequential versions
 for a CPU tensor.  The JAX package sends only shapes with ``T % 8 == 0`` and
 ``R % 128 == 0`` (the TPU's sublane and lane granule) to its kernel and the
 rest to an associative scan; the CUDA kernel takes any shape, so here every
@@ -130,6 +131,15 @@ def init_rec_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 def _branches(x: torch.Tensor, params: RGLRU):
     """The x branch before its conv, and the GeLU gate branch."""
     return x @ params.w_x, F.gelu(x @ params.w_gate_branch, approximate="tanh")
+
+
+def rec_block_train(x: torch.Tensor, params: RGLRU, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence forward without a cache (training), differentiable: the
+    scan's gradient comes from ``ops.lru_scan``'s backward."""
+    z, gate = _branches(x, params)
+    zc = causal_conv(z, params.conv_w, params.conv_b)
+    y, _ = rglru_scan(zc, params)
+    return (y * gate) @ params.w_rnn_out
 
 
 def rec_block_prefill(x: torch.Tensor, params: RGLRU, cfg: ModelConfig):

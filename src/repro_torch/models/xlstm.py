@@ -180,8 +180,9 @@ def _mlstm_qkv(z, zc, params: MLSTM):
 
 
 def mlstm_block(x, params: MLSTM, cfg: ModelConfig, cache: dict | None = None, *, mode: str):
-    """mode: prefill | decode.  x: [B,S,D] ([B,1,D] for decode).  Returns
-    (out [B,S,D], new cache); ``cache`` is left as it was."""
+    """mode: train | prefill | decode.  x: [B,S,D] ([B,1,D] for decode).
+    Returns (out [B,S,D], new cache), ``cache`` left as it was; ``train``
+    runs the prefill path and returns ``out`` alone, as the reference does."""
     b, s, d = x.shape
     r = 2 * d
     zg = x @ params.up
@@ -194,7 +195,7 @@ def mlstm_block(x, params: MLSTM, cfg: ModelConfig, cache: dict | None = None, *
         state, h1 = _mlstm_cell_step(state, (q[:, 0], k[:, 0], v[:, 0], logi[:, 0], logf[:, 0]))
         h = h1[:, None]
         conv = hist[:, 1:]
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         zc = causal_conv(z, params.conv_w, params.conv_b)
         q, k, v, logi, logf = _mlstm_qkv(z, zc, params)
         if cache is not None:  # continue from a prior state
@@ -215,6 +216,8 @@ def mlstm_block(x, params: MLSTM, cfg: ModelConfig, cache: dict | None = None, *
         raise ValueError(mode)
     hr = h.reshape(b, s, r).to(x.dtype) + zc @ params.skip
     out = (hr * F.silu(gate)) @ params.down
+    if mode == "train":
+        return out
     return out, {"conv": conv, "c": state[0], "n": state[1], "m": state[2]}
 
 
@@ -300,8 +303,9 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def slstm_block(x, params: SLSTM, cfg: ModelConfig, cache: dict | None = None, *, mode: str):
-    """mode: prefill | decode.  x: [B,S,D].  Returns (the block's delta
-    [B,S,D], new cache); ``cache`` is left as it was."""
+    """mode: train | prefill | decode.  x: [B,S,D].  Returns (the block's
+    delta [B,S,D], new cache), ``cache`` left as it was; ``train`` returns the
+    delta alone."""
     b, s, d = x.shape
     if mode == "decode":
         hist = torch.cat([cache["conv"], x], dim=1)
@@ -309,7 +313,7 @@ def slstm_block(x, params: SLSTM, cfg: ModelConfig, cache: dict | None = None, *
         state, h1 = _slstm_cell_step(params, state, _conv_step(hist, params.conv_w, params.conv_b))
         hs = h1[:, None]
         conv = hist[:, 1:]
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         xc = causal_conv(x, params.conv_w, params.conv_b).float()
         if cache is not None:
             state = (cache["c"], cache["n"], cache["m"], cache["h"])
@@ -332,4 +336,6 @@ def slstm_block(x, params: SLSTM, cfg: ModelConfig, cache: dict | None = None, *
     u, g = uz[..., :f_up], uz[..., f_up:]
     ff = (F.gelu(g, approximate="tanh") * u) @ params.down
     out = ff + cell_out  # the block's delta (the caller adds the residual)
+    if mode == "train":
+        return out
     return out, {"conv": conv, "c": state[0], "n": state[1], "m": state[2], "h": state[3]}

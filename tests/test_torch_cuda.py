@@ -380,6 +380,95 @@ def test_lru_scan_kernel_refuses_what_it_does_not_take(cuda):
         lru_scan.lru_scan(a, x, h0.cpu())
 
 
+@pytest.mark.parametrize("t", [1, 8, 17, 2048])
+@pytest.mark.parametrize("r", [96, 4096])
+def test_lru_scan_backward_kernel_matches_plain(cuda, t, r):
+    b = 8 if t * r <= 2048 * 128 else 2
+    a, x, h0 = _lru_inputs(cuda, b, t, r, torch.float32, seed=t + r)
+    g = torch.randn(a.shape, generator=torch.Generator().manual_seed(t)).to(cuda)
+    h = ref.lru_scan_ref(a, x, h0)
+    before = lru_scan.lru_scan_bwd.launches
+    got = lru_scan.lru_scan_bwd(g, a, h, h0)
+    again = lru_scan.lru_scan_bwd(g, a, h, h0)
+    want = ref.lru_scan_bwd_ref(g, a, h, h0)
+    torch.cuda.synchronize()
+    assert lru_scan.lru_scan_bwd.launches == before + 2
+    for k, w, z in zip(got, want, again):
+        assert k.dtype == w.dtype == torch.float32 and k.shape == w.shape
+        assert torch.equal(k, w)  # no FMA contraction: bit for bit
+        assert torch.equal(k, z)
+    a16, g16 = a.bfloat16(), g.bfloat16()
+    h16 = ref.lru_scan_ref(a16, x.bfloat16(), h0)
+    got16 = lru_scan.lru_scan_bwd(g16, a16, h16, h0)
+    want16 = ref.lru_scan_bwd_ref(g16, a16, h16, h0)
+    torch.cuda.synchronize()
+    assert got16[0].dtype == got16[1].dtype == torch.bfloat16
+    for k, w in zip(got16, want16):
+        torch.testing.assert_close(k.float(), w.float(), **LRU_BF16_TOL)
+
+
+def test_lru_scan_function_launches_both_kernels(cuda):
+    a, x, h0 = _lru_inputs(cuda, 2, 64, 256, torch.float32, seed=3)
+    leaves = [v.clone().requires_grad_() for v in (a, x, h0)]
+    w = torch.randn(a.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    before = (lru_scan.lru_scan.launches, lru_scan.lru_scan_bwd.launches)
+    got = torch.autograd.grad((ops.lru_scan(*leaves) * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (lru_scan.lru_scan.launches, lru_scan.lru_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [v.clone().requires_grad_() for v in (a, x, h0)]
+    want = torch.autograd.grad((ops.lru_scan(*plain, impl="ref") * w).sum(), plain)
+    for k, p in zip(got, want):
+        assert torch.equal(k, p)
+
+
+def test_lru_scan_backward_refuses_what_it_does_not_take(cuda):
+    a, x, h0 = _lru_inputs(cuda, 2, 16, 128, torch.float32)
+    h = ref.lru_scan_ref(a, x, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        lru_scan.lru_scan_bwd(x.transpose(1, 2).contiguous().transpose(1, 2), a, h, h0)
+    with pytest.raises(ValueError, match="share"):
+        lru_scan.lru_scan_bwd(x.bfloat16(), a, h, h0)
+    with pytest.raises(ValueError, match="lies on"):
+        lru_scan.lru_scan_bwd(x, a, h, h0.cpu())
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "recurrentgemma_9b"])
+def test_reduced_train_step_on_the_card_like_the_cpu(cuda, arch, monkeypatch):
+    """Two train steps of the reduced config (f32, TF32 off) on the card and
+    on the CPU from one state: losses within 1e-5."""
+    import copy
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import TrainConfig, init_train_state, train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = reduce(get_config(arch))
+    tcfg = TrainConfig(n_micro=2, optimizer=OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                                            total_steps=4))
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg, "cpu")
+    gpu = copy.deepcopy(cpu)
+    gpu.params.to(cuda)
+    gpu.opt = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda))
+               for k, v in gpu.opt.items()}
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 16, 4, seed=1))
+    before = (lru_scan.lru_scan.launches, lru_scan.lru_scan_bwd.launches)
+    for step in range(2):
+        batch = data.batch(step)
+        _, mc = train_step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg, tcfg)
+        _, mg = train_step(gpu, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()},
+                           cfg, tcfg)
+        torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-5, atol=1e-5)
+    n_rec = cfg.layer_kinds.count("rec")
+    # each microbatch runs each rec layer forward twice (the recompute) and back once
+    assert (lru_scan.lru_scan.launches - before[0], lru_scan.lru_scan_bwd.launches - before[1]) \
+        == (2 * 2 * 2 * n_rec, 2 * 2 * n_rec)
+
+
 # -- the contenders, the tiering loop and TPC-H on the card ----------------------
 
 
