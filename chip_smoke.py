@@ -57,7 +57,9 @@ printed):
    storage offset) at 256 and 1,024 lanes, on the odd shape (5, 4, 64) in
    f32, bf16 and int32, and a scatter with duplicate ids (the last lane must
    win in each of 20 runs); timed beside their bound, their plain versions
-   and ``index_select`` / ``index_copy_`` (timed here only).
+   and ``index_select`` / ``index_copy_`` (timed here only).  The gather at
+   256 lanes is timed against ``index_select`` again in 7 rounds, the order
+   swapped every round.
 13. A ppermute drain: 4 regions (a four-socket server) on ``make_region_mesh(4)``
    over the one card, 131,072 blocks of 64 KiB (8 GiB) in 40,960 slots a
    region (a 10 GiB pool), 32,768 starting in each region and all leaping to
@@ -156,27 +158,55 @@ printed):
    Adam moments and accumulator): ``Trainer`` on ``SyntheticLM`` (seed 0),
    batch 8 × 1,024 in 2 microbatches, lr 3e-3 with warmup 2, 20 steps, no
    checkpoint; finite losses and the last below the first; the loss curve,
-   median step ms, tokens/s and peak GiB; one more step profiled (kernels,
+   median step ms, tokens/s and peak GiB; model FLOPs a step (6 N D) against
+   ``roofline.model.PEAK_FLOPS``, the MFU; one more step profiled (kernels,
    device time, busy share).
 28. recurrentgemma_9b at full width, one period plus the tail (4 ``rec``, 1
    ``win``), batch 4 × 2,048, 6 steps: K5's forward launched twice (the
    block recompute) and its backward once per rec layer and step, and
    nonzero, finite gradients on every rec layer's ``wr``, ``wi`` and ``lam``.
-29. The reduced config of each of the six ported archs (f32, TF32 off) takes
-   2 train steps on the card and on the CPU from one state: losses within
-   1e-5 at step 1 and 1e-4 at step 2 (after an Adam step).  The reduced
-   granite checkpoints at step 1, fails at step 2 and restarts: the step-2
-   loss within 1e-5 of the uninterrupted run's (bit-identical or not is
-   printed); a checkpoint written on the card restores on the CPU and on the
-   card bit for bit.
+29. The reduced config of each of the ten archs (f32, TF32 off; nemotron
+   with its bf16 moments and accumulator; llava and musicgen fed embeddings)
+   takes 2 train steps on the card and on the CPU from one state: losses
+   within 1e-5 at step 1 and 1e-4 at step 2 (after an Adam step).  The
+   reduced granite checkpoints at step 1, fails at step 2 and restarts: the
+   step-2 loss within 1e-5 of the uninterrupted run's (bit-identical or not
+   is printed); a checkpoint written on the card restores on the CPU and on
+   the card bit for bit.  Then the four archs added last, reduced, served on
+   the card and on the CPU: nemotron through ``PagedEngine`` under a live
+   rebalance (as phase 10), gemma2, llava and musicgen through ``lm.prefill``
+   and 4 decode steps in lockstep (as phase 11); logits and caches within
+   1e-5.
+
+30. The paged-decode kernel's hd-192 instance against its plain version on
+   the card: bf16 and f32, G 12 (nemotron: 96 query heads over 8 kv heads)
+   and G 1, at mixed lens and at lens on the split boundaries, bit-identical
+   run to run; timed at nemotron's decode shape (q [8, 96, 192] bf16, layer
+   3 of a [1024, 7, 2, 16, 8, 192] pool, lens 544 each) beside its byte
+   bound, the plain version and a page gather plus SDPA.
+31. nemotron_4_340b at full width with 7 of its 96 layers (62.6 GiB of bf16
+   weights, random from a seeded generator) through ``PagedEngine`` on phase
+   7's pool: 8 prompts of 512 tokens, 32 greedy steps, twice undisturbed and
+   once while two sequences leap from step 1 on.  The same tokens and
+   bit-identical last logits in all three runs, one hd-192 paged-decode
+   launch per layer and step, at least 8 GiB of the card left free.
+32. gemma2_27b at full width and all 46 layers (window and global layers,
+   both softcaps) through ``lm.prefill`` and ``lm.decode_step``: 4 prompts
+   of 4,096 tokens (its window, ROADMAP R4), 32 greedy steps, twice; finite
+   logits, the same tokens, bit-identical last logits.
+33. llava_next_34b (all 60 layers) and musicgen_large (all 48) the same way,
+   fed seeded bf16 embeddings [8, 512, d_model] and one more [8, 1,
+   d_model] a step (their frontends are stubs in both packages).
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
 16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
-line (phases 23-25 and the wall seconds of phases 23-29), the
-``{"training": ...}`` line (phases 27-29), and last
-``{"ok": true, "device": {...}}``.
+line (phases 23-25 and the wall seconds of phases 23-33), the
+``{"training": ...}`` line (phases 27-29), the ``{"models": ...}`` line
+(phases 31-33), and last ``{"ok": true, "device": {...}}``.  Every time
+and size of phases 12 (the rounds), 27 (the MFU) and 30-33 is printed with
+the card's name and power limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -186,6 +216,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -242,6 +273,7 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.load import LoadGenerator, TenantSpec, WorkloadSpec  # noqa: E402
 from repro_torch.models import lm, moe, xlstm  # noqa: E402
+from repro_torch.roofline import model as roofline  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
 from repro_torch.topology import NumaTopology  # noqa: E402
@@ -344,12 +376,41 @@ TRAIN_REDUCED = dict(batch=4, seq=32, n_micro=2, lr=1e-3, warmup=1, steps=2)
 TRAIN_LOSS_TOL = (dict(rtol=1e-5, atol=1e-5), dict(rtol=1e-4, atol=1e-4))
 LRU_FD_TOL = 1e-4  # the Function's gradient against float64 central differences
 XLSTM_REDUCED_LENS = (192, 64)
+# phase 30: K4's hd-192 instance at nemotron_4_340b's decode shape: 8
+# sequences, 96 query heads over 8 kv heads of 192 (G 12), one layer of
+# phase 31's 7-layer pool, lens of its last decode step (512 + 32)
+PAGED_NEMO = dict(b=8, h=96, kvh=8, hd=192, blk=16, maxb=64, layers=7, layer=3, slots=1024)
+# phase 31: nemotron at full width, 7 of its 96 layers (3.45 B parameters a
+# layer, 18.9 GB of untied embedding and head: 62.6 GiB of weights)
+NEMO_SERVE = dict(config="nemotron_4_340b", layers=7, prompts=8, prompt_len=512, steps=32)
+# phase 32: gemma2_27b at full width and depth on the contiguous path, with
+# prompts as long as its window (ROADMAP R4)
+GEMMA_SERVE = dict(config="gemma2_27b", layers=46, prompts=4, prompt_len=4096, steps=32)
+# phase 33: the stub-frontend backbones fed seeded bf16 embeddings
+STUB_SERVE = (
+    dict(config="llava_next_34b", layers=60, prompts=8, prompt_len=512, steps=32),
+    dict(config="musicgen_large", layers=48, prompts=8, prompt_len=512, steps=32),
+)
+# phases 31-33 leave at least this much of the card free
+HEADROOM_BYTES = 8 * 2**30
+K6A_ROUNDS = 7  # phase 12: K6a at 256 lanes against index_select, in turns
 LOAD_TENANTS = (
     TenantSpec("gold", rate=0.9, prompt_tokens=512, decode_tokens=32, slo_latency=2.5,
                priority=2, region=0),
     TenantSpec("batch", rate=0.6, prompt_tokens=512, decode_tokens=64, slo_latency=10.0,
                priority=0, region=1),
 )
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them; printed
+    beside every time and size that phases 12 (the rounds), 27 (the MFU)
+    and 30-33 report."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def check(ok: bool, what: str) -> None:
@@ -395,6 +456,7 @@ def launch_counts() -> dict[str, int]:
         "copy_runs": leap_copy.copy_runs.launches,
         "heat_scan": heat_scan.heat_scan.launches,
         "paged_decode": paged_attn.paged_decode.launches,
+        "paged_decode_hd192": paged_attn.paged_decode.launches_by_head_dim.get(192, 0),
         "lru_scan": lru_scan.lru_scan.launches,
         "lru_scan_bwd": lru_scan.lru_scan_bwd.launches,
         "gather_blocks": leap_copy.gather_blocks.launches,
@@ -437,6 +499,7 @@ def reset_launch_counts() -> None:
     leap_copy.copy_runs.launches = 0
     heat_scan.heat_scan.launches = 0
     paged_attn.paged_decode.launches = 0
+    paged_attn.paged_decode.launches_by_head_dim.clear()
     lru_scan.lru_scan.launches = 0
     lru_scan.lru_scan_bwd.launches = 0
     leap_copy.gather_blocks.launches = 0
@@ -597,6 +660,10 @@ def gather_scatter_checks(dev) -> list[dict]:
             r = per_k[name][k]
             print(f"{name} {k} lanes: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
                   f"{r['library_ms']:.4f}, bound {b:.4f}), bit-exact")
+        if k == 256:
+            gather, _, select, _ = cases["gather_blocks"]
+            per_k["gather_blocks"][k]["against_index_select"] = gather_in_turns(
+                lambda: gather(next(turn)), lambda: select(next(turn)))
         del got, want, blocks, block_sets
 
     # duplicate ids: about 16 lanes an id; the last lane must win every run
@@ -636,6 +703,25 @@ def gather_scatter_checks(dev) -> list[dict]:
             at_256_lanes=per_k[name][256],
         ))
     return rows
+
+
+def gather_in_turns(kernel, library) -> dict:
+    """K6a against ``index_select`` in K6A_ROUNDS rounds, the order swapped
+    every round (kernel, library; library, kernel; ...), so that drift in the
+    card's clocks falls on both alike."""
+    rounds = []
+    for r in range(K6A_ROUNDS):
+        order = ("kernel", "library") if r % 2 == 0 else ("library", "kernel")
+        rounds.append({n: time_ms(kernel if n == "kernel" else library) for n in order})
+    ms = {n: statistics.median(r[n] for r in rounds) for n in ("kernel", "library")}
+    res = dict(rounds=rounds, kernel_ms_median=ms["kernel"], library_ms_median=ms["library"],
+               kernel_over_library=ms["kernel"] / ms["library"],
+               rounds_kernel_slower=sum(r["kernel"] > r["library"] for r in rounds))
+    print(f"gather_blocks 256 lanes against index_select in {K6A_ROUNDS} rounds, in turns: "
+          f"kernel {ms['kernel']:.4f} ms, index_select {ms['library']:.4f} ms (medians; "
+          f"kernel/library {res['kernel_over_library']:.3f}, kernel slower in "
+          f"{res['rounds_kernel_slower']} of {K6A_ROUNDS} rounds) [{card()}]")
+    return res
 
 
 # -- phases 3-5: drains through LeapSession -----------------------------------
@@ -1731,11 +1817,12 @@ def serving_full_width(dev) -> dict:
                 **SERVE, runs=out)
 
 
-def serving_card_matches_cpu(dev) -> None:
-    """Reduced granite, f32 with TF32 off, on the card and on the CPU."""
+def serving_card_matches_cpu(dev, arch: str = "granite_3_2b") -> dict:
+    """A reduced two-layer arch, f32 with TF32 off, served on the card and on
+    the CPU (phase 10: granite; phase 29: nemotron)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    cfg = dataclasses.replace(reduce(get_config(arch)), n_layers=2)
     cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
     models = {"cuda": copy.deepcopy(cpu_model).to(dev), "cpu": cpu_model}
     rng = np.random.default_rng(SEED)
@@ -1758,7 +1845,9 @@ def serving_card_matches_cpu(dev) -> None:
         check(np.array_equal(a, b), "card and CPU tables and dirty/in-flight bits agree")
     torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits, rtol=1e-5, atol=1e-5)
     check(gpu.driver.stats == cpu.driver.stats, "card and CPU MigrationStats agree")
-    print("reduced granite served on the card and on the CPU agrees")
+    diff = float((gpu.last_logits.cpu() - cpu.last_logits).abs().max())
+    print(f"reduced {arch} served on the card and on the CPU agrees (logits within {diff:.3g})")
+    return dict(path="PagedEngine", logits_max_abs_diff=diff)
 
 
 # -- phase 8: the LRU-scan kernel against its plain version --------------------
@@ -1814,9 +1903,12 @@ def lru_scan_checks(dev) -> dict:
 # -- phases 9 and 11: recurrentgemma_9b through lm.prefill and lm.decode_step ----
 
 
-def recurrent_run(model, cfg, prompts: torch.Tensor, steps: int) -> dict:
+def recurrent_run(model, cfg, prompts: torch.Tensor, steps: int, feeds=None) -> dict:
     """Prefill the prompts, then ``steps`` greedy decode steps; returns the
-    tokens, the timings and the launch counts of each part."""
+    tokens, the last step's logits, the timings and the launch counts of each
+    part.  A stub-frontend arch takes embeddings: ``prompts`` is [B, S, D]
+    and ``feeds[i]`` ([B, 1, D]) is decode step i's input, where the others
+    feed back the argmax token."""
     dev = prompts.device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1832,14 +1924,15 @@ def recurrent_run(model, cfg, prompts: torch.Tensor, steps: int) -> dict:
     tokens, step_s = [tok.cpu()], []
     for i in range(steps):
         t1 = time.perf_counter()
-        logits, cache = lm.decode_step(model, cache, tok, prompts.shape[1] + i, cfg)
+        x = tok if feeds is None else feeds[i]
+        logits, cache = lm.decode_step(model, cache, x, prompts.shape[1] + i, cfg)
         finite &= torch.isfinite(logits).all()
         tok = logits.argmax(-1)[:, None]
         tokens.append(tok.cpu())  # the step's one device-to-host copy
         step_s.append(time.perf_counter() - t1)
     check(bool(finite), f"{cfg.name} logits are finite")
     return dict(
-        tokens=torch.cat(tokens, dim=1), prefill_s=prefill_s,
+        tokens=torch.cat(tokens, dim=1), logits=logits, prefill_s=prefill_s,
         decode_s=sum(step_s), decode_step_ms_median=statistics.median(step_s) * 1e3,
         tokens_per_s=prompts.shape[0] * steps / sum(step_s),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -1872,6 +1965,7 @@ def recurrent_full_width(dev) -> dict:
               f"{name}: one lru_scan launch per rec layer ({n_rec}) in the prefill")
         check(res["decode_launches"]["lru_scan"] == 0, f"{name}: decode launches no lru_scan")
         tokens.append(res.pop("tokens"))
+        del res["logits"]
         # the path's counts: the prefill's and the decode's, each set to 0 before it
         res["launches"] = {k: v + res["decode_launches"][k]
                            for k, v in res["prefill_launches"].items()}
@@ -1958,9 +2052,11 @@ class RouteTap:
         return int(self._dropped[tokens]) if tokens in self._dropped else 0
 
 
-def moe_deployment(dev, spec):
-    """A MoE stack at its published widths with the depth of ``spec``, random
-    bf16 weights from seed 0 on ``dev``, phase 7's pool and the prompts."""
+def paged_deployment(dev, spec):
+    """An arch served through ``PagedEngine`` at its published widths with
+    the depth of ``spec`` (phase 23's MoE stacks, phase 31's nemotron),
+    random bf16 weights from seed 0 on ``dev``, phase 7's pool and the
+    prompts.  ``scripts/profile_serving.py --deployment`` profiles these."""
     cfg = dataclasses.replace(get_config(spec["config"]), n_layers=spec["layers"])
     model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
     prompts = np.random.default_rng(SEED).integers(
@@ -1973,7 +2069,7 @@ def moe_full_width(dev) -> dict:
     out = {}
     for spec in MOE_SERVE:
         t0 = time.perf_counter()
-        cfg, model, pcfg, prompts = moe_deployment(dev, spec)
+        cfg, model, pcfg, prompts = paged_deployment(dev, spec)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         full = get_config(spec["config"])
@@ -2151,6 +2247,7 @@ def xlstm_full_width(dev) -> dict:
             res = recurrent_run(model, cfg, prompts, XLSTM["steps"])
         res["slstm_prefill_s"] = timer.prefill_s
         tokens.append(res.pop("tokens"))
+        del res["logits"]
         res["launches"] = {k: v + res["decode_launches"][k]
                            for k, v in res["prefill_launches"].items()}
         check(not any(res["launches"].values()), "the xLSTM path runs none of the port's kernels")
@@ -2350,8 +2447,16 @@ def train_run(dev, cfg, spec: dict, data_seed: int = SEED) -> tuple[Trainer, dic
 
 def granite_training(dev) -> dict:
     """Phase 27: granite_3_2b at full width and all 40 layers, 20 steps."""
-    tr, res = train_run(dev, get_config("granite_3_2b"), TRAIN_GRANITE)
+    cfg = get_config("granite_3_2b")
+    tr, res = train_run(dev, cfg, TRAIN_GRANITE)
     check(res["losses"][-1] < res["losses"][0], "granite_3_2b's loss falls over 20 steps")
+    active = cfg.active_param_count()
+    res["model_flops"] = mf = roofline.model_flops(
+        active, TRAIN_GRANITE["batch"] * TRAIN_GRANITE["seq"], "train")
+    res["mfu"] = mf / (res["step_ms_median"] / 1e3 * roofline.PEAK_FLOPS)
+    print(f"  model FLOPs a step {mf:.4g} (6 N D, N = {active:,} active parameters) against "
+          f"PEAK_FLOPS {roofline.PEAK_FLOPS:.4g} (H100 SXM, dense bf16, 700 W): MFU "
+          f"{res['mfu']:.4f} at {res['step_ms_median']:.1f} ms a step [{card()}]")
     res["profiled_step"] = prof = profile_step(tr)
     print(f"  one more step profiled: {prof['kernels']} kernels, {prof['device_ms']:.1f} ms of "
           f"device time in {prof['wall_ms']:.1f} ms (busy {prof['busy_share']:.3f}); top: "
@@ -2406,10 +2511,14 @@ def _to_card(state: TrainState, dev) -> TrainState:
     return state
 
 
-def _reduced_tcfg() -> TrainConfig:
+def _reduced_tcfg(cfg=None) -> TrainConfig:
+    """Phase 29's train config; with ``cfg``, its accumulator and moment
+    dtypes (nemotron: bf16)."""
     spec = TRAIN_REDUCED
-    return TrainConfig(n_micro=spec["n_micro"], optimizer=OptimizerConfig(
-        peak_lr=spec["lr"], warmup_steps=spec["warmup"], total_steps=spec["steps"]))
+    accum, state = (cfg.grad_accum_dtype, cfg.opt_state_dtype) if cfg else ("float32", "float32")
+    return TrainConfig(n_micro=spec["n_micro"], accum_dtype=accum, optimizer=OptimizerConfig(
+        peak_lr=spec["lr"], warmup_steps=spec["warmup"], total_steps=spec["steps"],
+        state_dtype=state))
 
 
 def restart_on_the_card(dev) -> dict:
@@ -2420,12 +2529,17 @@ def restart_on_the_card(dev) -> dict:
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_REDUCED["seq"], TRAIN_REDUCED["batch"],
                                   seed=SEED))
     with tempfile.TemporaryDirectory() as d:
-        mk = lambda sub: Trainer(  # noqa: E731
+        mk = lambda sub, asynchronous=True: Trainer(  # noqa: E731
             cfg, tcfg, TrainerConfig(total_steps=2, ckpt_every=1, ckpt_dir=f"{d}/{sub}",
-                                     log_every=1), data, seed=SEED, device=dev)
+                                     log_every=1, async_ckpt=asynchronous),
+            data, seed=SEED, device=dev)
         a = mk("a")
         a.run()
-        b = mk("b")
+        # synchronous, so that step 1's checkpoint is committed before the
+        # failure at step 2; an asynchronous save still being written when
+        # the failure is raised leaves no restore point, and a restart then
+        # begins at step 0
+        b = mk("b", asynchronous=False)
         try:
             b.run(fail_at=2)
         except RuntimeError as e:
@@ -2463,13 +2577,15 @@ def training_card_matches_cpu(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reset_launch_counts()
-    tcfg, out = _reduced_tcfg(), {}
+    out = {}
     for arch in PORTED_ARCH_IDS:
         cfg = reduce(get_config(arch))
+        tcfg = _reduced_tcfg(cfg)
         cpu = init_train_state(torch.Generator().manual_seed(SEED), cfg, tcfg, "cpu")
         gpu = _to_card(cpu, dev)
         data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_REDUCED["seq"],
-                                      TRAIN_REDUCED["batch"], seed=SEED))
+                                      TRAIN_REDUCED["batch"], seed=SEED,
+                                      embed_dim=None if cfg.embed_inputs else cfg.d_model))
         diffs = []
         for step in range(TRAIN_REDUCED["steps"]):
             batch = data.batch(step)
@@ -2478,7 +2594,8 @@ def training_card_matches_cpu(dev) -> dict:
                                cfg, tcfg)
             torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], **TRAIN_LOSS_TOL[step])
             diffs.append(abs(float(mg["loss"]) - float(mc["loss"])))
-        out[arch] = dict(loss_abs_diff=diffs, loss=float(mc["loss"]))
+        out[arch] = dict(loss_abs_diff=diffs, loss=float(mc["loss"]),
+                         accum_dtype=tcfg.accum_dtype, state_dtype=tcfg.optimizer.state_dtype)
     res = dict(archs=out, launches=launch_counts())
     n_rec = reduce(get_config("recurrentgemma_9b")).layer_kinds.count("rec")
     micro = TRAIN_REDUCED["steps"] * TRAIN_REDUCED["n_micro"]
@@ -2488,7 +2605,216 @@ def training_card_matches_cpu(dev) -> dict:
     print("reduced archs train on the card like the CPU: " + ", ".join(
         f"{a} {max(v['loss_abs_diff']):.2g}" for a, v in out.items()))
     res["restart"] = restart_on_the_card(dev)
+    res["serving"] = {"nemotron_4_340b": serving_card_matches_cpu(dev, "nemotron_4_340b")}
+    for arch in ("gemma2_27b", "llava_next_34b", "musicgen_large"):
+        res["serving"][arch] = contiguous_card_matches_cpu(dev, arch)
     return res
+
+
+def contiguous_card_matches_cpu(dev, arch: str) -> dict:
+    """A reduced arch (f32, TF32 off) through ``lm.prefill`` and 4
+    ``lm.decode_step`` s on the card and on the CPU in lockstep: logits and
+    every layer's cache within 1e-5 after each call.  gemma2's window (8 in
+    the reduced config) rolls over a 16-token prompt; the stub frontends
+    take seeded embeddings."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = reduce(get_config(arch))
+    cpu_model = lm.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(SEED)
+
+    def inputs(s):
+        if cfg.embed_inputs:
+            return torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)))
+        return torch.from_numpy(rng.normal(size=(2, s, cfg.d_model)).astype(np.float32))
+
+    prompt = inputs(16)
+    g = lm.prefill(gpu_model, prompt.to(dev), cfg, 20)
+    c = lm.prefill(cpu_model, prompt, cfg, 20)
+    caches_agree(g, c)
+    worst = float((g[0].cpu() - c[0]).abs().max())
+    for pos in range(16, 20):
+        check(torch.equal(g[0].argmax(-1).cpu(), c[0].argmax(-1)), "card and CPU pick the same "
+              "tokens")
+        x = c[0].argmax(-1)[:, None] if cfg.embed_inputs else inputs(1)
+        g = lm.decode_step(gpu_model, g[1], x.to(dev), pos, cfg)
+        c = lm.decode_step(cpu_model, c[1], x, pos, cfg)
+        caches_agree(g, c)
+        worst = max(worst, float((g[0].cpu() - c[0]).abs().max()))
+    print(f"reduced {arch} through lm.prefill and lm.decode_step on the card and on the CPU "
+          f"agrees (logits within {worst:.3g})")
+    return dict(path="lm.prefill/decode_step", logits_max_abs_diff=worst)
+
+
+# -- phase 30: K4's hd-192 instance against its plain version ------------------------
+
+
+def paged_hd192_checks(dev) -> dict:
+    """The hd-192 instance in bf16 and f32, at G 12 (nemotron; the GM 16
+    instance) and G 1 (GM 4), at mixed lens and at lens on the split
+    boundaries: against the plain version and bit-identical run to run.
+    Then timed at nemotron's decode shape beside a page gather plus SDPA."""
+    base = PAGED_NEMO
+    host = torch.Generator().manual_seed(SEED)
+    full, split = base["maxb"] * base["blk"], paged_attn.SPLIT_TOKENS
+    mixed = torch.randint(2, full, (base["b"],), generator=host)
+    mixed[0], mixed[-1] = 1, full
+    bounds = torch.tensor([1, split - 1, split, split + 1, 2 * split, 3 * split + 1, 9 * split,
+                           full])
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for g in (12, 1):
+            p = dict(base, h=base["kvh"] * g, layers=2, layer=1)
+            for lname, lh in (("mixed", mixed), ("split boundaries", bounds)):
+                q, view, tables, ld = paged_inputs(dev, dtype, lh, SEED + g, p)
+                got = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"])
+                again = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"])
+                want = ops.paged_decode_partial(q, view, tables, ld, kv_heads=p["kvh"],
+                                                impl="ref")
+                torch.cuda.synchronize()
+                for a, b, w in zip(got, again, want):
+                    check(torch.equal(a, b), f"hd 192 {dtype} G {g} {lname}: bit-identical run "
+                                             "to run")
+                    torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+                errs[f"{str(dtype).removeprefix('torch.')} G{g} {lname}"] = max(
+                    float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+                del q, view, tables, got, again, want
+    torch.cuda.empty_cache()
+    p = PAGED_NEMO
+    lens = torch.full((p["b"],), NEMO_SERVE["prompt_len"] + NEMO_SERVE["steps"])
+    q, view, tables, lens_d = paged_inputs(dev, torch.bfloat16, lens, SEED, p)
+    timed = paged_timings(q, view, tables, lens_d, lens, p)
+    del q, view, tables
+    torch.cuda.empty_cache()
+    row = dict(
+        name="paged_decode_hd192", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:101", launches=0,
+        max_abs_err=errs["bfloat16 G12 mixed"], **timed,
+        shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16 (G 12, KVH {p['kvh']}), layer "
+               f"{p['layer']} of a [{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, "
+               f"{p['hd']}] pool, lens {int(lens[0])} each"),
+        errors=errs, check_lens=dict(mixed=mixed.tolist(), split_boundaries=bounds.tolist()))
+    print(f"paged_decode hd 192 at nemotron's decode shape: {row['ms']:.4f} ms (plain "
+          f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, "
+          f"{paged_grid(lens, p)}) [{card()}]; max err " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()))
+    return row
+
+
+# -- phases 31-33: nemotron, gemma2, llava and musicgen at full width ----------------
+
+
+def fits(peak_bytes: int, what: str) -> None:
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(total - peak_bytes >= HEADROOM_BYTES,
+          f"{what}: peak {peak_bytes / 2**30:.2f} GiB leaves {HEADROOM_BYTES / 2**30:.0f} GiB of "
+          f"the card's {total / 2**30:.2f} GiB")
+
+
+def nemotron_full_width(dev) -> dict:
+    """Phase 31: nemotron_4_340b at full width (7 of 96 layers) through
+    ``PagedEngine``, twice undisturbed and once while two sequences leap."""
+    spec = NEMO_SERVE
+    full = get_config(spec["config"])
+    t0 = time.perf_counter()
+    cfg, model, pcfg, prompts = paged_deployment(dev, spec)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    n = spec["steps"] * cfg.n_layers
+    runs, res = {}, {}
+    for name in ("undisturbed", "again", "live"):
+        reset_launch_counts()
+        eng, sids, handles, times = serve_run(dev, cfg, model, pcfg, prompts, spec["steps"],
+                                              live=name == "live")
+        launches = launch_counts()
+        runs[name] = ([eng.seqs[s].tokens for s in sids], eng.last_logits.clone())
+        res[name] = dict(times, launches=launches)
+        if name == "live":
+            res[name].update(check_serving(eng, sids, handles))
+            check(res[name]["dirty_rejections"] > 0, "decode appends dirtied in-flight pages")
+            check(launches["copy_blocks"] > 0, "the live run launched copy_blocks")
+        check(launches["paged_decode"] == launches["paged_decode_hd192"] == n,
+              f"nemotron {name}: one hd-192 paged-decode launch per layer and step ({n})")
+        check(bool(torch.isfinite(eng.last_logits).all()), "nemotron's logits are finite")
+        fits(torch.cuda.max_memory_allocated(), f"nemotron {name}")
+        print(f"nemotron_4_340b ({cfg.n_layers} of {full.n_layers} layers) {name}: prefill "
+              f"{times['prefill_s']:.3f} s, decode step {times['decode_step_ms_median']:.3f} ms "
+              f"(median), {times['tokens_per_s']:.1f} tok/s, peak {times['peak_gib']:.2f} GiB, "
+              f"launches {launches} [{card()}]")
+        del eng
+        torch.cuda.empty_cache()
+    for name in ("again", "live"):
+        check(runs[name][0] == runs["undisturbed"][0], f"nemotron {name}: the same tokens")
+        check(torch.equal(runs[name][1], runs["undisturbed"][1]),
+              f"nemotron {name}: the last step's logits are bit-identical")
+    del model, runs
+    release()
+    return dict(config=spec["config"], layers=cfg.n_layers,
+                reduced=f"layers {cfg.n_layers} of {full.n_layers}", dtype="bfloat16",
+                params=cfg.param_count(), weights_gib=weights_gib, init_s=init_s,
+                **{k: v for k, v in spec.items() if k not in ("config", "layers")}, runs=res)
+
+
+def contiguous_deployment(dev, spec):
+    """An arch at its published widths with the depth of ``spec`` (phases 32
+    and 33), random bf16 weights from seed 0 on ``dev``, and its inputs:
+    token prompts, or for a stub frontend seeded bf16 embeddings [B, S, D]
+    and one more [B, 1, D] a decode step (``feeds``, else None).
+    ``scripts/profile_recurrent.py --deployment`` profiles these."""
+    cfg = dataclasses.replace(get_config(spec["config"]), n_layers=spec["layers"])
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    b, s, steps = spec["prompts"], spec["prompt_len"], spec["steps"]
+    if cfg.embed_inputs:
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, size=(b, s))).to(dev)
+        return cfg, model, prompts, None
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randn((b, s, cfg.d_model), generator=gen, device=dev, dtype=torch.bfloat16)
+    feeds = torch.randn((steps, b, 1, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    return cfg, model, prompts, feeds
+
+
+def contiguous_full_width(dev, spec) -> dict:
+    """Phases 32 and 33: an arch at full width with ``spec`` 's depth through
+    ``lm.prefill`` and ``lm.decode_step``, twice over the same inputs: the
+    same tokens and bit-identical last logits."""
+    full = get_config(spec["config"])
+    t0 = time.perf_counter()
+    cfg, model, prompts, feeds = contiguous_deployment(dev, spec)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    b, s, steps = spec["prompts"], spec["prompt_len"], spec["steps"]
+    runs, outs = {}, []
+    for name in ("first", "second"):
+        res = recurrent_run(model, cfg, prompts, steps, feeds)
+        outs.append((res.pop("tokens"), res.pop("logits")))
+        res["launches"] = {k: v + res["decode_launches"][k]
+                           for k, v in res["prefill_launches"].items()}
+        check(not any(res["launches"].values()),
+              f"{cfg.name}'s contiguous path runs none of the port's kernels")
+        fits(torch.cuda.max_memory_allocated(), f"{cfg.name} {name}")
+        runs[name] = res
+        print(f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers, {b} x {s}) {name}: "
+              f"prefill {res['prefill_s']:.3f} s, decode step "
+              f"{res['decode_step_ms_median']:.3f} ms (median), {res['tokens_per_s']:.1f} tok/s, "
+              f"peak {res['peak_gib']:.2f} GiB [{card()}]")
+        torch.cuda.empty_cache()
+    check(torch.equal(outs[0][0], outs[1][0]), f"{cfg.name}: the same tokens in both runs")
+    check(torch.equal(outs[0][1], outs[1][1]), f"{cfg.name}: bit-identical last logits")
+    del model, prompts, feeds, outs
+    release()
+    return dict(config=spec["config"], layers=cfg.n_layers,
+                reduced=(f"layers {cfg.n_layers} of {full.n_layers}"
+                         if cfg.n_layers < full.n_layers else None),
+                inputs="token ids" if cfg.embed_inputs else "seeded bf16 embeddings",
+                dtype="bfloat16", params=cfg.param_count(), weights_gib=weights_gib,
+                init_s=init_s, **{k: v for k, v in spec.items() if k not in ("config", "layers")},
+                runs=runs)
 
 
 def main() -> int:
@@ -2496,10 +2822,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     _build.load()
@@ -2557,6 +2880,21 @@ def main() -> int:
         t0 = time.perf_counter()
         training[name] = fn(dev)
         wall[phase] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    rows.append(paged_hd192_checks(dev))
+    wall["phase_30_paged_decode_hd192"] = time.perf_counter() - t0
+    models = {}
+    for phase, name, fn in (
+            ("phase_31_nemotron", "nemotron_4_340b", nemotron_full_width),
+            ("phase_32_gemma2", "gemma2_27b", lambda d: contiguous_full_width(d, GEMMA_SERVE)),
+            ("phase_33_llava", "llava_next_34b",
+             lambda d: contiguous_full_width(d, STUB_SERVE[0])),
+            ("phase_33_musicgen", "musicgen_large",
+             lambda d: contiguous_full_width(d, STUB_SERVE[1]))):
+        t0 = time.perf_counter()
+        models[name] = fn(dev)
+        wall[phase] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -2566,7 +2904,7 @@ def main() -> int:
              + [tiering, failed, queries, chaos, at_scale] + list(load["runs"].values())
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
              + [r for r in moe_cpu.values()] + list(xl["runs"].values())
-             + list(training.values()))
+             + list(training.values()) + [r for m in models.values() for r in m["runs"].values()])
     for row in rows:
         row["launches"] = sum(d["launches"][row["name"]] for d in paths)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
@@ -2576,6 +2914,10 @@ def main() -> int:
     check(sum(r["launches"]["lru_scan"] for r in recurrent["runs"].values())
           == 2 * recurrent["rec_layers"],
           "lru_scan launched once per rec layer in both recurrent prefills")
+    nemo = models["nemotron_4_340b"]
+    check(sum(r["launches"]["paged_decode_hd192"] for r in nemo["runs"].values())
+          == 3 * nemo["steps"] * nemo["layers"],
+          "the hd-192 paged decode launched once per layer and step in the three nemotron runs")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"drains": drains, "megastep_vs_batched": oracle, "card": smi}))
@@ -2588,6 +2930,7 @@ def main() -> int:
     print(json.dumps({"moe": moe_res, "moe_card_matches_cpu": moe_cpu, "xlstm": xl,
                       "xlstm_card_matches_cpu": xl_cpu, "wall_s": wall, "card": smi}))
     print(json.dumps({"training": training, "card": smi}))
+    print(json.dumps({"models": models, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,7 @@ Builds a serving deployment of ``chip_smoke.py`` on the current CUDA device
 (random bf16 weights from seed 0, 8 prompts of 512 tokens): granite_3_2b at
 full width and depth (phase 7, the default), or one of phase 23's MoE
 stacks at published widths with the depth cut (``qwen3_moe_235b_a22b``,
-``dbrx_132b``).  It admits the prompts, warms up with 8 decode
+``dbrx_132b``), or phase 31's nemotron_4_340b (7 of 96 layers).  It admits the prompts, warms up with 8 decode
 steps, times 8 more without the profiler, then profiles one more admission
 and 4 decode steps with ``torch.profiler``.  Prints, for each window, the
 wall time, the device time summed over kernels and their ratio (the
@@ -31,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import MOE_SERVE, moe_deployment, serving_deployment  # noqa: E402
+from chip_smoke import MOE_SERVE, NEMO_SERVE, paged_deployment, serving_deployment  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
 
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 8, 8, 4
@@ -67,16 +67,16 @@ def report(name: str, prof, wall_s: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    moe = {spec["config"]: spec for spec in MOE_SERVE}
-    ap.add_argument("--deployment", default="granite_3_2b", choices=["granite_3_2b", *moe])
+    cut = {spec["config"]: spec for spec in (*MOE_SERVE, NEMO_SERVE)}
+    ap.add_argument("--deployment", default="granite_3_2b", choices=["granite_3_2b", *cut])
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the decode window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    if args.deployment in moe:
-        cfg, model, pcfg, prompts = moe_deployment(dev, moe[args.deployment])
+    if args.deployment in cut:
+        cfg, model, pcfg, prompts = paged_deployment(dev, cut[args.deployment])
     else:
         cfg, model, pcfg, prompts = serving_deployment(dev)
     eng = PagedEngine(cfg, model, pcfg, device=dev)

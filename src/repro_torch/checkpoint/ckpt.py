@@ -20,6 +20,17 @@ read back bit for bit on any machine.  ``restore`` checks the leaf count,
 names, shapes and dtypes against a template and places the leaves on the
 device asked, so a checkpoint written on the card restores on the CPU and
 back.  A template on the ``meta`` device costs no memory.
+
+``restore`` also reads a checkpoint that the JAX package wrote.  Its
+manifest names no leaf: the leaves are a JAX tree flattening of the saved
+tree, dict keys in sorted order, list entries in index order, and each
+period leaf stacked ``[repeats, ...]``.  For a template that is a
+``CausalLM`` or a ``TrainState`` (``params`` and ``opt`` with ``m``,
+``step``, ``v``), :func:`_jax_layout` rebuilds that order from the model's
+config, and ``lm.named_leaves`` unstacks the period leaves into the port's
+names.  bfloat16 leaves (``ml_dtypes``) come back from ``np.load`` as a
+2-byte void type and are read as their uint16 bits.  A manifest that does
+not fit the template (leaf count, shape or dtype) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ import threading
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.models.lm import CausalLM, named_leaves
 
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -174,6 +187,8 @@ def restore(directory: str, tree_like, step: int | None = None, device=None):
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    if manifest["leaves"] and "name" not in manifest["leaves"][0]:
+        return _restore_jax(d, manifest, tree_like, device), step
     flat = _flatten(tree_like)
     if len(flat) != len(manifest["leaves"]):
         raise ValueError(
@@ -191,3 +206,95 @@ def restore(directory: str, tree_like, step: int | None = None, device=None):
         arr = np.load(os.path.join(d, meta["file"]))
         loaded[name] = _from_host(arr, meta["dtype"], device if device is not None else ref.device)
     return _unflatten(tree_like, loaded), step
+
+
+
+# -- checkpoints the JAX package wrote --------------------------------------------
+
+
+def _jax_param_paths(model: nn.Module) -> list[tuple[tuple, list[int], str]]:
+    """(key path, shape, the port's name of its first layer) of every leaf
+    of the JAX package's ``init_params`` tree for ``model``'s config, in
+    JAX's flattening order.  The port's ``blocks.<i>.<rest>`` is entry
+    ``i % period`` of the period list, stacked over the repeats, or past the
+    periods an entry of the tail."""
+    cfg = model.cfg
+    per = len(cfg.layer_pattern)
+    n_period = cfg.repeats * per
+    leaves = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            leaves[(name,)] = (list(p.shape), name)
+            continue
+        i, rest = int(parts[1]), tuple(parts[2:])
+        if i >= n_period:
+            leaves[("tail", i - n_period) + rest] = (list(p.shape), name)
+        elif i < per:  # the first repeat names the stacked leaf
+            leaves[("period", i) + rest] = ([cfg.repeats, *p.shape], name)
+    # dict keys sort as strings, list entries by index; a list index is only
+    # ever compared with another list index
+    return [(path, shape, name) for path, (shape, name) in sorted(leaves.items())]
+
+
+def _nest(leaves: dict[tuple, np.ndarray]) -> dict:
+    """The nested tree of ``{key path: array}``, ``period`` and ``tail`` as
+    lists, the shape ``lm.named_leaves`` reads."""
+    tree: dict = {}
+    for path, arr in leaves.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    for key in ("period", "tail"):
+        if key in tree:
+            tree[key] = [tree[key][i] for i in sorted(tree[key])]
+    return tree
+
+
+def _restore_jax(d: str, manifest: dict, tree_like, device):
+    """``tree_like`` (a ``CausalLM`` or a ``TrainState``) filled from the
+    JAX package's checkpoint in ``d``."""
+    state = dataclasses.is_dataclass(tree_like)
+    model = tree_like.params if state else tree_like
+    if not isinstance(model, CausalLM):
+        raise ValueError("a checkpoint without leaf names restores only into a CausalLM or a "
+                         "TrainState template")
+    params = _jax_param_paths(model)
+    dtypes = dict(model.named_parameters())
+    # TrainState(params, opt) flattens params, then opt's keys sorted: m, step, v
+    layout = [("params", path, shape, dtypes[name].dtype) for path, shape, name in params]
+    if state:
+        opt = tree_like.opt
+        m, v = ([("opt/" + k, path, shape, opt[k][name].dtype) for path, shape, name in params]
+                for k in ("m", "v"))
+        layout += m + [("opt/step", (), [], opt["step"].dtype)] + v
+    metas = manifest["leaves"]
+    if len(metas) != len(layout):
+        raise ValueError(f"the JAX checkpoint has {len(metas)} leaves; the template's JAX tree "
+                         f"has {len(layout)}")
+    parts: dict[str, dict] = {}
+    for i, ((part, path, shape, dtype), meta) in enumerate(zip(layout, metas)):
+        what = f"leaf {i} ({part} {'/'.join(map(str, path))})"
+        if meta["shape"] != shape or meta["dtype"] != _dtype_name(dtype):
+            raise ValueError(f"{what}: {meta['dtype']} {meta['shape']} != expected "
+                             f"{_dtype_name(dtype)} {shape}")
+        arr = np.load(os.path.join(d, meta["file"]))
+        if arr.dtype.kind == "V" and dtype == torch.bfloat16:
+            arr = arr.view(np.uint16)  # ml_dtypes' bfloat16, read without ml_dtypes
+        if list(arr.shape) != shape:
+            raise ValueError(f"{what}: the file holds {list(arr.shape)}")
+        parts.setdefault(part, {})[path] = arr
+    arrays = {}
+    for part, leaves in parts.items():
+        if part == "opt/step":
+            arrays[part] = leaves[()]
+            continue
+        prefix = "" if not state else "params/" if part == "params" else part + "/"
+        for name, arr in named_leaves(_nest(leaves), model.cfg).items():
+            arrays[prefix + name] = arr
+    loaded = {}
+    for name, ref in _flatten(tree_like):
+        loaded[name] = _from_host(arrays[name], _dtype_name(ref.dtype),
+                                  device if device is not None else ref.device)
+    return _unflatten(tree_like, loaded)

@@ -138,16 +138,8 @@ ARCH_IDS = (
     "llava_next_34b",
 )
 
-# The architectures whose configs the port carries so far; the others come
-# with the slices that port their block kinds (ROADMAP.md, queue 1).
-PORTED_ARCH_IDS = (
-    "granite_3_2b",
-    "qwen2_7b",
-    "recurrentgemma_9b",
-    "qwen3_moe_235b_a22b",
-    "dbrx_132b",
-    "xlstm_125m",
-)
+# Every architecture of the JAX package has its config in the port.
+PORTED_ARCH_IDS = ARCH_IDS
 
 
 def canon(arch: str) -> str:
@@ -157,9 +149,6 @@ def canon(arch: str) -> str:
 
 def get_config(arch: str) -> ModelConfig:
     arch = canon(arch)
-    if arch not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch}: the PyTorch port carries only {PORTED_ARCH_IDS} so far; "
-            f"ROADMAP.md (queue 1) lists the slices that bring the others"
-        )
+    if arch not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}; the known ones are {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

@@ -65,20 +65,30 @@ constexpr int kSplit = 64;           // tokens per split
 constexpr int kMaxG = 16;            // query rows per kv head (the kernels' GM is 4 or 16)
 constexpr int kMaxHalfBytes = 8192;  // one stage's K (or V) rows in shared memory
 
+// the largest power of two not above n (n >= 1)
+constexpr int pow2_floor(int n) { return n < 2 ? 1 : 2 * pow2_floor(n / 2); }
+
 template <typename T, int HD>
 struct Geometry {
   static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  static constexpr int kNV = HD / kVec;        // copies per row (a power of two)
+  static constexpr int kNV = HD / kVec;        // copies per row
   static constexpr int kRowBytes = HD * (int)sizeof(T);
-  static constexpr int kTile = kMaxHalfBytes / kRowBytes < 32 ? kMaxHalfBytes / kRowBytes : 32;
+  // rows a tile: the most that fit one stage's budget, as a power of two
+  // that divides kSplit (hd 192: 16 rows in bf16, 8 in f32), at most 32
+  static constexpr int kTile = pow2_floor(kMaxHalfBytes / kRowBytes < 32 ? kMaxHalfBytes / kRowBytes
+                                                                         : 32);
   // K rows are stored with piece p of row t at p ^ (t & kSwz): eight
-  // neighbouring rows then read one piece each from distinct banks
+  // neighbouring rows then read one piece each from distinct banks.  The
+  // XOR stays inside the row when its pieces are a power of two below 8 or
+  // a multiple of 8 (hd 192: 24 pieces in bf16, 48 in f32)
   static constexpr int kSwz = (kNV < 8 ? kNV : 8) - 1;
-  // P . V: a thread per (pair of columns, token group)
+  // P . V: a thread per (pair of columns, token group); hd 192 has 96
+  // pairs, so one group and 32 threads idle in this step
   static constexpr int kPairs = HD / 2;
   static constexpr int kGroups = kThreads / kPairs < 4 ? kThreads / kPairs : 4;
-  static_assert(kSplit % kTile == 0 && (kNV & (kNV - 1)) == 0, "tile shape");
-  static_assert(kTile % kGroups == 0, "token groups");
+  static_assert(HD % kVec == 0 && kSplit % kTile == 0, "tile shape");
+  static_assert(kNV < 8 ? (kNV & (kNV - 1)) == 0 : kNV % 8 == 0, "swizzle stays in the row");
+  static_assert(kGroups >= 1 && kTile % kGroups == 0, "token groups");
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -541,9 +551,11 @@ extern "C" int leap_paged_decode(const void* q, const void* kv, const void* tabl
   LEAP_PAGED_DECODE_CASE(0, float, 16)
   LEAP_PAGED_DECODE_CASE(0, float, 64)
   LEAP_PAGED_DECODE_CASE(0, float, 128)
+  LEAP_PAGED_DECODE_CASE(0, float, 192)
   LEAP_PAGED_DECODE_CASE(1, __nv_bfloat16, 16)
   LEAP_PAGED_DECODE_CASE(1, __nv_bfloat16, 64)
   LEAP_PAGED_DECODE_CASE(1, __nv_bfloat16, 128)
+  LEAP_PAGED_DECODE_CASE(1, __nv_bfloat16, 192)
 #undef LEAP_PAGED_DECODE_CASE
 #undef LEAP_PAGED_DECODE_GM
   return (int)cudaErrorInvalidValue;

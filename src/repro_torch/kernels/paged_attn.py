@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)  # 64 and 128 are the models'; 16 the reduced configs'
+HEAD_DIMS = (16, 64, 128, 192)  # 64, 128 and 192 (nemotron) are the models'; 16 the reduced configs'
 MAX_GROUP = 16  # query rows per kv head the kernel holds
 SPLIT_TOKENS = 64  # tokens per CTA: csrc/paged_attn.cu's kSplit
 
@@ -142,7 +142,9 @@ def paged_decode(
     if err:
         raise RuntimeError(f"leap_paged_decode launch failed: CUDA error {err}")
     paged_decode.launches += 1
+    paged_decode.launches_by_head_dim[hd] = paged_decode.launches_by_head_dim.get(hd, 0) + 1
     return out, m, l
 
 
 paged_decode.launches = 0  # kernel launches in this process (read by chip_smoke.py)
+paged_decode.launches_by_head_dim = {}  # the same, per head_dim (one instance each)

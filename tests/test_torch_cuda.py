@@ -215,8 +215,8 @@ def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("g", [1, 4, 6, 7, 16])  # both G bounds (4, 16); dbrx's 6
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 12, 16])  # both G bounds (4, 16); dbrx's 6, nemotron's 12
+@pytest.mark.parametrize("hd", [16, 64, 128, 192])
 @pytest.mark.parametrize("softcap", [0.0, 20.0])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, g, hd, softcap):
     q, view, tables, lens = _paged_inputs(cuda, dtype, b=5, kvh=2, g=g, hd=hd)
@@ -254,6 +254,24 @@ def test_paged_decode_kernel_never_reads_pad_entries(cuda, dtype):
         torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_decode_kernel_at_nemotrons_width(cuda, dtype):
+    """nemotron_4_340b's decode: 8 kv heads of 192, G 12, a 1,024-token table,
+    lens from 1 to 1,024; the hd-192 instance is counted apart."""
+    b, kvh, g, hd, blk, maxb = 8, 8, 12, 192, 16, 64
+    q, view, tables, lens = _paged_inputs(cuda, dtype, b=b, kvh=kvh, g=g, hd=hd, blk=blk,
+                                          maxb=maxb, n_layers=2, seed=5)
+    before = paged_attn.paged_decode.launches_by_head_dim.get(192, 0)
+    got = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh)
+    again = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh)
+    want = ops.paged_decode_partial(q, view, tables, lens, kv_heads=kvh, impl="ref")
+    torch.cuda.synchronize()
+    assert paged_attn.paged_decode.launches_by_head_dim[192] == before + 2
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[dtype])
+
+
 def _split_lens(maxb, blk, b):
     """Lens on and around the kernel's split boundaries, 1 and MAXB * BLK."""
     split = paged_attn.SPLIT_TOKENS
@@ -262,7 +280,7 @@ def _split_lens(maxb, blk, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192])
 @pytest.mark.parametrize("softcap", [0.0, 20.0])
 def test_paged_decode_kernel_at_split_boundaries(cuda, dtype, hd, softcap):
     b, kvh, g, blk, maxb = 7, 2, 4, 16, 16

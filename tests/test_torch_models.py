@@ -27,7 +27,8 @@ from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ["granite_3_2b", "qwen2_7b"]
+ARCHS = ["granite_3_2b", "qwen2_7b", "gemma2_27b", "nemotron_4_340b", "llava_next_34b",
+         "musicgen_large"]
 
 
 def _as_dict(cfg) -> dict:
@@ -61,10 +62,10 @@ def test_configs_and_reductions_match(arch):
 
 
 def test_unported_configs_and_kinds_raise():
-    """Configs not ported yet raise, naming ROADMAP; every block kind of the
+    """An architecture neither package knows raises; every block kind of the
     JAX package constructs, with the parameters of its kind."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config("gemma2_27b")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        torch_config("llama3_8b")
     cfg = torch_reduce(torch_config("qwen3_moe_235b_a22b"))
     for kind, holds in (("moe", {"attn", "moe"}), ("mlstm", {"cell"}), ("slstm", {"cell"})):
         blk = tblocks.Block(cfg, kind, device="cpu")
@@ -127,25 +128,48 @@ def test_params_from_numpy_round_trips_exactly(dtype):
             np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _inputs(cfg, rng, b, s):
+    """Token ids, or seeded embeddings [B, S, D] for a stub-frontend arch:
+    the same numpy array goes to both packages."""
+    if cfg.embed_inputs:
+        ids = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+        return jnp.asarray(ids), torch.from_numpy(ids.astype(np.int64))
+    emb = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    return jnp.asarray(emb), torch.from_numpy(emb)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_jax(arch):
+    """Reduced prefill, then 4 decode steps: logits and every layer's cache
+    (gemma2's window layers roll at the reduced window of 8, under both
+    softcaps; llava and musicgen take seeded embeddings)."""
     jc, tc, _, jparams, model = _pair(arch, seed=1)
     rng = np.random.default_rng(1)
-    prompt = rng.integers(0, jc.vocab_size, size=(2, 11)).astype(np.int32)
+    jin, tin = _inputs(jc, rng, 2, 11)
     max_len = 16
-    jlog, jcache = jlm.prefill(jparams, jnp.asarray(prompt), jc, max_len)
-    tlog, tcache = model.prefill(torch.from_numpy(prompt.astype(np.int64)), max_len)
+    jlog, jcache = jlm.prefill(jparams, jin, jc, max_len)
+    tlog, tcache = model.prefill(tin, max_len)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
-    # the caches agree too, layer by layer (JAX stacks the period's repeats)
-    for li, c in enumerate(tcache):
-        np.testing.assert_allclose(c["k"].numpy(), np.asarray(jcache["period"][0]["k"][li]), **TOL)
-    tok = np.asarray(jnp.argmax(jlog, -1), np.int32)[:, None]
+    per = len(jc.layer_pattern)
+
+    def caches_agree():  # JAX stacks the period's repeats: layer li is (li // per, li % per)
+        assert len(tcache) == jc.n_layers
+        for li, c in enumerate(tcache):
+            for k in ("k", "v"):
+                np.testing.assert_allclose(
+                    c[k].numpy(), np.asarray(jcache["period"][li % per][k][li // per]), **TOL)
+
+    caches_agree()
     for pos in range(11, 15):
-        jlog, jcache = jlm.decode_step(jparams, jcache, jnp.asarray(tok), jnp.int32(pos), jc)
-        tlog, tcache = tlm.decode_step(model, tcache, torch.from_numpy(tok.astype(np.int64)),
-                                       pos, tc)
+        if jc.embed_inputs:
+            tok = np.asarray(jnp.argmax(jlog, -1), np.int32)[:, None]
+            jin, tin = jnp.asarray(tok), torch.from_numpy(tok.astype(np.int64))
+        else:
+            jin, tin = _inputs(jc, rng, 2, 1)
+        jlog, jcache = jlm.decode_step(jparams, jcache, jin, jnp.int32(pos), jc)
+        tlog, tcache = tlm.decode_step(model, tcache, tin, pos, tc)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
-        tok = np.asarray(jnp.argmax(jlog, -1), np.int32)[:, None]
+    caches_agree()
 
 
 def test_sliding_window_blocks_match_jax():

@@ -108,13 +108,17 @@ def _pair(arch, seed=0, tcfg=None, **overrides):
     return jc, tc, jstate, tree, tts.train_state_from_numpy(tree, tc, "cpu")
 
 
-def _batch(vocab, b=2, s=16, seed=0, masked=True):
-    """numpy tokens and labels; a few labels are -100 (masked)."""
+def _batch(vocab, b=2, s=16, seed=0, masked=True, embed_dim=None):
+    """numpy tokens and labels; a few labels are -100 (masked).  With
+    ``embed_dim`` (stub-frontend archs) the inputs are embeddings [b, s, D]."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, vocab, (b, s)).astype(np.int32)
     if masked:
         labels[0, :3] = -100
-    return {"inputs": rng.integers(0, vocab, (b, s)).astype(np.int32), "labels": labels}
+    inputs = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    if embed_dim is not None:
+        inputs = rng.normal(size=(b, s, embed_dim)).astype(np.float32)
+    return {"inputs": inputs, "labels": labels}
 
 
 def _jax(batch):

@@ -28,7 +28,7 @@ from test_torch_train import (  # noqa: E402
 def test_train_loss_and_grads_match_jax(case):
     arch, over = case
     jc, tc, jstate, _, tstate = _pair(arch, **over)
-    batch = _batch(jc.vocab_size)
+    batch = _batch(jc.vocab_size, embed_dim=None if jc.embed_inputs else jc.d_model)
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: jlm.train_loss(p, b, jc), has_aux=True))(jstate.params, _jax(batch))
     model = tstate.params
