@@ -58,14 +58,23 @@ printed):
    f32, bf16 and int32, and a scatter with duplicate ids (the last lane must
    win in each of 20 runs); timed beside their bound, their plain versions
    and ``index_select`` / ``index_copy_`` (timed here only).  The gather at
-   256 lanes is timed against ``index_select`` again in 7 rounds, the order
-   swapped every round.
+   256 and at 1,024 lanes is timed against ``index_select`` again in 7
+   rounds, the order swapped every round.  The gather's bulk-copy pipeline
+   is also held bit for bit, twice in a row, at 1, 3, 131, 132, 133, 256,
+   257 and 1,024 lanes with a duplicate id on the shard, and at 256 and
+   1,024 lanes on slots of 65,552 B f32 (a ragged last tile), 240 B bf16
+   and 512 B int32, each at a 16-byte-aligned storage offset and one element
+   off; a profiler trace names the kernel each path launches
+   (``gather_bulk_kernel`` aligned, ``move_lanes_kernel``'s byte instance
+   not).
 13. A ppermute drain: 4 regions (a four-socket server) on ``make_region_mesh(4)``
    over the one card, 131,072 blocks of 64 KiB (8 GiB) in 40,960 slots a
    region (a 10 GiB pool), 32,768 starting in each region and all leaping to
    the next region at once, through the batched generation (one
    ``fused_copy_ppermute`` per region pair a tick), under 64 writes and 64
-   reads a tick; the checks of phase 3, and gather and scatter launches equal.
+   reads a tick; the checks of phase 3, gather and scatter launches equal,
+   and the gather's launches, mean lanes a launch and their lane counts in
+   bins.
 14. A small ppermute drain on the card and on the CPU: bit for bit as in
    phase 5.
 15. Megastep against batched on the card, same seed, blocking harvest: on a
@@ -393,7 +402,11 @@ STUB_SERVE = (
 )
 # phases 31-33 leave at least this much of the card free
 HEADROOM_BYTES = 8 * 2**30
-K6A_ROUNDS = 7  # phase 12: K6a at 256 lanes against index_select, in turns
+K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
+# phase 12: K6a's lane counts (either side of the H100's 132 SMs, one drain
+# area and a tick's budget) and its slots: a ragged last tile, 240 and 512 B
+K6A_LANES = (1, 3, 131, 132, 133, 256, 257, 1024)
+K6A_SLOTS = ((torch.float32, (1, 16388)), (torch.bfloat16, (3, 40)), (torch.int32, (2, 64)))
 LOAD_TENANTS = (
     TenantSpec("gold", rate=0.9, prompt_tokens=512, decode_tokens=32, slo_latency=2.5,
                priority=2, region=0),
@@ -503,6 +516,7 @@ def reset_launch_counts() -> None:
     lru_scan.lru_scan.launches = 0
     lru_scan.lru_scan_bwd.launches = 0
     leap_copy.gather_blocks.launches = 0
+    leap_copy.gather_blocks.lanes = 0
     leap_copy.scatter_blocks.launches = 0
 
 
@@ -660,11 +674,21 @@ def gather_scatter_checks(dev) -> list[dict]:
             r = per_k[name][k]
             print(f"{name} {k} lanes: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
                   f"{r['library_ms']:.4f}, bound {b:.4f}), bit-exact")
-        if k == 256:
-            gather, _, select, _ = cases["gather_blocks"]
-            per_k["gather_blocks"][k]["against_index_select"] = gather_in_turns(
-                lambda: gather(next(turn)), lambda: select(next(turn)))
+        gather, _, select, _ = cases["gather_blocks"]
+        per_k["gather_blocks"][k]["against_index_select"] = gather_in_turns(
+            k, lambda: gather(next(turn)), lambda: select(next(turn)))
         del got, want, blocks, block_sets
+    gather_cases(dev, shard)
+    lanes = torch.arange(256, device=dev)
+    names = {aligned: device_kernels(lambda v=view: leap_copy.gather_blocks(v, lanes))
+             for aligned, view in ((True, shard), (False, unaligned_shard(pool, 1, 256)))}
+    check(any("gather_bulk_kernel" in n for n in names[True])
+          and not any("move_lanes_kernel" in n for n in names[True]),
+          "gather_blocks launches the bulk-copy pipeline on 16-byte-aligned operands")
+    check(any("move_lanes_kernel" in n and "unsigned char" in n for n in names[False]),
+          "gather_blocks launches the lane copy's byte instance one element off")
+    print(f"gather_blocks launches {names[True]} on the aligned shard, {names[False]} one "
+          "element off")
 
     # duplicate ids: about 16 lanes an id; the last lane must win every run
     idx = torch.randint(0, 64, (1024,), generator=host).to(dev)
@@ -702,10 +726,64 @@ def gather_scatter_checks(dev) -> list[dict]:
                   f"{slot_bytes} B",
             at_256_lanes=per_k[name][256],
         ))
+    rows[0]["kernel"] = names[True]
     return rows
 
 
-def gather_in_turns(kernel, library) -> dict:
+def unaligned_shard(pool, offset: int, slots: int = PP_SLOTS):
+    """A view of ``slots`` slots ``offset`` elements past region 1's start."""
+    flat = pool.view(-1)
+    n = slots * pool[0, 0].numel()
+    start = pool[0].numel() + offset
+    return flat[start : start + n].view((slots,) + tuple(pool.shape[2:]))
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the kernels that one call of ``fn`` runs on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def gather_twice(shard, idx, what: str) -> None:
+    got = leap_copy.gather_blocks(shard, idx)
+    again = leap_copy.gather_blocks(shard, idx)
+    want = ref.gather_blocks_ref(shard, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"gather_blocks {what} == plain version, bit for bit")
+    check(torch.equal(again, got), f"gather_blocks {what}: the same output twice")
+
+
+def gather_cases(dev, shard) -> None:
+    """K6a at K6A_LANES on the drain's shard, each with a duplicate id, and at
+    256 and 1,024 lanes on K6A_SLOTS, at a 16-byte-aligned storage offset and
+    one element off."""
+    host = torch.Generator().manual_seed(SEED + 1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for k in K6A_LANES:
+        idx = torch.randint(0, shard.shape[0], (k,), generator=host)
+        idx[k // 2] = idx[0]
+        gather_twice(shard, idx.to(dev), f"at {k} lanes")
+    for dtype, slot in K6A_SLOTS:
+        n = 4096 if slot[1] > 1024 else PP_SLOTS
+        base = torch.randint(-1000, 1000, (3, n) + slot, generator=g, device=dev).to(dtype)
+        for offset in (0, 1):
+            view = unaligned_shard(base, offset, n)
+            check((view.data_ptr() % 16 == 0) == (offset == 0), "the view's alignment")
+            for k in (256, 1024):
+                idx = torch.randint(0, n, (k,), generator=host).to(dev)
+                gather_twice(view, idx, f"{k} lanes of {list(slot)} {dtype}, offset {offset}")
+        del base
+    print(f"gather_blocks: bit-exact and repeated at {list(K6A_LANES)} lanes with duplicate ids, "
+          f"and on {[(str(d), list(s)) for d, s in K6A_SLOTS]} slots on and off 16-byte alignment")
+
+
+def gather_in_turns(k: int, kernel, library) -> dict:
     """K6a against ``index_select`` in K6A_ROUNDS rounds, the order swapped
     every round (kernel, library; library, kernel; ...), so that drift in the
     card's clocks falls on both alike."""
@@ -717,7 +795,7 @@ def gather_in_turns(kernel, library) -> dict:
     res = dict(rounds=rounds, kernel_ms_median=ms["kernel"], library_ms_median=ms["library"],
                kernel_over_library=ms["kernel"] / ms["library"],
                rounds_kernel_slower=sum(r["kernel"] > r["library"] for r in rounds))
-    print(f"gather_blocks 256 lanes against index_select in {K6A_ROUNDS} rounds, in turns: "
+    print(f"gather_blocks {k} lanes against index_select in {K6A_ROUNDS} rounds, in turns: "
           f"kernel {ms['kernel']:.4f} ms, index_select {ms['library']:.4f} ms (medians; "
           f"kernel/library {res['kernel_over_library']:.3f}, kernel slower in "
           f"{res['rounds_kernel_slower']} of {K6A_ROUNDS} rounds) [{card()}]")
@@ -888,14 +966,23 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
     if ppermute:
         slots, seed = PP_SLOTS, SEED + 2
         kw = dict(cfg_kw=PP_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
+    tap = LaneTap()
     reset_launch_counts()
-    drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
+    with tap if ppermute else contextlib.nullcontext():
+        drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
+    lanes = leap_copy.gather_blocks.lanes
     out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
     if ppermute:
         check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
               "every point-to-point copy gathered and scattered once")
         check(launches["copy_blocks"] == 0, "the ppermute drain copies only point to point")
+        check(sum(tap.lanes) == lanes and len(tap.lanes) == launches["gather_blocks"],
+              "gather_blocks.lanes sums the lanes of every launch")
+        out["gather_lanes"] = dict(total=lanes, mean=lanes / len(tap.lanes), bins=tap.bins())
+        print(f"ppermute drain: {len(tap.lanes)} gather launches, {lanes} lanes, "
+              f"{out['gather_lanes']['mean']:.1f} a launch; launches by lanes "
+              f"{out['gather_lanes']['bins']}")
     moved = N_BLOCKS * drv.pool_cfg.block_bytes
     out.update(times, gib_per_s=moved / times["seconds"] / 2**30, launches=launches,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -908,6 +995,36 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
           f"{out['dirty_rejections']} rejections, peak {out['peak_gib']:.2f} GiB, "
           f"launches {launches}")
     return out
+
+
+class LaneTap:
+    """While active, wraps ``ops.gather_blocks_impl`` (the ppermute program's
+    pack) to keep each call's lane count, read on the host from the ids'
+    shape."""
+
+    BINS = ((1, 128), (129, 255), (256, 256), (257, 511), (512, 1023), (1024, None))
+
+    def __init__(self):
+        self.lanes: list[int] = []
+        self._gather = ops.gather_blocks_impl
+
+    def __enter__(self):
+        ops.gather_blocks_impl = self._tap
+        return self
+
+    def __exit__(self, *exc):
+        ops.gather_blocks_impl = self._gather
+
+    def _tap(self, pool, idx, **kw):
+        if idx.shape[0]:
+            self.lanes.append(idx.shape[0])
+        return self._gather(pool, idx, **kw)
+
+    def bins(self) -> dict[str, int]:
+        label = {(lo, hi): str(lo) if hi == lo else f"{lo}+" if hi is None else f"{lo}-{hi}"
+                 for lo, hi in self.BINS}
+        return {label[lo, hi]: sum(lo <= n and (hi is None or n <= hi) for n in self.lanes)
+                for lo, hi in self.BINS}
 
 
 SMALL_KW = dict(initial_area_blocks=16, budget_blocks_per_tick=64, max_attempts_before_force=2,

@@ -1,11 +1,14 @@
 """Block copies: the physical-copy hot path of migration.
 
 ``copy_blocks``, ``copy_runs``, ``gather_blocks`` and ``scatter_blocks``
-wrap one hand-written CUDA kernel, ``csrc/leap_copy.cu``, which replaces the
-TPU kernels ``copy_blocks_pallas``, ``copy_runs_pallas``,
+wrap the hand-written CUDA kernels of ``csrc/leap_copy.cu``, which replace
+the TPU kernels ``copy_blocks_pallas``, ``copy_runs_pallas``,
 ``gather_blocks_pallas`` and ``scatter_blocks_pallas`` of the JAX package's
-``kernels/leap_copy.py``.  A CUDA tensor launches the kernel on the current
-stream; a CPU tensor takes the plain version in :mod:`.ref`.  The copies
+``kernels/leap_copy.py``: one lane-copy kernel for the copies and the
+scatter, and a persistent TMA bulk-copy pipeline for the gather (the
+lane-copy kernel's byte instance where the gather's operands are not
+16-byte aligned).  A CUDA tensor launches a kernel on the current stream; a
+CPU tensor takes the plain version in :mod:`.ref`.  The copies
 and the scatter update the flat ``[S, rows, cols]`` pool in place and return
 it; the gather returns a new ``[K, rows, cols]`` staging buffer.
 
@@ -141,6 +144,7 @@ def gather_blocks(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _call("leap_gather_blocks", pool, out.data_ptr(), pool.data_ptr(), idx.data_ptr(),
               idx.shape[0], _slot_bytes(pool))
         gather_blocks.launches += 1
+        gather_blocks.lanes += idx.shape[0]
     return out
 
 
@@ -169,4 +173,5 @@ def scatter_blocks(pool: torch.Tensor, idx: torch.Tensor, blocks: torch.Tensor):
 copy_blocks.launches = 0  # kernel launches in this process (read by chip_smoke.py)
 copy_runs.launches = 0
 gather_blocks.launches = 0
+gather_blocks.lanes = 0  # lanes summed over the launches (host-side only)
 scatter_blocks.launches = 0

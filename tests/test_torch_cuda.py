@@ -201,6 +201,83 @@ def test_gather_scatter_kernels_refuse_what_they_do_not_take(cuda):
     assert leap_copy.gather_blocks(pool, idx[:0]).shape == (0, 2, 8)  # nothing to launch
 
 
+# K6a's bulk-copy pipeline: lane counts on either side of the card's 132 SMs,
+# one drain area and one past it, a tick's budget; slots of whole 16 KiB
+# tiles, with a ragged last tile (65,552 B), of 240 and of 512 bytes
+BULK_LANES = [1, 3, 131, 132, 133, 256, 257, 1024]
+BULK_SLOTS = {"f32-64KiB": (torch.float32, (1, 16384)), "f32-65552B": (torch.float32, (1, 16388)),
+              "bf16-240B": (torch.bfloat16, (3, 40)), "i32-512B": (torch.int32, (2, 64))}
+
+
+def _gather_shard(dev, dtype, slot, n_slots, offset, seed):
+    """Region 1 of a 3-region pool: a view whose storage offset is a whole
+    number of regions (16-byte aligned, the bulk path) plus ``offset``
+    elements (1: not aligned, the byte path)."""
+    g = torch.Generator().manual_seed(seed)
+    per_region = n_slots * slot[0] * slot[1]
+    flat = torch.randint(-1000, 1000, (3 * per_region + offset,), generator=g).to(dtype).to(dev)
+    return flat[per_region + offset : 2 * per_region + offset].view((n_slots,) + slot)
+
+
+def _gather_twice(shard, idx):
+    """Two gathers of the same ids, each counted as one launch of its lanes,
+    and both bit for bit the plain version's."""
+    k = idx.shape[0]
+    before = (leap_copy.gather_blocks.launches, leap_copy.gather_blocks.lanes)
+    got = leap_copy.gather_blocks(shard, idx)
+    assert (leap_copy.gather_blocks.launches, leap_copy.gather_blocks.lanes) == (
+        before[0] + 1, before[1] + k)
+    again = leap_copy.gather_blocks(shard, idx)
+    want = ref.gather_blocks_ref(shard, idx)
+    torch.cuda.synchronize()
+    assert leap_copy.gather_blocks.launches == before[0] + 2
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["bulk", "bytes"])
+@pytest.mark.parametrize("slot", BULK_SLOTS)
+@pytest.mark.parametrize("k", BULK_LANES)
+def test_gather_kernel_over_lanes_slots_and_offsets(cuda, k, slot, aligned):
+    dtype, shape = BULK_SLOTS[slot]
+    shard = _gather_shard(cuda, dtype, shape, 1100, 0 if aligned else 1, seed=k)
+    assert (shard.data_ptr() % 16 == 0) == aligned and shard.storage_offset() > 0
+    idx = torch.randint(0, 1100, (k,), generator=torch.Generator().manual_seed(k + 1))
+    idx[k // 2] = idx[0]  # a duplicate id (k > 1)
+    _gather_twice(shard, idx.to(cuda))
+
+
+@pytest.mark.parametrize("k", [5000, 40000])
+def test_gather_kernel_walks_many_lanes_a_cta(cuda, k):
+    """16-byte slots: a CTA's share spans more than the 32 lanes whose ids it
+    holds, and its ring of stages turns over many times."""
+    shard = _gather_shard(cuda, torch.float32, (1, 4), 50000, 0, seed=4)
+    idx = torch.randint(0, 50000, (k,), generator=torch.Generator().manual_seed(5))
+    _gather_twice(shard, idx.to(cuda))
+
+
+def test_gather_launches_the_bulk_kernel_on_aligned_operands(cuda):
+    """The kernel that runs, by its name in a profiler trace: the bulk-copy
+    pipeline for 16-byte-aligned operands, the lane copy's byte instance for
+    a shard one element off."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for aligned in (True, False):
+        shard = _gather_shard(cuda, torch.float32, (1, 16384), 300, 0 if aligned else 1, seed=6)
+        idx = torch.arange(256, device=cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            leap_copy.gather_blocks(shard, idx)
+            torch.cuda.synchronize()
+        names[aligned] = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert [n for n in names[True] if "gather_bulk_kernel" in n], names[True]
+    assert not [n for n in names[True] if "move_lanes_kernel" in n], names[True]
+    assert [n for n in names[False] if "move_lanes_kernel" in n and "unsigned char" in n], \
+        names[False]
+
+
 def _paged_inputs(dev, dtype, b, kvh, g, hd, blk=16, maxb=8, n_layers=3, layer=1, seed=0):
     """q, a strided per-layer view of a pool with every layer in each slot,
     tables of distinct slots and lens from 1 to MAXB * BLK."""

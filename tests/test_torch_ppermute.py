@@ -37,8 +37,9 @@ import repro_torch.core as T  # noqa: E402
 from repro.kernels.leap_copy import gather_blocks_pallas, scatter_blocks_pallas  # noqa: E402
 from repro_torch.kernels import leap_copy, ops, ref  # noqa: E402
 
-# the JAX sweep (tests/test_kernels_leap_copy.py): (slots, rows, cols)
-SHAPES = [(8, 8, 128), (16, 16, 256), (5, 4, 64), (32, 1, 512)]
+# the JAX sweep (tests/test_kernels_leap_copy.py): (slots, rows, cols); then
+# a 12-byte slot and a pool with more than 257 slots
+SHAPES = [(8, 8, 128), (16, 16, 256), (5, 4, 64), (32, 1, 512), (3, 1, 3), (300, 1, 4)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "int32": (jnp.int32, torch.int32)}
 
@@ -70,7 +71,7 @@ def _host(t) -> np.ndarray:
 def test_gather_blocks_ref_matches_pallas(shape, dtype):
     jpool, tpool = _pool(shape, dtype)
     rng = np.random.default_rng(1)
-    for k in (1, 3, shape[0]):
+    for k in (1, 3, shape[0]) + ((257,) if shape[0] >= 257 else ()):
         idx = rng.integers(0, shape[0], size=k)  # duplicates allowed
         want = gather_blocks_pallas(jpool, jnp.asarray(idx, jnp.int32), interpret=True)
         got = ref.gather_blocks_ref(tpool, torch.from_numpy(idx))
