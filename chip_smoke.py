@@ -207,15 +207,34 @@ printed):
    fed seeded bf16 embeddings [8, 512, d_model] and one more [8, 1,
    d_model] a step (their frontends are stubs in both packages).
 
+34. Five dry-run cells at full width through ``launch.dryrun.run_cell`` on
+   the card (the dry-run cuts the batch to fit and holds at most
+   ``STEP_TOKENS`` tokens a step, and keeps every layer here):
+   granite_3_2b ``decode_32k``, ``prefill_32k`` and ``train_4k``, and
+   recurrentgemma_9b ``prefill_32k`` (which launches K5) and ``long_500k``
+   (decode at position 524,287).  Each cell ends ``OK`` with its cut
+   recorded; the meta accounting's argument bytes equal the allocator's
+   count before the step within 1%; the peak stays under the card's
+   memory; the trace holds no NCCL kernel and 0 wire bytes; its device ms
+   are no more than the profiled step's wall, nor than the median
+   unprofiled step by more than ``DRYRUN_TRACE_TOL``; recurrentgemma's
+   profiled prefill launches K5 once per ``rec`` layer, named from the
+   trace.  Then ``roofline.report.measured_table("h100")`` of these five
+   artifacts, and the LRU-scan kernel against its plain version, bit for
+   bit, at the shape that prefill gives it (a, b, out [1, 32768, 4096]
+   f32), timed against its byte bound: a second K5 row in the kernels
+   line, whose launches are phase 34's (the first row's are phases 1-33's).
+
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
 16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
-line (phases 23-25 and the wall seconds of phases 23-33), the
+line (phases 23-25 and the wall seconds of phases 23-34), the
 ``{"training": ...}`` line (phases 27-29), the ``{"models": ...}`` line
-(phases 31-33), and last ``{"ok": true, "device": {...}}``.  Every time
-and size of phases 12 (the rounds), 27 (the MFU) and 30-33 is printed with
-the card's name and power limit beside it.
+(phases 31-33), the ``{"dryrun": ...}`` line (phase 34), and last
+``{"ok": true, "device": {...}}``.  Every time and size of phases 12 (the
+rounds), 27 (the MFU) and 30-34 is printed with the card's name and power
+limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -402,6 +421,14 @@ STUB_SERVE = (
 )
 # phases 31-33 leave at least this much of the card free
 HEADROOM_BYTES = 8 * 2**30
+# phase 34: dry-run cells at full width and depth on the card
+DRYRUN_CELLS = (("granite_3_2b", "decode_32k"), ("granite_3_2b", "prefill_32k"),
+                ("granite_3_2b", "train_4k"), ("recurrentgemma_9b", "prefill_32k"),
+                ("recurrentgemma_9b", "long_500k"))
+DRYRUN_ARG_TOL = 0.01  # argument bytes, meta against the allocator (which rounds each tensor up)
+# the profiled step's device ms over the median unprofiled step: tracing
+# lengthens each kernel a little (granite's 32k prefill read 1.0% over)
+DRYRUN_TRACE_TOL = 0.05
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
 # phase 12: K6a's lane counts (either side of the H100's 132 SMs, one drain
 # area and a tick's budget) and its slots: a ragged last tile, 240 and 512 B
@@ -2934,6 +2961,101 @@ def contiguous_full_width(dev, spec) -> dict:
                 runs=runs)
 
 
+def dryrun_cells(dev) -> dict:
+    """Phase 34: the five ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell``
+    on the card, each path's launch counts set to 0 just before it."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    res, arts = {}, {}
+    for arch, shape in DRYRUN_CELLS:
+        release()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        art = dryrun.run_cell(arch, shape, "h100", force=True, device=dev, seed=SEED)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        what = f"dry-run {arch} {shape}"
+        check(art["status"] == "OK", f"{what}: {art['status']} {art.get('traceback', '')}")
+        full = get_config(arch)
+        check(art["config"] == full.name and art["full"]["n_layers"] == full.n_layers
+              and (art["reduced"] is None or art["reduced"]["layers"] == full.n_layers),
+              f"{what}: full width and all {full.n_layers} layers")
+        mem, m = art["memory"], art["measured"]
+        want = art["accounting"]["argument_bytes"]
+        check(abs(mem["argument_bytes"] - want) <= DRYRUN_ARG_TOL * want,
+              f"{what}: argument bytes {mem['argument_bytes']} on the card against {want} on meta")
+        check(m["peak_bytes"] < total, f"{what}: peak {m['peak_bytes']} under the card's {total}")
+        check("NCCL" not in m["kernel_classes"] and art["wire_bytes_per_device"] == 0,
+              f"{what}: no NCCL kernel, 0 wire bytes")
+        check(m["device_ms"] <= m["window_ms"],
+              f"{what}: device {m['device_ms']:.2f} ms within the profiled step's "
+              f"{m['window_ms']:.2f} ms")
+        check(m["device_ms"] <= (1 + DRYRUN_TRACE_TOL) * m["step_ms"],
+              f"{what}: device {m['device_ms']:.2f} ms within the median unprofiled step's "
+              f"{m['step_ms']:.2f} ms (+{DRYRUN_TRACE_TOL:.0%})")
+        if arch == "recurrentgemma_9b" and shape == "prefill_32k":
+            n_rec = full.layer_kinds.count("rec")
+            k5 = m["kernel_classes"].get("K5 lru_scan", {}).get("launches", 0)
+            check(k5 == n_rec, f"{what}: the trace names K5 {k5} times, once per rec layer "
+                               f"({n_rec})")
+            steps = 1 + dryrun.TIMED_STEPS["prefill"] + 1  # warm-up, timed, profiled
+            check(launches["lru_scan"] == steps * n_rec,
+                  f"{what}: lru_scan launched once per rec layer and step")
+        bound_ms = art["roofline"]["step_time_s"] * 1e3
+        print(f"dry-run {arch} {shape} ({art['reduced'] or 'not cut'}): step "
+              f"{m['step_ms']:.2f} ms (median of {m['steps_ms']}), first step "
+              f"{art['first_step_s']:.2f} s, device {m['device_ms']:.2f} ms (busy "
+              f"{m['busy']:.3f} of the median step; {m['busy_profiled']:.3f} of the profiled "
+              f"step's {m['window_ms']:.2f} ms), peak {m['peak_bytes'] / 2**30:.2f} "
+              f"GiB, arguments {mem['argument_bytes']} B (meta {want}), bound {bound_ms:.3f} ms "
+              f"({art['roofline']['dominant']}), step / bound {m['step_ms'] / bound_ms:.2f}, "
+              f"{m['kernels']} device events, wall {wall_s:.1f} s [{card()}]")
+        arts[(arch, shape)] = art
+        res[f"{arch}__{shape}"] = dict(
+            status=art["status"], reduced=art["reduced"], full=art["full"], memory=mem,
+            measured={k: v for k, v in m.items() if k != "trace"}, roofline=art["roofline"],
+            build_s=art["build_s"], first_step_s=art["first_step_s"], wall_s=wall_s,
+            launches=launches)
+    release()
+    print(report.measured_table("h100", arts) + f"\n[{card()}]")
+    return res
+
+
+def lru_scan_dryrun_check(dev) -> dict:
+    """Phase 34's K5 row: the kernel against its plain version, bit for bit,
+    at the shape recurrentgemma_9b's ``prefill_32k`` cell gives it (batch 1,
+    32,768 steps, rnn_width 4,096: 16 CTAs of 256 channels, each a serial
+    chain of 32,768 steps), timed against its byte bound."""
+    from repro_torch.configs.shapes import SHAPES
+
+    b, t, r = 1, SHAPES["prefill_32k"].seq_len, get_config("recurrentgemma_9b").rnn_width
+    a, x, h0 = lru_inputs(dev, b, t, r, SEED + 34)
+    got = ops.lru_scan(a, x, h0)
+    want = ops.lru_scan(a, x, h0, impl="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"lru_scan at [{b}, {t}, {r}] f32 == plain version, bit for bit")
+    # a and b read once, out written once, h0 read once; 2 flops an element
+    bound, by = bound_ms(3 * a.numel() * 4 + h0.numel() * 4, 2.0 * a.numel())
+    row = dict(
+        name="lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan.py:56", launches=0, phase=34,
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: lru_scan.lru_scan(a, x, h0), iters=5, repeats=5),
+        # the plain version queues 98,304 small kernels a call: one call behind a sleep
+        plain_ms=time_ms(lambda: ref.lru_scan_ref(a, x, h0), iters=1, repeats=1),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        library="none (no single PyTorch call computes a linear recurrence)",
+        shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32 (recurrentgemma_9b prefill_32k)",
+    )
+    print(f"lru_scan at [{b}, {t}, {r}]: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+          f"{bound:.4f}, {row['ms'] / bound:.2f} times), bit-exact [{card()}]")
+    del a, x, h0, got, want
+    release()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3012,6 +3134,10 @@ def main() -> int:
         t0 = time.perf_counter()
         models[name] = fn(dev)
         wall[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_cells(dev)
+    rows.append(lru_scan_dryrun_check(dev))
+    wall["phase_34_dryrun"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -3022,8 +3148,15 @@ def main() -> int:
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
              + [r for r in moe_cpu.values()] + list(xl["runs"].values())
              + list(training.values()) + [r for m in models.values() for r in m["runs"].values()])
+    # a kernel with a phase-34 row (timed at that phase's shape) counts phase
+    # 34's launches there and the earlier phases' in its first row
+    phase34 = {row["name"] for row in rows if row.get("phase") == 34}
     for row in rows:
-        row["launches"] = sum(d["launches"][row["name"]] for d in paths)
+        if row.get("phase") == 34:
+            ps = list(dry.values())
+        else:
+            ps = paths + ([] if row["name"] in phase34 else list(dry.values()))
+        row["launches"] = sum(d["launches"][row["name"]] for d in ps)
         check(row["launches"] > 0, f"the main path launched {row['name']}")
     check(sum(r["launches"]["paged_decode"] for r in serving["runs"].values())
           == 2 * SERVE["steps"] * serving["layers"],
@@ -3048,6 +3181,7 @@ def main() -> int:
                       "xlstm_card_matches_cpu": xl_cpu, "wall_s": wall, "card": smi}))
     print(json.dumps({"training": training, "card": smi}))
     print(json.dumps({"models": models, "card": smi}))
+    print(json.dumps({"dryrun": dry, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

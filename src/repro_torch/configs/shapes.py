@@ -58,9 +58,15 @@ def token_inputs(cfg: ModelConfig, batch: int, seq: int) -> torch.Tensor:
     return torch.empty((batch, seq, cfg.d_model), dtype=torch.bfloat16, device=META)
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
+def spec_of(shape: str | ShapeSpec) -> ShapeSpec:
+    """The shape's entry in ``SHAPES``, or ``shape`` itself when it is a
+    ``ShapeSpec`` (a cell cut to a smaller batch)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def input_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> dict:
     """``meta`` stand-ins for the step function's inputs in this cell."""
-    sp = SHAPES[shape]
+    sp = spec_of(shape)
     if sp.kind == "train":
         return {
             "inputs": token_inputs(cfg, sp.global_batch, sp.seq_len),
@@ -77,9 +83,9 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     raise ValueError(sp.kind)
 
 
-def cache_specs(cfg: ModelConfig, shape: str) -> list[dict]:
+def cache_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> list[dict]:
     """The decode cache of this cell on ``meta``, one dict per layer."""
     from repro_torch.models import lm
 
-    sp = SHAPES[shape]
+    sp = spec_of(shape)
     return lm.init_cache(cfg, sp.global_batch, sp.seq_len, device=META)

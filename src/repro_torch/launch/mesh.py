@@ -1,4 +1,4 @@
-"""Region meshes for the ppermute copy backend.
+"""Region meshes for the ppermute copy backend, and the production meshes.
 
 The JAX package runs that backend under ``shard_map`` on a mesh with one
 device per memory region.  The port drives it from one controller: a
@@ -10,6 +10,10 @@ So far every region lives on one device (one card, or the CPU for tests):
 the pool is one tensor, and the move between regions is ``Tensor.to`` of a
 buffer that is already there.  A mesh over several cards needs a pool split
 into per-card shards (ROADMAP.md queue 1, multi-device) and raises until then.
+
+``make_production_mesh`` and ``make_debug_mesh`` give the JAX package's
+meshes as :class:`~repro_torch.distributed.sharding.MeshShape` s (names and
+sizes, no devices), which the dry-run's accounting reads.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.distributed.sharding import MeshShape
 
 
 def _default_device(device=None) -> torch.device:
@@ -71,3 +77,20 @@ def make_region_mesh(
     if len(devices) != n_regions:
         raise ValueError(f"{len(devices)} devices for {n_regions} regions")
     return RegionMesh(tuple(devices), axis_name)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """Single pod: 256 chips (16, 16) = ("data", "model").
+    Multi-pod: 2 pods x 256 chips (2, 16, 16) = ("pod", "data", "model");
+    pods are pure data parallel."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def make_debug_mesh(n_devices: int | None = None) -> MeshShape:
+    """Small (data, model) mesh over ``n_devices`` (default: the CUDA cards
+    present, at least one)."""
+    n = n_devices or max(torch.cuda.device_count(), 1)
+    model = next(m for m in (4, 2, 1) if n % m == 0)
+    return MeshShape((n // model, model), ("data", "model"))

@@ -4,7 +4,8 @@ All math accumulates in fp32 where precision matters (norms, softmax) and
 casts back to the compute dtype; parameters are stored in ``param_dtype``.
 Weights keep the JAX package's ``[in, out]`` layout (``x @ W``), so weights
 carry across unchanged.  The JAX package's sharding constraints are the
-identity on one device and have no counterpart here.
+identity on one device, so the models call none; their rules are ported as
+data in ``repro_torch.distributed.sharding``, which the dry-run reads.
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ Conventions:
   the parts that are not recomputed (embed, head);
   attention context: causal full = S/2 average, window = min(W, S).
 
-The training bytes assume the reference's mesh: data parallelism of 16 at
-256 chips and of 32 otherwise (``_hbm_bytes``).  That is the reference's
-assumption about a TPU pod, kept so that the counts agree; it says nothing
-about how the port runs on one card.
+The training bytes assume the reference's mesh, data parallelism of 16 at
+256 chips and of 32 otherwise (``_hbm_bytes``), unless ``step_cost`` is
+given ``dp``: that is the reference's assumption about a TPU pod, kept so
+that the counts agree.  The dry-run on one card passes ``dp=1`` and the
+cell's cut shape (a ``ShapeSpec`` in place of the shape's name).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.shapes import SHAPES
+from repro_torch.configs.shapes import ShapeSpec, spec_of
 
 
 @dataclasses.dataclass
@@ -84,8 +85,14 @@ def _layers(cfg: ModelConfig):
     return list(cfg.layer_kinds)
 
 
-def step_cost(cfg: ModelConfig, shape: str, n_chips: int) -> StepCost:
-    sp = SHAPES[shape]
+def step_cost(cfg: ModelConfig, shape: str | ShapeSpec, n_chips: int, *,
+              dp: int | None = None) -> StepCost:
+    """The step's counts.  ``shape`` is a name in ``SHAPES`` or a
+    ``ShapeSpec`` (a cell cut to fit one card keeps its kind and sequence
+    with a smaller batch); ``dp`` replaces the reference's data parallelism
+    in the training bytes (16 at 256 chips, else 32).  Given a name and no
+    ``dp``, the counts are the reference's."""
+    sp = spec_of(shape)
     if sp.kind == "train":
         n_tokens = sp.global_batch * sp.seq_len
         s_ctx_full = sp.seq_len / 2
@@ -114,7 +121,7 @@ def step_cost(cfg: ModelConfig, shape: str, n_chips: int) -> StepCost:
     else:
         total = fwd
 
-    hbm = _hbm_bytes(cfg, shape, n_chips)
+    hbm = _hbm_bytes(cfg, sp, n_chips, dp)
     return StepCost(
         fwd_flops=fwd,
         total_flops=total,
@@ -150,16 +157,16 @@ def _cache_bytes(cfg: ModelConfig, batch: int, seq: int) -> float:
     return by
 
 
-def _hbm_bytes(cfg: ModelConfig, shape: str, n_chips: int) -> dict:
+def _hbm_bytes(cfg: ModelConfig, sp: ShapeSpec, n_chips: int, dp: int | None) -> dict:
     """Whole-step HBM traffic (all chips), napkin-level but itemized."""
-    sp = SHAPES[shape]
     p = _param_bytes(cfg)
     esz = _itemsize(cfg.compute_dtype)
     act_io_per_layer = cfg.d_model * esz * 2  # residual write+read per token
     n_layers = cfg.n_layers
     out = {}
     if sp.kind == "train":
-        dp = 16 if n_chips == 256 else 32
+        if dp is None:
+            dp = 16 if n_chips == 256 else 32
         n_micro = max(1, sp.global_batch // (dp * cfg.microbatch_per_device))
         n_tokens = sp.global_batch * sp.seq_len
         out["weights"] = 3.0 * p * n_micro  # fwd + recompute + bwd reads

@@ -21,6 +21,7 @@ import dataclasses
 PEAK_FLOPS = 989e12  # H100 SXM, 700 W: dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12  # H100 SXM, 700 W: HBM3 bytes/s
 NVLINK_BW = 450e9  # H100 SXM, 700 W: NVLink bytes/s each way, to the host's other cards
+HBM_BYTES = 80e9  # H100 SXM: 80 GB of HBM3
 
 
 @dataclasses.dataclass
