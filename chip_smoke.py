@@ -40,6 +40,11 @@ printed):
    bit-identical run to run), a bf16 case within 2e-2 and an odd shape
    (T = 17, R = 96), timed beside its bound and the plain version (no single
    PyTorch call computes a linear recurrence, so there is no library time).
+   Then at batch 1 ([1, 32768, 4096], recurrentgemma_9b's 32k prefill) in
+   f32 (bit for bit) and bf16 (within 2e-2), and at phase 28's [4, 2048,
+   4096] f32 (bit for bit): each timed beside its bound, with the plan the
+   wrapper launched (CTAs, channels a CTA, stages, shared bytes, bytes in
+   flight an SM).
 9. recurrentgemma_9b at full width (38 layers, bf16, random weights from a
    seeded generator) through ``lm.prefill`` and ``lm.decode_step``: 8
    prompts of 2048 tokens, then 64 greedy decode steps, twice.  Finite
@@ -221,9 +226,10 @@ printed):
    profiled prefill launches K5 once per ``rec`` layer, named from the
    trace.  Then ``roofline.report.measured_table("h100")`` of these five
    artifacts, and the LRU-scan kernel against its plain version, bit for
-   bit, at the shape that prefill gives it (a, b, out [1, 32768, 4096]
-   f32), timed against its byte bound: a second K5 row in the kernels
-   line, whose launches are phase 34's (the first row's are phases 1-33's).
+   bit and run to run, at the shape that prefill gives it (a, b, out [1,
+   32768, 4096] f32), timed against its byte bound, with the plan it
+   launched: a second K5 row in the kernels line, whose launches are phase
+   34's (the first row's are phases 1-33's).
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -2023,9 +2029,8 @@ def lru_scan_checks(dev) -> dict:
     odd = lru_inputs(dev, 3, 17, 96, SEED + 1)
     check(torch.equal(lru_scan.lru_scan(*odd), ref.lru_scan_ref(*odd)),
           "lru_scan at T = 17, R = 96 == plain version, bit for bit")
-    # a and b read once, out written once, h0 read once; 2 flops an element
-    bound, by = bound_ms(3 * a.numel() * 4 + h0.numel() * 4, 2.0 * a.numel())
-    bound16, by16 = bound_ms(3 * a.numel() * 2 + h0.numel() * 4, 2.0 * a.numel())
+    bound, by = lru_bound(a, h0)
+    bound16, by16 = lru_bound(a16, h0)
     row = dict(
         name="lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
         replaces="src/repro/kernels/lru_scan.py:56", launches=0,
@@ -2035,13 +2040,58 @@ def lru_scan_checks(dev) -> dict:
         bound_ms=bound, bound_by=by, library_ms=None,
         library="none (no single PyTorch call computes a linear recurrence)",
         shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32",
+        plan=lru_scan.lru_scan.last_plan.describe(),  # of the launches just timed
         bf16=dict(ms=time_ms(lambda: lru_scan.lru_scan(a16, x16, h16)), bound_ms=bound16,
-                  bound_by=by16, max_abs_err=bf16_err),
+                  bound_by=by16, max_abs_err=bf16_err,
+                  plan=lru_scan.lru_scan.last_plan.describe()),
     )
     print(f"lru_scan: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound {bound:.4f}), "
           f"bit-exact f32; bf16 {row['bf16']['ms']:.4f} ms (bound {bound16:.4f}), max err "
-          f"{bf16_err:.3g}")
+          f"{bf16_err:.3g} [{card()}]")
+    del a, x, h0, got, again, want, a16, x16, h16, got16, want16
+    release()
+    row["more"] = [lru_scan_timing(dev, 1, 32768, r, torch.float32),
+                   lru_scan_timing(dev, 1, 32768, r, torch.bfloat16),
+                   lru_scan_timing(dev, TRAIN_RECUR["batch"], TRAIN_RECUR["seq"], r,
+                                   torch.float32)]
     return row
+
+
+def lru_bound(a: torch.Tensor, h0: torch.Tensor) -> tuple[float, str]:
+    """a and b read once, out written once, h0 read once; 2 flops an element."""
+    return bound_ms(3 * a.numel() * a.element_size() + h0.numel() * 4, 2.0 * a.numel())
+
+
+def lru_scan_timing(dev, b: int, t: int, r: int, dtype) -> dict:
+    """K5 at [b, t, r] in ``dtype`` against its plain version (f32 bit for
+    bit, and run to run; bf16 within ``LRU_BF16_TOL``), timed beside its
+    bound, with the plan launched."""
+    a, x, h0 = lru_inputs(dev, b, t, r, SEED + b)
+    a, x = a.to(dtype), x.to(dtype)
+    got, again = lru_scan.lru_scan(a, x, h0), lru_scan.lru_scan(a, x, h0)
+    want = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    what = f"lru_scan at [{b}, {t}, {r}] {str(dtype).removeprefix('torch.')}"
+    check(torch.equal(got, again), f"{what} is bit-identical run to run")
+    if dtype == torch.float32:
+        check(torch.equal(got, want), f"{what} == plain version, bit for bit")
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **LRU_BF16_TOL)
+    bound, by = lru_bound(a, h0)
+    res = dict(shape=f"a, b, out [{b}, {t}, {r}], h0 [{b}, {r}] f32",
+               dtype=str(dtype).removeprefix("torch."),
+               max_abs_err=float((got.float() - want.float()).abs().max()),
+               ms=time_ms(lambda: lru_scan.lru_scan(a, x, h0), iters=10, repeats=5),
+               bound_ms=bound, bound_by=by, plan=lru_scan.lru_scan.last_plan.describe())
+    plan = res["plan"]
+    print(f"{what}: {res['ms']:.4f} ms (bound {bound:.4f}, {bound / res['ms']:.0%} of it), max "
+          f"err {res['max_abs_err']:.3g}; plan: {plan['ctas']} CTAs of {plan['channels_per_cta']} "
+          f"channels, {plan['rows']} rows x {plan['stages']} stages, {plan['smem_bytes']} B "
+          f"shared, {plan['in_flight_per_sm']} B in flight an SM, route {plan['route']} "
+          f"[{card()}]")
+    del a, x, h0, got, again, want
+    release()
+    return res
 
 
 # -- phases 9 and 11: recurrentgemma_9b through lm.prefill and lm.decode_step ----
@@ -3024,20 +3074,23 @@ def dryrun_cells(dev) -> dict:
 
 
 def lru_scan_dryrun_check(dev) -> dict:
-    """Phase 34's K5 row: the kernel against its plain version, bit for bit,
-    at the shape recurrentgemma_9b's ``prefill_32k`` cell gives it (batch 1,
-    32,768 steps, rnn_width 4,096: 16 CTAs of 256 channels, each a serial
-    chain of 32,768 steps), timed against its byte bound."""
+    """Phase 34's K5 row: the kernel against its plain version, bit for bit
+    and run to run, at the shape recurrentgemma_9b's ``prefill_32k`` cell
+    gives it (batch 1, 32,768 steps, rnn_width 4,096: a serial chain of
+    32,768 steps a channel), timed against its byte bound, with the plan it
+    launched."""
     from repro_torch.configs.shapes import SHAPES
 
     b, t, r = 1, SHAPES["prefill_32k"].seq_len, get_config("recurrentgemma_9b").rnn_width
     a, x, h0 = lru_inputs(dev, b, t, r, SEED + 34)
     got = ops.lru_scan(a, x, h0)
+    again = ops.lru_scan(a, x, h0)
+    plan = lru_scan.lru_scan.last_plan.describe()
     want = ops.lru_scan(a, x, h0, impl="ref")
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"lru_scan at [{b}, {t}, {r}] f32 == plain version, bit for bit")
-    # a and b read once, out written once, h0 read once; 2 flops an element
-    bound, by = bound_ms(3 * a.numel() * 4 + h0.numel() * 4, 2.0 * a.numel())
+    check(torch.equal(got, again), f"lru_scan at [{b}, {t}, {r}] f32 is bit-identical run to run")
+    bound, by = lru_bound(a, h0)
     row = dict(
         name="lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
         replaces="src/repro/kernels/lru_scan.py:56", launches=0, phase=34,
@@ -3048,10 +3101,14 @@ def lru_scan_dryrun_check(dev) -> dict:
         bound_ms=bound, bound_by=by, library_ms=None,
         library="none (no single PyTorch call computes a linear recurrence)",
         shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32 (recurrentgemma_9b prefill_32k)",
+        plan=plan,
     )
     print(f"lru_scan at [{b}, {t}, {r}]: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
-          f"{bound:.4f}, {row['ms'] / bound:.2f} times), bit-exact [{card()}]")
-    del a, x, h0, got, want
+          f"{bound:.4f}, {row['ms'] / bound:.2f} times), bit-exact; plan: {plan['ctas']} CTAs of "
+          f"{plan['channels_per_cta']} channels on {plan['sms']} SMs, {plan['rows']} rows x "
+          f"{plan['stages']} stages, {plan['smem_bytes']} B shared, {plan['in_flight_per_sm']} B "
+          f"in flight an SM, route {plan['route']} [{card()}]")
+    del a, x, h0, got, again, want
     release()
     return row
 

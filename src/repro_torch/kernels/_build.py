@@ -49,7 +49,8 @@ _SIGNATURES = {
     "leap_paged_decode": (
         (_P,) * 10 + (_I64,) * 8 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)
     ),
-    "leap_lru_scan": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P),
+    "leap_sm_count": (ctypes.c_int,),
+    "leap_lru_scan": (_P, _P, _P, _P, _I64, _I64, _I64) + (ctypes.c_int,) * 6 + (_P,),
     "leap_lru_scan_bwd": (_P,) * 7 + (_I64, _I64, _I64, ctypes.c_int, _P),
 }
 

@@ -7,11 +7,15 @@ JAX it runs on its own (the suite's ``conftest.py`` imports JAX)::
     python -m pytest -q -p no:cacheprovider --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import heat_scan, leap_copy, lru_scan, ops, paged_attn, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build, heat_scan, leap_copy, lru_scan, ops, paged_attn, ref,
+)
 
 HEAT_TOL = dict(rtol=1e-6, atol=1e-6)  # sums over duplicate ids may associate differently
 # the JAX package's paged-decode kernel tolerances (tests/test_kernels_paged_attn.py)
@@ -459,6 +463,87 @@ def test_lru_scan_kernel_matches_plain(cuda, t, r):
     torch.cuda.synchronize()
     assert got16.dtype == torch.bfloat16
     torch.testing.assert_close(got16.float(), want16.float(), **LRU_BF16_TOL)
+
+
+def test_lru_scan_kernel_at_batch_one_full_width(cuda):
+    """recurrentgemma_9b's prefill_32k shape: 128 CTAs of one warp, f32 bit
+    for bit, bit-identical run to run, one launch a call; bf16 in tolerance."""
+    a, x, h0 = _lru_inputs(cuda, 1, 32768, 4096, torch.float32, seed=34)
+    before = lru_scan.lru_scan.launches
+    got = lru_scan.lru_scan(a, x, h0)
+    again = lru_scan.lru_scan(a, x, h0)
+    want = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    assert lru_scan.lru_scan.launches == before + 2
+    plan = lru_scan.lru_scan.last_plan
+    assert plan.sms >= 128 and plan.route == "tma" and plan.in_flight_per_sm >= 32768
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    a16, x16 = a.bfloat16(), x.bfloat16()
+    got16 = lru_scan.lru_scan(a16, x16, h0)
+    want16 = ref.lru_scan_ref(a16, x16, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got16.float(), want16.float(), **LRU_BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 17, 300])
+@pytest.mark.parametrize("r", [33, 50, 100])
+def test_lru_scan_kernel_ragged_edges(cuda, dtype, t, r):
+    """A ragged last channel group, the tail of T, and rows off 16 bytes (f32
+    R = 33 and 50, every bf16 R here) on the narrow route."""
+    a, x, h0 = _lru_inputs(cuda, 3, t, r, dtype, seed=t * r)
+    before = lru_scan.lru_scan.launches
+    got = lru_scan.lru_scan(a, x, h0)
+    assert lru_scan.lru_scan.launches == before + 1
+    route = "tma" if (r * a.element_size()) % 16 == 0 else "narrow"
+    assert lru_scan.lru_scan.last_plan.route == route
+    again = lru_scan.lru_scan(a, x, h0)
+    want = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **LRU_BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_kernel_operands_off_16_bytes(cuda, dtype):
+    """Contiguous views one element into their storage take the narrow route."""
+    b, t, r = 2, 40, 128
+    a, x, h0 = _lru_inputs(cuda, b, t, r, dtype, seed=5)
+    store_a = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+    store_x = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+    va, vx = store_a[1:].view(b, t, r), store_x[1:].view(b, t, r)
+    va.copy_(a)
+    vx.copy_(x)
+    got = lru_scan.lru_scan(va, vx, h0)
+    assert lru_scan.lru_scan.last_plan.route == "narrow"
+    want = lru_scan.lru_scan(a, x, h0)
+    assert lru_scan.lru_scan.last_plan.route == "tma"
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_lru_scan_kernel_refused_plan_raises(cuda, monkeypatch):
+    """A plan the kernel cannot run comes back as a CUDA error, and the
+    wrapper raises: no step down to another kernel or the plain version."""
+    b, t, r = 2, 40, 128
+    a, x, h0 = _lru_inputs(cuda, b, t, r, torch.float32, seed=6)
+    store = torch.empty(a.numel() + 1, device=cuda)
+    off = store[1:].view(b, t, r)
+    off.copy_(a)
+    plan = lru_scan.plan_lru_scan(b, t, r, 4, lru_scan.sm_count(cuda), aligned=True)
+    lib = _build.load()
+    assert lru_scan.launch(lib, off, x, h0, torch.empty_like(a), plan) != 0  # tma off 16 B
+    too_big = dataclasses.replace(plan, grid=plan.tiles + 1)
+    assert lru_scan.launch(lib, a, x, h0, torch.empty_like(a), too_big) != 0
+    monkeypatch.setattr(lru_scan, "plan_lru_scan", lambda *args, **kw: plan)
+    before = lru_scan.lru_scan.launches
+    with pytest.raises(RuntimeError, match="leap_lru_scan"):
+        lru_scan.lru_scan(off, x, h0)
+    assert lru_scan.lru_scan.launches == before
 
 
 def test_lru_scan_kernel_refuses_what_it_does_not_take(cuda):

@@ -118,8 +118,9 @@ SYNTHETIC = [
     ("heat_scan_kernel(float*, long long const*, float const*, int)", "K3 heat_scan"),
     ("void paged_decode_g4_kernel<__nv_bfloat16, 64>(...)", "K4 paged_decode"),
     ("void paged_decode_wide_kernel<__nv_bfloat16, 192, 16>(...)", "K4 paged_decode"),
-    ("void lru_scan_kernel<float>(float const*, float const*, float const*, float*, int, int)",
-     "K5 lru_scan"),
+    ("void (anonymous namespace)::lru_scan_kernel<float, true, 32>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float const*, float*, "
+     "(anonymous namespace)::Plan)", "K5 lru_scan"),
     ("void lru_scan_bwd_kernel<float>(float const*, ...)", "K5 bwd lru_scan_bwd"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNN", "GEMM"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMM"),
