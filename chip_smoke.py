@@ -16,8 +16,11 @@ printed):
    drawn as a drain tick draws them, and skewed into two of its tiles.
 3. A small-page drain through ``LeapSession``: 131,072 blocks of 64 KiB
    (8 GiB) from region 0 to region 1 under 64 random writes and 64 reads per
-   tick, with tiering on; every write is mirrored into a device-side shadow.
-   No tick may make the host wait for the card (sync debug mode raises).
+   tick, with tiering on and ``warm_dispatch`` (its steady-state megastep
+   variants captured as CUDA graphs when the driver is built; the misses
+   are printed); every write is mirrored into a device-side shadow.  Every
+   megastep is one graph replay, and no tick may make the host wait for the
+   card (sync debug mode raises), a capturing one included.
 4. The same drain on a two-tier pool (2 MiB huge blocks).
 5. A small drain run twice, on the card (kernels) and on the CPU (plain
    versions), which must agree bit for bit (heat within 1e-6); the CPU
@@ -35,6 +38,9 @@ printed):
    leap-migrate to the other region from step 1 on (``tick()`` before every
    step), their append frontier pages among the pages in flight.  Tokens
    and the last step's logits must be bit-identical between the two runs.
+   Every decode step is one replay of the batch size's captured graph (so
+   in phases 22, 23 and 31; phase 24, which copies every routing call to
+   the host, runs with capture off).
 8. The LRU-scan kernel against its plain version on the card at the
    recurrent prefill's shapes ([8, 2048, 4096] f32: bit-identical, and
    bit-identical run to run), a bf16 case within 2e-2 and an odd shape
@@ -230,14 +236,22 @@ printed):
    32768, 4096] f32), timed against its byte bound, with the plan it
    launched: a second K5 row in the kernels line, whose launches are phase
    34's (the first row's are phases 1-33's).
+35. Captured programs against eager launches (``graphs.disable_capture``):
+   phases 3 and 4's drains with blocking harvest, once eager and once
+   graphed (pools, tables, flags and heat bit-identical, the same stats and
+   kernel launch counts, one replay a megastep; ticks, replays, captures and
+   host ms a tick printed), and phase 7's deployment undisturbed eager,
+   undisturbed graphed and live graphed (tokens and last logits
+   bit-identical; decode step ms printed).
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
 16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
-line (phases 23-25 and the wall seconds of phases 23-34), the
+line (phases 23-25 and the wall seconds of phases 23-35), the
 ``{"training": ...}`` line (phases 27-29), the ``{"models": ...}`` line
-(phases 31-33), the ``{"dryrun": ...}`` line (phase 34), and last
+(phases 31-33), the ``{"dryrun": ...}`` line (phase 34), the
+``{"graphs_against_eager": ...}`` line (phase 35), and last
 ``{"ok": true, "device": {...}}``.  Every time and size of phases 12 (the
 rounds), 27 (the MFU) and 30-34 is printed with the card's name and power
 limit beside it.
@@ -291,6 +305,7 @@ from repro_torch.chaos import (  # noqa: E402
 )
 from repro_torch.configs.base import PORTED_ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
+from repro_torch.core import graphs, migrator  # noqa: E402
 from repro_torch.core.pipeline import busy_mask  # noqa: E402
 from repro_torch.data import tpch  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
@@ -535,9 +550,24 @@ def distinct_ids(n: int, k: int, gen: torch.Generator) -> torch.Tensor:
 
 def release() -> None:
     """Free the card's memory that earlier phases left: a driver sits in
-    reference cycles, which only the garbage collector frees."""
+    reference cycles, which only the garbage collector frees (and with its
+    state go its captured graphs and their private memory pools)."""
     gc.collect()
     torch.cuda.empty_cache()
+    pools, gib = graph_memory()
+    print(f"released: {pools} captured graphs' memory pools left, {gib:.3f} GiB")
+
+
+def graph_memory() -> tuple[int, float]:
+    """The private memory pools of the live captured graphs, and the GiB
+    they reserve."""
+    pools, total = set(), 0
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pool != (0, 0):
+            pools.add(pool)
+            total += seg["total_size"]
+    return len(pools), total / 2**30
 
 
 def reset_launch_counts() -> None:
@@ -995,17 +1025,23 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
     generation's point-to-point copies."""
     release()
     torch.cuda.reset_peak_memory_stats()
-    slots, seed, kw = SLOTS, SEED + huge_factor, {}
+    slots, seed, kw = SLOTS, SEED + huge_factor, dict(cfg_kw=dict(DRAIN_CFG, warm_dispatch=True))
     if ppermute:
         slots, seed = PP_SLOTS, SEED + 2
         kw = dict(cfg_kw=PP_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
     tap = LaneTap()
     reset_launch_counts()
+    prog = (migrator.MEGASTEP.captures, migrator.MEGASTEP.replays)
     with tap if ppermute else contextlib.nullcontext():
         drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
     lanes = leap_copy.gather_blocks.lanes
     out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
+    out.update(captures=migrator.MEGASTEP.captures - prog[0],
+               replays=migrator.MEGASTEP.replays - prog[1],
+               jit_cache_misses=drv.stats.jit_cache_misses)
+    check(out["replays"] == (0 if ppermute else drv.stats.dispatches),
+          "every megastep of the drain was one graph replay")
     if ppermute:
         check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
               "every point-to-point copy gathered and scattered once")
@@ -1026,6 +1062,8 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
           f"{out['gib_per_s']:.3f} GiB/s, {out['ticks']} ticks, "
           f"{out['dispatches_per_tick']:.2f} dispatches a tick, "
           f"{out['dirty_rejections']} rejections, peak {out['peak_gib']:.2f} GiB, "
+          f"{out['replays']} replays, {out['captures']} captures, "
+          f"{out['jit_cache_misses']} jit misses (warm_dispatch={drv.cfg.warm_dispatch}), "
           f"launches {launches}")
     return out
 
@@ -1114,7 +1152,10 @@ def megastep_matches_batched(dev) -> dict:
     """The reference's differential oracle on the card: the same seeded drain
     under the megastep and under the batched generation (xla backend); then
     megastep against legacy on a small and on a two-tier pool."""
+    replays = migrator.MEGASTEP.replays
     m, _, hm, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="megastep"))
+    check(migrator.MEGASTEP.replays - replays == m.stats.dispatches > 0,
+          "every megastep of the small drain was one graph replay")
     reset_launch_counts()
     b, _, hb, _ = small_drain(dev, 1, dict(SMALL_KW, fused_dispatch="batched"))
     same_state(m, b, "megastep and batched")
@@ -1130,8 +1171,11 @@ def megastep_matches_batched(dev) -> dict:
     legacy, _, hl, _ = small_drain(dev, 1, legacy_kw)
     same_state(m, legacy, "megastep and legacy")
     check([h.progress() for h in hm] == [h.progress() for h in hl], "and the same progress")
-    same_state(small_drain(dev, 4, SMALL_KW)[0], small_drain(dev, 4, legacy_kw)[0],
-               "megastep and legacy on a two-tier pool")
+    replays = migrator.MEGASTEP.replays
+    huge_m = small_drain(dev, 4, SMALL_KW)[0]
+    check(migrator.MEGASTEP.replays - replays == huge_m.stats.dispatches > 0,
+          "every megastep of the two-tier drain was one graph replay")
+    same_state(huge_m, small_drain(dev, 4, legacy_kw)[0], "megastep and legacy on a two-tier pool")
     print(f"megastep and batched agree bit for bit (batched launches {launches}); so do "
           f"megastep and legacy, on small and two-tier pools")
     return dict(megastep_dispatches=m.stats.dispatches, batched_dispatches=b.stats.dispatches,
@@ -1597,6 +1641,13 @@ def load_run(dev, cfg, model, pcfg, spec):
         release_seq(sid)
 
     eng.release = keep_tokens
+    decode, calls = eng.decode, []
+
+    def counted_decode(sids, **kw):
+        calls.append(len(sids))
+        return decode(sids, **kw)
+
+    eng.decode = counted_decode
     tick_s, check_s = [], 0.0
     for _ in range(spec.ticks):
         t0 = time.perf_counter()
@@ -1608,7 +1659,13 @@ def load_run(dev, cfg, model, pcfg, spec):
         gen.verify_accounting()
         check_s += time.perf_counter() - t0
     tokens.update({sid: list(seq.tokens) for sid, seq in eng.seqs.items()})
-    return gen, tokens, dict(tick_s=tick_s, check_s=check_s)
+    prog = eng._decode_step
+    if dev.type == "cuda":
+        check(prog.replays == len(calls) > 0 and prog.captures == len(prog) == len(set(calls)),
+              "every decode call was one replay, one captured graph per batch size")
+    return gen, tokens, dict(tick_s=tick_s, check_s=check_s, decode_calls=len(calls),
+                             batch_sizes=sorted(set(calls)), replays=prog.replays,
+                             captures=prog.captures)
 
 
 def load_full_width(dev) -> dict:
@@ -1640,14 +1697,17 @@ def load_full_width(dev) -> dict:
             gold_p99=rep["tenants"]["gold"]["p99"], gold_slo_met=rep["tenants"]["gold"]["slo_met"],
             mig_rate=rep["mig_rate"], blocks_copied=rep["blocks_copied"],
             max_running=max(e["n_running"] for e in gen.tick_log),
-            dirty_rejections=s.dirty_rejections, launches=launches)
+            dirty_rejections=s.dirty_rejections, decode_calls=times["decode_calls"],
+            batch_sizes=times["batch_sizes"], replays=times["replays"],
+            captures=times["captures"], launches=launches)
         o = out[f"run{i}"]
         print(f"load run {i}: modeled p50 {rep['p50']:.4f} p99 {rep['p99']:.4f} (gold p99 "
               f"{o['gold_p99']:.4f}, SLO met {o['gold_slo_met']}), mig_rate "
               f"{rep['mig_rate']:.4f}, admitted {o['admitted']}, dropped {rep['dropped']}, "
               f"at most {o['max_running']} running; wall {seconds:.3f} s, tick "
               f"{o['tick_ms_median']:.1f} ms median ({o['tick_ms_max']:.1f} max), checks "
-              f"{times['check_s']:.3f} s; launches {launches}")
+              f"{times['check_s']:.3f} s; {o['replays']} decode replays over batch sizes "
+              f"{o['batch_sizes']}; launches {launches}")
         del gen
     check(runs[0][0] == runs[1][0], "gen.report() is bit-identical run to run")
     check(runs[0][1] == runs[1][1], "every sequence's tokens are identical run to run")
@@ -1889,6 +1949,7 @@ def serve_run(dev, cfg, model, pcfg, prompts, steps: int, live: bool, blocking: 
         decode_step_ms_median=statistics.median(step_s) * 1e3,
         tokens_per_s=len(sids) * steps / sum(step_s), tick_s=tick_s,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
+        replays=eng._decode_step.replays, captures=eng._decode_step.captures,
     )
     return eng, sids, handles, times
 
@@ -1951,10 +2012,12 @@ def serving_full_width(dev) -> dict:
                   "the live run launched copy_blocks and heat_scan")
         check(launches["paged_decode"] == SERVE["steps"] * cfg.n_layers,
               f"{name}: one paged-decode launch per layer and step")
+        check(times["replays"] == SERVE["steps"] and times["captures"] == 1,
+              f"{name}: every decode step was one replay of one captured graph")
         print(f"serving {name}: prefill {times['prefill_s']:.3f} s, decode step "
               f"{times['decode_step_ms_median']:.3f} ms (median), {times['tokens_per_s']:.1f} "
               f"tok/s, decode {times['decode_s']:.3f} s, ticks {times['tick_s']:.3f} s, peak "
-              f"{times['peak_gib']:.2f} GiB, launches {launches}")
+              f"{times['peak_gib']:.2f} GiB, {times['replays']} replays, launches {launches}")
         del eng
         torch.cuda.empty_cache()
     check(runs["live"][0] == runs["undisturbed"][0],
@@ -2218,12 +2281,15 @@ class RouteTap:
     picks that capacity drops, keyed by the tokens a routing group holds (a
     prompt's length at prefill, the batch at decode), on the device and with
     no host sync; with ``record`` it also keeps every call's gates and slots
-    on the host."""
+    on the host (a host copy: run it with capture off).  The counts add in
+    place into device counters, so that a captured decode step's replays
+    count too: ``tokens`` names the groups routed inside a capture, whose
+    counters must exist before it."""
 
-    def __init__(self, record: bool = False):
+    def __init__(self, record: bool = False, tokens=(), device=None):
         self.record = record
         self.calls: list[tuple[torch.Tensor, torch.Tensor]] = []
-        self._dropped: dict[int, torch.Tensor] = {}
+        self._dropped = {t: torch.zeros((), dtype=torch.int64, device=device) for t in tokens}
         self._route = moe.route_slots
 
     def __enter__(self):
@@ -2235,9 +2301,12 @@ class RouteTap:
 
     def _tap(self, gates, mc, cap):
         out = self._route(gates, mc, cap)
-        n = (out[0] == mc.n_experts * cap).sum()
         t = gates.shape[1]
-        self._dropped[t] = self._dropped[t] + n if t in self._dropped else n
+        if t not in self._dropped:
+            check(not torch.cuda.is_current_stream_capturing(),
+                  f"RouteTap has a counter for {t}-token groups before a capture routes them")
+            self._dropped[t] = torch.zeros((), dtype=torch.int64, device=gates.device)
+        self._dropped[t].add_((out[0] == mc.n_experts * cap).sum())
         if self.record:
             self.calls.append((gates.cpu(), out[0].cpu()))
         return out
@@ -2272,7 +2341,7 @@ def moe_full_width(dev) -> dict:
         runs, res = {}, {}
         for name in ("undisturbed", "live"):
             reset_launch_counts()
-            with RouteTap() as tap:
+            with RouteTap(tokens=(spec["prompts"],), device=dev) as tap:
                 eng, sids, handles, times = serve_run(dev, cfg, model, pcfg, prompts,
                                                       spec["steps"], live=name == "live")
             launches = launch_counts()
@@ -2288,6 +2357,8 @@ def moe_full_width(dev) -> dict:
                       f"{name_of} live run launched copy_blocks and heat_scan")
             check(launches["paged_decode"] == spec["steps"] * cfg.n_layers,
                   f"{name_of} {name}: one paged-decode launch per layer and step")
+            check(times["replays"] == spec["steps"] and times["captures"] == 1,
+                  f"{name_of} {name}: every decode step was one replay of one captured graph")
             check(bool(torch.isfinite(eng.last_logits).all()), f"{name_of} logits are finite")
             print(f"{name_of} ({cfg.n_layers} of {full.n_layers} layers) {name}: prefill "
                   f"{times['prefill_s']:.3f} s, decode step "
@@ -2346,7 +2417,8 @@ def moe_card_matches_cpu(dev) -> dict:
         res = {}
         for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
             reset_launch_counts()
-            with RouteTap(record=True) as tap:
+            # the tap copies every call's slots to the host: no capture
+            with RouteTap(record=True) as tap, graphs.disable_capture():
                 eng, sids, _, _ = serve_run(d, cfg, models[name], pcfg, prompts, 10, live=True,
                                             blocking=True)
             res[name] = (eng, [eng.seqs[s].tokens for s in sids], tap, launch_counts())
@@ -2932,6 +3004,8 @@ def nemotron_full_width(dev) -> dict:
             check(launches["copy_blocks"] > 0, "the live run launched copy_blocks")
         check(launches["paged_decode"] == launches["paged_decode_hd192"] == n,
               f"nemotron {name}: one hd-192 paged-decode launch per layer and step ({n})")
+        check(times["replays"] == spec["steps"] and times["captures"] == 1,
+              f"nemotron {name}: every decode step was one replay of one captured graph")
         check(bool(torch.isfinite(eng.last_logits).all()), "nemotron's logits are finite")
         fits(torch.cuda.max_memory_allocated(), f"nemotron {name}")
         print(f"nemotron_4_340b ({cfg.n_layers} of {full.n_layers} layers) {name}: prefill "
@@ -3113,6 +3187,91 @@ def lru_scan_dryrun_check(dev) -> dict:
     return row
 
 
+# -- phase 35: captured programs against eager launches -------------------------------
+
+
+def graphed_drain_run(dev, huge_factor: int, capture: bool) -> tuple:
+    """Phase 3's (or 4's) drain with blocking harvest, so that the schedule
+    does not depend on timing, captured or eager; returns the driver and
+    its record."""
+    release()
+    reset_launch_counts()
+    prog = (migrator.MEGASTEP.captures, migrator.MEGASTEP.replays)
+    with contextlib.nullcontext() if capture else graphs.disable_capture():
+        drv, shadow, handles, times = drain(
+            dev, N_BLOCKS, SLOTS, BLOCK, huge_factor, SEED + huge_factor,
+            cfg_kw=dict(DRAIN_CFG, warm_dispatch=True), blocking=True)
+    launches = launch_counts()
+    out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
+    del shadow
+    out.update(times, launches=launches, jit_cache_misses=drv.stats.jit_cache_misses,
+               captures=migrator.MEGASTEP.captures - prog[0],
+               replays=migrator.MEGASTEP.replays - prog[1],
+               tick_ms=times["tick_s"] / drv.stats.ticks * 1e3)
+    return drv, out
+
+
+def graphs_against_eager(dev) -> dict:
+    """Phase 35: phases 3 and 4's drains and phase 7's deployment through
+    captured programs and through eager launches, bit for bit."""
+    out = {"card": card()}
+    for name, huge in (("small", 1), ("huge", HUGE)):
+        runs, res = {}, {}
+        for mode in ("eager", "graphed"):
+            runs[mode], res[mode] = graphed_drain_run(dev, huge, capture=mode == "graphed")
+        g, e = runs["graphed"].state, runs["eager"].state
+        for a, b, what in ((g.pool, e.pool, "pools"), (g.table, e.table, "tables"),
+                           (g.dirty, e.dirty, "dirty flags"), (g.in_flight, e.in_flight, "flags")):
+            check(torch.equal(a, b), f"{name} drain: graphed and eager {what} bit-identical")
+        check(np.array_equal(runs["graphed"].heat_snapshot(), runs["eager"].heat_snapshot()),
+              f"{name} drain: graphed and eager heat planes bit-identical")
+        check(res["graphed"]["launches"] == res["eager"]["launches"],
+              f"{name} drain: replays count the kernels' launches as eager launches do")
+        check(res["graphed"]["replays"] == runs["graphed"].stats.dispatches
+              and res["eager"]["replays"] == res["eager"]["captures"] == 0,
+              f"{name} drain: one replay a megastep graphed, none eager")
+        check(dataclasses.replace(runs["graphed"].stats, jit_cache_misses=0)
+              == dataclasses.replace(runs["eager"].stats, jit_cache_misses=0),
+              f"{name} drain: the same MigrationStats")
+        for mode in ("eager", "graphed"):
+            r = res[mode]
+            print(f"phase 35 {name} drain {mode}: {r['ticks']} ticks, {r['replays']} replays, "
+                  f"{r['captures']} captures, {r['jit_cache_misses']} jit misses, tick() "
+                  f"{r['tick_ms']:.3f} ms a tick, drain {r['seconds']:.3f} s [{card()}]")
+        out[f"{name}_drain"] = res
+        del runs, g, e
+        release()
+    cfg, model, pcfg, prompts = serving_deployment(dev)
+    runs, res = {}, {}
+    for name, live, capture in (("eager_undisturbed", False, False),
+                                ("graphed_undisturbed", False, True), ("graphed_live", True, True)):
+        reset_launch_counts()
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            eng, sids, handles, times = serve_run(dev, cfg, model, pcfg, prompts, SERVE["steps"],
+                                                  live=live)
+        launches = launch_counts()
+        runs[name] = ([eng.seqs[s].tokens for s in sids], eng.last_logits.clone())
+        res[name] = dict(times, launches=launches)
+        check(launches["paged_decode"] == SERVE["steps"] * cfg.n_layers,
+              f"phase 35 {name}: one paged-decode launch per layer and step")
+        check(times["replays"] == (SERVE["steps"] if capture else 0),
+              f"phase 35 {name}: one replay a step graphed, none eager")
+        print(f"phase 35 serving {name}: decode step {times['decode_step_ms_median']:.3f} ms "
+              f"(median), {times['tokens_per_s']:.1f} tok/s, {times['replays']} replays, "
+              f"{times['captures']} captures [{card()}]")
+        del eng
+        torch.cuda.empty_cache()
+    for name in ("graphed_undisturbed", "graphed_live"):
+        check(runs[name][0] == runs["eager_undisturbed"][0],
+              f"phase 35 {name}: the eager run's tokens")
+        check(torch.equal(runs[name][1], runs["eager_undisturbed"][1]),
+              f"phase 35 {name}: the eager run's last logits, bit for bit")
+    out["serving"] = res
+    del model, runs
+    release()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3195,6 +3354,9 @@ def main() -> int:
     dry = dryrun_cells(dev)
     rows.append(lru_scan_dryrun_check(dev))
     wall["phase_34_dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphed = graphs_against_eager(dev)
+    wall["phase_35_graphs_against_eager"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -3239,6 +3401,7 @@ def main() -> int:
     print(json.dumps({"training": training, "card": smi}))
     print(json.dumps({"models": models, "card": smi}))
     print(json.dumps({"dryrun": dry, "card": smi}))
+    print(json.dumps({"graphs_against_eager": graphed, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

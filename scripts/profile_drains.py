@@ -3,24 +3,29 @@
 
     python3 scripts/profile_drains.py
 
-Runs two of the smoke's drains on the current CUDA device, each twice: the
-2-region small-block drain through the megastep and the 4-region ppermute
-drain through the batched generation (131,072 blocks of 64 KiB, 64 writes
-and 64 reads a tick).  The first run has ``LeapConfig(telemetry=True)`` and
-prints the host milliseconds a tick in each pipeline stage (the recorder's
-``stage`` spans; nested spans each count their own whole time).  The second
-runs under ``torch.profiler``, from the first request to the end of the
-drain (the pool's set-up is outside the window), and prints the wall time,
-the device time summed over kernels, their ratio (the device's busy share),
-the kernel count and the kernels with the most device time.  Exits non-zero
-without a CUDA device.
+Runs two of the smoke's drains on the current CUDA device (131,072 blocks
+of 64 KiB, 64 writes and 64 reads a tick): the 2-region small-block drain
+through the megastep (phase 3's, with ``warm_dispatch``) four times in
+turns, eager, graphed, graphed, eager (eager: inside
+``graphs.disable_capture()``, every launch from Python; graphed: one CUDA
+graph replay a tick), and the 4-region ppermute drain through the batched
+generation (eager by design) once.  Each run is drained twice: once with
+``LeapConfig(telemetry=True)``, printing the host milliseconds a tick in
+each pipeline stage (the recorder's ``stage`` spans; nested spans each count
+their own whole time) and in ``tick()``, and once under ``torch.profiler``,
+from the first request to the end of the drain (the pool's set-up is
+outside the window), printing the wall time, the device time summed over
+kernels, their ratio (the device's busy share), the kernel count and the
+kernels with the most device time.  Each run also records the megastep's
+graph replays and captures.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import collections
-import gc
+import contextlib
 import dataclasses
+import gc
 import json
 import sys
 from pathlib import Path
@@ -33,13 +38,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import chip_smoke as smoke  # noqa: E402
 from profile_serving import report  # noqa: E402
+from repro_torch.core import graphs, migrator  # noqa: E402
 
-SMALL = dict(initial_area_blocks=256, budget_blocks_per_tick=1024, tiering=True)
-DRAINS = {
-    "small (megastep, 2 regions)": dict(slots=smoke.SLOTS, cfg_kw=SMALL, n_regions=2),
-    "ppermute (batched, 4 regions)": dict(slots=smoke.PP_SLOTS, cfg_kw=smoke.PP_CFG,
-                                          n_regions=smoke.PP_REGIONS, ppermute=True),
-}
+SMALL = dict(smoke.DRAIN_CFG, warm_dispatch=True)
+MEGASTEP = dict(slots=smoke.SLOTS, cfg_kw=SMALL, n_regions=2)
+PPERMUTE = dict(slots=smoke.PP_SLOTS, cfg_kw=smoke.PP_CFG, n_regions=smoke.PP_REGIONS,
+                ppermute=True)
+# (name, drain, captured): the megastep eager and graphed in turns
+RUNS = (
+    ("small (megastep, 2 regions), eager", MEGASTEP, False),
+    ("small (megastep, 2 regions), graphed", MEGASTEP, True),
+    ("small (megastep, 2 regions), graphed again", MEGASTEP, True),
+    ("small (megastep, 2 regions), eager again", MEGASTEP, False),
+    ("ppermute (batched, 4 regions)", PPERMUTE, True),
+)
 
 
 def run(dev, slots, cfg_kw, n_regions, ppermute=False, telemetry=False, window=None):
@@ -64,27 +76,35 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     print(torch.cuda.get_device_name(0))
+    card = smoke.card()
+    print(card)
     out = {}
-    for name, kw in DRAINS.items():
-        drv, _, _, secs = run(dev, telemetry=True, **kw)
-        stages = stage_ms_per_tick(drv)
-        print(f"\n== {name}, telemetry on: {drv.stats.ticks} ticks, {secs['seconds']:.3f} s, "
-              f"tick() {secs['tick_s'] / drv.stats.ticks * 1e3:.3f} ms a tick; host ms a tick "
-              "in each stage:")
-        for stage, ms in stages.items():
-            print(f"   {stage:32s} {ms:8.3f}")
-        del drv
-        gc.collect()
-        torch.cuda.empty_cache()
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        drv, _, _, secs = run(dev, window=prof, **kw)
-        prof_out = report(f"{name}, under the profiler", prof, secs["seconds"])
-        out[name] = dict(stage_ms_per_tick=stages, profiled=prof_out, profiled_drain=secs,
+    for name, kw, captured in RUNS:
+        prog = migrator.MEGASTEP
+        before = (prog.captures, prog.replays)
+        with contextlib.nullcontext() if captured else graphs.disable_capture():
+            drv, _, _, secs = run(dev, telemetry=True, **kw)
+            stages = stage_ms_per_tick(drv)
+            tick_ms = secs["tick_s"] / drv.stats.ticks * 1e3
+            print(f"\n== {name}, telemetry on: {drv.stats.ticks} ticks, {secs['seconds']:.3f} s, "
+                  f"tick() {tick_ms:.3f} ms a tick; host ms a tick in each stage:")
+            for stage, ms in stages.items():
+                print(f"   {stage:32s} {ms:8.3f}")
+            del drv
+            gc.collect()
+            torch.cuda.empty_cache()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            drv, _, _, psecs = run(dev, window=prof, **kw)
+        prof_out = report(f"{name}, under the profiler", prof, psecs["seconds"])
+        graphs_used = dict(captures=prog.captures - before[0], replays=prog.replays - before[1])
+        print(f"   megastep graphs over both runs: {graphs_used} [{card}]")
+        out[name] = dict(stage_ms_per_tick=stages, tick_ms=tick_ms, drain=secs,
+                         profiled=prof_out, profiled_drain=psecs, graphs=graphs_used,
                          stats=dataclasses.asdict(drv.stats) | {"bytes_per_link": None})
         del drv
         gc.collect()
         torch.cuda.empty_cache()
-    print(json.dumps({"profile_drains": out}))
+    print(json.dumps({"profile_drains": out, "card": card}))
     return 0
 
 

@@ -7,18 +7,24 @@ Builds a serving deployment of ``chip_smoke.py`` on the current CUDA device
 (random bf16 weights from seed 0, 8 prompts of 512 tokens): granite_3_2b at
 full width and depth (phase 7, the default), or one of phase 23's MoE
 stacks at published widths with the depth cut (``qwen3_moe_235b_a22b``,
-``dbrx_132b``), or phase 31's nemotron_4_340b (7 of 96 layers).  It admits the prompts, warms up with 8 decode
-steps, times 8 more without the profiler, then profiles one more admission
-and 4 decode steps with ``torch.profiler``.  Prints, for each window, the
-wall time, the device time summed over kernels and their ratio (the
-device's busy share), the kernel count, then the 20 host ops with the most
-host time and the 20 kernels with the most device time.  ``--trace`` writes
-a Chrome trace of the decode window.  Exits non-zero without a CUDA device.
+``dbrx_132b``), or phase 31's nemotron_4_340b (7 of 96 layers).  It admits
+the prompts, warms up with 8 decode steps (the first captures the decode
+step's CUDA graph), then times windows of 8 steps without the profiler in
+turns: eager (inside ``graphs.disable_capture()``, every launch from
+Python), graphed (one replay a step), graphed, eager.  Then it profiles one
+more admission, and 4 decode steps graphed and 4 eager, with
+``torch.profiler``.  Prints, for each profiled window, the wall time, the
+device time summed over kernels and their ratio (the device's busy share),
+the kernel count, then the 20 host ops with the most host time and the 20
+kernels with the most device time, and the decode step's replays and
+captures.  ``--trace`` writes a Chrome trace of the graphed decode window.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -31,7 +37,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import MOE_SERVE, NEMO_SERVE, paged_deployment, serving_deployment  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    MOE_SERVE, NEMO_SERVE, card, paged_deployment, serving_deployment,
+)
+from repro_torch.core import graphs  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
 
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 8, 8, 4
@@ -83,16 +92,20 @@ def main() -> int:
     sids = [eng.admit(p, region=i % pcfg.n_regions) for i, p in enumerate(prompts)]
     for _ in range(WARMUP_STEPS):
         eng.decode(sids)
-    step_ms = []
-    for _ in range(TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.decode(sids)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    print(torch.cuda.get_device_name(0), cfg.name,
-          f"decode step {statistics.median(step_ms):.3f} ms "
-          f"(median of {TIMED_STEPS}, profiler off)")
-    out = {"decode_step_ms_median": statistics.median(step_ms)}
+    print(card(), cfg.name)
+    out = {"card": card()}
+    for name, captured in (("eager", False), ("graphed", True), ("graphed again", True),
+                           ("eager again", False)):
+        step_ms = []
+        with contextlib.nullcontext() if captured else graphs.disable_capture():
+            for _ in range(TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.decode(sids)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"decode step {name}: {statistics.median(step_ms):.3f} ms "
+              f"(median of {TIMED_STEPS}, profiler off)")
+        out[f"decode_step_ms_median {name}"] = statistics.median(step_ms)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -104,17 +117,23 @@ def main() -> int:
                           prof, wall)
     eng.release(extra)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            eng.decode(sids)
+    for name, captured in (("graphed", True), ("eager", False)):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out["decode"] = report(f"{PROFILED_STEPS} decode steps, batch {len(sids)}", prof, wall)
-    if args.trace:
-        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(args.trace)
+        with contextlib.nullcontext() if captured else graphs.disable_capture(), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                eng.decode(sids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[f"decode {name}"] = report(
+            f"{PROFILED_STEPS} decode steps {name}, batch {len(sids)}", prof, wall)
+        if args.trace and captured:
+            Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(args.trace)
+    prog = eng._decode_step
+    out["graphs"] = dict(replays=prog.replays, captures=prog.captures, variants=len(prog))
+    print(f"decode step graphs: {out['graphs']}")
     print(json.dumps({"profile_serving": out}))
     return 0
 

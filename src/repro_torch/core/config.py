@@ -30,9 +30,12 @@ class LeapConfig:
     # selects per-area/per-chunk dispatch.  Booleans are accepted for
     # backwards compatibility with every existing call site.
     fused_dispatch: bool | str = True
-    # Kept for call-site compatibility with the JAX package, whose megastep
-    # compiles its steady-state variants ahead of time when this is set.
-    # PyTorch runs eagerly and compiles nothing, so here it is a no-op.
+    # Compile the megastep's steady-state variants when the driver is built
+    # (megastep mode only; no-op otherwise), as the JAX package does: the
+    # budget-floored shared bucket fixes every steady-state operand shape
+    # before any workload runs, so on the card each variant is captured as a
+    # CUDA graph then and the first leap() pays no capture.  On the CPU the
+    # variants are only registered.  Off by default.
     warm_dispatch: bool = False
     bucket_growth: int = 4  # geometric padding factor for batch shapes
     # Kernel impl: None/"auto" = hand-written CUDA kernel on a CUDA tensor,

@@ -24,7 +24,8 @@ The JAX package's three dispatch generations are ported:
     ``commit_areas``/``commit_groups``/``heat_update``): one program per
     tick phase, each covering every area the driver scheduled this tick;
   * :func:`megastep`: the whole tick — the previous epoch's commits, then
-    begin/zero/force/copy/runs/heat — as one sequence of those programs.
+    begin/zero/force/copy/runs/heat — as one program built from those
+    programs' launches.
 
 Every program runs on the current stream over the state's tensors in place.
 Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
@@ -34,13 +35,19 @@ Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
 transfer on a region mesh).  The legacy generation's counterparts are
 ``copy_chunk`` and ``copy_chunk_ppermute``.
 
-Operands have their real lengths.  The JAX package pads every phase to a
-bucket (lane-0 replication in the batched generation, out-of-bounds
-sentinel lanes in the megastep), which XLA drops or clamps, to keep its
-compile cache small; eager PyTorch has no such cache, and an out-of-bounds
-index raises on the CPU and device-asserts on CUDA.  So the port ships no
-padding, and an empty phase gets an empty tensor and is skipped.  Padding
-comes back with CUDA-graph capture, together with a trash slot in the pool.
+The megastep is one program per tick the way the JAX package's is: it goes
+through a :class:`~repro_torch.core.graphs.Program`, the port's counterpart
+of a jitted function's cache.  On CUDA each variant is one captured CUDA
+graph, and a tick is one replay; on the CPU the variant is only registered
+and the phases run eagerly.  The dispatch stage pads every nonempty phase to
+the reference's budget-floored bucket, so a drain needs few variants.  The
+reference pads the megastep with out-of-bounds sentinel lanes, which XLA
+drops; an out-of-bounds index would raise here, so every pad lane replicates
+lane 0 (the reference's own ``pad_to_bucket`` rule), which each phase applies
+idempotently, and pad heat lanes carry weight 0.  An empty phase gets an
+empty tensor and is left out of the variant.  The other programs run eagerly
+over their real lengths and compile nothing: :func:`program_cache_sizes`
+reports 0 for them (ROADMAP D1).
 
 No phase synchronises with the host: there is no ``.item()``, no boolean-mask
 indexing and no ``nonzero``.  Index operands are int64 on the state's
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.state import REGION, SLOT, LeapState, flat_pool_view
 from repro_torch.kernels import ops
 
@@ -277,8 +285,70 @@ def heat_update(
 
 
 # --------------------------------------------------------------------------
-# Megastep dispatch: the whole tick as one sequence of programs.
+# Megastep dispatch: the whole tick as one program.
 # --------------------------------------------------------------------------
+
+
+def _megastep_phases(
+    state: LeapState,
+    commit_ids, commit_regions, commit_slots,
+    grp_members, grp_regions, grp_starts,
+    begin_ids, zero_flat,
+    force_ids, force_regions, force_slots,
+    copy_src, copy_dst, run_src, run_dst,
+    heat, heat_ids, heat_w,
+    group: int, impl: str | None, heat_decay: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The megastep's launches; returns its verdicts ``(small, groups)``."""
+    empty = torch.zeros(0, dtype=torch.bool, device=state.device)
+    verdict_small = verdict_groups = empty
+    if commit_ids.shape[0]:
+        state, verdict_small = commit_areas(state, commit_ids, commit_regions, commit_slots)
+    if grp_starts.shape[0]:
+        state, verdict_groups = commit_groups(state, grp_members, grp_regions, grp_starts, group)
+    if begin_ids.shape[0]:
+        begin_areas(state, begin_ids)
+    if zero_flat.shape[0]:
+        flat_pool_view(state.pool).index_fill_(0, zero_flat, 0)
+    if force_ids.shape[0]:
+        force_areas(state, force_ids, force_regions, force_slots)
+    if copy_src.shape[0]:
+        fused_copy(state, copy_src, copy_dst, impl=impl)
+    if run_src.shape[0]:
+        fused_copy_runs(state, run_src, run_dst, group, impl=impl)
+    if heat_ids.shape[0]:
+        heat_update(heat, heat_ids, heat_w, heat_decay, impl=impl)
+    return verdict_small, verdict_groups
+
+
+# The megastep's variant cache: one entry per key of :func:`_megastep_variant`.
+MEGASTEP = graphs.Program("megastep")
+
+
+def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay):
+    """``(key, body, inputs, bound)`` of one megastep call for :data:`MEGASTEP`.
+
+    The key holds what the JAX megastep's cache keys on: every operand's
+    length (which phases are present and at which bucket), the static
+    arguments, the state's and the heat plane's shapes and dtypes, and the
+    device.  The program updates the state in place, and the heat plane when
+    its phase is present: those are the tensors a captured graph belongs to.
+    """
+    inputs = list(operands)  # the 16 index operands (heat_ids last), then heat_w
+    key = (
+        tuple(t.shape[0] for t in inputs),
+        group, impl, float(heat_decay),
+        tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
+        tuple(heat.shape), str(state.device),
+    )
+    with_heat = bool(inputs[15].shape[0])
+    bound = [state.pool, state.table, state.dirty, state.in_flight] + ([heat] if with_heat else [])
+
+    def body(*ops):
+        return _megastep_phases(state, *ops[:15], heat, ops[15], ops[16],
+                                group=group, impl=impl, heat_decay=heat_decay)
+
+    return key, body, inputs, bound
 
 
 def megastep(
@@ -313,27 +383,28 @@ def megastep(
     tensors before begin clears ``dirty``; force reads the post-commit table
     and the post-zero pool and gathers its payload before it scatters; the
     copy and run phases come after force; heat touches nothing else.  Each
-    phase is the batched program of the same name, skipped when empty.
+    phase is the batched program of the same name, left out when empty.
+
+    Index operands are int64 and ``heat_w`` float32, on the host or on the
+    state's device.  The call is one variant of :data:`MEGASTEP`: on CUDA a
+    replay of its captured graph, whose verdicts are static tensors that the
+    next replay of the same graph overwrites (``VerdictFuture`` copies them
+    first, on the same stream).
     """
-    empty = torch.zeros(0, dtype=torch.bool, device=state.device)
-    verdict_small = verdict_groups = empty
-    if commit_ids.shape[0]:
-        state, verdict_small = commit_areas(state, commit_ids, commit_regions, commit_slots)
-    if grp_starts.shape[0]:
-        state, verdict_groups = commit_groups(state, grp_members, grp_regions, grp_starts, group)
-    if begin_ids.shape[0]:
-        begin_areas(state, begin_ids)
-    if zero_flat.shape[0]:
-        flat_pool_view(state.pool).index_fill_(0, zero_flat, 0)
-    if force_ids.shape[0]:
-        force_areas(state, force_ids, force_regions, force_slots)
-    if copy_src.shape[0]:
-        fused_copy(state, copy_src, copy_dst, impl=impl)
-    if run_src.shape[0]:
-        fused_copy_runs(state, run_src, run_dst, group, impl=impl)
-    if heat_ids.shape[0]:
-        heat = heat_update(heat, heat_ids, heat_w, heat_decay, impl=impl)
+    operands = (commit_ids, commit_regions, commit_slots, grp_members, grp_regions, grp_starts,
+                begin_ids, zero_flat, force_ids, force_regions, force_slots, copy_src, copy_dst,
+                run_src, run_dst, heat_ids, heat_w)
+    verdict_small, verdict_groups = MEGASTEP(
+        *_megastep_variant(state, operands, heat, group, impl, heat_decay))
     return state, verdict_small, verdict_groups, heat
+
+
+def warm_megastep(state: LeapState, *operands, heat: torch.Tensor, group: int = 1,
+                  impl: str | None = None, heat_decay: float = 1.0) -> None:
+    """Compile the megastep variant of these operands ahead of time: capture
+    it on CUDA, register it on the CPU.  Nothing runs; the operands (the
+    megastep's, ``heat_ids`` and ``heat_w`` last) give lengths only."""
+    MEGASTEP.warm(*_megastep_variant(state, operands, heat, group, impl, heat_decay))
 
 
 # --------------------------------------------------------------------------
@@ -360,12 +431,17 @@ _PROGRAMS = (
 
 
 def program_cache_sizes() -> dict[str, int]:
-    """Compiled-variant count per migration program: always zero, since
-    PyTorch runs eagerly and compiles nothing (the JAX package counts its
-    XLA compiles here)."""
-    return {name: 0 for name in _PROGRAMS}
+    """Compiled-variant count per migration program (process-wide).
+
+    The megastep counts its variants (:data:`MEGASTEP`), as the JAX package
+    counts its XLA compiles; the driver differences this to report
+    ``MigrationStats.jit_cache_misses``.  The per-area and batched programs,
+    ``heat_update`` and the ppermute copy run eagerly and compile nothing,
+    so they report 0 (ROADMAP D1).
+    """
+    return {name: len(MEGASTEP) if name == "megastep" else 0 for name in _PROGRAMS}
 
 
 def program_cache_size() -> int:
-    """Total compiled migration-program variants (zero; see above)."""
+    """Total compiled migration-program variants (process-wide)."""
     return sum(program_cache_sizes().values())

@@ -30,13 +30,17 @@ dirty verdict never crosses back here — it travels in the
 :class:`~repro_torch.core.queues.VerdictFuture` of a ``CommitBatch``,
 harvested by the verdict stage off the tick critical path.
 
-The operands have their real lengths.  The JAX package pads each program's
-operands to a bucket (lane-0 replication in the batched generation,
-out-of-bounds sentinel lanes in the megastep) so that XLA compiles few
-variants; eager PyTorch compiles nothing, and an out-of-bounds lane would
-raise on the CPU and device-assert on CUDA.  So there is no padding here,
-and an empty phase dispatches nothing.  Padding comes back with CUDA-graph
-capture, together with a trash slot in the pool.
+The megastep's operands are padded as the JAX package pads them: every
+nonempty phase to one budget-floored bucket shared by commit, begin, zero,
+force and copy, huge groups and runs to their own floor (budget / G), heat
+to its own bucket, so that after warm-up one variant (one captured CUDA
+graph on the card) serves a whole drain; ``warm_dispatch`` captures the
+steady-state variants when the driver is built.  Where the reference pads
+with out-of-bounds sentinels, which XLA drops, the port replicates lane 0
+(an out-of-bounds index would device-assert), which every phase applies
+idempotently; pad heat lanes carry weight 0.  The batched and legacy
+generations run eagerly over their real lengths, and an empty phase
+dispatches nothing.
 
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.
@@ -49,8 +53,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import migrator
-from repro_torch.core.adaptive import Area, demote_area
+from repro_torch.core import graphs, migrator
+from repro_torch.core.adaptive import Area, bucket_size, demote_area, pad_to_bucket
 from repro_torch.core.pipeline.accounting import AccountingStage
 from repro_torch.core.pipeline.budget import BudgetStage, TickBudget
 from repro_torch.core.pipeline.context import PipelineContext
@@ -83,15 +87,16 @@ def _group_entries(areas: list[Area]) -> tuple[np.ndarray, np.ndarray, np.ndarra
     )
 
 
-def to_device(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
-    """Int arrays as int64 tensors on ``device``, in one host->device copy.
+def _pad(bucket: int, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
+    """Equal-length arrays padded to ``bucket`` lanes with copies of lane 0
+    (:func:`pad_to_bucket`); an empty phase's arrays stay empty."""
+    return pad_to_bucket(bucket, *arrays) if len(arrays[0]) else arrays
 
-    The arrays are packed into one buffer (pinned, on CUDA) that crosses
-    without blocking the host; the results are views of its device copy.
-    """
-    lengths = [len(a) for a in arrays]
-    packed = np.concatenate([np.asarray(a, np.int64) for a in arrays] + [np.zeros(0, np.int64)])
-    return list(torch.split(host_to_device(torch.from_numpy(packed), device), lengths))
+
+def to_device(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
+    """Int arrays as int64 tensors on ``device``, in one pinned,
+    non-blocking host->device copy (see :func:`graphs.to_device`)."""
+    return graphs.to_device([torch.from_numpy(np.asarray(a, np.int64)) for a in arrays], device)
 
 
 class DispatchStage:
@@ -116,6 +121,8 @@ class DispatchStage:
         # dispatch (they stay in ctx.active until it fires).
         self._staged_small: list[Area] = []
         self._staged_huge: list[Area] = []
+        if self._mode == "megastep" and ctx.cfg.warm_dispatch:
+            self._warm_megastep()
 
     # -- the per-tick scheduling loop --------------------------------------
 
@@ -473,6 +480,59 @@ class DispatchStage:
 
     # -- megastep dispatch (one program per tick) ---------------------------
 
+    def _warm_megastep(self) -> None:
+        """Compile the steady-state megastep variants ahead of time.
+
+        The budget-floored shared bucket fixes every steady-state operand
+        shape before any workload runs, so the drain-loop signatures —
+        ``(begin, copy)`` on opening ticks, ``(commit, begin, copy)`` at
+        steady state, ``(commit,)`` on the tail, each with the heat phase
+        under tiering, and the run-copy and group-commit shapes of a
+        two-tier pool — are captured when the driver is built, the same
+        signatures the JAX package compiles.  A capture runs nothing, so no
+        operand needs a value.  Runs before the driver's jit-miss baseline,
+        so warmed variants never count as misses.
+        """
+        ctx = self.ctx
+        G = ctx.pool_cfg.huge_factor
+        B = self._megastep_bucket(0)
+        gb = self._huge_bucket(0)
+        signatures = [("commit",), ("begin", "copy"), ("commit", "begin", "copy")]
+        if ctx.heat is not None:
+            signatures += [("heat",), ("commit", "heat"), ("begin", "copy", "heat"),
+                           ("commit", "begin", "copy", "heat")]
+        if G > 1:
+            signatures += [("groups",), ("begin", "runs"), ("groups", "begin", "runs"),
+                           ("groups", "begin", "copy")]
+        lanes = {"commit": (B,) * 3, "groups": (gb * G, gb, gb), "begin": (B,), "zero": (0,),
+                 "force": (0,) * 3, "copy": (B,) * 2, "runs": (gb,) * 2, "heat": (B,)}
+        for sig in signatures:
+            lengths = [n if phase in sig else 0 for phase, ns in lanes.items() for n in ns]
+            operands = [torch.zeros(n, dtype=torch.int64) for n in lengths]
+            operands.append(torch.zeros(lengths[-1], dtype=torch.float32))
+            heat = ctx.heat if "heat" in sig else torch.zeros(0, dtype=torch.float32)
+            migrator.warm_megastep(ctx.state, *operands, heat=heat, group=G,
+                                   impl=ctx.cfg.copy_impl, heat_decay=ctx.cfg.tier_heat_decay)
+
+    def _megastep_bucket(self, *lengths: int) -> int:
+        """Shared bucket for every per-block megastep operand.
+
+        Floored at the steady-state tick budget so a drain's every tick —
+        and every retry-storm tick, whose fragmented batches are no longer
+        than the budget — rounds up to the SAME bucket: after warmup one
+        variant serves the whole run.
+        """
+        ctx = self.ctx
+        floor = max(1, min(ctx.cfg.budget_blocks_per_tick, len(ctx.table)))
+        return bucket_size(max(max(lengths), floor), ctx.cfg.bucket_growth)
+
+    def _huge_bucket(self, n: int) -> int:
+        """Bucket of the huge-tier operands (group commits, run copies),
+        floored at the tick's huge capacity, budget / G groups."""
+        ctx = self.ctx
+        floor = max(1, ctx.cfg.budget_blocks_per_tick // ctx.pool_cfg.huge_factor)
+        return bucket_size(max(n, floor), ctx.cfg.bucket_growth)
+
     def _dispatch_megastep(
         self,
         opened: list[Area],
@@ -483,9 +543,11 @@ class DispatchStage:
     ) -> None:
         """Assemble and fire the tick's single device program.
 
-        Every operand has its real length; an EMPTY phase ships a
-        shape-``(0,)`` operand and the megastep skips it.  An idle tick —
-        nothing staged, nothing scheduled — dispatches nothing at all.
+        An EMPTY phase ships a shape-``(0,)`` operand and is left out of the
+        program.  A NONEMPTY phase pads to its bucket by replicating lane 0
+        (see the module docstring); the host slices verdicts by their real
+        offsets.  An idle tick — nothing staged, nothing scheduled —
+        dispatches nothing at all.
         """
         ctx = self.ctx
         small, huge = self._staged_small, self._staged_huge
@@ -505,32 +567,34 @@ class DispatchStage:
         S = ctx.pool_cfg.slots_per_region
         G = ctx.pool_cfg.huge_factor
         offsets = np.cumsum([0] + [len(a) for a in small])
-        zero_flat = _cat([a.dst_region * S + a.dst_slots.astype(np.int64) for a in zeros])
-        dev = ctx.state.device
-        operands = to_device(
-            [
-                *_entries(small),
-                *_group_entries(huge),
-                _cat([a.block_ids for a in opened]),
-                zero_flat,
-                *_entries(forced),
-                *self._copy_flat(plan),
-                *self._run_flat(run_plan),
-                heat_ids,
-            ],
-            dev,
-        )
+        commit, force, copy = _entries(small), _entries(forced), self._copy_flat(plan)
+        begin = (_cat([a.block_ids for a in opened]),)
+        zero = (_cat([a.dst_region * S + a.dst_slots.astype(np.int64) for a in zeros]),)
+        B = self._megastep_bucket(*(len(p[0]) for p in (commit, begin, zero, force, copy)))
+        commit, begin, zero, force, copy = (_pad(B, *p) for p in (commit, begin, zero, force, copy))
+        groups = _group_entries(huge)
+        if huge:  # a huge group pads as a whole: lane 0's G members, region and start
+            kb = self._huge_bucket(len(huge))
+            members = groups[0].reshape(len(huge), G)
+            members = np.concatenate([members, np.repeat(members[:1], kb - len(huge), 0)])
+            groups = (members.reshape(-1), *pad_to_bucket(kb, *groups[1:]))
+        runs = _pad(self._huge_bucket(len(run_plan)), *self._run_flat(run_plan))
         if len(heat_ids):
-            heat_in = ctx.heat
-            heat_w_in = host_to_device(torch.from_numpy(heat_w), dev)
+            hb = self._megastep_bucket(len(heat_ids))
+            heat_w = np.concatenate([heat_w, np.zeros(hb - len(heat_w), np.float32)])
+            (heat_ids,), heat_in = pad_to_bucket(hb, heat_ids), ctx.heat
         else:
-            heat_in = heat_w_in = torch.zeros(0, dtype=torch.float32, device=dev)
+            heat_in = torch.zeros(0, dtype=torch.float32)
+        operands = [
+            torch.from_numpy(np.asarray(a, np.int64))
+            for a in (*commit, *groups, *begin, *zero, *force, *copy, *runs, heat_ids)
+        ]
         ctx.state, verdict_small, verdict_groups, _ = migrator.megastep(
             ctx.state,
             *operands[:15],
             heat_in,
             operands[15],
-            heat_w_in,
+            torch.from_numpy(heat_w),
             group=G,
             impl=ctx.cfg.copy_impl,
             heat_decay=ctx.cfg.tier_heat_decay,

@@ -41,16 +41,36 @@ def decode_splits(maxb: int, blk: int) -> int:
 
 
 # per (device, stream): an int32 ticket per (sequence, kv head), zero
-# between launches (the kernel returns each to zero), grown on demand
+# between launches (the kernel returns each to zero), grown on demand.  A
+# buffer that a captured graph may have baked in is never freed: a grown
+# one's predecessor stays in _retired.
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []
 
 
-def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+def reserve_tickets(device: torch.device, stream: int, n: int) -> None:
+    """Make the ticket buffer of ``(device, stream)`` hold ``n`` tickets.
+
+    Call it before capturing launches on ``stream``: an allocation inside a
+    capture would come from that graph's private pool.
+    """
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[key] = buf
+        if buf is not None:
+            _retired.append(buf)
+        _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _tickets.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged decode captured with fewer than {n} tickets reserved on its stream; "
+                "call reserve_tickets before the capture")
+        reserve_tickets(device, stream, n)
+        buf = _tickets[(device.index, stream)]
     return buf
 
 

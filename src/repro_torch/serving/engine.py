@@ -9,6 +9,10 @@ The decode hot loop goes through ``repro_torch.kernels.ops.paged_decode_partial`
 the hand-written CUDA kernel on the card, its plain version on the CPU.  Each
 layer hands the kernel a strided view of its own slice of every slot, and
 the new token's K/V is written into the pool in place through that view.
+A decode step is one program per batch size, as the JAX package compiles
+one per batch size: on the card one captured CUDA graph, replayed every
+step after its block tables, lengths and tokens are copied into its static
+inputs (see :mod:`repro_torch.core.graphs`); on the CPU it runs eagerly.
 Supported stacks: uniform global-attention patterns, each layer's FFN dense
 (``attn``) or a mixture of experts (``moe``).
 
@@ -24,9 +28,9 @@ import torch
 
 from repro_torch.api import LeapHandle, Move
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import LeapConfig, MigrationDriver, PoolConfig, init_state
+from repro_torch.core import LeapConfig, MigrationDriver, PoolConfig, graphs, init_state
 from repro_torch.core.state import REGION, SLOT, _default_device, host_to_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, paged_attn
 from repro_torch.models.attention import _project_qkv
 from repro_torch.models.blocks import ffn_forward
 from repro_torch.models.common import rms_norm, rope_cos_sin
@@ -139,6 +143,18 @@ class PagedEngine:
         self.seqs: dict[int, Sequence] = {}
         self._next_sid = 0
         self.last_logits: torch.Tensor | None = None  # the latest decode step's [B, V]
+        # The decode step: one variant per decode batch size (on the card one
+        # captured graph; the prefill has set cuBLAS up by then).  Callers
+        # that vary the batch size should chunk it to powers of two
+        # (repro_torch.load does) to bound the variant count.
+        self._decode_step = graphs.Program("decode_step")
+        self._decode_shapes: set[int] = set()  # observed decode batch sizes
+        if self.device.type == "cuda":
+            # the paged-decode kernel's tickets for every batch this pool can
+            # hold (a sequence holds at least one page), outside any graph
+            paged_attn.reserve_tickets(self.device,
+                                       graphs.capture_stream(self.device).cuda_stream,
+                                       n_blocks * cfg.n_kv_heads)
         # sid -> the handle of its latest rebalance (latency attribution)
         self._rebalance_handles: dict[int, LeapHandle] = {}
         # Per-tenant serving metrics (see telemetry()).
@@ -241,8 +257,7 @@ class PagedEngine:
     # -- decode -------------------------------------------------------------------
 
     def _tables(self, sids):
-        """Block tables and lengths built on the host, sent in pinned,
-        non-blocking copies."""
+        """Block tables ``[B, MAXB]`` and lengths ``[B]``, int32 on the host."""
         maxb = self.pcfg.max_blocks_per_seq
         tab = np.zeros((len(sids), maxb), np.int32)
         lens = np.zeros((len(sids),), np.int32)
@@ -250,10 +265,7 @@ class PagedEngine:
             seq = self.seqs[sid]
             tab[i, : len(seq.block_ids)] = seq.block_ids
             lens[i] = seq.length
-        return (
-            host_to_device(torch.from_numpy(tab), self.device),
-            host_to_device(torch.from_numpy(lens), self.device),
-        )
+        return tab, lens
 
     @torch.no_grad()
     def decode(self, sids: list[int], greedy: bool = True) -> list[int]:
@@ -275,10 +287,16 @@ class PagedEngine:
                 np.concatenate([np.asarray(self.seqs[s].block_ids, np.int32) for s in sids])
             )
         toks = np.asarray([[self.seqs[s].tokens[-1]] for s in sids], np.int64)
-        toks = host_to_device(torch.from_numpy(toks), self.device)
-        logits = _paged_step(self.model, self.driver.state, tables, lens, toks, self.cfg, blk)
-        self.last_logits = logits
-        out = torch.argmax(logits, -1).cpu().tolist()
+        self._decode_shapes.add(len(sids))
+        state, model, cfg = self.driver.state, self.model, self.cfg
+        logits = self._decode_step(
+            len(sids),
+            lambda t, le, k: _paged_step(model, state, t, le, k, cfg, blk),
+            [torch.from_numpy(a) for a in (tables, lens, toks)],
+            [state.pool, state.table, state.dirty, state.in_flight],
+        )
+        self.last_logits = logits.clone()  # a replay's logits are the graph's own
+        out = torch.argmax(self.last_logits, -1).cpu().tolist()
         for i, sid in enumerate(sids):
             seq = self.seqs[sid]
             seq.tokens.append(int(out[i]))

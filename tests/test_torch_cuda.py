@@ -894,3 +894,180 @@ def test_reduced_xlstm_on_the_card_like_the_cpu(cuda, s, monkeypatch):
         assert torch.equal(g[0].argmax(-1).cpu(), tok[:, 0])
         g = lm.decode_step(gpu_model, g[1], tok.to(cuda), pos, cfg)
         c = lm.decode_step(cpu_model, c[1], tok, pos, cfg)
+
+
+# -- captured programs: the megastep and the decode step as CUDA graphs ------------
+
+
+def _graph_drain(dev, huge, capture):
+    """A seeded drain under writes and reads, blocking harvest, with the sync
+    debug mode raising on every tick (captures included: they wait for
+    nothing); returns the driver and the megastep's captures, replays and
+    the kernels' launches during the drain."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.core import graphs, migrator
+
+    drv, data = _driver(dev, 256, 320, np.zeros(256, np.int32), dict(
+        initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+        tiering=True), huge=huge)
+    if huge > 1:
+        assert drv.adopt_huge(np.arange(256 // huge)) == 256 // huge
+    prog = migrator.MEGASTEP
+    before = (prog.captures, prog.replays, leap_copy.copy_blocks.launches,
+              leap_copy.copy_runs.launches, heat_scan.heat_scan.launches)
+    s = drv.default_session()
+    s.leap(np.arange(256), 1)
+    gen = torch.Generator().manual_seed(1)
+    with contextlib.nullcontext() if capture else graphs.disable_capture():
+        while not drv.done:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                s.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            s.poll(block=True)
+            ids = torch.randperm(256, generator=gen)[:12]
+            drv.write(ids, torch.randn((12, 2, 64), generator=gen).to(dev))
+            drv.read(torch.randperm(256, generator=gen)[:8])
+        assert s.drain()
+    after = (prog.captures, prog.replays, leap_copy.copy_blocks.launches,
+             leap_copy.copy_runs.launches, heat_scan.heat_scan.launches)
+    return drv, [b - a for a, b in zip(before, after)]
+
+
+@pytest.mark.parametrize("huge", [1, 4])
+def test_graphed_megastep_drain_matches_eager(cuda, huge):
+    """Every megastep of the drain is one graph replay; pool, table, flags
+    and heat equal the eager drain's bit for bit, and the kernels' launch
+    counters advance by the same counts."""
+    import numpy as np
+
+    g, (captures, replays, *g_launches) = _graph_drain(cuda, huge, True)
+    e, (e_captures, e_replays, *e_launches) = _graph_drain(cuda, huge, False)
+    assert replays == g.stats.dispatches == g.stats.ticks > 0 and 0 < captures <= replays
+    assert e_captures == e_replays == 0
+    for a, b in zip(g.state.to_numpy(), e.state.to_numpy()):
+        assert (a == b).all()
+    assert np.array_equal(g.heat_snapshot(), e.heat_snapshot())
+    assert g_launches == e_launches and g_launches[1 if huge > 1 else 0] > 0
+    assert g.stats.dirty_rejections == e.stats.dirty_rejections > 0
+
+
+def test_graphed_verdict_survives_the_next_replay(cuda):
+    """A verdict of one replay, in its ``VerdictFuture``, is unchanged after
+    the next replay of the same graph reuses the static buffers."""
+    import numpy as np
+
+    from repro_torch.core import LeapState, migrator
+    from repro_torch.core.queues import VerdictFuture
+
+    state = LeapState.from_numpy(
+        np.zeros((2, 16, 4), np.float32), np.stack([np.zeros(8), np.arange(8)], 1).astype(np.int32),
+        np.zeros(8, bool), np.ones(8, bool), cuda)
+    empty, ids = torch.zeros(0, dtype=torch.int64), torch.arange(4)
+    replays = migrator.MEGASTEP.replays
+    futures = []
+    for dirty in ([0, 2], [1, 3], [0, 1, 2, 3]):
+        state.dirty.zero_()
+        state.dirty[torch.tensor(dirty, device=cuda)] = True
+        _, verdict, _, _ = migrator.megastep(
+            state, ids, torch.ones(4, dtype=torch.int64), ids + 8, *([empty] * 12),
+            torch.zeros(0), empty, torch.zeros(0))
+        futures.append(VerdictFuture(verdict))
+    assert migrator.MEGASTEP.replays == replays + 3
+    assert [f.result().tolist() for f in futures] == [
+        [True, False, True, False], [False, True, False, True], [True] * 4]
+
+
+def test_failed_capture_raises_and_the_next_capture_works(cuda):
+    """A program that makes the host wait cannot be captured: the call
+    raises, nothing runs eagerly in its place, and a later capture works."""
+    from repro_torch.core import graphs
+
+    x = torch.zeros(4, device=cuda)
+    prog = graphs.Program("probe")
+
+    def waits(v):
+        x.add_(v)
+        return x.sum().item()  # a device-to-host copy: not capturable
+
+    with pytest.raises(RuntimeError):
+        prog("k", waits, [torch.ones(4)], [x])
+    torch.cuda.synchronize()
+    assert prog.captures == prog.replays == 0 and (x == 0).all()
+    out = prog("k2", lambda v: x.add_(v).sum(), [torch.ones(4)], [x])
+    out = prog("k2", lambda v: x.add_(v).sum(), [torch.full((4,), 2.0)], [x])
+    assert float(out) == 12.0 and prog.captures == 1 and prog.replays == 2
+
+
+def test_graph_captures_again_over_other_tensors(cuda):
+    """Two drivers over equal shapes: the second registers no variant (no
+    miss, as in the JAX package) but captures its own graphs, and each
+    drain reads back what was written."""
+    import numpy as np
+
+    from repro_torch.core import migrator
+
+    runs = []
+    for _ in range(2):
+        drv, data = _driver(cuda, 64, 128, np.zeros(64, np.int32), dict(initial_area_blocks=8))
+        variants, captures = len(migrator.MEGASTEP), migrator.MEGASTEP.captures
+        s = drv.default_session()
+        s.leap(np.arange(64), 1)
+        assert s.drain()
+        assert torch.equal(drv.read(torch.arange(64), note=False).cpu(), data)
+        runs.append((len(migrator.MEGASTEP) - variants, migrator.MEGASTEP.captures - captures,
+                     drv.stats.jit_cache_misses))
+        del drv
+    (v1, c1, m1), (v2, c2, m2) = runs
+    assert v1 == m1 and v2 == m2 == 0 and c2 >= 1
+
+
+def test_graphed_decode_matches_eager(cuda, monkeypatch):
+    """The reduced two-layer granite (f32, TF32 off) under a live rebalance:
+    every decode step is one replay of its batch size's graph, and tokens,
+    last logits, pool and flags equal the eager engine's bit for bit, with
+    one paged-decode launch per layer and step either way."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.core import LeapConfig, graphs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import PagedConfig, PagedEngine
+
+    _no_tf32(monkeypatch)
+    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    model = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 12)]
+    pcfg = PagedConfig(block_tokens=4, max_blocks_per_seq=16, n_regions=2, slots_per_region=64,
+                       leap=LeapConfig(initial_area_blocks=2, budget_blocks_per_tick=2,
+                                       tiering=True))
+    out = {}
+    for capture in (True, False):
+        eng = PagedEngine(cfg, model, pcfg, device=cuda)
+        sids = [eng.admit(p, region=0) for p in prompts]
+        eng.rebalance(sids[0], dst_region=1)
+        before = paged_attn.paged_decode.launches
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            for k in (3, 3, 2, 3, 3, 2):
+                eng.tick()
+                eng.session.poll(block=True)
+                eng.decode(sids[:k])
+            assert eng.drain()
+        assert paged_attn.paged_decode.launches - before == 6 * cfg.n_layers
+        prog = eng._decode_step
+        assert (prog.replays, prog.captures, len(prog)) == ((6, 2, 2) if capture else (0, 0, 0))
+        out[capture] = ([eng.seqs[s].tokens for s in sids], eng.last_logits,
+                        eng.driver.state.to_numpy())
+    (gt, gl, gs), (et, el, es) = out[True], out[False]
+    assert gt == et and torch.equal(gl, el)
+    for a, b in zip(gs, es):
+        assert (a == b).all()

@@ -213,7 +213,8 @@ def _telemetry_drain(P):
     view = sess.telemetry()
     trace = view.chrome_trace()
     (TO if P.torch else JO).validate_chrome_trace(trace)
-    # the port compiles nothing, so it has no jit-miss events (ROADMAP D1)
+    # jit-miss events depend on what the process compiled before (both
+    # packages' caches are process-wide); test_torch_graphs.py holds them
     events = [(e["kind"], e["name"]) for e in view.events() if e["kind"] != "jit"]
     spans = [{k: v for k, v in dataclasses.asdict(s).items() if not k.endswith("_ts")}
              for s in view.request_spans()]  # all but wall-clock stamps

@@ -27,7 +27,6 @@ from repro.kernels.heat_scan import heat_scan_pallas  # noqa: E402
 from repro.kernels.heat_scan import padded_heat_len as jpadded  # noqa: E402
 from repro.tiering import TieringConfig as JTieringConfig  # noqa: E402
 from repro.tiering import TieringPolicy as JTieringPolicy  # noqa: E402
-from repro_torch.core import migrator as tmig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.heat_scan import padded_heat_len  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
@@ -191,10 +190,10 @@ def _warm_path(P):
 
 
 def test_heat_warm_path_does_not_recompile():
-    """The port compiles nothing (its cache sizes and jit misses stay 0);
-    the warm drain itself must match the reference's."""
+    """A second drain over the same shapes adds no megastep variant and no
+    jit miss in either package; the warm drain itself must match the
+    reference's."""
     both(_warm_path)
-    assert tmig.program_cache_size() == 0
 
 
 def _heat_flush(P):
