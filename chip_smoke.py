@@ -20,7 +20,9 @@ printed):
    variants captured as CUDA graphs when the driver is built; the misses
    are printed); every write is mirrored into a device-side shadow.  Every
    megastep is one graph replay, and no tick may make the host wait for the
-   card (sync debug mode raises), a capturing one included.
+   card (sync debug mode raises), a capturing one included.  The captured
+   graphs' memory pools, while the driver lives, stay within 1 GiB
+   (printed; so after phases 4, 13, 16 and 35's drains).
 4. The same drain on a two-tier pool (2 MiB huge blocks).
 5. A small drain run twice, on the card (kernels) and on the CPU (plain
    versions), which must agree bit for bit (heat within 1e-6); the CPU
@@ -82,8 +84,9 @@ printed):
    over the one card, 131,072 blocks of 64 KiB (8 GiB) in 40,960 slots a
    region (a 10 GiB pool), 32,768 starting in each region and all leaping to
    the next region at once, through the batched generation (one
-   ``fused_copy_ppermute`` per region pair a tick), under 64 writes and 64
-   reads a tick; the checks of phase 3, gather and scatter launches equal,
+   ``fused_copy_ppermute`` per region pair a tick, each program one graph
+   replay), under 64 writes and 64 reads a tick; the checks of phase 3,
+   gather and scatter launches equal,
    and the gather's launches, mean lanes a launch and their lane counts in
    bins.
 14. A small ppermute drain on the card and on the CPU: bit for bit as in
@@ -102,7 +105,9 @@ printed):
    call while a live leap holds the first 4,096 blocks; its ``failed`` set
    must be exactly the busy set); and 64 ``AutoBalancer.scan_driver`` scans.
    No lost write in any arm; each records blocks moved, bytes copied and
-   touched, dispatches a tick and wall time.
+   touched, programs a tick (each one graph replay) and wall time.  The
+   resharder's captured force phases launch K1 (from the launch counts
+   their captures recorded), and its graphs' pools stay within 1 GiB.
 17. The tiering loop (fig11's shape): ``cxl_pooled(2, 1)``, 2 MiB huge
    blocks, 131,072 blocks of 64 KiB, half far; a working set of 512 far
    blocks read every tick rotates to 512 others at tick 80 of 160, with 64
@@ -237,24 +242,36 @@ printed):
    launched: a second K5 row in the kernels line, whose launches are phase
    34's (the first row's are phases 1-33's).
 35. Captured programs against eager launches (``graphs.disable_capture``):
-   phases 3 and 4's drains with blocking harvest, once eager and once
-   graphed (pools, tables, flags and heat bit-identical, the same stats and
-   kernel launch counts, one replay a megastep; ticks, replays, captures and
-   host ms a tick printed), and phase 7's deployment undisturbed eager,
-   undisturbed graphed and live graphed (tokens and last logits
-   bit-identical; decode step ms printed).
+   phases 3 and 4's drains, phase 3's pool under the batched generation and
+   under the contest's legacy arm (``chunk_blocks`` 16), and phase 13's
+   ppermute drain, each with blocking harvest, once eager and once graphed
+   (pools, tables, flags and heat bit-identical, the same stats and kernel
+   launch counts, one replay a program; ticks, programs a tick, replays,
+   captures, misses, host ms a tick, drain seconds and graph-pool GiB
+   printed), and phase 7's deployment undisturbed eager, undisturbed
+   graphed and live graphed (tokens and last logits bit-identical; decode
+   step ms printed).
+36. The four torch examples (``examples/*_torch.py``), each once on the
+   card at its own defaults (each asserts its own result; train_e2e's loss
+   must fall), then qwen2_7b at full width and depth (28 layers, bf16,
+   random weights from seed 0) through ``repro_torch.launch.serve.main``
+   with ``--rebalance``: 8 requests of 512 tokens, 32 decode steps (one
+   graph replay each, K4 at G = 7 once per layer and step), the decode
+   step's median ms printed; then K4 at that decode shape against its plain
+   version, timed beside its bound and the library call: the
+   ``paged_decode_g7`` row of the kernels line.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
 ``{"recurrent": ...}`` line, the ``{"contenders": ...}`` line (phases
 16-19), the ``{"chaos": ...}`` line (phases 20-22), the ``{"moe": ...}``
-line (phases 23-25 and the wall seconds of phases 23-35), the
+line (phases 23-25 and the wall seconds of phases 23-36), the
 ``{"training": ...}`` line (phases 27-29), the ``{"models": ...}`` line
 (phases 31-33), the ``{"dryrun": ...}`` line (phase 34), the
-``{"graphs_against_eager": ...}`` line (phase 35), and last
-``{"ok": true, "device": {...}}``.  Every time and size of phases 12 (the
-rounds), 27 (the MFU) and 30-34 is printed with the card's name and power
-limit beside it.
+``{"graphs_against_eager": ...}`` line (phase 35), the ``{"examples": ...}``
+line (phase 36), and last ``{"ok": true, "device": {...}}``.  Every time
+and size of phases 12 (the rounds), 16, 27 (the MFU) and 30-36 is printed
+with the card's name and power limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -266,6 +283,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import importlib.util
 import itertools
 import json
 import statistics
@@ -311,6 +329,7 @@ from repro_torch.data import tpch  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.data.morsels import MorselStore  # noqa: E402
 from repro_torch.distributed.fault import drain_region  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     heat_scan,
@@ -450,6 +469,17 @@ DRYRUN_ARG_TOL = 0.01  # argument bytes, meta against the allocator (which round
 # the profiled step's device ms over the median unprofiled step: tracing
 # lengthens each kernel a little (granite's 32k prefill read 1.0% over)
 DRYRUN_TRACE_TOL = 0.05
+# captured graphs' private memory pools a drain may leave reserved while its
+# driver lives (phases 3, 4, 13, 16 and 35)
+GRAPH_POOL_LIMIT_GIB = 1.0
+# phase 36: qwen2_7b at full width and depth through repro_torch.launch.serve
+# (28 layers, about 7.6 B bf16 parameters), 8 requests of 512 tokens, 32
+# decode steps while request 0's KV pages leap to the other region
+QWEN_SERVE = dict(arch="qwen2_7b", requests=8, prompt_len=512, tokens=32)
+# K4 at qwen2_7b's decode shape (G 7): launch.serve's pool (pages of 4
+# tokens, 138 a sequence, 1,380 slots a region over 2 regions), the lens of
+# the middle decode step
+PAGED_QWEN = dict(b=8, h=28, kvh=4, hd=128, blk=4, maxb=138, layers=28, layer=14, slots=2760)
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
 # phase 12: K6a's lane counts (either side of the H100's 132 SMs, one drain
 # area and a tick's budget) and its slots: a ragged last tile, 240 and 512 B
@@ -518,6 +548,7 @@ def launch_counts() -> dict[str, int]:
         "heat_scan": heat_scan.heat_scan.launches,
         "paged_decode": paged_attn.paged_decode.launches,
         "paged_decode_hd192": paged_attn.paged_decode.launches_by_head_dim.get(192, 0),
+        "paged_decode_g7": paged_attn.paged_decode.launches_by_group.get(7, 0),
         "lru_scan": lru_scan.lru_scan.launches,
         "lru_scan_bwd": lru_scan.lru_scan_bwd.launches,
         "gather_blocks": leap_copy.gather_blocks.launches,
@@ -558,6 +589,21 @@ def release() -> None:
     print(f"released: {pools} captured graphs' memory pools left, {gib:.3f} GiB")
 
 
+def program_counts() -> tuple[int, int]:
+    """Graphs captured and replayed so far over every migration program."""
+    progs = migrator.PROGRAMS.values()
+    return sum(p.captures for p in progs), sum(p.replays for p in progs)
+
+
+def check_graph_memory(what: str) -> float:
+    """The GiB the live captured graphs' pools reserve, checked against the
+    limit and printed."""
+    pools, gib = graph_memory()
+    print(f"{what}: {pools} captured graphs' memory pools, {gib:.3f} GiB [{card()}]")
+    check(gib <= GRAPH_POOL_LIMIT_GIB, f"{what}: graph pools within {GRAPH_POOL_LIMIT_GIB} GiB")
+    return gib
+
+
 def graph_memory() -> tuple[int, float]:
     """The private memory pools of the live captured graphs, and the GiB
     they reserve."""
@@ -576,6 +622,7 @@ def reset_launch_counts() -> None:
     heat_scan.heat_scan.launches = 0
     paged_attn.paged_decode.launches = 0
     paged_attn.paged_decode.launches_by_head_dim.clear()
+    paged_attn.paged_decode.launches_by_group.clear()
     lru_scan.lru_scan.launches = 0
     lru_scan.lru_scan_bwd.launches = 0
     leap_copy.gather_blocks.launches = 0
@@ -1031,17 +1078,19 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
         kw = dict(cfg_kw=PP_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
     tap = LaneTap()
     reset_launch_counts()
-    prog = (migrator.MEGASTEP.captures, migrator.MEGASTEP.replays)
+    prog = program_counts()
     with tap if ppermute else contextlib.nullcontext():
         drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
     lanes = leap_copy.gather_blocks.lanes
     out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
-    out.update(captures=migrator.MEGASTEP.captures - prog[0],
-               replays=migrator.MEGASTEP.replays - prog[1],
-               jit_cache_misses=drv.stats.jit_cache_misses)
-    check(out["replays"] == (0 if ppermute else drv.stats.dispatches),
-          "every megastep of the drain was one graph replay")
+    now = program_counts()
+    out.update(captures=now[0] - prog[0], replays=now[1] - prog[1],
+               jit_cache_misses=drv.stats.jit_cache_misses,
+               graph_pool_gib=check_graph_memory(
+                   f"drain huge_factor={huge_factor} backend={drv.cfg.backend}"))
+    check(out["replays"] == drv.stats.dispatches,
+          "every program of the drain was one graph replay")
     if ppermute:
         check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
               "every point-to-point copy gathered and scattered once")
@@ -1069,27 +1118,26 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
 
 
 class LaneTap:
-    """While active, wraps ``ops.gather_blocks_impl`` (the ppermute program's
-    pack) to keep each call's lane count, read on the host from the ids'
-    shape."""
+    """While active, wraps ``migrator.fused_copy_ppermute`` (one gather and
+    one scatter launch a call, captured or not) to keep each call's lane
+    count, pad lanes included, read on the host from the ids' shape."""
 
     BINS = ((1, 128), (129, 255), (256, 256), (257, 511), (512, 1023), (1024, None))
 
     def __init__(self):
         self.lanes: list[int] = []
-        self._gather = ops.gather_blocks_impl
+        self._copy = migrator.fused_copy_ppermute
 
     def __enter__(self):
-        ops.gather_blocks_impl = self._tap
+        migrator.fused_copy_ppermute = self._tap
         return self
 
     def __exit__(self, *exc):
-        ops.gather_blocks_impl = self._gather
+        migrator.fused_copy_ppermute = self._copy
 
-    def _tap(self, pool, idx, **kw):
-        if idx.shape[0]:
-            self.lanes.append(idx.shape[0])
-        return self._gather(pool, idx, **kw)
+    def _tap(self, state, src_slots, *args, **kw):
+        self.lanes.append(src_slots.shape[0])
+        return self._copy(state, src_slots, *args, **kw)
 
     def bins(self) -> dict[str, int]:
         label = {(lo, hi): str(lo) if hi == lo else f"{lo}+" if hi is None else f"{lo}-{hi}"
@@ -1218,10 +1266,14 @@ def contest(dev) -> dict:
                                                chunk_blocks=16))):
         release()
         reset_launch_counts()
+        prog = program_counts()
         drv, shadow, handles, times = drain(dev, N_BLOCKS, SLOTS, BLOCK, 1, SEED + 3, cfg_kw=kw)
         launches = launch_counts()
         check_drain(drv, shadow, handles, huge=False)
-        arms[name] = arm_record(drv, times["seconds"], N_BLOCKS, 0, launches)
+        replays = program_counts()[1] - prog[1]
+        check(replays == drv.stats.dispatches, f"contest {name}: one graph replay a program")
+        arms[name] = dict(arm_record(drv, times["seconds"], N_BLOCKS, 0, launches),
+                          replays=replays, graph_pool_gib=check_graph_memory(f"contest {name}"))
         del drv, shadow
 
     # move_pages(): one blocking call; the application's writes stop while it
@@ -1238,9 +1290,12 @@ def contest(dev) -> dict:
         io.step(drv)
     ids = np.arange(N_BLOCKS)
     busy = np.nonzero(busy_mask(drv.state, ids).cpu().numpy() | drv.in_migration(ids))[0]
+    k1 = leap_copy.copy_blocks.launches
     t1 = time.perf_counter()
     res = SyncResharder(pc).migrate_driver(drv, ids, 1)
     call_s = time.perf_counter() - t1
+    k1 = leap_copy.copy_blocks.launches - k1
+    check(force_launches_k1(drv.state), "SyncResharder's force phase moved its payload through K1")
     check(np.array_equal(res.failed, busy) and len(busy) > 0,
           "SyncResharder failed exactly the busy set it saw")
     check(len(res.migrated) + len(res.failed) == N_BLOCKS, "and moved every other block")
@@ -1258,7 +1313,8 @@ def contest(dev) -> dict:
         arm_record(drv, seconds, len(res.migrated), res.bytes_touched - res.bytes_copied,
                    launches), call_s=call_s,
         failed=len(res.failed), bytes_copied_call=res.bytes_copied,
-        bytes_touched_call=res.bytes_touched)
+        bytes_touched_call=res.bytes_touched, call_k1_launches=k1,
+        graph_pool_gib=check_graph_memory("contest sync_resharder"))
     del drv, io
 
     # auto-NUMA: a fixed number of scans; each sees one tick's writes and
@@ -1287,9 +1343,30 @@ def contest(dev) -> dict:
     for name, a in arms.items():
         print(f"contest {name}: {a['blocks_moved']} blocks moved in {a['seconds']:.3f} s, "
               f"{a['bytes_copied']} B copied, {a['bytes_touched']} B touched, "
-              f"{a['dispatches_per_tick']:.2f} dispatches a tick over {a['ticks']} ticks, "
-              f"{a['dirty_rejections']} rejections, launches {a['launches']}")
+              f"{a['dispatches_per_tick']:.2f} programs a tick over {a['ticks']} ticks "
+              f"(graphed), {a['dirty_rejections']} rejections, launches {a['launches']} "
+              f"[{card()}]")
+    sync = arms["sync_resharder"]
+    print(f"contest sync_resharder call: {sync['call_s']:.3f} s, K1 {sync['call_k1_launches']} "
+          f"launches for {sync['blocks_moved']} forced blocks, graph pools "
+          f"{sync['graph_pool_gib']:.3f} GiB [{card()}]")
     return arms
+
+
+def force_launches_k1(state) -> bool:
+    """Whether every captured megastep over ``state`` with a force phase
+    launches K1 once for it (and once more for its copy phase), from the
+    launch counts its capture recorded; and at least one such graph exists."""
+    n = 0
+    for key, graphs_ in migrator.MEGASTEP._variants.items():
+        lengths = key[0]  # the operands' lengths: force_ids at index 8, copy_src at 11
+        for binding, graph in graphs_.items():
+            if lengths[8] and binding[0][0] == state.pool.data_ptr():
+                n += 1
+                want = 1 + bool(lengths[11])
+                if graph.delta.get((leap_copy.copy_blocks, "launches"), 0) != want:
+                    return False
+    return n > 0
 
 
 def tiering_loop(dev) -> dict:
@@ -3190,35 +3267,54 @@ def lru_scan_dryrun_check(dev) -> dict:
 # -- phase 35: captured programs against eager launches -------------------------------
 
 
-def graphed_drain_run(dev, huge_factor: int, capture: bool) -> tuple:
-    """Phase 3's (or 4's) drain with blocking harvest, so that the schedule
+# phase 35's drains: phases 3 and 4 (megastep), phase 3's pool under the
+# batched generation and under the contest's legacy arm, and phase 13's
+# ppermute drain: (huge_factor, LeapConfig, ppermute)
+GRAPHED_DRAINS = {
+    "small": (1, dict(DRAIN_CFG, warm_dispatch=True), False),
+    "huge": (HUGE, dict(DRAIN_CFG, warm_dispatch=True), False),
+    "batched": (1, dict(DRAIN_CFG, fused_dispatch="batched"), False),
+    "legacy": (1, dict(DRAIN_CFG, fused_dispatch="legacy", chunk_blocks=16), False),
+    "ppermute": (1, PP_CFG, True),
+}
+
+
+def graphed_drain_run(dev, name: str, capture: bool) -> tuple:
+    """One of phase 35's drains with blocking harvest, so that the schedule
     does not depend on timing, captured or eager; returns the driver and
     its record."""
     release()
     reset_launch_counts()
-    prog = (migrator.MEGASTEP.captures, migrator.MEGASTEP.replays)
+    huge_factor, cfg_kw, ppermute = GRAPHED_DRAINS[name]
+    kw = dict(cfg_kw=cfg_kw)
+    slots, seed = SLOTS, SEED + huge_factor
+    if ppermute:
+        slots, seed = PP_SLOTS, SEED + 2
+        kw.update(n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
+    prog = program_counts()
     with contextlib.nullcontext() if capture else graphs.disable_capture():
-        drv, shadow, handles, times = drain(
-            dev, N_BLOCKS, SLOTS, BLOCK, huge_factor, SEED + huge_factor,
-            cfg_kw=dict(DRAIN_CFG, warm_dispatch=True), blocking=True)
+        drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed,
+                                            blocking=True, **kw)
     launches = launch_counts()
     out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
     del shadow
+    now = program_counts()
     out.update(times, launches=launches, jit_cache_misses=drv.stats.jit_cache_misses,
-               captures=migrator.MEGASTEP.captures - prog[0],
-               replays=migrator.MEGASTEP.replays - prog[1],
-               tick_ms=times["tick_s"] / drv.stats.ticks * 1e3)
+               captures=now[0] - prog[0], replays=now[1] - prog[1],
+               tick_ms=times["tick_s"] / drv.stats.ticks * 1e3,
+               graph_pool_gib=check_graph_memory(f"phase 35 {name} drain "
+                                                 f"{'graphed' if capture else 'eager'}"))
     return drv, out
 
 
 def graphs_against_eager(dev) -> dict:
-    """Phase 35: phases 3 and 4's drains and phase 7's deployment through
-    captured programs and through eager launches, bit for bit."""
+    """Phase 35: every drain of ``GRAPHED_DRAINS`` and phase 7's deployment
+    through captured programs and through eager launches, bit for bit."""
     out = {"card": card()}
-    for name, huge in (("small", 1), ("huge", HUGE)):
+    for name in GRAPHED_DRAINS:
         runs, res = {}, {}
         for mode in ("eager", "graphed"):
-            runs[mode], res[mode] = graphed_drain_run(dev, huge, capture=mode == "graphed")
+            runs[mode], res[mode] = graphed_drain_run(dev, name, capture=mode == "graphed")
         g, e = runs["graphed"].state, runs["eager"].state
         for a, b, what in ((g.pool, e.pool, "pools"), (g.table, e.table, "tables"),
                            (g.dirty, e.dirty, "dirty flags"), (g.in_flight, e.in_flight, "flags")):
@@ -3229,15 +3325,17 @@ def graphs_against_eager(dev) -> dict:
               f"{name} drain: replays count the kernels' launches as eager launches do")
         check(res["graphed"]["replays"] == runs["graphed"].stats.dispatches
               and res["eager"]["replays"] == res["eager"]["captures"] == 0,
-              f"{name} drain: one replay a megastep graphed, none eager")
+              f"{name} drain: one replay a program graphed, none eager")
         check(dataclasses.replace(runs["graphed"].stats, jit_cache_misses=0)
               == dataclasses.replace(runs["eager"].stats, jit_cache_misses=0),
               f"{name} drain: the same MigrationStats")
         for mode in ("eager", "graphed"):
             r = res[mode]
-            print(f"phase 35 {name} drain {mode}: {r['ticks']} ticks, {r['replays']} replays, "
+            print(f"phase 35 {name} drain {mode}: {r['ticks']} ticks, "
+                  f"{r['dispatches_per_tick']:.2f} programs a tick, {r['replays']} replays, "
                   f"{r['captures']} captures, {r['jit_cache_misses']} jit misses, tick() "
-                  f"{r['tick_ms']:.3f} ms a tick, drain {r['seconds']:.3f} s [{card()}]")
+                  f"{r['tick_ms']:.3f} ms a tick, drain {r['seconds']:.3f} s, graph pools "
+                  f"{r['graph_pool_gib']:.3f} GiB [{card()}]")
         out[f"{name}_drain"] = res
         del runs, g, e
         release()
@@ -3270,6 +3368,117 @@ def graphs_against_eager(dev) -> dict:
     del model, runs
     release()
     return out
+
+
+# -- phase 36: the examples, and qwen2_7b through launch.serve ----------------------
+
+EXAMPLES = ("quickstart_torch", "serve_paged_torch", "tpch_morsels_torch", "train_e2e_torch")
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_on_the_card(dev) -> dict:
+    """Each torch example once, on the card, at its own defaults; each
+    asserts its own result."""
+    out = {}
+    for name in EXAMPLES:
+        release()
+        reset_launch_counts()
+        mod = example_module(name)
+        t0 = time.perf_counter()
+        res = mod.run()
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, launches=launch_counts())
+        if name == "quickstart_torch":
+            rec.update(ticks=res["ticks"], dirty_rejections=res["stats"].dirty_rejections)
+            check(rec["launches"]["copy_blocks"] > 0, f"{name} copied through K1")
+        elif name == "serve_paged_torch":
+            rec.update(steps=len(res["base"]), dirty_rejections=res["stats"].dirty_rejections)
+            check(rec["launches"]["paged_decode"] > 0, f"{name} decoded through K4")
+        elif name == "tpch_morsels_torch":
+            rec.update(migration_s=res["migration_s"], query_ms={
+                q: [t * 1e3 for t in ts] for q, ts in res["query_s"].items()})
+            check(rec["launches"]["copy_blocks"] > 0, f"{name} copied through K1")
+        else:
+            losses = [m["loss"] for m in res]
+            check(np.isfinite(losses).all() and losses[-1] < losses[0],
+                  f"{name}: the loss is finite and falls")
+            rec.update(steps=res[-1]["step"], first_loss=losses[0], last_loss=losses[-1])
+        print(f"phase 36 {name}: {rec['seconds']:.3f} s, "
+              f"{ {k: v for k, v in rec.items() if k not in ('seconds', 'launches')} } "
+              f"[{card()}]")
+        out[name] = rec
+    return out
+
+
+def qwen_served(dev) -> dict:
+    """qwen2_7b at full width and depth through ``launch.serve.main``, the
+    port's serving entry point, with request 0's pages leaping mid-decode."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    q = QWEN_SERVE
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", q["arch"], "--rebalance", "--requests", str(q["requests"]),
+                      "--prompt-len", str(q["prompt_len"]), "--tokens", str(q["tokens"])])
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    cfg = get_config(q["arch"])
+    check(res["layers"] == cfg.n_layers == 28, "qwen2_7b served at full depth")
+    check(all(len(t) == q["requests"] and all(0 <= x < cfg.vocab_size for x in t)
+              for t in res["tokens"]) and len(res["tokens"]) == q["tokens"],
+          "qwen2_7b: a token in the vocabulary per request and step")
+    check(launches["paged_decode_g7"] == launches["paged_decode"] == q["tokens"] * res["layers"],
+          "qwen2_7b: K4 at G 7 once per layer and decode step")
+    check(res["replays"] == q["tokens"], "qwen2_7b: one graph replay a decode step")
+    check(res["stats"].blocks_migrated + res["stats"].blocks_forced > 0,
+          "qwen2_7b: request 0's pages moved")
+    warm = res["step_ms"][1:]  # the first step captures the batch size's graph
+    out = dict(seconds=seconds, decode_step_ms_median=statistics.median(warm),
+               decode_step_ms=res["step_ms"], first_step_ms=res["step_ms"][0],
+               tokens_per_s=q["requests"] * len(warm) / (sum(warm) / 1e3),
+               params=lm.count_params(cfg), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, replays=res["replays"],
+               blocks_migrated=res["stats"].blocks_migrated,
+               dirty_rejections=res["stats"].dirty_rejections)
+    print(f"phase 36 qwen2_7b ({out['params']} parameters, 28 layers, bf16) through "
+          f"launch.serve: decode step {out['decode_step_ms_median']:.3f} ms (median of "
+          f"{len(warm)}; first {out['first_step_ms']:.1f} ms), {out['tokens_per_s']:.1f} tok/s, "
+          f"peak {out['peak_gib']:.2f} GiB, {seconds:.1f} s in all [{card()}]")
+    return out
+
+
+def paged_qwen_check(dev) -> dict:
+    """K4 at qwen2_7b's decode shape (G 7) against its plain version, timed
+    beside its bound and a gather plus ``scaled_dot_product_attention``."""
+    p = PAGED_QWEN
+    lens = torch.full((p["b"],), QWEN_SERVE["prompt_len"] + QWEN_SERVE["tokens"] // 2)
+    q, view, tables, lens_d = paged_inputs(dev, torch.bfloat16, lens, SEED, p)
+    got = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"])
+    want = ops.paged_decode_partial(q, view, tables, lens_d, kv_heads=p["kvh"], impl="ref")
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **PAGED_TOL[torch.bfloat16])
+    row = dict(
+        name="paged_decode_g7", route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:101", launches=0,
+        max_abs_err=max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)),
+        shape=(f"q [{p['b']}, {p['h']}, {p['hd']}] bf16 (G {p['h'] // p['kvh']}), layer "
+               f"{p['layer']} of a [{p['slots']}, {p['layers']}, 2, {p['blk']}, {p['kvh']}, "
+               f"{p['hd']}] pool, lens {int(lens[0])} each"),
+        **paged_timings(q, view, tables, lens_d, lens, p))
+    print(f"paged_decode at qwen2_7b's decode shape (G 7): {row['ms']:.4f} ms (plain "
+          f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, "
+          f"{paged_grid(lens, p)}), max err {row['max_abs_err']:.3g} [{card()}]")
+    del q, view, tables, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -3357,6 +3566,11 @@ def main() -> int:
     t0 = time.perf_counter()
     graphed = graphs_against_eager(dev)
     wall["phase_35_graphs_against_eager"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples = examples_on_the_card(dev)
+    examples["qwen2_7b"] = qwen_served(dev)
+    rows.append(paged_qwen_check(dev))
+    wall["phase_36_examples_and_qwen2_7b"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -3366,7 +3580,8 @@ def main() -> int:
              + [tiering, failed, queries, chaos, at_scale] + list(load["runs"].values())
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
              + [r for r in moe_cpu.values()] + list(xl["runs"].values())
-             + list(training.values()) + [r for m in models.values() for r in m["runs"].values()])
+             + list(training.values()) + [r for m in models.values() for r in m["runs"].values()]
+             + list(examples.values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase
     # 34's launches there and the earlier phases' in its first row
     phase34 = {row["name"] for row in rows if row.get("phase") == 34}
@@ -3402,6 +3617,7 @@ def main() -> int:
     print(json.dumps({"models": models, "card": smi}))
     print(json.dumps({"dryrun": dry, "card": smi}))
     print(json.dumps({"graphs_against_eager": graphed, "card": smi}))
+    print(json.dumps({"examples": examples, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

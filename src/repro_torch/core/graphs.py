@@ -24,6 +24,14 @@ never replays over stale addresses.  Only the first capture of a key counts
 as a miss, as a new driver over a known shape compiles nothing in the JAX
 package.
 
+A program's graphs over one set of bound tensors share one private memory
+pool, so that the temporaries of its variants (a bucket each) take the
+largest variant's memory, not their sum.  That is safe because (i) every
+replay runs on the caller's stream, one after another, so no two graphs
+of a pool run at once and a temporary's bytes are dead once its replay
+has ended; and (ii) a graph's outputs live as long as the graph, so no
+later capture can be handed their memory.
+
 A replay's outputs are the graph's static tensors: the next replay of the
 same graph overwrites them, so a caller copies what it keeps, on the same
 stream (``VerdictFuture`` does).  The kernel wrappers count launches on the
@@ -62,7 +70,7 @@ _COUNTED = (
     lru_scan.lru_scan,
     lru_scan.lru_scan_bwd,
 )
-_COUNTERS = ("launches", "lanes", "launches_by_head_dim")
+_COUNTERS = ("launches", "lanes", "launches_by_head_dim", "launches_by_group")
 
 
 @contextlib.contextmanager
@@ -88,7 +96,7 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 def _counts() -> dict:
     return {
-        (fn, name): dict(getattr(fn, name)) if name == "launches_by_head_dim" else getattr(fn, name)
+        (fn, name): dict(getattr(fn, name)) if name.startswith("launches_by") else getattr(fn, name)
         for fn in _COUNTED
         for name in _COUNTERS
         if hasattr(fn, name)
@@ -159,13 +167,14 @@ def to_device(inputs, device: torch.device) -> list[torch.Tensor]:
     return _views(flats, inputs)
 
 
-def _forget(graphs: dict, binding, graph: weakref.ref) -> None:
-    """Drop ``graphs[binding]`` if it is still ``graph``: a tensor it
-    belongs to was freed.  The garbage collector may run this while another
-    graph is being captured, when destroying a graph would void that
-    capture: then the graph waits in ``_doomed`` until the capture ends."""
+def _forget(graphs: dict, binding, graph) -> None:
+    """Drop ``graphs[binding]`` if it is still ``graph`` (a weak reference
+    to a graph, or a pool handle): a tensor it belongs to was freed.  The
+    garbage collector may run this while another graph is being captured,
+    when destroying a graph would void that capture: then the graph waits
+    in ``_doomed`` until the capture ends."""
     g = graphs.get(binding)
-    if g is not None and g is graph():
+    if g is not None and g is (graph() if isinstance(graph, weakref.ref) else graph):
         del graphs[binding]
         if torch.cuda.is_current_stream_capturing():
             _doomed.append(g)
@@ -174,7 +183,7 @@ def _forget(graphs: dict, binding, graph: weakref.ref) -> None:
 class _Graph:
     """One captured variant over one set of bound tensors."""
 
-    def __init__(self, body, inputs, device: torch.device):
+    def __init__(self, body, inputs, device: torch.device, pool=None):
         self.groups = _by_dtype(inputs)
         self.flats = {
             dtype: torch.empty(sum(inputs[i].numel() for i in idx), dtype=dtype, device=device)
@@ -187,7 +196,7 @@ class _Graph:
         stream.wait_stream(current)
         before = _counts()
         with torch.cuda.device(device), torch.cuda.stream(stream):
-            self.graph.capture_begin()
+            self.graph.capture_begin(pool=pool)
             try:
                 self.outputs = body(*static)
             except BaseException:
@@ -221,6 +230,7 @@ class Program:
     def __init__(self, name: str):
         self.name = name
         self._variants: dict = {}  # key -> {binding: _Graph} (empty on the CPU)
+        self._pools: dict = {}  # binding -> the memory pool its graphs share
         self.captures = 0  # graphs captured (a miss, or a known key over new tensors)
         self.replays = 0
 
@@ -231,6 +241,7 @@ class Program:
     def clear(self) -> None:
         """Forget every variant and graph (the reference's ``clear_cache()``)."""
         self._variants.clear()
+        self._pools.clear()
 
     def __call__(self, key, body, inputs, bound):
         """``body(*inputs)`` as variant ``key``.
@@ -267,8 +278,13 @@ class Program:
         binding = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in bound)
         graph = graphs.get(binding)
         if graph is None:
-            graph = graphs[binding] = _Graph(body, inputs, device)
+            pool = self._pools.get(binding)
+            graph = graphs[binding] = _Graph(body, inputs, device, pool)
             self.captures += 1
+            if pool is None:
+                pool = self._pools[binding] = graph.graph.pool()
+                for t in bound:
+                    weakref.finalize(t, _forget, self._pools, binding, pool)
             for t in bound:
                 weakref.finalize(t, _forget, graphs, binding, weakref.ref(graph))
         return graph

@@ -15,10 +15,10 @@ The JAX package's three dispatch generations are ported:
   * the per-area programs (``begin_area``/``copy_chunk``/
     ``copy_chunk_ppermute``/``commit_area``/``force_migrate``, with
     ``zero_fill``): one program per chunk and per area, with the
-    destination region a plain argument; the legacy baseline that the
-    paper's figures measure the fused generations against.  They are plain
-    tensor indexing, as in the JAX package, and launch none of the
-    hand-written kernels;
+    destination region a static argument; the legacy baseline that the
+    paper's figures measure the fused generations against.  Apart from the
+    force, which moves its payload through the ``copy_blocks`` kernel, they
+    are plain tensor indexing, as in the JAX package;
   * the batched programs (``begin_areas``/``zero_fill``/``force_areas``/
     ``fused_copy``/``fused_copy_runs``/``fused_copy_ppermute``/
     ``commit_areas``/``commit_groups``/``heat_update``): one program per
@@ -35,23 +35,32 @@ Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
 transfer on a region mesh).  The legacy generation's counterparts are
 ``copy_chunk`` and ``copy_chunk_ppermute``.
 
-The megastep is one program per tick the way the JAX package's is: it goes
-through a :class:`~repro_torch.core.graphs.Program`, the port's counterpart
-of a jitted function's cache.  On CUDA each variant is one captured CUDA
-graph, and a tick is one replay; on the CPU the variant is only registered
-and the phases run eagerly.  The dispatch stage pads every nonempty phase to
-the reference's budget-floored bucket, so a drain needs few variants.  The
-reference pads the megastep with out-of-bounds sentinel lanes, which XLA
-drops; an out-of-bounds index would raise here, so every pad lane replicates
-lane 0 (the reference's own ``pad_to_bucket`` rule), which each phase applies
-idempotently, and pad heat lanes carry weight 0.  An empty phase gets an
-empty tensor and is left out of the variant.  The other programs run eagerly
-over their real lengths and compile nothing: :func:`program_cache_sizes`
-reports 0 for them (ROADMAP D1).
+Every program is compiled the way the JAX package jits it: it goes through
+its own :class:`~repro_torch.core.graphs.Program` in :data:`PROGRAMS`, the
+port's counterpart of a jitted function's cache, keyed on what that cache
+keys on (operand lengths, static arguments, the state's or the heat
+plane's shapes and dtypes, the device).  On CUDA each variant is one
+captured CUDA graph and a call is one replay; on the CPU the variant is
+only registered and the program runs eagerly.  The dispatch stage pads the
+batched programs and the megastep to the reference's buckets, so a drain
+needs few variants; the per-area programs run at their real lengths, as in
+the reference.  The reference pads the megastep with out-of-bounds sentinel
+lanes, which XLA drops; an out-of-bounds index would raise here, so every
+pad lane replicates lane 0 (the reference's own ``pad_to_bucket`` rule),
+which each program applies idempotently, and pad heat lanes carry weight
+0.  An empty megastep phase gets an empty tensor and is left out of the
+variant.  The megastep's phases call the programs' bodies, not the
+programs: the megastep's capture registers nothing else, as tracing the
+JAX megastep compiles no other migration program.
 
-No phase synchronises with the host: there is no ``.item()``, no boolean-mask
-indexing and no ``nonzero``.  Index operands are int64 on the state's
-device; ``table`` stays int32.
+A program returns the state it updated in place (the commits also their
+verdicts, the heat pass its plane).  A replay's verdict is its graph's own
+tensor, which the next replay overwrites: ``VerdictFuture`` copies it at
+once, on the same stream.
+
+No program synchronises with the host: there is no ``.item()``, no
+boolean-mask indexing and no ``nonzero``.  Index operands are int64, on the
+host or on the state's device; ``table`` stays int32.
 """
 
 from __future__ import annotations
@@ -62,20 +71,151 @@ from repro_torch.core import graphs
 from repro_torch.core.state import REGION, SLOT, LeapState, flat_pool_view
 from repro_torch.kernels import ops
 
+_PROGRAMS = (
+    "megastep",
+    "heat_update",
+    "zero_fill",
+    "begin_area",
+    "copy_chunk",
+    "copy_chunk_ppermute",
+    "commit_area",
+    "force_migrate",
+    "begin_areas",
+    "fused_copy",
+    "fused_copy_runs",
+    "commit_areas",
+    "commit_groups",
+    "force_areas",
+    "fused_copy_ppermute",
+)
+
+# One variant cache per program of the JAX package's ``_PROGRAMS``.
+PROGRAMS = {name: graphs.Program(name) for name in _PROGRAMS}
+MEGASTEP = PROGRAMS["megastep"]
+
 
 def _entries(regions: torch.Tensor, slots: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([regions, slots], dim=-1).to(dtype)
 
 
+def _state_key(state: LeapState) -> tuple:
+    return (tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
+            str(state.device))
+
+
+def _bound(state: LeapState) -> list[torch.Tensor]:
+    return [state.pool, state.table, state.dirty, state.in_flight]
+
+
+def _run(name: str, body, state: LeapState, operands, *static):
+    """``body(state, *operands, *static)`` as a variant of ``PROGRAMS[name]``,
+    keyed on the operands' lengths, the static arguments and the state."""
+    key = (tuple(t.shape[0] for t in operands), static, _state_key(state))
+    return PROGRAMS[name](key, lambda *ops_: body(state, *ops_, *static), list(operands),
+                          _bound(state))
+
+
+# --------------------------------------------------------------------------
+# The programs' bodies, on device tensors.  Each updates the state in place
+# and returns only what the program outputs (a verdict, or nothing): a body
+# must not return a tensor its graph is bound to.
+# --------------------------------------------------------------------------
+
+
+def _begin(state: LeapState, block_ids: torch.Tensor) -> None:
+    state.in_flight.index_fill_(0, block_ids, True)
+    state.dirty.index_fill_(0, block_ids, False)
+
+
+def _copy_chunk(state: LeapState, block_ids, dst_slots, dst_region: int) -> None:
+    loc = state.table[block_ids].long()
+    state.pool[dst_region][dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
+
+
+def _copy_chunk_ppermute(state: LeapState, block_ids, dst_slots, src_region: int,
+                         dst_region: int, mesh) -> None:
+    slots = state.table[block_ids, SLOT].long()
+    buf = state.pool[src_region][slots].to(mesh.device(dst_region), non_blocking=True)
+    state.pool[dst_region][dst_slots] = buf
+
+
+def _commit(state: LeapState, block_ids, dst_regions, dst_slots) -> torch.Tensor:
+    table = state.table
+    verdict = state.dirty[block_ids]  # a new tensor: later phases may clear dirty
+    proposed = _entries(dst_regions, dst_slots, table.dtype)
+    table[block_ids] = torch.where(verdict[:, None], table[block_ids], proposed)
+    state.in_flight.index_fill_(0, block_ids, False)
+    return verdict
+
+
+def _commit_area(state: LeapState, block_ids, dst_slots, dst_region: int) -> torch.Tensor:
+    return _commit(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
+
+
+def _commit_groups(state: LeapState, block_ids, dst_regions, dst_starts,
+                   group: int) -> torch.Tensor:
+    table = state.table
+    k = dst_starts.shape[0]
+    members = block_ids.view(k, group)
+    verdict = state.dirty[members].any(dim=1)
+    member_slots = dst_starts[:, None] + torch.arange(group, device=table.device)[None, :]
+    proposed = _entries(dst_regions[:, None].expand(k, group), member_slots, table.dtype)
+    new = torch.where(verdict[:, None, None], table[members], proposed)
+    table[block_ids] = new.view(-1, 2)
+    state.in_flight.index_fill_(0, block_ids, False)
+    return verdict
+
+
+def _force(state: LeapState, block_ids, dst_regions, dst_slots) -> None:
+    """The fused copy+flip, its payload moved by one ``copy_blocks`` launch
+    over the flat pool view (no payload temporary).  Its destinations are
+    fresh slots, never a source in the same batch (K1's contract); a pad
+    lane repeats lane 0's copy."""
+    s = state.pool.shape[1]
+    loc = state.table[block_ids].long()
+    ops.copy_blocks_impl(flat_pool_view(state.pool), loc[:, REGION] * s + loc[:, SLOT],
+                         dst_regions * s + dst_slots)
+    state.table[block_ids] = _entries(dst_regions, dst_slots, state.table.dtype)
+    state.in_flight.index_fill_(0, block_ids, False)
+    state.dirty.index_fill_(0, block_ids, False)
+
+
+def _force_migrate(state: LeapState, block_ids, dst_slots, dst_region: int) -> None:
+    _force(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
+
+
+def _zero_fill(state: LeapState, slots, dst_region: int) -> None:
+    state.pool[dst_region].index_fill_(0, slots, 0)
+
+
+def _fused_copy(state: LeapState, src_flat, dst_flat, impl) -> None:
+    ops.copy_blocks_impl(flat_pool_view(state.pool), src_flat, dst_flat, impl=impl)
+
+
+def _fused_copy_runs(state: LeapState, src_starts, dst_starts, run: int, impl) -> None:
+    ops.copy_runs_impl(flat_pool_view(state.pool), src_starts, dst_starts, run=run, impl=impl)
+
+
+def _fused_copy_ppermute(state: LeapState, src_slots, dst_slots, src_region: int,
+                         dst_region: int, mesh, impl) -> None:
+    pool = state.pool
+    src = flat_pool_view(pool[src_region : src_region + 1])
+    buf = ops.gather_blocks_impl(src, src_slots, impl=impl)
+    buf = buf.to(mesh.device(dst_region), non_blocking=True)
+    dst = flat_pool_view(pool[dst_region : dst_region + 1])
+    ops.scatter_blocks_impl(dst, dst_slots, buf, impl=impl)
+
+
 # --------------------------------------------------------------------------
 # Per-area dispatch (the legacy generation): one program per chunk and per
-# area, the destination region a plain argument.
+# area, the destination region a static argument, real lengths.
 # --------------------------------------------------------------------------
 
 
 def begin_area(state: LeapState, block_ids: torch.Tensor) -> LeapState:
     """Open a copy epoch: mark blocks in flight, clear their dirty bits."""
-    return begin_areas(state, block_ids)
+    _run("begin_area", _begin, state, (block_ids,))
+    return state
 
 
 def copy_chunk(
@@ -88,10 +228,9 @@ def copy_chunk(
 
     Pure data movement — the table is untouched, so readers keep hitting the
     source location (non-atomic copy phase, exactly as in the paper).  The
-    payload is gathered into a new tensor before it is scattered.
+    payload is gathered into a temporary (one chunk) before it is scattered.
     """
-    loc = state.table[block_ids].long()
-    state.pool[dst_region][dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
+    _run("copy_chunk", _copy_chunk, state, (block_ids, dst_slots), int(dst_region))
     return state
 
 
@@ -112,9 +251,8 @@ def copy_chunk_ppermute(
     (on a one-device mesh it is already there), and it is unpacked into the
     destination slots.
     """
-    slots = state.table[block_ids, SLOT].long()
-    buf = state.pool[src_region][slots].to(mesh.device(dst_region), non_blocking=True)
-    state.pool[dst_region][dst_slots] = buf
+    _run("copy_chunk_ppermute", _copy_chunk_ppermute, state, (block_ids, dst_slots),
+         int(src_region), int(dst_region), mesh)
     return state
 
 
@@ -126,7 +264,8 @@ def commit_area(
 ) -> tuple[LeapState, torch.Tensor]:
     """The atomic remap of one area: flip the table entries of clean blocks;
     return the dirty verdict (True = copy invalidated)."""
-    return commit_areas(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
+    return state, _run("commit_area", _commit_area, state, (block_ids, dst_slots),
+                       int(dst_region))
 
 
 def force_migrate(
@@ -136,23 +275,22 @@ def force_migrate(
     dst_region: int,
 ) -> LeapState:
     """Fused copy+remap of one area (write-through escalation): no race
-    window exists.  The payload is gathered before it is scattered."""
-    return force_areas(state, block_ids, torch.full_like(dst_slots, dst_region), dst_slots)
+    window exists.  The payload moves through the ``copy_blocks`` kernel;
+    the destinations must not be sources of the same call."""
+    _run("force_migrate", _force_migrate, state, (block_ids, dst_slots), int(dst_region))
+    return state
 
 
 # --------------------------------------------------------------------------
-# Batched dispatch: one program per tick phase, multi-area.
-#
-# Each program updates the state in place and returns it (the commits also
-# return their verdicts).  The JAX package pads these operands to geometric
-# buckets by replicating lane 0; the port ships the real lengths.
+# Batched dispatch: one program per tick phase, multi-area.  The dispatch
+# stage pads the operands to geometric buckets by replicating lane 0, as the
+# JAX package does; every program applies a repeated lane idempotently.
 # --------------------------------------------------------------------------
 
 
 def begin_areas(state: LeapState, block_ids: torch.Tensor) -> LeapState:
     """Open copy epochs for every area scheduled this tick."""
-    state.in_flight.index_fill_(0, block_ids, True)
-    state.dirty.index_fill_(0, block_ids, False)
+    _run("begin_areas", _begin, state, (block_ids,))
     return state
 
 
@@ -164,7 +302,7 @@ def fused_copy(
 ) -> LeapState:
     """Physical copy of the tick's chunk plan: flat slot ids (``region * S +
     slot``) through the ``leap_copy`` kernel over the flat pool view."""
-    ops.copy_blocks_impl(flat_pool_view(state.pool), src_flat, dst_flat, impl=impl)
+    _run("fused_copy", _fused_copy, state, (src_flat, dst_flat), impl)
     return state
 
 
@@ -177,7 +315,7 @@ def fused_copy_runs(
 ) -> LeapState:
     """Physical copy of whole huge blocks: one contiguous ``run``-slot move
     per block, from flat G-aligned start slots."""
-    ops.copy_runs_impl(flat_pool_view(state.pool), src_starts, dst_starts, run=run, impl=impl)
+    _run("fused_copy_runs", _fused_copy_runs, state, (src_starts, dst_starts), int(run), impl)
     return state
 
 
@@ -189,12 +327,7 @@ def commit_areas(
 ) -> tuple[LeapState, torch.Tensor]:
     """Atomic remap of every commit-ready area: flip the table entries of
     clean blocks; return the packed dirty verdict (True = copy invalidated)."""
-    table = state.table
-    verdict = state.dirty[block_ids]  # a new tensor: later phases may clear dirty
-    proposed = _entries(dst_regions, dst_slots, table.dtype)
-    table[block_ids] = torch.where(verdict[:, None], table[block_ids], proposed)
-    state.in_flight.index_fill_(0, block_ids, False)
-    return state, verdict
+    return state, _run("commit_areas", _commit, state, (block_ids, dst_regions, dst_slots))
 
 
 def commit_groups(
@@ -209,16 +342,8 @@ def commit_groups(
     ``block_ids`` is ``[K * group]`` (K huge areas' members, group-major); a
     group is dirty iff any member was written during its copy epoch.
     """
-    table = state.table
-    k = dst_starts.shape[0]
-    members = block_ids.view(k, group)
-    verdict = state.dirty[members].any(dim=1)
-    member_slots = dst_starts[:, None] + torch.arange(group, device=table.device)[None, :]
-    proposed = _entries(dst_regions[:, None].expand(k, group), member_slots, table.dtype)
-    new = torch.where(verdict[:, None, None], table[members], proposed)
-    table[block_ids] = new.view(-1, 2)
-    state.in_flight.index_fill_(0, block_ids, False)
-    return state, verdict
+    return state, _run("commit_groups", _commit_groups, state,
+                       (block_ids, dst_regions, dst_starts), int(group))
 
 
 def force_areas(
@@ -227,20 +352,18 @@ def force_areas(
     dst_regions: torch.Tensor,
     dst_slots: torch.Tensor,
 ) -> LeapState:
-    """Batched write-through escalation, in place: fused copy+flip.  The
-    payload is gathered before it is scattered."""
-    loc = state.table[block_ids].long()
-    state.pool[dst_regions, dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
-    state.table[block_ids] = _entries(dst_regions, dst_slots, state.table.dtype)
-    state.in_flight.index_fill_(0, block_ids, False)
-    state.dirty.index_fill_(0, block_ids, False)
+    """Batched write-through escalation, in place: fused copy+flip, the
+    payload moved by one ``copy_blocks`` launch (flat ids computed on the
+    device from the table as it stands).  The destinations must not be
+    sources of the same call."""
+    _run("force_areas", _force, state, (block_ids, dst_regions, dst_slots))
     return state
 
 
 def zero_fill(state: LeapState, slots: torch.Tensor, dst_region: int) -> LeapState:
     """Zero destination slots before a copy lands (page-fault analogue of
     the fresh-destination schedulers)."""
-    state.pool[dst_region].index_fill_(0, slots, 0)
+    _run("zero_fill", _zero_fill, state, (slots,), int(dst_region))
     return state
 
 
@@ -261,14 +384,11 @@ def fused_copy_ppermute(
     device (the point-to-point transfer; on a one-device mesh the buffer
     is already there and no bytes cross a link), and ``scatter_blocks``
     unpacks it into the destination slots.  Each kernel sees one region's
-    shard of the flat pool, ``flat_pool_view(pool[r:r+1])``.
+    shard of the flat pool, ``flat_pool_view(pool[r:r+1])``.  Captured, the
+    staging buffer stays in the graph: it is the transfer.
     """
-    pool = state.pool
-    src = flat_pool_view(pool[src_region : src_region + 1])
-    buf = ops.gather_blocks_impl(src, src_slots, impl=impl)
-    buf = buf.to(mesh.device(dst_region), non_blocking=True)
-    dst = flat_pool_view(pool[dst_region : dst_region + 1])
-    ops.scatter_blocks_impl(dst, dst_slots, buf, impl=impl)
+    _run("fused_copy_ppermute", _fused_copy_ppermute, state, (src_slots, dst_slots),
+         int(src_region), int(dst_region), mesh, impl)
     return state
 
 
@@ -280,8 +400,16 @@ def heat_update(
     impl: str | None = None,
 ) -> torch.Tensor:
     """Standalone access-heat pass, in place (under megastep the same update
-    rides the tick as its trailing phase)."""
-    return ops.heat_scan_impl(heat, ids, w, decay, impl=impl)
+    rides the tick as its trailing phase).  ``w`` is float32; a pad lane
+    repeats lane 0's id with weight 0."""
+    key = (ids.shape[0], w.shape[0], float(decay), impl, tuple(heat.shape), heat.dtype,
+           str(heat.device))
+
+    def body(ids_, w_):
+        ops.heat_scan_impl(heat, ids_, w_, decay, impl=impl)
+
+    PROGRAMS["heat_update"](key, body, [ids, w], [heat])
+    return heat
 
 
 # --------------------------------------------------------------------------
@@ -303,26 +431,22 @@ def _megastep_phases(
     empty = torch.zeros(0, dtype=torch.bool, device=state.device)
     verdict_small = verdict_groups = empty
     if commit_ids.shape[0]:
-        state, verdict_small = commit_areas(state, commit_ids, commit_regions, commit_slots)
+        verdict_small = _commit(state, commit_ids, commit_regions, commit_slots)
     if grp_starts.shape[0]:
-        state, verdict_groups = commit_groups(state, grp_members, grp_regions, grp_starts, group)
+        verdict_groups = _commit_groups(state, grp_members, grp_regions, grp_starts, group)
     if begin_ids.shape[0]:
-        begin_areas(state, begin_ids)
+        _begin(state, begin_ids)
     if zero_flat.shape[0]:
         flat_pool_view(state.pool).index_fill_(0, zero_flat, 0)
     if force_ids.shape[0]:
-        force_areas(state, force_ids, force_regions, force_slots)
+        _force(state, force_ids, force_regions, force_slots)
     if copy_src.shape[0]:
-        fused_copy(state, copy_src, copy_dst, impl=impl)
+        _fused_copy(state, copy_src, copy_dst, impl)
     if run_src.shape[0]:
-        fused_copy_runs(state, run_src, run_dst, group, impl=impl)
+        _fused_copy_runs(state, run_src, run_dst, group, impl)
     if heat_ids.shape[0]:
-        heat_update(heat, heat_ids, heat_w, heat_decay, impl=impl)
+        ops.heat_scan_impl(heat, heat_ids, heat_w, heat_decay, impl=impl)
     return verdict_small, verdict_groups
-
-
-# The megastep's variant cache: one entry per key of :func:`_megastep_variant`.
-MEGASTEP = graphs.Program("megastep")
 
 
 def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay):
@@ -342,10 +466,10 @@ def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay)
         tuple(heat.shape), str(state.device),
     )
     with_heat = bool(inputs[15].shape[0])
-    bound = [state.pool, state.table, state.dirty, state.in_flight] + ([heat] if with_heat else [])
+    bound = _bound(state) + ([heat] if with_heat else [])
 
-    def body(*ops):
-        return _megastep_phases(state, *ops[:15], heat, ops[15], ops[16],
+    def body(*ops_):
+        return _megastep_phases(state, *ops_[:15], heat, ops_[15], ops_[16],
                                 group=group, impl=impl, heat_decay=heat_decay)
 
     return key, body, inputs, bound
@@ -381,9 +505,9 @@ def megastep(
     verdicts ``(state, verdict_small, verdict_groups, heat)``.  Phase order
     matches the JAX megastep: the commit verdicts are gathered into new
     tensors before begin clears ``dirty``; force reads the post-commit table
-    and the post-zero pool and gathers its payload before it scatters; the
-    copy and run phases come after force; heat touches nothing else.  Each
-    phase is the batched program of the same name, left out when empty.
+    and the post-zero pool; the copy and run phases come after force; heat
+    touches nothing else.  Each phase is the body of the batched program of
+    the same name, left out when empty.
 
     Index operands are int64 and ``heat_w`` float32, on the host or on the
     state's device.  The call is one variant of :data:`MEGASTEP`: on CUDA a
@@ -411,37 +535,21 @@ def warm_megastep(state: LeapState, *operands, heat: torch.Tensor, group: int = 
 # Compile-cache introspection (control-path cost accounting)
 # --------------------------------------------------------------------------
 
-_PROGRAMS = (
-    "megastep",
-    "heat_update",
-    "zero_fill",
-    "begin_area",
-    "copy_chunk",
-    "copy_chunk_ppermute",
-    "commit_area",
-    "force_migrate",
-    "begin_areas",
-    "fused_copy",
-    "fused_copy_runs",
-    "commit_areas",
-    "commit_groups",
-    "force_areas",
-    "fused_copy_ppermute",
-)
-
 
 def program_cache_sizes() -> dict[str, int]:
-    """Compiled-variant count per migration program (process-wide).
-
-    The megastep counts its variants (:data:`MEGASTEP`), as the JAX package
-    counts its XLA compiles; the driver differences this to report
-    ``MigrationStats.jit_cache_misses``.  The per-area and batched programs,
-    ``heat_update`` and the ppermute copy run eagerly and compile nothing,
-    so they report 0 (ROADMAP D1).
-    """
-    return {name: len(MEGASTEP) if name == "megastep" else 0 for name in _PROGRAMS}
+    """Compiled-variant count per migration program (process-wide), as the
+    JAX package counts its XLA compiles; the driver differences the total
+    to report ``MigrationStats.jit_cache_misses``."""
+    return {name: len(prog) for name, prog in PROGRAMS.items()}
 
 
 def program_cache_size() -> int:
     """Total compiled migration-program variants (process-wide)."""
     return sum(program_cache_sizes().values())
+
+
+def clear_program_caches() -> None:
+    """Forget every program's variants and graphs (each reference program's
+    ``clear_cache()``)."""
+    for prog in PROGRAMS.values():
+        prog.clear()

@@ -21,26 +21,32 @@ to the device in one of three dispatch generations
     chunk, one ``commit_area`` per area, huge areas through
     ``fused_copy_runs``/``commit_groups`` one area at a time, and the
     tick's ``heat_update``.  Its programs are plain tensor indexing, as in
-    the JAX package; only the huge-run copy and the heat pass launch kernels.
+    the JAX package; only the force, the huge-run copy and the heat pass
+    launch kernels.
 
 The host side of this stage is pure *plan assembly*: it gathers numpy id
-vectors, checks each copy plan against the copy kernel's contract, and
-moves each program's index operands to the device in one transfer.  The
-dirty verdict never crosses back here — it travels in the
+vectors, checks each copy plan against the copy kernel's contract, pads
+them, and hands them to the program as host tensors, which the program
+moves to the device in one transfer per dtype.  The dirty verdict never
+crosses back here — it travels in the
 :class:`~repro_torch.core.queues.VerdictFuture` of a ``CommitBatch``,
 harvested by the verdict stage off the tick critical path.
 
-The megastep's operands are padded as the JAX package pads them: every
-nonempty phase to one budget-floored bucket shared by commit, begin, zero,
-force and copy, huge groups and runs to their own floor (budget / G), heat
-to its own bucket, so that after warm-up one variant (one captured CUDA
-graph on the card) serves a whole drain; ``warm_dispatch`` captures the
-steady-state variants when the driver is built.  Where the reference pads
-with out-of-bounds sentinels, which XLA drops, the port replicates lane 0
-(an out-of-bounds index would device-assert), which every phase applies
-idempotently; pad heat lanes carry weight 0.  The batched and legacy
-generations run eagerly over their real lengths, and an empty phase
-dispatches nothing.
+Every program is a variant cache (``migrator.PROGRAMS``; one captured
+CUDA graph a variant on the card), and its operands are padded where the
+JAX package pads them.  The megastep's: every nonempty phase to one
+budget-floored bucket shared by commit, begin, zero, force and copy, huge
+groups and runs to their own floor (budget / G), heat to its own bucket,
+so that after warm-up one variant serves a whole drain; ``warm_dispatch``
+captures the steady-state variants when the driver is built.  The batched
+programs' and the legacy ``zero_fill``: to ``bucket_size(n)`` (a huge
+commit by lane 0's whole group); the standalone heat pass: to the
+budget-floored bucket.  Where the reference pads with out-of-bounds
+sentinels, which XLA drops, the port replicates lane 0 (an out-of-bounds
+index would device-assert), which every program applies idempotently; pad
+heat lanes carry weight 0.  The other legacy programs and the promotions'
+``force_areas`` run at their real lengths, as in the reference.  An empty
+phase dispatches nothing.
 
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.
@@ -53,13 +59,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import graphs, migrator
+from repro_torch.core import migrator
 from repro_torch.core.adaptive import Area, bucket_size, demote_area, pad_to_bucket
 from repro_torch.core.pipeline.accounting import AccountingStage
 from repro_torch.core.pipeline.budget import BudgetStage, TickBudget
 from repro_torch.core.pipeline.context import PipelineContext
 from repro_torch.core.queues import CommitBatch, VerdictFuture
-from repro_torch.core.state import REGION, SLOT, host_to_device
+from repro_torch.core.state import REGION, SLOT
 from repro_torch.kernels.leap_copy import check_copy_plan
 
 
@@ -87,16 +93,26 @@ def _group_entries(areas: list[Area]) -> tuple[np.ndarray, np.ndarray, np.ndarra
     )
 
 
+def _pad_groups(bucket: int, group: int, members: np.ndarray, regions: np.ndarray,
+                starts: np.ndarray) -> tuple[np.ndarray, ...]:
+    """A huge commit's operands padded to ``bucket`` groups: a group pads as
+    a whole, with lane 0's ``group`` members, region and start."""
+    k = len(regions)
+    members = members.reshape(k, group)
+    members = np.concatenate([members, np.repeat(members[:1], bucket - k, 0)])
+    return (members.reshape(-1), *pad_to_bucket(bucket, regions, starts))
+
+
 def _pad(bucket: int, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
     """Equal-length arrays padded to ``bucket`` lanes with copies of lane 0
     (:func:`pad_to_bucket`); an empty phase's arrays stay empty."""
     return pad_to_bucket(bucket, *arrays) if len(arrays[0]) else arrays
 
 
-def to_device(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
-    """Int arrays as int64 tensors on ``device``, in one pinned,
-    non-blocking host->device copy (see :func:`graphs.to_device`)."""
-    return graphs.to_device([torch.from_numpy(np.asarray(a, np.int64)) for a in arrays], device)
+def _host(*arrays: np.ndarray) -> list[torch.Tensor]:
+    """Int arrays as int64 host tensors: a program's operands, which it moves
+    to the state's device in one transfer per dtype."""
+    return [torch.from_numpy(np.asarray(a, np.int64)) for a in arrays]
 
 
 class DispatchStage:
@@ -377,9 +393,7 @@ class DispatchStage:
                 forced.append(area)  # the tick's force phase, end of tick
             else:
                 ctx.state = migrator.force_migrate(
-                    ctx.state,
-                    *to_device([area.block_ids, area.dst_slots], ctx.state.device),
-                    int(area.dst_region),
+                    ctx.state, *_host(area.block_ids, area.dst_slots), int(area.dst_region)
                 )
                 ctx.count("dispatches", 1, program="force_migrate")
             self._finalize_success(area)
@@ -463,16 +477,17 @@ class DispatchStage:
         return ids, w
 
     def _flush_heat(self) -> None:
-        """Batched: fold the tick's heat samples as their own program."""
+        """Batched/legacy: fold the tick's heat samples as their own program,
+        padded to the budget-floored bucket (pad lanes: lane 0, weight 0)."""
         ctx = self.ctx
         ids, w = self._pop_heat()
         if not len(ids):
             return
-        dev = ctx.state.device
+        ids, w = self._pad_heat(ids, w)
         ctx.heat = migrator.heat_update(
             ctx.heat,
-            host_to_device(torch.from_numpy(ids), dev),
-            host_to_device(torch.from_numpy(w), dev),
+            *_host(ids),
+            torch.from_numpy(w),
             ctx.cfg.tier_heat_decay,
             impl=ctx.cfg.copy_impl,
         )
@@ -513,6 +528,14 @@ class DispatchStage:
             heat = ctx.heat if "heat" in sig else torch.zeros(0, dtype=torch.float32)
             migrator.warm_megastep(ctx.state, *operands, heat=heat, group=G,
                                    impl=ctx.cfg.copy_impl, heat_decay=ctx.cfg.tier_heat_decay)
+
+    def _pad_heat(self, ids: np.ndarray, w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Heat samples padded to the budget-floored bucket: pad lanes repeat
+        lane 0's id with weight 0, where the reference's hold an
+        out-of-bounds id."""
+        hb = self._megastep_bucket(len(ids))
+        (ids,) = pad_to_bucket(hb, ids)
+        return ids, np.concatenate([w, np.zeros(hb - len(w), np.float32)])
 
     def _megastep_bucket(self, *lengths: int) -> int:
         """Shared bucket for every per-block megastep operand.
@@ -573,16 +596,11 @@ class DispatchStage:
         B = self._megastep_bucket(*(len(p[0]) for p in (commit, begin, zero, force, copy)))
         commit, begin, zero, force, copy = (_pad(B, *p) for p in (commit, begin, zero, force, copy))
         groups = _group_entries(huge)
-        if huge:  # a huge group pads as a whole: lane 0's G members, region and start
-            kb = self._huge_bucket(len(huge))
-            members = groups[0].reshape(len(huge), G)
-            members = np.concatenate([members, np.repeat(members[:1], kb - len(huge), 0)])
-            groups = (members.reshape(-1), *pad_to_bucket(kb, *groups[1:]))
+        if huge:
+            groups = _pad_groups(self._huge_bucket(len(huge)), G, *groups)
         runs = _pad(self._huge_bucket(len(run_plan)), *self._run_flat(run_plan))
         if len(heat_ids):
-            hb = self._megastep_bucket(len(heat_ids))
-            heat_w = np.concatenate([heat_w, np.zeros(hb - len(heat_w), np.float32)])
-            (heat_ids,), heat_in = pad_to_bucket(hb, heat_ids), ctx.heat
+            (heat_ids, heat_w), heat_in = self._pad_heat(heat_ids, heat_w), ctx.heat
         else:
             heat_in = torch.zeros(0, dtype=torch.float32)
         operands = [
@@ -649,6 +667,11 @@ class DispatchStage:
 
     # -- batched dispatch (one program per phase) ---------------------------
 
+    def _bucketed(self, *arrays: np.ndarray) -> tuple[np.ndarray, ...]:
+        """Equal-length arrays padded to ``bucket_size(n)`` with copies of
+        lane 0, as the reference pads its batched programs."""
+        return pad_to_bucket(bucket_size(len(arrays[0]), self.ctx.cfg.bucket_growth), *arrays)
+
     def _dispatch_zero_batch(self, zeros: list[Area]) -> None:
         """One zero-fill program per destination region covers every
         fresh-destination area opened this tick, escalated and epoch alike."""
@@ -659,8 +682,8 @@ class DispatchStage:
         for a in zeros:
             by_region.setdefault(int(a.dst_region), []).append(a.dst_slots)
         for region, slot_lists in by_region.items():
-            (slots,) = to_device([_cat(slot_lists)], ctx.state.device)
-            ctx.state = migrator.zero_fill(ctx.state, slots, region)
+            ctx.state = migrator.zero_fill(ctx.state, *_host(*self._bucketed(_cat(slot_lists))),
+                                           region)
             ctx.count("dispatches", 1, program="zero_fill")
 
     def _dispatch_begin_batch(self, opened: list[Area]) -> None:
@@ -668,14 +691,14 @@ class DispatchStage:
             return
         ctx = self.ctx
         ids = _cat([a.block_ids for a in opened])
-        ctx.state = migrator.begin_areas(ctx.state, *to_device([ids], ctx.state.device))
+        ctx.state = migrator.begin_areas(ctx.state, *_host(*self._bucketed(ids)))
         ctx.count("dispatches", 1, program="begin_areas")
 
     def _dispatch_force_batch(self, forced: list[Area]) -> None:
         if not forced:
             return
         ctx = self.ctx
-        ctx.state = migrator.force_areas(ctx.state, *to_device(_entries(forced), ctx.state.device))
+        ctx.state = migrator.force_areas(ctx.state, *_host(*self._bucketed(*_entries(forced))))
         ctx.count("dispatches", 1, program="force_areas")
 
     def _dispatch_copy_batch(self, plan: list[tuple[Area, np.ndarray, np.ndarray]]) -> None:
@@ -686,7 +709,7 @@ class DispatchStage:
             self._dispatch_copy_batch_ppermute(plan)
             return
         ctx.state = migrator.fused_copy(
-            ctx.state, *to_device(self._copy_flat(plan), ctx.state.device), impl=ctx.cfg.copy_impl
+            ctx.state, *_host(*self._bucketed(*self._copy_flat(plan))), impl=ctx.cfg.copy_impl
         )
         ctx.count("dispatches", 1, program="fused_copy")
 
@@ -714,7 +737,7 @@ class DispatchStage:
             check_copy_plan(src * S + src_slots, dst * S + dst_slots, ctx.pool_cfg.n_regions * S)
             ctx.state = migrator.fused_copy_ppermute(
                 ctx.state,
-                *to_device([src_slots, dst_slots], ctx.state.device),
+                *_host(*self._bucketed(src_slots, dst_slots)),
                 int(src),
                 int(dst),
                 ctx.mesh,
@@ -728,11 +751,12 @@ class DispatchStage:
         ctx = self.ctx
         offsets = np.cumsum([0] + [len(a) for a in ready])
         ctx.state, verdict = migrator.commit_areas(
-            ctx.state, *to_device(_entries(ready), ctx.state.device)
+            ctx.state, *_host(*self._bucketed(*_entries(ready)))
         )
         ctx.count("dispatches", 1, program="commit_areas")
         for a in ready:
             ctx.active.remove(a)
+        # the verdict is the replayed graph's own tensor: the future copies it now
         ctx.pending.append(CommitBatch(ready, offsets, VerdictFuture(verdict)))
 
     def _dispatch_copy_runs(self, run_plan: list[Area]) -> None:
@@ -743,7 +767,7 @@ class DispatchStage:
         ctx = self.ctx
         ctx.state = migrator.fused_copy_runs(
             ctx.state,
-            *to_device(self._run_flat(run_plan), ctx.state.device),
+            *_host(*self._bucketed(*self._run_flat(run_plan))),
             ctx.pool_cfg.huge_factor,
             impl=ctx.cfg.copy_impl,
         )
@@ -751,14 +775,15 @@ class DispatchStage:
 
     def _dispatch_commit_groups(self, ready: list[Area]) -> None:
         """All-or-nothing commit of every copy-complete huge area (one
-        program, one verdict lane per huge block)."""
+        program, one verdict lane per huge block), padded by lane 0's whole
+        group."""
         if not ready:
             return
         ctx = self.ctx
+        G = ctx.pool_cfg.huge_factor
+        bucket = bucket_size(len(ready), ctx.cfg.bucket_growth)
         ctx.state, verdict = migrator.commit_groups(
-            ctx.state,
-            *to_device(_group_entries(ready), ctx.state.device),
-            group=ctx.pool_cfg.huge_factor,
+            ctx.state, *_host(*_pad_groups(bucket, G, *_group_entries(ready))), group=G
         )
         ctx.count("dispatches", 1, program="commit_groups")
         for a in ready:
@@ -769,19 +794,18 @@ class DispatchStage:
 
     def _dispatch_begin(self, area: Area) -> None:
         ctx = self.ctx
-        (ids,) = to_device([area.block_ids], ctx.state.device)
-        ctx.state = migrator.begin_area(ctx.state, ids)
+        ctx.state = migrator.begin_area(ctx.state, *_host(area.block_ids))
         ctx.count("dispatches", 1, program="begin_area")
 
     def _dispatch_zero_fill(self, area: Area) -> None:
         ctx = self.ctx
-        (slots,) = to_device([area.dst_slots], ctx.state.device)
-        ctx.state = migrator.zero_fill(ctx.state, slots, int(area.dst_region))
+        ctx.state = migrator.zero_fill(ctx.state, *_host(*self._bucketed(area.dst_slots)),
+                                       int(area.dst_region))
         ctx.count("dispatches", 1, program="zero_fill")
 
     def _dispatch_copy(self, area: Area, ids: np.ndarray, slots: np.ndarray) -> None:
         ctx = self.ctx
-        operands = to_device([ids, slots], ctx.state.device)
+        operands = _host(ids, slots)
         if ctx.cfg.backend == "ppermute":
             if ctx.mesh is None or ctx.cfg.axis_name is None:
                 raise ValueError("ppermute backend requires mesh and axis_name")
@@ -796,12 +820,11 @@ class DispatchStage:
     def _dispatch_commit(self, area: Area) -> None:
         ctx = self.ctx
         ctx.state, verdict = migrator.commit_area(
-            ctx.state,
-            *to_device([area.block_ids, area.dst_slots], ctx.state.device),
-            int(area.dst_region),
+            ctx.state, *_host(area.block_ids, area.dst_slots), int(area.dst_region)
         )
         ctx.count("dispatches", 1, program="commit_area")
         ctx.active.remove(area)
+        # the verdict is the replayed graph's own tensor: the future copies it now
         ctx.pending.append(
             CommitBatch([area], np.asarray([0, len(area)]), VerdictFuture(verdict))
         )
@@ -840,9 +863,7 @@ class DispatchStage:
             return False
         G = ctx.pool_cfg.huge_factor
         dst_slots = start + np.arange(G, dtype=np.int32)
-        ctx.state = migrator.force_areas(
-            ctx.state, *to_device([members, np.full(G, region), dst_slots], ctx.state.device)
-        )
+        ctx.state = migrator.force_areas(ctx.state, *_host(members, np.full(G, region), dst_slots))
         ctx.count("dispatches", 1, program="force_areas")
         ctx.count("bytes_copied", G * ctx.pool_cfg.block_bytes)
         # take_run left the destination live as one huge allocation; the old

@@ -163,8 +163,10 @@ def paged_decode(
         raise RuntimeError(f"leap_paged_decode launch failed: CUDA error {err}")
     paged_decode.launches += 1
     paged_decode.launches_by_head_dim[hd] = paged_decode.launches_by_head_dim.get(hd, 0) + 1
+    paged_decode.launches_by_group[g] = paged_decode.launches_by_group.get(g, 0) + 1
     return out, m, l
 
 
 paged_decode.launches = 0  # kernel launches in this process (read by chip_smoke.py)
 paged_decode.launches_by_head_dim = {}  # the same, per head_dim (one instance each)
+paged_decode.launches_by_group = {}  # the same, per query heads a kv head (G)

@@ -8,7 +8,9 @@ runs the full configuration on the current CUDA device (random weights from
 ``--seed``).  ``--smoke`` serves the reduced two-layer configuration and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.  Dense
 and MoE stacks serve; recurrent ones (recurrentgemma_9b, xlstm_125m) run
-through ``lm.prefill`` and ``lm.decode_step`` instead.
+through ``lm.prefill`` and ``lm.decode_step`` instead.  ``main`` returns
+the tokens of every step, each decode step's wall milliseconds and the
+migration's stats.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from repro_torch.models import lm
 from repro_torch.serving.engine import PagedConfig, PagedEngine
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, help="|".join(PORTED_ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
@@ -75,21 +77,27 @@ def main(argv=None):
     if args.rebalance:
         h = eng.rebalance(sids[0], dst_region=1 % args.regions)
         print(f"live-rebalancing request 0 ({h.requested} pages)")
+    tokens, step_ms = [], []
     t0 = time.perf_counter()
     for step in range(args.tokens):
+        t1 = time.perf_counter()
         if args.rebalance:
             eng.tick()
-        out = eng.decode(sids)
+        out = eng.decode(sids)  # the tokens on the host: the step has ended
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        tokens.append(out)
         if step < 3 or step == args.tokens - 1:
             print(f"step {step:3d}: {out}")
+    s = eng.driver.stats
     if args.rebalance:
-        eng.drain()
-        s = eng.driver.stats
+        eng.drain()  # updates s in place
         print(f"migration stats: migrated={s.blocks_migrated} forced={s.blocks_forced} "
               f"dirty={s.dirty_rejections}")
     dt = time.perf_counter() - t0
     total = args.tokens * len(sids)
     print(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s) on {device}")
+    return dict(tokens=tokens, step_ms=step_ms, seconds=dt, stats=s, layers=cfg.n_layers,
+                replays=eng._decode_step.replays)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ against a package surface (:class:`Pkg`): once over the JAX package, once
 over the port on the CPU.  The port's run must pass the reference test's
 own assertions and the JAX package's ``InvariantChecker``, and end in the
 same state as the reference's run: pools, tables, dirty and in-flight bits,
-host table, ``MigrationStats`` (all but ``jit_cache_misses``) and the
-scenario's own results, bit for bit.
+host table, ``MigrationStats`` (``jit_cache_misses`` too: both packages'
+program caches are emptied before each side runs) and the scenario's own
+results, bit for bit.
 """
 
 import dataclasses
@@ -31,6 +32,8 @@ from repro_torch.core.pipeline import busy_mask as tbusy  # noqa: E402
 from repro_torch.distributed import fault as tfault  # noqa: E402
 from repro_torch.tiering import policy as ttiering  # noqa: E402
 from repro_torch.topology import NumaTopology as TTopo  # noqa: E402
+
+from test_torch_driver import clear_program_caches  # noqa: E402
 
 
 class Pkg:
@@ -86,7 +89,6 @@ def outcome(drv) -> dict:
     else:
         leaves = tuple(np.asarray(x) for x in (st.pool, st.table, st.dirty, st.in_flight))
     stats = dataclasses.asdict(drv.stats)
-    stats.pop("jit_cache_misses")
     return dict(leaves=leaves, host_table=drv.host_table(), stats=stats,
                 heat=drv.heat_snapshot())
 
@@ -112,8 +114,11 @@ def assert_same(a, b, path="result"):
 
 
 def both(scenario, *args):
-    """Run ``scenario(P, *args)`` over each package; results must agree."""
+    """Run ``scenario(P, *args)`` over each package, each from empty program
+    caches; results must agree."""
+    clear_program_caches()
     want = scenario(JAX, *args)
+    clear_program_caches()
     got = scenario(PORT, *args)
     assert_same(want, got)
     return got

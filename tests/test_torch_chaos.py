@@ -8,8 +8,8 @@ repro_torch.chaos --replay ... --device cpu``), the checker's unit cases,
 ``drain_region`` idempotency and the working-set-shift tiering scenarios.
 A scenario passes only when both packages report the same ``ChaosReport``
 and end in the same state: host table, pool, flags, shadow and
-``MigrationStats`` (all but ``jit_cache_misses``) bit for bit, heat within
-rtol = atol = 1e-6.
+``MigrationStats`` (``jit_cache_misses`` too, from empty program caches)
+bit for bit, heat within rtol = atol = 1e-6.
 
 Both sides harvest with ``poll(block=True)`` before every invariant check.
 The port's ``ChaosDriver`` does so itself (ROADMAP D2); the JAX package's is
@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 from test_torch_baselines import JAX, PORT, assert_same  # noqa: E402
+from test_torch_driver import clear_program_caches  # noqa: E402
 
 import repro.chaos as J  # noqa: E402
 import repro_torch.chaos as T  # noqa: E402
@@ -97,7 +98,6 @@ def chaos_outcome(chaos, report) -> dict:
     else:
         pool, *flags = (np.asarray(x) for x in (st.pool, st.table, st.dirty, st.in_flight))
     stats = dataclasses.asdict(drv.stats)
-    stats.pop("jit_cache_misses")
     rep = dataclasses.asdict(report)
     rep["spec"] = report.spec.to_dict()
     out = dict(report=rep, flags=flags, host_table=drv.host_table(), stats=stats,
@@ -113,8 +113,10 @@ def chaos_outcome(chaos, report) -> dict:
 def both_chaos(spec, **kw):
     """Run ``spec`` through both packages; returns the port's driver and
     report after asserting that the outcomes agree."""
+    clear_program_caches()
     jc = jax_chaos(spec, **kw)
     want = chaos_outcome(jc, jc.run())
+    clear_program_caches()
     tc = port_chaos(spec, **kw)
     report = tc.run()
     assert_same(want, chaos_outcome(tc, report))
@@ -334,13 +336,15 @@ def _idempotent(P, huge_factor):
     assert (drv.host_placement() == 1).all()
     _checker(P)(drv).check_final(expected=data)
     stats = dataclasses.asdict(drv.stats)
-    stats.pop("jit_cache_misses")
     return dict(planned=planned, host_table=drv.host_table(), stats=stats)
 
 
 @pytest.mark.parametrize("huge_factor", [1, 4], ids=["small", "tiered_huge_groups"])
 def test_drain_region_idempotent_while_in_flight(huge_factor):
-    assert_same(_idempotent(JAX, huge_factor), _idempotent(PORT, huge_factor))
+    clear_program_caches()
+    want = _idempotent(JAX, huge_factor)
+    clear_program_caches()
+    assert_same(want, _idempotent(PORT, huge_factor))
 
 
 def test_drain_region_empty_region_is_noop():

@@ -1071,3 +1071,102 @@ def test_graphed_decode_matches_eager(cuda, monkeypatch):
     assert gt == et and torch.equal(gl, el)
     for a, b in zip(gs, es):
         assert (a == b).all()
+
+
+def _program_drain(dev, cfg_kw, capture, n_regions=2):
+    """A seeded drain (every region's blocks to the next region) under
+    writes and reads, blocking harvest, sync debug mode raising on every
+    tick; returns the driver and every migration program's captures and
+    replays during it."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.core import (LeapConfig, MigrationDriver, PoolConfig, graphs, init_state,
+                                  leap_write, make_region_mesh, migrator, state_sharding)
+
+    n, slots = 256, 320 if n_regions == 2 else 96
+    mesh = make_region_mesh(n_regions, [dev] * n_regions) if n_regions > 2 else None
+    pc = PoolConfig(n_regions, slots, (2, 64), region_axis="data" if mesh else None)
+    place = (np.arange(n) * n_regions // n).astype(np.int32)
+    gen = torch.Generator().manual_seed(3)
+    state = init_state(pc, n, place, device=dev)
+    if mesh is not None:
+        state = state.to(state_sharding(pc, mesh))
+    leap_write(state, torch.arange(n), torch.randn((n, 2, 64), generator=gen).to(dev))
+    drv = MigrationDriver(state, pc, LeapConfig(**cfg_kw), mesh=mesh)
+    progs = migrator.PROGRAMS.values()
+    before = (sum(p.captures for p in progs), sum(p.replays for p in progs))
+    s = drv.default_session()
+    for r in range(n_regions):
+        s.leap(np.nonzero(place == r)[0], (r + 1) % n_regions)
+    with contextlib.nullcontext() if capture else graphs.disable_capture():
+        while not drv.done:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                s.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            s.poll(block=True)
+            ids = torch.randperm(n, generator=gen)[:12]
+            drv.write(ids, torch.randn((12, 2, 64), generator=gen).to(dev))
+            drv.read(torch.randperm(n, generator=gen)[:8])
+        assert s.drain()
+    after = (sum(p.captures for p in progs), sum(p.replays for p in progs))
+    return drv, [b - a for a, b in zip(before, after)]
+
+
+@pytest.mark.parametrize("mode", ["batched", "legacy", "ppermute", "legacy_ppermute"])
+def test_graphed_program_drain_matches_eager(cuda, mode):
+    """Under the batched and legacy generations and the ppermute backend,
+    every program of the drain is one graph replay, and pool, table, flags
+    and heat equal the eager drain's bit for bit."""
+    import numpy as np
+
+    kw = dict(initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+              chunk_blocks=4, tiering=True,
+              fused_dispatch="legacy" if mode.startswith("legacy") else "batched")
+    regions = 2
+    if mode.endswith("ppermute"):
+        kw.update(backend="ppermute", axis_name="data")
+        regions = 4
+    g, (captures, replays) = _program_drain(cuda, kw, True, regions)
+    e, (e_captures, e_replays) = _program_drain(cuda, kw, False, regions)
+    assert replays == g.stats.dispatches > g.stats.ticks and 0 < captures <= replays
+    assert e_captures == e_replays == 0
+    for a, b in zip(g.state.to_numpy(), e.state.to_numpy()):
+        assert (a == b).all()
+    assert np.array_equal(g.heat_snapshot(), e.heat_snapshot())
+    import dataclasses
+
+    assert dataclasses.replace(g.stats, jit_cache_misses=0) == dataclasses.replace(
+        e.stats, jit_cache_misses=0)
+    assert g.stats.dirty_rejections > 0
+
+
+def test_graphed_force_pins_no_payload(cuda):
+    """A captured ``force_areas`` moves its payload with one K1 launch and
+    reserves no payload-sized temporary: its graph's memory pool stays far
+    below the lanes' bytes (2,048 lanes of 64 KiB: 128 MiB)."""
+    import numpy as np
+
+    from repro_torch.core import LeapState, migrator
+
+    n, slots = 2048, 4096
+    pool = np.random.default_rng(0).normal(size=(2, slots, 1, 16384)).astype(np.float32)
+    table = np.stack([np.zeros(n), np.arange(n)], 1).astype(np.int32)
+    state = LeapState.from_numpy(pool, table, np.zeros(n, bool), np.zeros(n, bool), cuda)
+    ids = torch.arange(n)
+    dst = torch.arange(slots - n, slots)
+    def graph_pools():
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+    migrator.PROGRAMS["force_areas"].clear()
+    before = leap_copy.copy_blocks.launches, graph_pools()
+    migrator.force_areas(state, ids, torch.ones(n, dtype=torch.int64), dst)
+    torch.cuda.synchronize()
+    assert leap_copy.copy_blocks.launches == before[0] + 1
+    assert migrator.PROGRAMS["force_areas"].captures >= 1
+    assert torch.equal(state.pool[1, slots - n:].cpu(), torch.from_numpy(pool[0, :n]))
+    assert graph_pools() - before[1] < 32 * 2**20

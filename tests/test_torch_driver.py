@@ -5,9 +5,8 @@ blocking harvest (``poll(block=True)`` after every tick), so that verdicts
 arrive at the same tick on both sides.  Then the host table, the device
 state, ``MigrationStats`` and every handle's progress must be equal, and the
 heat plane equal within rtol = atol = 1e-6.  ``jit_cache_misses`` is
-compared under the megastep, with both packages' megastep caches cleared
-when the pair is built, less what the JAX package compiles for the programs
-the port runs eagerly (the promotions' ``force_areas``; ROADMAP D1).
+compared too, under every dispatch generation, with both packages' caches
+of every migration program cleared when the pair is built.
 The import checks keep the port free of JAX and of the JAX package.
 """
 
@@ -35,6 +34,13 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 HEAT_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+def clear_program_caches():
+    """Empty every migration program's variant cache in both packages."""
+    for name in jmig._PROGRAMS:
+        jmig._PROGRAMS[name].clear_cache()
+    tmig.clear_program_caches()
+
+
 class Pair:
     """One driver per package over equal pools; every call goes to both.
 
@@ -59,13 +65,11 @@ class Pair:
                           jnp.asarray(data))
         ts = T.LeapState.from_numpy(*(np.asarray(x) for x in
                                       (js.pool, js.table, js.dirty, js.in_flight)), device="cpu")
-        self.megastep = T.LeapConfig(**cfg_kw).dispatch_mode == "megastep"
-        if self.megastep:  # both caches start empty: equal histories, equal misses
-            jmig.megastep.clear_cache()
-            tmig.MEGASTEP.clear()
+        # every program's cache starts empty on both sides: equal histories,
+        # equal misses
+        clear_program_caches()
         self.j = J.MigrationDriver(js, jpc, J.LeapConfig(**cfg_kw), scheduler=jsched)
         self.t = T.MigrationDriver(ts, tpc, T.LeapConfig(**cfg_kw), scheduler=tsched)
-        self._jax_sizes = jmig.program_cache_sizes()
         self.sessions = (self.j.default_session(), self.t.default_session())
         self.handles = []
         self.expected = data.copy()
@@ -102,12 +106,7 @@ class Pair:
             np.testing.assert_array_equal(got, np.asarray(want))
         np.testing.assert_allclose(t.heat_snapshot(), j.heat_snapshot(), **HEAT_TOL)
         js, ts = dataclasses.asdict(j.stats), dataclasses.asdict(t.stats)
-        jmiss, tmiss = js.pop("jit_cache_misses"), ts.pop("jit_cache_misses")
         assert ts == js
-        if self.megastep:
-            eager = sum(n - self._jax_sizes[k] for k, n in jmig.program_cache_sizes().items()
-                        if k != "megastep")
-            assert tmiss == jmiss - eager
         for hj, ht in self.handles:
             assert dataclasses.asdict(ht.progress()) == dataclasses.asdict(hj.progress())
             assert ht.status.value == hj.status.value

@@ -314,9 +314,7 @@ def _api_priorities_and_moves(P):
 
 
 def outcome_stats(stats) -> dict:
-    out = dataclasses.asdict(stats)
-    out.pop("jit_cache_misses")
-    return out
+    return dataclasses.asdict(stats)
 
 
 def test_priorities_and_static_moves():

@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from test_torch_driver import HEAT_TOL, REPO, Pair  # noqa: E402
+from test_torch_driver import HEAT_TOL, REPO, Pair, clear_program_caches  # noqa: E402
 from test_torch_ppermute import (  # noqa: E402
     JAX_DRAIN,
     MAX_TICKS,
@@ -65,6 +65,7 @@ def _area_state(seed):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("program", PROGRAMS)
 def test_per_area_program_matches_jax(program, seed):
+    clear_program_caches()
     leaves, ids, slots = _area_state(seed)
     js = jst.LeapState(*(jnp.asarray(x) for x in leaves))
     ts = before = T.LeapState.from_numpy(*leaves, "cpu")
@@ -87,7 +88,8 @@ def test_per_area_program_matches_jax(program, seed):
         np.testing.assert_array_equal(got, np.asarray(want))
     if jv is not None:
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    assert tmig.program_cache_sizes()[program] == 0
+    # one variant each side: the port keys its programs as the reference does
+    assert tmig.program_cache_sizes()[program] == jmig.program_cache_sizes()[program] == 1
 
 
 def test_force_migrate_gathers_before_it_scatters():
@@ -200,7 +202,6 @@ def test_legacy_ppermute_drain_matches_jax_on_four_devices(tmp_path):
     np.testing.assert_array_equal(drv.read(np.arange(N), note=False).numpy(), want["read"])
     np.testing.assert_allclose(drv.heat_snapshot(), want["heat"], **HEAT_TOL)
     stats = dataclasses.asdict(drv.stats)
-    stats.pop("jit_cache_misses")
     assert stats == ast.literal_eval(str(want["stats"]))
     assert [dataclasses.asdict(h.progress()) for h in handles] == ast.literal_eval(
         str(want["progress"]))

@@ -8,8 +8,8 @@ pacing curve and priorities, per-tenant telemetry, the autoscaler and the
 chaos serving workload.  Engines tick with blocking harvest on both sides
 (their sessions' ``tick`` is wrapped here: ROADMAP R2).  ``gen.report()``,
 the tick log, the tokens, tables, flags, page accounting, tenant stats and
-``MigrationStats`` (all but ``jit_cache_misses``) must be equal, pools
-within rtol = atol = 1e-5 (matrix products sum in different orders), heat
+``MigrationStats`` (``jit_cache_misses`` too, from empty program caches)
+must be equal, pools within rtol = atol = 1e-5 (matrix products sum in different orders), heat
 within 1e-6.  One more case drives ``SloScheduler`` end to end through the
 generator at the ``serving_slo`` benchmark's high load.
 """
@@ -24,6 +24,7 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 from test_torch_baselines import JAX, PORT  # noqa: E402
 from test_torch_chaos import both_chaos  # noqa: E402
+from test_torch_driver import clear_program_caches  # noqa: E402
 
 import repro.core.pipeline as JP  # noqa: E402
 import repro.load as JL  # noqa: E402
@@ -118,7 +119,6 @@ def engine_outcome(eng) -> dict:
     else:
         pool, *flags = (np.asarray(x) for x in (st.pool, st.table, st.dirty, st.in_flight))
     stats = dataclasses.asdict(drv.stats)
-    stats.pop("jit_cache_misses")
     tokens = dict(eng.finished)
     tokens.update({sid: list(s.tokens) for sid, s in eng.seqs.items()})
     return dict(pool=pool, flags=flags, host_table=drv.host_table(), stats=stats,
@@ -148,7 +148,9 @@ def same(a, b, path="result"):
 
 
 def both(scenario, *args):
+    clear_program_caches()
     want = scenario(SIDES[0], *args)
+    clear_program_caches()
     got = scenario(SIDES[1], *args)
     same(want, got)
     return got
@@ -223,6 +225,7 @@ def _deterministic_run(S, models):
     spec = S.spec(ticks=10, churn_every=2)
     runs = []
     for _ in range(2):
+        clear_program_caches()  # each run compiles from empty caches
         eng = S.engine(models, scheduler="slo", leap=dict(budget_blocks_per_tick=4))
         gen = S.load.LoadGenerator(eng, spec, scheduler=eng.driver.scheduler)
         runs.append(dict(report=gen.run(), log=gen.tick_log, engine=engine_outcome(eng)))

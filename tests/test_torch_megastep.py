@@ -205,6 +205,9 @@ def test_megastep_commit_verdict_reads_dirty_before_begin_clears_it():
 
 
 def test_force_areas_matches_jax():
+    for mig in (jmig, tmig):  # both caches empty: one variant each below
+        for name in mig.program_cache_sizes():
+            (mig._PROGRAMS[name].clear_cache() if mig is jmig else mig.PROGRAMS[name].clear())
     pool, table, dirty, in_flight, _, _ = _scenario(4)
     ids, regions, slots = np.arange(4, 8), np.ones(4), np.arange(24, 28)
     js = jst.LeapState(*(jnp.asarray(x) for x in (pool, table, dirty, in_flight)))
@@ -213,4 +216,4 @@ def test_force_areas_matches_jax():
     ts = tmig.force_areas(ts, *(torch.from_numpy(np.asarray(x, np.int64)) for x in (ids, regions, slots)))
     for got, want in zip(ts.to_numpy(), (js.pool, js.table, js.dirty, js.in_flight)):
         np.testing.assert_array_equal(got, np.asarray(want))
-    assert tmig.program_cache_sizes()["force_areas"] == 0  # eager: compiles nothing
+    assert tmig.program_cache_sizes()["force_areas"] == jmig.program_cache_sizes()["force_areas"] == 1
