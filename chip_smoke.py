@@ -20,9 +20,13 @@ printed):
    variants captured as CUDA graphs when the driver is built; the misses
    are printed); every write is mirrored into a device-side shadow.  Every
    megastep is one graph replay, and no tick may make the host wait for the
-   card (sync debug mode raises), a capturing one included.  The captured
-   graphs' memory pools, while the driver lives, stay within 1 GiB
-   (printed; so after phases 4, 13, 16 and 35's drains).
+   card (sync debug mode raises), a capturing one included.  Every
+   application write and read (``leap_write``, ``leap_read``) is one replay
+   of its captured I/O program (the replays and the host microseconds a
+   tick's I/O are printed).  The captured graphs' memory pools, while the
+   driver lives, stay within 1 GiB (printed; so after phases 4, 13, 16 and
+   35's drains, and after phase 20; phase 21 adds its payload read's
+   output).
 4. The same drain on a two-tier pool (2 MiB huge blocks).
 5. A small drain run twice, on the card (kernels) and on the CPU (plain
    versions), which must agree bit for bit (heat within 1e-6); the CPU
@@ -40,8 +44,10 @@ printed):
    leap-migrate to the other region from step 1 on (``tick()`` before every
    step), their append frontier pages among the pages in flight.  Tokens
    and the last step's logits must be bit-identical between the two runs.
-   Every decode step is one replay of the batch size's captured graph (so
-   in phases 22, 23 and 31; phase 24, which copies every routing call to
+   Every decode step is one replay of the batch size's captured graph, and
+   the prefill is one graph a prompt length (the first prompt of a length
+   runs eagerly, then captures; the prefill graph pool is printed); so in
+   phases 22, 23, 31 and 36 (phase 24, which copies every routing call to
    the host, runs with capture off).
 8. The LRU-scan kernel against its plain version on the card at the
    recurrent prefill's shapes ([8, 2048, 4096] f32: bit-identical, and
@@ -122,7 +128,9 @@ printed):
    the float64 numpy references within rtol 1e-3, and bit-identical when
    repeated), then every tick while all morsels leap from region 0 to 1
    under 16 ``L_ORDERKEY`` field writes a tick (bit-identical to the result
-   at rest: the writer touches no column the queries read).
+   at rest: the writer touches no column the queries read).  Q1 and Q6 are
+   captured programs (a variant a morsel-batch shape, the parameter an
+   operand), as are the store's reads and writes.
 20. The chaos sweep: ``sample_spec`` seeds 0-7 (megastep, as sampled) and
    seed 2 under batched and legacy through ``ChaosDriver`` on the card and
    on the CPU (the same ``ChaosReport``, ``MigrationStats``,
@@ -185,7 +193,9 @@ printed):
    checkpoint; finite losses and the last below the first; the loss curve,
    median step ms, tokens/s and peak GiB; model FLOPs a step (6 N D) against
    ``roofline.model.PEAK_FLOPS``, the MFU; one more step profiled (kernels,
-   device time, busy share).
+   device time, busy share).  The trainer's step is a captured program: the
+   first step runs eagerly, then one capture, every later step a replay
+   (so in phases 28 and 36).
 28. recurrentgemma_9b at full width, one period plus the tail (4 ``rec``, 1
    ``win``), batch 4 × 2,048, 6 steps: K5's forward launched twice (the
    block recompute) and its backward once per rec layer and step, and
@@ -228,7 +238,11 @@ printed):
    ``STEP_TOKENS`` tokens a step, and keeps every layer here):
    granite_3_2b ``decode_32k``, ``prefill_32k`` and ``train_4k``, and
    recurrentgemma_9b ``prefill_32k`` (which launches K5) and ``long_500k``
-   (decode at position 524,287).  Each cell ends ``OK`` with its cut
+   (decode at position 524,287).  Each cell's step is a captured program:
+   the first step eager, then one capture and replays, each cell then built
+   again and run eagerly; the graphed step is printed beside the eager one
+   with the peak and busy share of both, and the second step's outputs
+   must agree bit for bit.  Each cell ends ``OK`` with its cut
    recorded; the meta accounting's argument bytes equal the allocator's
    count before the step within 1%; the peak stays under the card's
    memory; the trace holds no NCCL kernel and 0 wire bytes; its device ms
@@ -260,6 +274,18 @@ printed):
    step's median ms printed; then K4 at that decode shape against its plain
    version, timed beside its bound and the library call: the
    ``paged_decode_g7`` row of the kernels line.
+37. The rest of the compile model against eager launches, each run graphed
+   and under ``graphs.disable_capture()``: phase 3's drain with its 64
+   writes and 64 reads a tick (phase 35's runs: state bit for bit; the
+   application I/O seconds of both); the host microseconds a call of each
+   application I/O program; TPC-H Q1 and Q6 over phase 19's store during a
+   leap, two parameters each through one variant (bit for bit, ms);
+   granite_3_2b's prefill of phase 7's prompts at full width (logits and
+   first tokens bit for bit, seconds); three trainer steps of granite_3_2b
+   at full width and 4 of its 40 layers (losses, parameters, m, v and step
+   bit for bit, step ms); and phase 34's five dry-run cells (outputs bit
+   for bit there, step ms and busy shares).  Then every new program's
+   variants, captures and replays, and the graph pools' GiB.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -269,8 +295,9 @@ line (phases 23-25 and the wall seconds of phases 23-36), the
 ``{"training": ...}`` line (phases 27-29), the ``{"models": ...}`` line
 (phases 31-33), the ``{"dryrun": ...}`` line (phase 34), the
 ``{"graphs_against_eager": ...}`` line (phase 35), the ``{"examples": ...}``
-line (phase 36), and last ``{"ok": true, "device": {...}}``.  Every time
-and size of phases 12 (the rounds), 16, 27 (the MFU) and 30-36 is printed
+line (phase 36), the ``{"compile_model_against_eager": ...}`` line (phase
+37), and last ``{"ok": true, "device": {...}}``.  Every time and size of
+phases 3, 7, 12 (the rounds), 16, 22, 23, 27 (the MFU) and 30-37 is printed
 with the card's name and power limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
@@ -322,9 +349,11 @@ from repro_torch.chaos import (  # noqa: E402
     sample_spec,
 )
 from repro_torch.configs.base import PORTED_ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.configs.smoke import reduce  # noqa: E402
 from repro_torch.core import graphs, migrator  # noqa: E402
-from repro_torch.core.pipeline import busy_mask  # noqa: E402
+from repro_torch.core import state as state_mod  # noqa: E402
+from repro_torch.core.pipeline import admission, busy_mask  # noqa: E402
 from repro_torch.data import tpch  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.data.morsels import MorselStore  # noqa: E402
@@ -351,6 +380,7 @@ from repro_torch.train.train_step import (  # noqa: E402
     TrainState,
     grad_accum,
     init_train_state,
+    state_tensors,
     train_step,
 )
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -595,13 +625,27 @@ def program_counts() -> tuple[int, int]:
     return sum(p.captures for p in progs), sum(p.replays for p in progs)
 
 
-def check_graph_memory(what: str) -> float:
-    """The GiB the live captured graphs' pools reserve, checked against the
-    limit and printed."""
+def io_program_counts() -> tuple[int, int]:
+    """Graphs captured and replayed so far over the application's I/O
+    programs (``state.IO_PROGRAMS`` and ``busy_mask``)."""
+    progs = list(state_mod.IO_PROGRAMS.values()) + [admission.BUSY_MASK]
+    return sum(p.captures for p in progs), sum(p.replays for p in progs)
+
+
+def check_graph_memory(what: str, limit: float = GRAPH_POOL_LIMIT_GIB) -> float:
+    """The GiB the live captured graphs' pools reserve, checked against
+    ``limit`` and printed."""
     pools, gib = graph_memory()
     print(f"{what}: {pools} captured graphs' memory pools, {gib:.3f} GiB [{card()}]")
-    check(gib <= GRAPH_POOL_LIMIT_GIB, f"{what}: graph pools within {GRAPH_POOL_LIMIT_GIB} GiB")
+    check(gib <= limit, f"{what}: graph pools within {limit:.3f} GiB")
     return gib
+
+
+def program_pool_gib(*progs) -> float:
+    """The GiB the memory pools of ``progs``' live graphs reserve."""
+    ids = {tuple(pool) for prog in progs for pool in prog._pools.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) in ids) / 2**30
 
 
 def graph_memory() -> tuple[int, float]:
@@ -1031,7 +1075,8 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
         check(session.drain(), "the drain completes")
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        seconds = dict(seconds=time.perf_counter() - t0, tick_s=tick_s, io_s=io_s)
+        seconds = dict(seconds=time.perf_counter() - t0, tick_s=tick_s, io_s=io_s,
+                       io_steps=ticks)
     check(not bool(io.stale), "every read during the drain saw the latest write")
     return drv, io.shadow, handles, seconds
 
@@ -1078,19 +1123,27 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
         kw = dict(cfg_kw=PP_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
     tap = LaneTap()
     reset_launch_counts()
-    prog = program_counts()
+    prog, io = program_counts(), io_program_counts()
     with tap if ppermute else contextlib.nullcontext():
         drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
     lanes = leap_copy.gather_blocks.lanes
+    io_now = io_program_counts()
     out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
     now = program_counts()
+    # the payload check reads 8,192 blocks (512 MiB) a call: that variant's
+    # output lives in its graph's pool as long as the state does
     out.update(captures=now[0] - prog[0], replays=now[1] - prog[1],
+               io_captures=io_now[0] - io[0], io_replays=io_now[1] - io[1],
                jit_cache_misses=drv.stats.jit_cache_misses,
                graph_pool_gib=check_graph_memory(
                    f"drain huge_factor={huge_factor} backend={drv.cfg.backend}"))
     check(out["replays"] == drv.stats.dispatches,
           "every program of the drain was one graph replay")
+    # the fill's writes, then a tick's writes and reads: one replay each
+    fills = -(-N_BLOCKS // 16384)
+    check(out["io_replays"] == fills + 2 * times["io_steps"],
+          "every application write and read of the drain was one graph replay")
     if ppermute:
         check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
               "every point-to-point copy gathered and scattered once")
@@ -1112,8 +1165,12 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
           f"{out['dispatches_per_tick']:.2f} dispatches a tick, "
           f"{out['dirty_rejections']} rejections, peak {out['peak_gib']:.2f} GiB, "
           f"{out['replays']} replays, {out['captures']} captures, "
-          f"{out['jit_cache_misses']} jit misses (warm_dispatch={drv.cfg.warm_dispatch}), "
-          f"launches {launches}")
+          f"{out['jit_cache_misses']} jit misses (warm_dispatch={drv.cfg.warm_dispatch}); "
+          f"application I/O {out['io_replays']} replays "
+          f"({times['io_s'] / times['io_steps'] * 1e6:.1f} us a tick's {IO_PER_TICK} writes "
+          f"and {IO_PER_TICK} reads), "
+          f"{out['io_captures']} captures; "
+          f"launches {launches} [{card()}]")
     return out
 
 
@@ -1274,7 +1331,7 @@ def contest(dev) -> dict:
         check(replays == drv.stats.dispatches, f"contest {name}: one graph replay a program")
         arms[name] = dict(arm_record(drv, times["seconds"], N_BLOCKS, 0, launches),
                           replays=replays, graph_pool_gib=check_graph_memory(f"contest {name}"))
-        del drv, shadow
+        del drv, shadow, handles  # a handle holds its session, and so the driver
 
     # move_pages(): one blocking call; the application's writes stop while it
     # runs.  A live leap of the first blocks makes the busy set it must skip.
@@ -1643,7 +1700,9 @@ def chaos_sweep(dev) -> dict:
     print(f"chaos sabotage caught on the card: {caught.invariant}; serving scenario "
           f"{serving_s:.3f} s, {rep.ticks_run} ticks, {rep.checks_run} checks, "
           f"{rep.blocks_migrated} migrated, launches {launches}")
-    return dict(seeds=seeds, sabotage=caught.invariant,
+    gc.collect()  # the earlier scenarios' drivers, which sit in reference cycles
+    pools = check_graph_memory("phase 20, the serving scenario's driver alive")
+    return dict(seeds=seeds, sabotage=caught.invariant, graph_pool_gib=pools,
                 serving=dict(seconds=serving_s, ticks=rep.ticks_run, checks=rep.checks_run,
                              blocks_requested=rep.blocks_requested,
                              blocks_migrated=rep.blocks_migrated,
@@ -1686,7 +1745,13 @@ def chaos_at_scale(dev) -> dict:
     check(len(rep.events_fired) == len(CHAOS_AT_SCALE.faults), "every fault fired")
     check(launches["copy_blocks"] > 0 and launches["heat_scan"] > 0,
           "the scenario copied through K1 and scanned heat through K3")
-    out = dict(setup_s=setup_s, seconds=seconds, checker_s=checker_s[0],
+    # the payload checker reads every block at once (leap_read over
+    # n_blocks): that variant's output, 2 GiB, lives in its graph's pool
+    # beside the 11 GiB pool as long as the state does
+    payload_gib = CHAOS_AT_SCALE.n_blocks * chaos.driver.pool_cfg.block_bytes / 2**30
+    pools = check_graph_memory("phase 21, the chaos driver alive",
+                               GRAPH_POOL_LIMIT_GIB + payload_gib)
+    out = dict(setup_s=setup_s, seconds=seconds, checker_s=checker_s[0], graph_pool_gib=pools,
                tick_s=seconds / rep.ticks_run, checks=rep.checks_run, ticks=rep.ticks_run,
                events=rep.events_fired, drain_refusals=rep.drain_refusals,
                handles=rep.handles_issued, blocks_requested=rep.blocks_requested,
@@ -1736,13 +1801,18 @@ def load_run(dev, cfg, model, pcfg, spec):
         gen.verify_accounting()
         check_s += time.perf_counter() - t0
     tokens.update({sid: list(seq.tokens) for sid, seq in eng.seqs.items()})
-    prog = eng._decode_step
+    prog, pre = eng._decode_step, eng._prefill
     if dev.type == "cuda":
         check(prog.replays == len(calls) > 0 and prog.captures == len(prog) == len(set(calls)),
               "every decode call was one replay, one captured graph per batch size")
+        check(pre.captures == len(pre) > 0 and pre.replays > 0,
+              "one prefill graph a prompt length, replayed for later prompts")
     return gen, tokens, dict(tick_s=tick_s, check_s=check_s, decode_calls=len(calls),
                              batch_sizes=sorted(set(calls)), replays=prog.replays,
-                             captures=prog.captures)
+                             captures=prog.captures, prefill_variants=len(pre),
+                             prefill_replays=pre.replays,
+                             prefill_pool_gib=program_pool_gib(pre) if dev.type == "cuda"
+                             else None)
 
 
 def load_full_width(dev) -> dict:
@@ -1776,7 +1846,9 @@ def load_full_width(dev) -> dict:
             max_running=max(e["n_running"] for e in gen.tick_log),
             dirty_rejections=s.dirty_rejections, decode_calls=times["decode_calls"],
             batch_sizes=times["batch_sizes"], replays=times["replays"],
-            captures=times["captures"], launches=launches)
+            captures=times["captures"], prefill_variants=times["prefill_variants"],
+            prefill_replays=times["prefill_replays"],
+            prefill_pool_gib=times["prefill_pool_gib"], launches=launches)
         o = out[f"run{i}"]
         print(f"load run {i}: modeled p50 {rep['p50']:.4f} p99 {rep['p99']:.4f} (gold p99 "
               f"{o['gold_p99']:.4f}, SLO met {o['gold_slo_met']}), mig_rate "
@@ -1784,7 +1856,9 @@ def load_full_width(dev) -> dict:
               f"at most {o['max_running']} running; wall {seconds:.3f} s, tick "
               f"{o['tick_ms_median']:.1f} ms median ({o['tick_ms_max']:.1f} max), checks "
               f"{times['check_s']:.3f} s; {o['replays']} decode replays over batch sizes "
-              f"{o['batch_sizes']}; launches {launches}")
+              f"{o['batch_sizes']}; prefill {o['prefill_variants']} lengths, "
+              f"{o['prefill_replays']} replays, graph pool {o['prefill_pool_gib']:.3f} GiB; "
+              f"launches {launches} [{card()}]")
         del gen
     check(runs[0][0] == runs[1][0], "gen.report() is bit-identical run to run")
     check(runs[0][1] == runs[1][1], "every sequence's tokens are identical run to run")
@@ -2027,7 +2101,15 @@ def serve_run(dev, cfg, model, pcfg, prompts, steps: int, live: bool, blocking: 
         tokens_per_s=len(sids) * steps / sum(step_s), tick_s=tick_s,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
         replays=eng._decode_step.replays, captures=eng._decode_step.captures,
+        prefill_variants=len(eng._prefill), prefill_captures=eng._prefill.captures,
+        prefill_replays=eng._prefill.replays,
+        prefill_pool_gib=program_pool_gib(eng._prefill) if dev.type == "cuda" else None,
     )
+    if dev.type == "cuda" and graphs._capture:
+        lengths = len({len(p) for p in prompts})
+        check(times["prefill_variants"] == times["prefill_captures"] == lengths
+              and times["prefill_replays"] == len(prompts) - lengths,
+              "one prefill graph a prompt length, its first prompt eager, the rest replays")
     return eng, sids, handles, times
 
 
@@ -2091,10 +2173,12 @@ def serving_full_width(dev) -> dict:
               f"{name}: one paged-decode launch per layer and step")
         check(times["replays"] == SERVE["steps"] and times["captures"] == 1,
               f"{name}: every decode step was one replay of one captured graph")
-        print(f"serving {name}: prefill {times['prefill_s']:.3f} s, decode step "
+        print(f"serving {name}: prefill {times['prefill_s']:.3f} s ({times['prefill_replays']} "
+              f"replays, prefill graph pool {times['prefill_pool_gib']:.3f} GiB), decode step "
               f"{times['decode_step_ms_median']:.3f} ms (median), {times['tokens_per_s']:.1f} "
               f"tok/s, decode {times['decode_s']:.3f} s, ticks {times['tick_s']:.3f} s, peak "
-              f"{times['peak_gib']:.2f} GiB, {times['replays']} replays, launches {launches}")
+              f"{times['peak_gib']:.2f} GiB, {times['replays']} replays, launches {launches} "
+              f"[{card()}]")
         del eng
         torch.cuda.empty_cache()
     check(runs["live"][0] == runs["undisturbed"][0],
@@ -2443,7 +2527,8 @@ def moe_full_width(dev) -> dict:
                   f"{times['tokens_per_s']:.1f} tok/s, decode {times['decode_s']:.3f} s, "
                   f"ticks {times['tick_s']:.3f} s, peak {times['peak_gib']:.2f} GiB, dropped "
                   f"picks {res[name]['dropped_picks_decode']} of {decode_picks} at decode and "
-                  f"{res[name]['dropped_picks_prefill']} at prefill, launches {launches}")
+                  f"{res[name]['dropped_picks_prefill']} at prefill, prefill graph pool "
+                  f"{times['prefill_pool_gib']:.3f} GiB, launches {launches} [{card()}]")
             del eng
             torch.cuda.empty_cache()
         check(runs["live"][0] == runs["undisturbed"][0],
@@ -2779,12 +2864,18 @@ def train_run(dev, cfg, spec: dict, data_seed: int = SEED) -> tuple[Trainer, dic
         first_step_ms=step_s[0] * 1e3,
         tokens_per_s=tokens / statistics.median(step_s),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+        captures=tr._step_fn.captures, replays=tr._step_fn.replays,
+        graph_pool_gib=program_pool_gib(tr._step_fn),
     )
+    if graphs._capture:
+        check(res["captures"] == 1 and res["replays"] == spec["steps"] - 1,
+              f"{cfg.name}: the first step eager, one capture, every later step a replay")
     print(f"{cfg.name} training ({cfg.n_layers} layers, {res['params']:,} params): losses "
           + " ".join(f"{x:.4f}" for x in losses))
     print(f"  step {res['step_ms_median']:.1f} ms (median; first {res['first_step_ms']:.1f}), "
           f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB, init "
-          f"{init_s:.1f} s, launches {launches}")
+          f"{init_s:.1f} s, {res['replays']} replays, graph pool {res['graph_pool_gib']:.3f} "
+          f"GiB, launches {launches} [{card()}]")
     return tr, res
 
 
@@ -2822,6 +2913,13 @@ def recurrent_training(dev) -> dict:
           f"lru_scan launched twice per rec layer and microbatch ({2 * n_rec * micro})")
     check(res["launches"]["lru_scan_bwd"] == n_rec * micro,
           f"lru_scan_bwd launched once per rec layer and microbatch ({n_rec * micro})")
+    res["profiled_step"] = prof = profile_step(tr)
+    print(f"  one more step profiled: {prof['kernels']} kernels, {prof['device_ms']:.1f} ms of "
+          f"device time in {prof['wall_ms']:.1f} ms (busy {prof['busy_share']:.3f})")
+    # the step's graph keeps its temporaries (the eager step's peak less the
+    # state): let it go before the eager gradients below
+    tr._step_fn.clear()
+    release()
     batch = {k: torch.from_numpy(v).to(dev) for k, v in tr.data.batch(tr.step).items()}
     grads, _ = grad_accum(tr.state.params, batch, cfg, tr.tcfg)
     gate_norms = {}
@@ -2836,11 +2934,7 @@ def recurrent_training(dev) -> dict:
     res["gate_grad_norms"] = gate_norms
     res["rec_layers"] = n_rec
     print("  rec gate gradient norms: " + ", ".join(f"{k} {v:.3g}" for k, v in gate_norms.items()))
-    del grads
-    res["profiled_step"] = prof = profile_step(tr)
-    print(f"  one more step profiled: {prof['kernels']} kernels, {prof['device_ms']:.1f} ms of "
-          f"device time in {prof['wall_ms']:.1f} ms (busy {prof['busy_share']:.3f})")
-    del tr
+    del grads, tr
     release()
     return res
 
@@ -3201,9 +3295,16 @@ def dryrun_cells(dev) -> dict:
             k5 = m["kernel_classes"].get("K5 lru_scan", {}).get("launches", 0)
             check(k5 == n_rec, f"{what}: the trace names K5 {k5} times, once per rec layer "
                                f"({n_rec})")
-            steps = 1 + dryrun.TIMED_STEPS["prefill"] + 1  # warm-up, timed, profiled
+            # graphed: the eager first step, timed replays, a profiled one;
+            # then eager: timed steps and a profiled one
+            steps = (1 + dryrun.TIMED_STEPS["prefill"] + 1) + (dryrun.EAGER_STEPS["prefill"] + 1)
             check(launches["lru_scan"] == steps * n_rec,
-                  f"{what}: lru_scan launched once per rec layer and step")
+                  f"{what}: lru_scan launched once per rec layer and step, graphed or eager")
+        e = art["eager"]
+        check(art["graphed_equals_eager"],
+              f"{what}: the second step's outputs graphed and eager, bit for bit")
+        check(m["captures"] == 1 and m["replays"] == dryrun.TIMED_STEPS[SHAPES[shape].kind] + 1,
+              f"{what}: one capture, then every graphed step a replay")
         bound_ms = art["roofline"]["step_time_s"] * 1e3
         print(f"dry-run {arch} {shape} ({art['reduced'] or 'not cut'}): step "
               f"{m['step_ms']:.2f} ms (median of {m['steps_ms']}), first step "
@@ -3213,12 +3314,19 @@ def dryrun_cells(dev) -> dict:
               f"GiB, arguments {mem['argument_bytes']} B (meta {want}), bound {bound_ms:.3f} ms "
               f"({art['roofline']['dominant']}), step / bound {m['step_ms'] / bound_ms:.2f}, "
               f"{m['kernels']} device events, wall {wall_s:.1f} s [{card()}]")
+        print(f"dry-run {arch} {shape} graphed against eager: step {m['step_ms']:.2f} against "
+              f"{e['step_ms']:.2f} ms (eager {e['steps_ms']}), busy {m['busy']:.3f} against "
+              f"{e['busy']:.3f}, peak {m['peak_bytes'] / 2**30:.2f} against "
+              f"{e['peak_bytes'] / 2**30:.2f} GiB, device {m['device_ms']:.2f} against "
+              f"{e['device_ms']:.2f} ms, {m['kernels']} against {e['kernels']} device events; "
+              f"outputs bit for bit: {art['graphed_equals_eager']} [{card()}]")
         arts[(arch, shape)] = art
         res[f"{arch}__{shape}"] = dict(
             status=art["status"], reduced=art["reduced"], full=art["full"], memory=mem,
             measured={k: v for k, v in m.items() if k != "trace"}, roofline=art["roofline"],
             build_s=art["build_s"], first_step_s=art["first_step_s"], wall_s=wall_s,
-            launches=launches)
+            launches=launches, eager={k: v for k, v in e.items() if k != "trace"},
+            graphed_equals_eager=art["graphed_equals_eager"])
     release()
     print(report.measured_table("h100", arts) + f"\n[{card()}]")
     return res
@@ -3230,8 +3338,6 @@ def lru_scan_dryrun_check(dev) -> dict:
     gives it (batch 1, 32,768 steps, rnn_width 4,096: a serial chain of
     32,768 steps a channel), timed against its byte bound, with the plan it
     launched."""
-    from repro_torch.configs.shapes import SHAPES
-
     b, t, r = 1, SHAPES["prefill_32k"].seq_len, get_config("recurrentgemma_9b").rnn_width
     a, x, h0 = lru_inputs(dev, b, t, r, SEED + 34)
     got = ops.lru_scan(a, x, h0)
@@ -3291,16 +3397,18 @@ def graphed_drain_run(dev, name: str, capture: bool) -> tuple:
     if ppermute:
         slots, seed = PP_SLOTS, SEED + 2
         kw.update(n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
-    prog = program_counts()
+    prog, io = program_counts(), io_program_counts()
     with contextlib.nullcontext() if capture else graphs.disable_capture():
         drv, shadow, handles, times = drain(dev, N_BLOCKS, slots, BLOCK, huge_factor, seed,
                                             blocking=True, **kw)
-    launches = launch_counts()
-    out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
+        launches = launch_counts()
+        io_now = io_program_counts()
+        out = check_drain(drv, shadow, handles, huge=huge_factor > 1)  # its reads too
     del shadow
     now = program_counts()
     out.update(times, launches=launches, jit_cache_misses=drv.stats.jit_cache_misses,
                captures=now[0] - prog[0], replays=now[1] - prog[1],
+               io_captures=io_now[0] - io[0], io_replays=io_now[1] - io[1],
                tick_ms=times["tick_s"] / drv.stats.ticks * 1e3,
                graph_pool_gib=check_graph_memory(f"phase 35 {name} drain "
                                                  f"{'graphed' if capture else 'eager'}"))
@@ -3370,6 +3478,228 @@ def graphs_against_eager(dev) -> dict:
     return out
 
 
+# -- phase 37: the rest of the compile model against eager launches ------------------
+
+IO_CALLS = 200  # calls of each I/O program timed on the host, after 10 warm ones
+# phase 37's trainer: granite_3_2b at full width, 4 of its 40 layers, phase
+# 27's batch, 3 steps
+TRAIN_37 = dict(TRAIN_GRANITE, steps=3)
+TRAIN_37_LAYERS = 4
+TPCH_37 = dict(ticks=4, q1=(TPCH["q1_cutoff"], 1200.0), q6=(TPCH["q6_year"], 1095.0))
+
+
+def modes():
+    """(name, context) for the graphed run and the eager one."""
+    return (("graphed", contextlib.nullcontext), ("eager", graphs.disable_capture))
+
+
+def io_call_us(dev) -> dict:
+    """Host microseconds a call of each application I/O program, graphed and
+    eager: 64 ids a call over a two-tier pool of 4,096 blocks of 64 KiB (two
+    huge blocks a group call), the loop queued without a sync."""
+    n = 4096
+    pc = PoolConfig(2, n + 64, BLOCK, torch.float32, huge_factor=HUGE)
+    state = init_state(pc, n, np.zeros(n, np.int32), device=dev)
+    g = torch.Generator().manual_seed(SEED)
+    ids, groups = torch.randperm(n, generator=g)[:IO_PER_TICK], torch.arange(2)
+    offs = torch.zeros(IO_PER_TICK, dtype=torch.int64)
+    vals = torch.randn((IO_PER_TICK,) + BLOCK, device=dev)
+    calls = {
+        "leap_read": lambda: state_mod.leap_read(state, ids),
+        "leap_write": lambda: state_mod.leap_write(state, ids, vals),
+        "leap_write_rows": lambda: state_mod.leap_write_rows(state, ids, offs, vals[:, 0]),
+        "block_regions": lambda: state_mod.block_regions(state, ids),
+        "huge_read": lambda: state_mod.huge_read(state, groups, HUGE),
+        "group_dirty": lambda: state_mod.group_dirty(state, groups, HUGE),
+        "group_in_flight": lambda: state_mod.group_in_flight(state, groups, HUGE),
+        "busy_mask": lambda: busy_mask(state, ids),
+    }
+    out = {}
+    for mode, ctx in modes():
+        with ctx():
+            for name, call in calls.items():
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(IO_CALLS):
+                    call()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                out.setdefault(name, {})[mode] = host / IO_CALLS * 1e6
+    print("phase 37 host us a call (graphed / eager): " + ", ".join(
+        f"{k} {v['graphed']:.1f} / {v['eager']:.1f}" for k, v in out.items()) + f" [{card()}]")
+    del state
+    return out
+
+
+def tpch_against_eager(dev) -> dict:
+    """Phase 19's store during a leap: Q1 and Q6 at two parameters each,
+    through one variant a query and length, graphed and eager: bit for bit,
+    with their ms."""
+    release()
+    store = MorselStore.create(
+        tpch.gen_lineitem(TPCH["rows"], seed=SEED), TPCH["rows_per_morsel"], 2,
+        leap=LeapConfig(initial_area_blocks=256, budget_blocks_per_tick=1024))
+    store.steal(np.arange(store.n_morsels), 1)
+    before = {q: (len(p), p.captures, p.replays) for q, p in (("q1", tpch.Q1), ("q6", tpch.Q6))}
+    ms = {q: {m: [] for m, _ in modes()} for q in ("q1", "q6")}
+    for _ in range(TPCH_37["ticks"]):
+        store.tick()
+        got = {}
+        for mode, ctx in modes():
+            with ctx():
+                for q in ("q1", "q6"):
+                    for p in TPCH_37[q]:
+                        got[mode, q, p], sec = timed_query(store, q, p)
+                        ms[q][mode].append(sec * 1e3)
+        for q in ("q1", "q6"):
+            a, b = (got["graphed", q, p] for p in TPCH_37[q])
+            check(not torch.equal(a, b), f"{q}: two parameters through one variant, two results")
+            for p in TPCH_37[q]:
+                check(torch.equal(got["graphed", q, p], got["eager", q, p]),
+                      f"{q} at {p} during the leap: graphed and eager bit for bit")
+    check(not store.driver.done, "the queries ran while the leap was in flight")
+    out = {}
+    for q, prog in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        v, c, r = before[q]
+        # a full batch of 64 morsels and no shorter last one (16,384 morsels)
+        check(len(prog) - v <= 1 and prog.captures - c <= 1,
+              f"{q}: both parameters through one variant")
+        out[q] = dict(graphed_ms=statistics.median(ms[q]["graphed"]),
+                      eager_ms=statistics.median(ms[q]["eager"]), variants=len(prog),
+                      captures=prog.captures, replays=prog.replays,
+                      pool_gib=program_pool_gib(prog))
+    print(f"phase 37 TPC-H during a leap (median of {2 * TPCH_37['ticks']}): Q1 "
+          f"{out['q1']['graphed_ms']:.2f} ms graphed, {out['q1']['eager_ms']:.2f} eager; Q6 "
+          f"{out['q6']['graphed_ms']:.2f} graphed, {out['q6']['eager_ms']:.2f} eager; "
+          f"Q1 {out['q1']['captures']} captures, {out['q1']['replays']} replays, Q6 "
+          f"{out['q6']['captures']} captures, {out['q6']['replays']} replays; graph pools "
+          f"{out['q1']['pool_gib'] + out['q6']['pool_gib']:.3f} GiB [{card()}]")
+    store.drain()
+    del store
+    return out
+
+
+def prefill_against_eager(dev) -> dict:
+    """Phase 7's prompts through the engine's prefill at full width,
+    graphed and eager: logits and first tokens bit for bit."""
+    release()
+    cfg, model, pcfg, prompts = serving_deployment(dev)
+    res, logits, tokens = {}, {}, {}
+    for mode, ctx in modes():
+        eng = PagedEngine(cfg, model, pcfg, device=dev)
+        prog, kept = eng._prefill, []
+
+        def tap(*args, _prog=prog, **kw):
+            out = _prog(*args, **kw)
+            kept.append(out[0].clone())
+            return out
+
+        eng._prefill = tap
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx():
+            sids = [eng.admit(p) for p in prompts]
+        torch.cuda.synchronize()
+        res[mode] = dict(prefill_s=time.perf_counter() - t0, variants=len(prog),
+                         captures=prog.captures, replays=prog.replays,
+                         pool_gib=program_pool_gib(prog))
+        logits[mode], tokens[mode] = kept, [eng.seqs[s].tokens for s in sids]
+        del eng, prog, tap
+        torch.cuda.empty_cache()
+    check(tokens["graphed"] == tokens["eager"], "the prefill's first tokens, graphed and eager")
+    check(all(torch.equal(a, b) for a, b in zip(logits["graphed"], logits["eager"])),
+          "the prefill's logits, graphed and eager, bit for bit")
+    g = res["graphed"]
+    check(g["captures"] == 1 and g["replays"] == len(prompts) - 1,
+          "one prefill graph, replayed for every later prompt")
+    print(f"phase 37 granite_3_2b prefill of {len(prompts)} prompts of {prompts.shape[1]} tokens "
+          f"(admit, pages included): {g['prefill_s']:.3f} s graphed, "
+          f"{res['eager']['prefill_s']:.3f} s eager; {g['captures']} capture, {g['replays']} "
+          f"replays, graph pool {g['pool_gib']:.3f} GiB [{card()}]")
+    del model
+    release()
+    return res
+
+
+def trainer_against_eager(dev) -> dict:
+    """``TRAIN_37`` steps of granite_3_2b at full width and reduced depth,
+    graphed and eager from one seed: losses, parameters, m, v and step bit
+    for bit."""
+    release()
+    cfg = dataclasses.replace(get_config("granite_3_2b"), n_layers=TRAIN_37_LAYERS)
+    runs, res = {}, {}
+    for mode, ctx in modes():
+        with ctx():
+            tr, r = train_run(dev, cfg, TRAIN_37)
+        prog = tr._step_fn
+        res[mode] = dict(step_ms=r["step_ms"], step_ms_median=r["step_ms_median"],
+                         peak_gib=r["peak_gib"], losses=r["losses"], captures=prog.captures,
+                         replays=prog.replays, pool_gib=program_pool_gib(prog))
+        runs[mode] = tr
+    g, e = runs["graphed"], runs["eager"]
+    check(res["graphed"]["captures"] == 1 and res["graphed"]["replays"] == TRAIN_37["steps"] - 1,
+          "the first step eager, one capture, every later step a replay")
+    check(g.history == e.history, "losses, gradient norms and learning rates bit for bit")
+    check(all(torch.equal(a, b) for a, b in zip(state_tensors(g.state), state_tensors(e.state))),
+          "parameters, m, v and step bit for bit after the steps")
+    check(int(g.state.opt["step"]) == TRAIN_37["steps"], "one update a call")
+    print(f"phase 37 granite_3_2b training ({TRAIN_37_LAYERS} of 40 layers, batch "
+          f"{TRAIN_37['batch']} x {TRAIN_37['seq']}): step ms graphed "
+          f"{[round(x, 2) for x in res['graphed']['step_ms']]}, eager "
+          f"{[round(x, 2) for x in res['eager']['step_ms']]}; peak "
+          f"{res['graphed']['peak_gib']:.2f} GiB graphed, {res['eager']['peak_gib']:.2f} eager; "
+          f"graph pool {res['graphed']['pool_gib']:.3f} GiB [{card()}]")
+    del runs, g, e
+    release()
+    return res
+
+
+def compile_model_against_eager(dev, drains: dict, dry: dict) -> dict:
+    """Phase 37: the programs this slice compiles, each graphed and under
+    ``graphs.disable_capture()``: the I/O programs' host cost a call, TPC-H
+    during a leap, the full-width prefill, three trainer steps; and, from
+    the runs of phases 35 and 34, phase 3's drain with its application
+    writes and reads (phase 35 compared its state bit for bit) and the five
+    dry-run cells (phase 34 compared their outputs)."""
+    out = {"card": card()}
+    r, e = drains["graphed"], drains["eager"]
+    fills = -(-N_BLOCKS // 16384)
+    check(r["io_replays"] == fills + 2 * r["io_steps"] and e["io_replays"] == 0,
+          "phase 3's drain: every application write and read a replay graphed, none eager")
+    print(f"phase 37 phase 3's drain (phase 35's runs): app I/O {r['io_s']:.3f} s graphed "
+          f"({r['io_s'] / r['io_steps'] * 1e6:.1f} us a tick), {e['io_s']:.3f} s eager "
+          f"({e['io_s'] / e['io_steps'] * 1e6:.1f} us); {r['io_replays']} I/O replays, "
+          f"{r['io_captures']} captures; graph pools {r['graph_pool_gib']:.3f} GiB with the "
+          f"driver alive [{card()}]")
+    out["drain"] = dict(graphed={k: r[k] for k in ("io_s", "io_steps", "io_replays",
+                                                    "io_captures", "graph_pool_gib")},
+                        eager={k: e[k] for k in ("io_s", "io_steps", "io_replays")})
+    out["io_call_us"] = io_call_us(dev)
+    out["tpch"] = tpch_against_eager(dev)
+    out["prefill"] = prefill_against_eager(dev)
+    out["training"] = trainer_against_eager(dev)
+    out["dryrun"] = {}
+    for cell, d in dry.items():
+        check(d["graphed_equals_eager"], f"phase 37 dry-run {cell}: graphed equals eager")
+        m, ea = d["measured"], d["eager"]
+        out["dryrun"][cell] = dict(graphed_ms=m["step_ms"], eager_ms=ea["step_ms"],
+                                   graphed_busy=m["busy"], eager_busy=ea["busy"],
+                                   captures=m["captures"], replays=m["replays"])
+        print(f"phase 37 dry-run {cell} (phase 34's runs): step {m['step_ms']:.2f} ms graphed, "
+              f"{ea['step_ms']:.2f} eager; busy {m['busy']:.3f} graphed, {ea['busy']:.3f} "
+              f"eager; {m['captures']} capture, {m['replays']} replays; outputs bit for bit "
+              f"[{card()}]")
+    progs = list(state_mod.IO_PROGRAMS.values()) + [admission.BUSY_MASK, tpch.Q1, tpch.Q6]
+    out["programs"] = {p.name: dict(variants=len(p), captures=p.captures, replays=p.replays)
+                       for p in progs}
+    print("phase 37 programs (variants, captures, replays): " + ", ".join(
+        f"{k} {v['variants']}/{v['captures']}/{v['replays']}" for k, v in out["programs"].items()))
+    out["graph_pool_gib"] = check_graph_memory("phase 37, at its end")
+    return out
+
+
 # -- phase 36: the examples, and qwen2_7b through launch.serve ----------------------
 
 EXAMPLES = ("quickstart_torch", "serve_paged_torch", "tpch_morsels_torch", "train_e2e_torch")
@@ -3384,6 +3714,38 @@ def example_module(name: str):
     return mod
 
 
+class EngineTap:
+    """While active, keeps every ``PagedEngine`` built (an entry point's
+    engines outlive its call until the tap is read), so that their prefill
+    programs' graphs and pools can be counted after the call."""
+
+    def __init__(self):
+        self.engines: list[PagedEngine] = []
+        self._init = PagedEngine.__init__
+
+    def __enter__(self):
+        def init(eng, *args, **kw):
+            self._init(eng, *args, **kw)
+            self.engines.append(eng)
+
+        PagedEngine.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        PagedEngine.__init__ = self._init
+
+    def prefill(self) -> dict:
+        """The engines' prefill variants, captures, replays and pool GiB;
+        then lets the engines go."""
+        progs = [e._prefill for e in self.engines]
+        out = dict(prefill_variants=sum(len(p) for p in progs),
+                   prefill_captures=sum(p.captures for p in progs),
+                   prefill_replays=sum(p.replays for p in progs),
+                   prefill_pool_gib=program_pool_gib(*progs))
+        self.engines.clear()
+        return out
+
+
 def examples_on_the_card(dev) -> dict:
     """Each torch example once, on the card, at its own defaults; each
     asserts its own result."""
@@ -3393,9 +3755,12 @@ def examples_on_the_card(dev) -> dict:
         reset_launch_counts()
         mod = example_module(name)
         t0 = time.perf_counter()
-        res = mod.run()
+        with EngineTap() as engines:
+            res = mod.run()
         torch.cuda.synchronize()
         rec = dict(seconds=time.perf_counter() - t0, launches=launch_counts())
+        if engines.engines:
+            rec.update(engines.prefill())
         if name == "quickstart_torch":
             rec.update(ticks=res["ticks"], dirty_rejections=res["stats"].dirty_rejections)
             check(rec["launches"]["copy_blocks"] > 0, f"{name} copied through K1")
@@ -3426,9 +3791,14 @@ def qwen_served(dev) -> dict:
     reset_launch_counts()
     q = QWEN_SERVE
     t0 = time.perf_counter()
-    res = serve.main(["--arch", q["arch"], "--rebalance", "--requests", str(q["requests"]),
-                      "--prompt-len", str(q["prompt_len"]), "--tokens", str(q["tokens"])])
+    with EngineTap() as engines:
+        res = serve.main(["--arch", q["arch"], "--rebalance", "--requests", str(q["requests"]),
+                          "--prompt-len", str(q["prompt_len"]), "--tokens", str(q["tokens"])])
     seconds = time.perf_counter() - t0
+    prefill = engines.prefill()
+    check(prefill["prefill_variants"] == prefill["prefill_captures"] == 1
+          and prefill["prefill_replays"] == q["requests"] - 1,
+          "qwen2_7b: one prefill graph for the one prompt length, replayed")
     launches = launch_counts()
     cfg = get_config(q["arch"])
     check(res["layers"] == cfg.n_layers == 28, "qwen2_7b served at full depth")
@@ -3447,11 +3817,12 @@ def qwen_served(dev) -> dict:
                params=lm.count_params(cfg), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, replays=res["replays"],
                blocks_migrated=res["stats"].blocks_migrated,
-               dirty_rejections=res["stats"].dirty_rejections)
+               dirty_rejections=res["stats"].dirty_rejections, **prefill)
     print(f"phase 36 qwen2_7b ({out['params']} parameters, 28 layers, bf16) through "
           f"launch.serve: decode step {out['decode_step_ms_median']:.3f} ms (median of "
           f"{len(warm)}; first {out['first_step_ms']:.1f} ms), {out['tokens_per_s']:.1f} tok/s, "
-          f"peak {out['peak_gib']:.2f} GiB, {seconds:.1f} s in all [{card()}]")
+          f"peak {out['peak_gib']:.2f} GiB, prefill graph pool {prefill['prefill_pool_gib']:.3f} "
+          f"GiB ({prefill['prefill_replays']} replays), {seconds:.1f} s in all [{card()}]")
     return out
 
 
@@ -3571,6 +3942,9 @@ def main() -> int:
     examples["qwen2_7b"] = qwen_served(dev)
     rows.append(paged_qwen_check(dev))
     wall["phase_36_examples_and_qwen2_7b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compiled = compile_model_against_eager(dev, graphed["small_drain"], dry)
+    wall["phase_37_compile_model_against_eager"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -3618,6 +3992,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dry, "card": smi}))
     print(json.dumps({"graphs_against_eager": graphed, "card": smi}))
     print(json.dumps({"examples": examples, "card": smi}))
+    print(json.dumps({"compile_model_against_eager": compiled, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

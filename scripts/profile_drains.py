@@ -3,21 +3,24 @@
 
     python3 scripts/profile_drains.py
 
-Runs two of the smoke's drains on the current CUDA device (131,072 blocks
-of 64 KiB, 64 writes and 64 reads a tick): the 2-region small-block drain
-through the megastep (phase 3's, with ``warm_dispatch``) four times in
-turns, eager, graphed, graphed, eager (eager: inside
-``graphs.disable_capture()``, every launch from Python; graphed: one CUDA
-graph replay a tick), and the 4-region ppermute drain through the batched
-generation (eager by design) once.  Each run is drained twice: once with
+Runs the smoke's drains on the current CUDA device (131,072 blocks of 64
+KiB, 64 writes and 64 reads a tick): the 2-region small-block drain through
+the megastep (phase 3's, with ``warm_dispatch``) four times in turns, eager,
+graphed, graphed, eager (eager: inside ``graphs.disable_capture()``, every
+launch from Python; graphed: one CUDA graph replay a program), then graphed
+the same pool through the batched generation and through the legacy one
+(phase 35's ``chunk_blocks`` 16), and the 4-region ppermute drain through
+the batched generation.  Each run is drained twice: once with
 ``LeapConfig(telemetry=True)``, printing the host milliseconds a tick in
 each pipeline stage (the recorder's ``stage`` spans; nested spans each count
 their own whole time) and in ``tick()``, and once under ``torch.profiler``,
 from the first request to the end of the drain (the pool's set-up is
 outside the window), printing the wall time, the device time summed over
 kernels, their ratio (the device's busy share), the kernel count and the
-kernels with the most device time.  Each run also records the megastep's
-graph replays and captures.  Exits non-zero without a CUDA device.
+kernels with the most device time.  Each run also records the graphs
+captured and replayed over every migration program, and the application's
+I/O programs' replays a tick (a tick's writes and reads are one replay
+each when graphed).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,19 +41,24 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import chip_smoke as smoke  # noqa: E402
 from profile_serving import report  # noqa: E402
-from repro_torch.core import graphs, migrator  # noqa: E402
+from repro_torch.core import graphs  # noqa: E402
 
 SMALL = dict(smoke.DRAIN_CFG, warm_dispatch=True)
 MEGASTEP = dict(slots=smoke.SLOTS, cfg_kw=SMALL, n_regions=2)
 PPERMUTE = dict(slots=smoke.PP_SLOTS, cfg_kw=smoke.PP_CFG, n_regions=smoke.PP_REGIONS,
                 ppermute=True)
-# (name, drain, captured): the megastep eager and graphed in turns
+BATCHED = dict(MEGASTEP, cfg_kw=dict(smoke.DRAIN_CFG, fused_dispatch="batched"))
+LEGACY = dict(MEGASTEP, cfg_kw=dict(smoke.DRAIN_CFG, fused_dispatch="legacy", chunk_blocks=16))
+# (name, drain, captured): the megastep eager and graphed in turns, then the
+# other generations graphed
 RUNS = (
     ("small (megastep, 2 regions), eager", MEGASTEP, False),
     ("small (megastep, 2 regions), graphed", MEGASTEP, True),
     ("small (megastep, 2 regions), graphed again", MEGASTEP, True),
     ("small (megastep, 2 regions), eager again", MEGASTEP, False),
-    ("ppermute (batched, 4 regions)", PPERMUTE, True),
+    ("small (batched, 2 regions), graphed", BATCHED, True),
+    ("small (legacy, 2 regions), graphed", LEGACY, True),
+    ("ppermute (batched, 4 regions), graphed", PPERMUTE, True),
 )
 
 
@@ -80,8 +88,7 @@ def main() -> int:
     print(card)
     out = {}
     for name, kw, captured in RUNS:
-        prog = migrator.MEGASTEP
-        before = (prog.captures, prog.replays)
+        before, io_before = smoke.program_counts(), smoke.io_program_counts()
         with contextlib.nullcontext() if captured else graphs.disable_capture():
             drv, _, _, secs = run(dev, telemetry=True, **kw)
             stages = stage_ms_per_tick(drv)
@@ -96,8 +103,15 @@ def main() -> int:
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             drv, _, _, psecs = run(dev, window=prof, **kw)
         prof_out = report(f"{name}, under the profiler", prof, psecs["seconds"])
-        graphs_used = dict(captures=prog.captures - before[0], replays=prog.replays - before[1])
-        print(f"   megastep graphs over both runs: {graphs_used} [{card}]")
+        now, io_now = smoke.program_counts(), smoke.io_program_counts()
+        graphs_used = dict(captures=now[0] - before[0], replays=now[1] - before[1],
+                           io_captures=io_now[0] - io_before[0],
+                           io_replays=io_now[1] - io_before[1])
+        # a tick's writes and reads over both runs, without the fills' writes
+        fills = 2 * -(-smoke.N_BLOCKS // 16384) if captured else 0
+        graphs_used["io_replays_a_tick"] = (graphs_used["io_replays"] - fills) / (
+            secs["io_steps"] + psecs["io_steps"])
+        print(f"   graphs over both runs, every migration program: {graphs_used} [{card}]")
         out[name] = dict(stage_ms_per_tick=stages, tick_ms=tick_ms, drain=secs,
                          profiled=prof_out, profiled_drain=psecs, graphs=graphs_used,
                          stats=dataclasses.asdict(drv.stats) | {"bytes_per_link": None})

@@ -34,9 +34,19 @@ later capture can be handed their memory.
 
 A replay's outputs are the graph's static tensors: the next replay of the
 same graph overwrites them, so a caller copies what it keeps, on the same
-stream (``VerdictFuture`` does).  The kernel wrappers count launches on the
+stream (``VerdictFuture`` does).  A program made with ``fresh=True`` (the
+application's reads, TPC-H's partial aggregates) makes that copy itself and
+hands out tensors no later replay touches, as the reference returns a
+fresh array from every call.  The kernel wrappers count launches on the
 host, which a replay does not run: each graph keeps the counts that its
 capture added and adds them again at every replay.
+
+A program made with ``eager_first=True`` (a model's prefill, a training
+step, a dry-run cell) runs the first call of each graph eagerly, on the
+capture stream, as the real call, then frees the cached blocks that run
+left and captures: lazy initialisation (cuBLAS, the autograd engine's
+device thread) happens outside the capture, and a training step applies
+its update once a call.  Later calls replay.
 
 A capture that fails raises; nothing falls back to eager launches.  Inside
 :func:`disable_capture`, the counterpart of ``jax.disable_jit``, nothing is
@@ -155,16 +165,44 @@ def _packed(inputs, idx) -> torch.Tensor:
 
 
 def to_device(inputs, device: torch.device) -> list[torch.Tensor]:
-    """``inputs`` on ``device``: as they are when they are there already, else
+    """``inputs`` on ``device``: those there already as they are, the others
     in one pinned, non-blocking host-to-device copy per dtype."""
-    if all(t.device == device for t in inputs):
-        return list(inputs)
+    out = list(inputs)
+    host = [i for i, t in enumerate(inputs) if t.device != device]
+    if not host:
+        return out
+    moved = [inputs[i].cpu() for i in host]
     flats = {}
-    for dtype, idx in _by_dtype(inputs).items():
-        flat = _packed([t.cpu() for t in inputs], idx)
+    for dtype, idx in _by_dtype(moved).items():
+        flat = _packed(moved, idx)
         flats[dtype] = flat.pin_memory().to(device, non_blocking=True) if device.type == "cuda" \
             else flat.to(device)
-    return _views(flats, inputs)
+    for i, view in zip(host, _views(flats, moved)):
+        out[i] = view
+    return out
+
+
+def _fresh(out):
+    """``out`` with every tensor in it copied (on the current stream)."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_fresh(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _fresh(v) for k, v in out.items()}
+    return out
+
+
+def tensors(out):
+    """The tensors in ``out`` (a tensor, or tuples, lists and dicts of them)."""
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from tensors(o)
+    elif isinstance(out, dict):
+        for o in out.values():
+            yield from tensors(o)
 
 
 def _forget(graphs: dict, binding, graph) -> None:
@@ -183,7 +221,7 @@ def _forget(graphs: dict, binding, graph) -> None:
 class _Graph:
     """One captured variant over one set of bound tensors."""
 
-    def __init__(self, body, inputs, device: torch.device, pool=None):
+    def __init__(self, body, inputs, device: torch.device, pool=None, eager_first=False):
         self.groups = _by_dtype(inputs)
         self.flats = {
             dtype: torch.empty(sum(inputs[i].numel() for i in idx), dtype=dtype, device=device)
@@ -194,6 +232,14 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         stream, current = capture_stream(device), torch.cuda.current_stream(device)
         stream.wait_stream(current)
+        self.first = eager_first  # the eager first call's outputs are yet to be handed out
+        self.first_outputs = None
+        if eager_first:
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                self.first_outputs = body(*to_device(inputs, device))
+            for t in tensors(self.first_outputs):
+                t.record_stream(current)
+            torch.cuda.empty_cache()  # the eager run's temporaries, before the capture
         before = _counts()
         with torch.cuda.device(device), torch.cuda.stream(stream):
             self.graph.capture_begin(pool=pool)
@@ -215,20 +261,32 @@ class _Graph:
             flat = self.flats[dtype]
             if not flat.numel():
                 continue
-            if inputs[idx[0]].is_cuda:
-                for dst, i in zip(_views({dtype: flat}, [inputs[i] for i in idx]), idx):
-                    dst.copy_(inputs[i], non_blocking=True)
-            else:
+            host = [i for i in idx if not inputs[i].is_cuda]
+            if len(host) == len(idx):
                 flat.copy_(_packed(inputs, idx).pin_memory(), non_blocking=True)
+                continue
+            dsts = dict(zip(idx, _views({dtype: flat}, [inputs[i] for i in idx])))
+            for i in idx:
+                if inputs[i].is_cuda:
+                    dsts[i].copy_(inputs[i], non_blocking=True)
+            if host:  # one pinned staging buffer for this dtype's host operands
+                pinned, lo = _packed(inputs, host).pin_memory(), 0
+                for i in host:
+                    n = dsts[i].numel()
+                    dsts[i].copy_(pinned[lo : lo + n].view(dsts[i].shape), non_blocking=True)
+                    lo += n
         self.graph.replay()
         _advance(self.delta)
 
 
 class Program:
-    """One program's variant cache: the counterpart of one jitted function."""
+    """One program's variant cache: the counterpart of one jitted function.
+    ``fresh`` and ``eager_first`` are described in the module docstring."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, *, fresh: bool = False, eager_first: bool = False):
         self.name = name
+        self.fresh = fresh
+        self.eager_first = eager_first
         self._variants: dict = {}  # key -> {binding: _Graph} (empty on the CPU)
         self._pools: dict = {}  # binding -> the memory pool its graphs share
         self.captures = 0  # graphs captured (a miss, or a known key over new tensors)
@@ -239,28 +297,36 @@ class Program:
         return len(self._variants)
 
     def clear(self) -> None:
-        """Forget every variant and graph (the reference's ``clear_cache()``)."""
+        """Forget every variant and graph (the reference's ``clear_cache()``);
+        the graphs' memory goes back to the allocator."""
+        for graphs in self._variants.values():
+            graphs.clear()  # the bound tensors' finalizers hold these dicts
         self._variants.clear()
         self._pools.clear()
 
-    def __call__(self, key, body, inputs, bound):
+    def __call__(self, key, body, inputs, bound, device=None):
         """``body(*inputs)`` as variant ``key``.
 
-        ``inputs`` are the operands, on the host or on the device of
-        ``bound``; ``bound`` are the tensors the body updates in place, which
-        a captured graph belongs to.  ``body`` returns the program's outputs
-        and must not return or keep a bound tensor.
+        ``inputs`` are the operands, on the host or on the program's device;
+        ``bound`` are the tensors the body reads or updates in place besides
+        its operands (a state, a model's parameters), which a captured graph
+        belongs to.  ``body`` returns the program's outputs and must not
+        return or keep a bound tensor.  The program runs on ``device``, by
+        default ``bound[0]``'s (a program with nothing bound names it).
         """
-        device = bound[0].device
+        device = bound[0].device if device is None else torch.device(device)
         if not _capture:
             return body(*to_device(inputs, device))
         if device.type != "cuda":
             self._variants.setdefault(key, {})
             return body(*to_device(inputs, device))
         graph = self._graph(key, body, inputs, bound, device)
+        if graph.first:
+            out, graph.first, graph.first_outputs = graph.first_outputs, False, None
+            return out
         graph.replay(inputs)
         self.replays += 1
-        return graph.outputs
+        return _fresh(graph.outputs) if self.fresh else graph.outputs
 
     def warm(self, key, body, inputs, bound) -> None:
         """Compile variant ``key`` ahead of time: capture it on CUDA (nothing
@@ -279,7 +345,7 @@ class Program:
         graph = graphs.get(binding)
         if graph is None:
             pool = self._pools.get(binding)
-            graph = graphs[binding] = _Graph(body, inputs, device, pool)
+            graph = graphs[binding] = _Graph(body, inputs, device, pool, self.eager_first)
             self.captures += 1
             if pool is None:
                 pool = self._pools[binding] = graph.graph.pool()

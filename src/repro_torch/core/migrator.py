@@ -68,7 +68,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import graphs
-from repro_torch.core.state import REGION, SLOT, LeapState, flat_pool_view
+from repro_torch.core.state import (
+    REGION,
+    SLOT,
+    LeapState,
+    flat_pool_view,
+    state_key,
+    state_tensors,
+)
 from repro_torch.kernels import ops
 
 _PROGRAMS = (
@@ -98,21 +105,12 @@ def _entries(regions: torch.Tensor, slots: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([regions, slots], dim=-1).to(dtype)
 
 
-def _state_key(state: LeapState) -> tuple:
-    return (tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
-            str(state.device))
-
-
-def _bound(state: LeapState) -> list[torch.Tensor]:
-    return [state.pool, state.table, state.dirty, state.in_flight]
-
-
 def _run(name: str, body, state: LeapState, operands, *static):
     """``body(state, *operands, *static)`` as a variant of ``PROGRAMS[name]``,
     keyed on the operands' lengths, the static arguments and the state."""
-    key = (tuple(t.shape[0] for t in operands), static, _state_key(state))
+    key = (tuple(t.shape[0] for t in operands), static, state_key(state))
     return PROGRAMS[name](key, lambda *ops_: body(state, *ops_, *static), list(operands),
-                          _bound(state))
+                          state_tensors(state))
 
 
 # --------------------------------------------------------------------------
@@ -466,7 +464,7 @@ def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay)
         tuple(heat.shape), str(state.device),
     )
     with_heat = bool(inputs[15].shape[0])
-    bound = _bound(state) + ([heat] if with_heat else [])
+    bound = state_tensors(state) + ([heat] if with_heat else [])
 
     def body(*ops_):
         return _megastep_phases(state, *ops_[:15], heat, ops_[15], ops_[16],

@@ -14,19 +14,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.adaptive import Area
 from repro_torch.core.pipeline.accounting import AccountingStage
 from repro_torch.core.pipeline.context import PipelineContext
 from repro_torch.core.pipeline.routing import RoutingStage
 from repro_torch.core.pipeline.scheduler import AdmissionTicket
-from repro_torch.core.state import REGION, LeapState, as_index
+from repro_torch.core.state import REGION, LeapState, operand_index, state_key, state_tensors
 from repro_torch.core.stats import RequestState
+
+# ``busy_mask``'s variant cache (the reference jits it): one variant per length
+# of the ids and state shapes, a fresh mask from every call
+BUSY_MASK = graphs.Program("busy_mask", fresh=True)
+
+
+def _busy(state: LeapState, ids: torch.Tensor) -> torch.Tensor:
+    return state.dirty[ids] | state.in_flight[ids]
 
 
 def busy_mask(state: LeapState, block_ids) -> torch.Tensor:
     """Device-truth busy check: dirty or under an open copy epoch."""
-    ids = as_index(block_ids, state.device)
-    return state.dirty[ids] | state.in_flight[ids]
+    ids = operand_index(block_ids, state.device)
+    return BUSY_MASK((tuple(ids.shape), state_key(state)), lambda i: _busy(state, i), [ids],
+                     state_tensors(state))
 
 
 class AdmissionStage:

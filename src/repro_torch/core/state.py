@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.topology import NumaTopology
 
 REGION = 0  # column index of the region coordinate in ``table``
@@ -251,11 +252,20 @@ def state_sharding(cfg: PoolConfig, mesh) -> LeapState:
 #
 # ``leap_write`` is the SIGSEGV-handler analogue: the framework owns every
 # mutation, so "trapping" a write is simply fusing ``dirty |= in_flight`` into
-# the write.  Writes always land at the *current* physical location;
+# the write program.  Writes always land at the *current* physical location;
 # dirtiness only matters for blocks with an open copy epoch.
 #
-# Block ids may be any integer tensor or array; they go to the state's device
-# as int64.
+# Each function is compiled as the JAX package jits it: through its own
+# ``graphs.Program`` in ``IO_PROGRAMS``, one variant per length of the ids,
+# shape and dtype of the values (rows, row offsets), ``huge_factor`` and
+# state shapes; on the card one captured graph over the state's tensors.
+# Nothing is padded: a pad lane of a write would write.  Block ids may be
+# any integer tensor or array (on the host or the state's device) and values
+# any tensor or array: they are the programs' operands, staged to the card
+# outside the graph.  The reads hand out fresh tensors, as the reference
+# returns a fresh array from every call.  These programs are the
+# application's, not migration programs: ``migrator.PROGRAMS`` and
+# ``jit_cache_misses`` leave them out, as the reference's ``_PROGRAMS`` does.
 # --------------------------------------------------------------------------
 
 
@@ -271,9 +281,51 @@ def as_index(ids, device: torch.device) -> torch.Tensor:
     """Integer ids as an int64 tensor on ``device``."""
     if isinstance(ids, torch.Tensor) and ids.device == device:
         return ids.to(torch.int64)
+    return host_to_device(_host_index(ids), device)
+
+
+def _host_index(ids) -> torch.Tensor:
     if isinstance(ids, torch.Tensor):
         ids = ids.cpu().numpy()
-    return host_to_device(torch.from_numpy(np.asarray(ids, dtype=np.int64).copy()), device)
+    return torch.from_numpy(np.asarray(ids, dtype=np.int64).copy())
+
+
+def operand_index(ids, device: torch.device) -> torch.Tensor:
+    """Ids as an int64 program operand: as they are on ``device``, else on
+    the host (the program stages them)."""
+    if isinstance(ids, torch.Tensor) and ids.device == device:
+        return ids.to(torch.int64)
+    return _host_index(ids)
+
+
+def _operand(values) -> torch.Tensor:
+    return values if isinstance(values, torch.Tensor) else torch.as_tensor(np.asarray(values))
+
+
+IO_PROGRAMS = {
+    name: graphs.Program(name, fresh=name not in ("leap_write", "leap_write_rows"))
+    for name in ("leap_read", "leap_write", "leap_write_rows", "block_regions", "huge_read",
+                 "group_dirty", "group_in_flight")
+}
+
+
+def state_key(state: LeapState) -> tuple:
+    return (tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
+            str(state.device))
+
+
+def state_tensors(state: LeapState) -> list[torch.Tensor]:
+    """The tensors a program over ``state`` is bound to."""
+    return [state.pool, state.table, state.dirty, state.in_flight]
+
+
+def _io(name: str, body, state: LeapState, operands, *static):
+    """``body(state, *operands, *static)`` as a variant of ``IO_PROGRAMS[name]``,
+    keyed on the operands' shapes and dtypes, the static arguments and the
+    state."""
+    key = (tuple((tuple(t.shape), t.dtype) for t in operands), static, state_key(state))
+    return IO_PROGRAMS[name](key, lambda *ops: body(state, *ops, *static), list(operands),
+                             state_tensors(state))
 
 
 def _locate(state: LeapState, block_ids: torch.Tensor):
@@ -281,20 +333,35 @@ def _locate(state: LeapState, block_ids: torch.Tensor):
     return loc[:, REGION], loc[:, SLOT]
 
 
+def _read(state: LeapState, ids: torch.Tensor) -> torch.Tensor:
+    region, slot = _locate(state, ids)
+    return state.pool[region, slot]
+
+
+def _trap(state: LeapState, ids: torch.Tensor) -> None:
+    state.dirty[ids] = state.dirty[ids] | state.in_flight[ids]
+
+
+def _write(state: LeapState, ids: torch.Tensor, values: torch.Tensor) -> None:
+    region, slot = _locate(state, ids)
+    state.pool[region, slot] = values.to(state.pool.dtype)
+    _trap(state, ids)
+
+
+def _write_rows(state: LeapState, ids, offs, rows) -> None:
+    region, slot = _locate(state, ids)
+    state.pool[region, slot, offs] = rows.to(state.pool.dtype)
+    _trap(state, ids)
+
+
 def leap_read(state: LeapState, block_ids) -> torch.Tensor:
     """Gather whole blocks: returns ``[len(block_ids), *block_shape]``."""
-    region, slot = _locate(state, as_index(block_ids, state.device))
-    return state.pool[region, slot]
+    return _io("leap_read", _read, state, [operand_index(block_ids, state.device)])
 
 
 def leap_write(state: LeapState, block_ids, values) -> LeapState:
     """Overwrite whole blocks in place; marks in-flight blocks dirty."""
-    ids = as_index(block_ids, state.device)
-    region, slot = _locate(state, ids)
-    state.pool[region, slot] = torch.as_tensor(values, device=state.device).to(
-        state.pool.dtype
-    )
-    state.dirty[ids] = state.dirty[ids] | state.in_flight[ids]
+    _io("leap_write", _write, state, [operand_index(block_ids, state.device), _operand(values)])
     return state
 
 
@@ -305,18 +372,15 @@ def leap_write_rows(state: LeapState, block_ids, row_offsets, rows) -> LeapState
     ``leap_write`` — the paper's protocol does not care how much of the page
     was written, only *that* it was written during an open copy.
     """
-    ids = as_index(block_ids, state.device)
-    region, slot = _locate(state, ids)
-    offs = as_index(row_offsets, state.device)
-    state.pool[region, slot, offs] = torch.as_tensor(rows, device=state.device).to(
-        state.pool.dtype
-    )
-    state.dirty[ids] = state.dirty[ids] | state.in_flight[ids]
+    _io("leap_write_rows", _write_rows, state,
+        [operand_index(block_ids, state.device), operand_index(row_offsets, state.device),
+         _operand(rows)])
     return state
 
 
 def block_regions(state: LeapState, block_ids) -> torch.Tensor:
-    return state.table[as_index(block_ids, state.device), REGION]
+    return _io("block_regions", lambda st, ids: st.table[ids, REGION], state,
+               [operand_index(block_ids, state.device)])
 
 
 # --------------------------------------------------------------------------
@@ -327,8 +391,15 @@ def block_regions(state: LeapState, block_ids) -> torch.Tensor:
 # working per block; the group views below are the level-1 semantics: a huge
 # read is one contiguous slice, and a huge copy epoch is dirtied by a write
 # to *any* member (the commit verdict is the OR over the run, exactly like a
-# huge-page PTE covering G small pages).
+# huge-page PTE covering G small pages).  ``huge_factor`` is static, as in
+# the reference: a variant each.
 # --------------------------------------------------------------------------
+
+
+def _huge_read(state: LeapState, groups: torch.Tensor, huge_factor: int) -> torch.Tensor:
+    region, slot = _locate(state, groups * huge_factor)
+    run = torch.arange(huge_factor, device=state.device)
+    return state.pool[region[:, None], slot[:, None] + run[None, :]]
 
 
 def huge_read(state: LeapState, group_ids, huge_factor: int) -> torch.Tensor:
@@ -337,25 +408,26 @@ def huge_read(state: LeapState, group_ids, huge_factor: int) -> torch.Tensor:
     Resolves one level-1 entry (member 0's location) per group and slices the
     contiguous run — G blocks per table lookup instead of G lookups.
     """
-    first = as_index(group_ids, state.device) * huge_factor
-    region, slot = _locate(state, first)
-    run = torch.arange(huge_factor, device=state.device)
-    return state.pool[region[:, None], slot[:, None] + run[None, :]]
+    return _io("huge_read", _huge_read, state, [operand_index(group_ids, state.device)],
+               huge_factor)
 
 
-def _members(state: LeapState, group_ids, huge_factor: int) -> torch.Tensor:
-    g = as_index(group_ids, state.device)
+def _members(state: LeapState, g: torch.Tensor, huge_factor: int) -> torch.Tensor:
     return g[:, None] * huge_factor + torch.arange(huge_factor, device=state.device)[None, :]
 
 
 def group_dirty(state: LeapState, group_ids, huge_factor: int) -> torch.Tensor:
     """Level-1 dirty view: a group is dirty iff any member is dirty."""
-    return state.dirty[_members(state, group_ids, huge_factor)].any(dim=1)
+    return _io("group_dirty",
+               lambda st, g, hf: st.dirty[_members(st, g, hf)].any(dim=1), state,
+               [operand_index(group_ids, state.device)], huge_factor)
 
 
 def group_in_flight(state: LeapState, group_ids, huge_factor: int) -> torch.Tensor:
     """Level-1 in-flight view: a group is in flight iff any member is."""
-    return state.in_flight[_members(state, group_ids, huge_factor)].any(dim=1)
+    return _io("group_in_flight",
+               lambda st, g, hf: st.in_flight[_members(st, g, hf)].any(dim=1), state,
+               [operand_index(group_ids, state.device)], huge_factor)
 
 
 def flat_pool_view(pool: torch.Tensor) -> torch.Tensor:

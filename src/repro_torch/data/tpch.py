@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
+
 ORDERKEY, QTY, PRICE, DISC, TAX, RFLAG, LSTATUS, SHIPDATE = range(8)
 N_COLS = 8
 N_GROUPS = 6  # returnflag (3) x linestatus (2)
@@ -46,13 +48,36 @@ def gen_lineitem(n_rows: int, seed: int = 0) -> np.ndarray:
     return out
 
 
-def q1_partial(morsels: torch.Tensor, cutoff: float) -> torch.Tensor:
-    """Per-morsel-batch Q1 aggregation.  morsels: [M, R, C] fp32.
+def _param(x) -> torch.Tensor:
+    """A query parameter as the 0-d fp32 operand the program traces."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(np.float32(x))
+
+
+def _query(prog, body, morsels: torch.Tensor, param) -> torch.Tensor:
+    """``body(morsels, param)`` as a variant of ``prog``, keyed on the
+    morsels' shape and dtype: the last, shorter batch gets its own."""
+    key = (tuple(morsels.shape), morsels.dtype, str(morsels.device))
+    return prog(key, body, [morsels, _param(param)], [], device=morsels.device)
+
+
+# Q1 and Q6 are compiled as the reference jits them: a ``graphs.Program``
+# each, whose parameter (cutoff, year) is an operand, not part of the graph
+Q1 = graphs.Program("q1_partial", fresh=True)
+Q6 = graphs.Program("q6_partial", fresh=True)
+
+
+def q1_partial(morsels: torch.Tensor, cutoff) -> torch.Tensor:
+    """Per-morsel-batch Q1 aggregation.  morsels: [M, R, C] fp32, cutoff a
+    number or a 0-d fp32 tensor.
 
     Returns [N_GROUPS, 6]: sum_qty, sum_base, sum_disc_price, sum_charge,
     sum_disc, count — combined across calls by addition; averages derived at
     the end (standard morsel-wise Q1 plan).
     """
+    return _query(Q1, _q1, morsels, cutoff)
+
+
+def _q1(morsels: torch.Tensor, cutoff: torch.Tensor) -> torch.Tensor:
     rows = morsels.reshape(-1, N_COLS)
     sel = rows[:, SHIPDATE] <= cutoff
     group = (rows[:, RFLAG] * 2 + rows[:, LSTATUS]).to(torch.int64)
@@ -75,9 +100,14 @@ def q1_partial(morsels: torch.Tensor, cutoff: float) -> torch.Tensor:
     return (vals[:, None, :] * onehot[:, :, None]).sum(dim=0)
 
 
-def q6_partial(morsels: torch.Tensor, year_start: float) -> torch.Tensor:
+def q6_partial(morsels: torch.Tensor, year_start) -> torch.Tensor:
     """Per-morsel-batch Q6 revenue.  Filter: shipdate in [ys, ys+365),
-    discount in [0.05, 0.07], quantity < 24."""
+    discount in [0.05, 0.07], quantity < 24.  ``year_start`` a number or a
+    0-d fp32 tensor."""
+    return _query(Q6, _q6, morsels, year_start)
+
+
+def _q6(morsels: torch.Tensor, year_start: torch.Tensor) -> torch.Tensor:
     rows = morsels.reshape(-1, N_COLS)
     sel = (
         (rows[:, SHIPDATE] >= year_start)
@@ -122,7 +152,7 @@ def q6_reference(data: np.ndarray, year_start: float) -> float:
 def run_query(store, which: str, param: float, morsel_batch: int = 64) -> torch.Tensor:
     """Execute Q1/Q6 morsel-at-a-time through the store's block table."""
     total = None
-    p = float(np.float32(param))
+    p = _param(param)
     for start in range(0, store.n_morsels, morsel_batch):
         ids = np.arange(start, min(start + morsel_batch, store.n_morsels))
         blocks = store.read(ids)

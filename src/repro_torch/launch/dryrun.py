@@ -18,10 +18,15 @@ MoE groups by the reference's formulas with dp = 1.  It cuts the batch (to
 a divisor of the global batch), then the depth, until the estimate fits
 ``FIT_BYTES`` and a step holds at most ``STEP_TOKENS`` tokens, and records
 the cut under ``reduced``.  It builds the cut cell with random weights from
-``--seed`` and runs one step alone as the warm-up (``first_step_s``), then
-``TIMED_STEPS`` warm steps timed with CUDA events (more of them for a
-decode cell, whose step the host bounds), then one more under
-``torch.profiler``.  It writes the reference's keys (``memory``,
+``--seed``; its step is a ``graphs.Program``, as the reference jits each
+cell.  The first step runs eagerly and captures the graph (the warm-up,
+``first_step_s``), then ``TIMED_STEPS`` replays are timed with CUDA events
+(more of them for a decode cell, whose step the host bounds), then one more
+runs under ``torch.profiler``.  The cell is then built again and run
+eagerly (``graphs.disable_capture()``): ``EAGER_STEPS`` timed steps and one
+profiled, recorded under ``eager``, and the second step's outputs of both
+runs are compared bit for bit (``graphed_equals_eager``).  It writes the
+reference's keys (``memory``,
 ``flops_per_device``, ``bytes_per_device`` and ``model_flops`` of the cut
 cell, ``wire_bytes_per_device``, ``roofline``), ``build_s`` and
 ``first_step_s`` for the reference's ``lower_s`` and ``compile_s``, and
@@ -67,6 +72,7 @@ import torch
 
 from repro_torch.configs import shapes as shp
 from repro_torch.configs.base import ARCH_IDS, ModelConfig, canon, get_config
+from repro_torch.core import graphs
 from repro_torch.core.state import _default_device
 from repro_torch.distributed.sharding import (
     _EXPERT_LEAVES,
@@ -91,7 +97,7 @@ from repro_torch.roofline.report import (
     SKIP_ONE_CARD,
 )
 from repro_torch.train.optimizer import OptimizerConfig
-from repro_torch.train.train_step import TrainConfig, init_train_state, train_step
+from repro_torch.train.train_step import TrainConfig, init_train_state, state_tensors, train_step
 
 # a measured cell's estimated peak leaves 8 GiB of the card's 80 GB free
 FIT_BYTES = roof.HBM_BYTES - 8 * 2**30
@@ -102,6 +108,9 @@ STEP_TOKENS = {"train": 16_384, "prefill": 32_768}
 # warm steps timed after the warm-up, by kind: a decode step takes tens of
 # ms and varies with the host, a train or prefill step takes seconds
 TIMED_STEPS = {"train": 3, "prefill": 3, "decode": 25}
+# timed steps of the eager run beside the graphed one (a rebuilt cell, no
+# warm-up: the graphed run has warmed the process)
+EAGER_STEPS = {"train": 1, "prefill": 1, "decode": 25}
 
 
 class DoesNotFit(ValueError):
@@ -365,30 +374,67 @@ def _inputs(cfg: ModelConfig, batch: int, seq: int, gen, device) -> torch.Tensor
                        dtype=torch.bfloat16)
 
 
+def _decode_in_place(model, cache: list[dict], inputs, pos: int, cfg: ModelConfig):
+    """``lm.decode_step`` with the whole cache updated in place (the
+    reference donates it): a layer that returns a new state (a recurrent
+    layer's) has it copied into its old tensors.  Returns the logits."""
+    old = [dict(c) for c in cache]
+    logits, new = lm.decode_step(model, cache, inputs, pos, cfg)
+    for i, (o, n) in enumerate(zip(old, new)):
+        for k, t in n.items():
+            if t is not o[k]:
+                o[k].copy_(t)
+        cache[i] = o
+    return logits
+
+
 def build(cell: Cell, device: torch.device, seed: int):
     """The cell on ``device`` with random weights from ``seed``: (its step,
-    the bytes the step updates in place, the reference's donated arguments)."""
+    the bytes the step updates in place, the reference's donated arguments;
+    the step's program).
+
+    The step is compiled as the reference jits each cell: a
+    ``graphs.Program`` whose first call runs eagerly and captures, and whose
+    later calls replay (eager throughout inside ``graphs.disable_capture()``).
+    The reference traces the decode position; here it is part of the
+    variant's key (every step of a cell decodes at ``seq_len - 1``)."""
     cfg, sp = cell.cfg, cell.spec
     b, s = sp.global_batch, sp.seq_len
     gen = torch.Generator(device=device).manual_seed(seed)
+    prog = graphs.Program(f"dryrun_{sp.kind}", eager_first=True)
     if sp.kind == "train":
         tcfg = TrainConfig(n_micro=cell.n_micro, accum_dtype=cfg.grad_accum_dtype,
                            optimizer=OptimizerConfig(state_dtype=cfg.opt_state_dtype))
         state = init_train_state(gen, cfg, tcfg, device)
-        batch = {"inputs": _inputs(cfg, b, s, gen, device),
-                 "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                                         device=device, dtype=torch.int32)}
+        batch = [_inputs(cfg, b, s, gen, device),
+                 torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=device,
+                               dtype=torch.int32)]
         alias = sum(_nbytes(t) for t in state.params.parameters()) + _nbytes(state.opt["step"]) \
             + sum(_nbytes(t) for k in ("m", "v") for t in state.opt[k].values())
-        return (lambda: train_step(state, batch, cfg, tcfg)), alias
-    model = lm.init_params(gen, cfg, device)
-    if sp.kind == "prefill":
-        inputs = _inputs(cfg, b, s, gen, device)
-        return (lambda: lm.prefill(model, inputs, cfg, s)), 0
-    cache = lm.init_cache(cfg, b, s, device)
-    inputs = _inputs(cfg, b, 1, gen, device)
-    alias = sum(_nbytes(t) for layer in cache for t in layer.values())
-    return (lambda: lm.decode_step(model, cache, inputs, s - 1, cfg)), alias
+
+        def body(inputs, labels):
+            return train_step(state, {"inputs": inputs, "labels": labels}, cfg, tcfg)[1]
+
+        bound, key = state_tensors(state), "train"
+    else:
+        model = lm.init_params(gen, cfg, device)
+        bound = list(model.parameters()) + list(model.buffers())
+        if sp.kind == "prefill":
+            batch, alias, key = [_inputs(cfg, b, s, gen, device)], 0, "prefill"
+
+            def body(inputs):
+                return lm.prefill(model, inputs, cfg, s)
+        else:
+            cache = lm.init_cache(cfg, b, s, device)
+            batch = [_inputs(cfg, b, 1, gen, device)]
+            alias = sum(_nbytes(t) for layer in cache for t in layer.values())
+            bound += [t for layer in cache for t in layer.values()]
+            key = ("decode", s - 1)
+
+            def body(inputs):
+                return _decode_in_place(model, cache, inputs, s - 1, cfg)
+    key = (key, tuple((tuple(t.shape), t.dtype) for t in batch))
+    return (lambda: prog(key, body, batch, bound, device=device)), alias, prog
 
 
 def _sync(device: torch.device) -> None:
@@ -411,13 +457,71 @@ def _timed(step, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def measure(cell: Cell, device: torch.device, seed: int, trace_path: str) -> dict:
-    """Build and run ``cell``: the artifact's ``build_s``, ``first_step_s``,
-    ``memory``, ``collectives``, ``wire_bytes_per_device`` and ``measured``.
-    The allocator's counts and device time exist on the card only: on the
-    CPU those figures are None."""
+def _profiled(step, device: torch.device, trace_path: str):
+    """(the step's result, the wall ms of the step run under the profiler,
+    its trace's kernel classes, the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        out = step()
+        _sync(device)
+        window_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    trace = tr.read(trace_path)
+    return out, window_ms, tr.kernel_classes(trace), trace
+
+
+def _run(step, n_timed: int, device: torch.device, trace_path: str, first: bool) -> dict:
+    """``step`` run ``first`` (the warm-up, untimed), ``n_timed`` times timed,
+    then once profiled: the figures of ``measure``'s ``measured``, and the
+    outputs of the step after the first, copied (the step whose graphed
+    and eager results ``measure`` compares)."""
+    cuda = device.type == "cuda"
+    res, kept, i = {}, None, 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    if first:
+        t0 = time.perf_counter()
+        out = step()
+        _sync(device)
+        res["first_step_s"] = time.perf_counter() - t0
+        res["after_first"] = torch.cuda.memory_allocated(device) if cuda else None
+        out, i = None, 1  # a prefill's outputs go before the next step makes its own
+    times = []
+    for _ in range(n_timed):
+        out, ms = _timed(step, device)
+        times.append(ms)
+        if i == 1:
+            kept = [t.detach().cpu() for t in graphs.tensors(out)]
+        out, i = None, i + 1
+    out, window_ms, classes, trace = _profiled(step, device, trace_path)
+    if i == 1:
+        kept = [t.detach().cpu() for t in graphs.tensors(out)]
+    out = None
+    step_ms = statistics.median(times)
+    # a CPU trace holds no device events: its device figures are not measured
+    device_ms = sum(c["device_ms"] for c in classes.values()) if cuda else None
+    res.update(
+        step_ms=step_ms, steps_ms=times, device_ms=device_ms, window_ms=window_ms,
+        busy=device_ms / step_ms if cuda else None,
+        busy_profiled=device_ms / window_ms if cuda else None,
+        peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None,
+        kernels=sum(c["launches"] for c in classes.values()), kernel_classes=classes,
+        trace=os.path.basename(trace_path), kept=kept, collectives=trace)
+    return res
+
+
+def measure(cell: Cell, device: torch.device, seed: int, trace_path: str) -> dict:
+    """Build and run ``cell``: the artifact's ``build_s``, ``first_step_s``,
+    ``memory``, ``collectives``, ``wire_bytes_per_device`` and ``measured``,
+    the cell's graphed step; and ``eager``, the same cell built again and
+    run under ``graphs.disable_capture()`` (``EAGER_STEPS`` timed steps and
+    one profiled), with ``graphed_equals_eager``: the outputs of the step
+    after the first, graphed (a replay) against eager, bit for bit.  The
+    allocator's counts and device time exist on the card only: on the CPU
+    those figures are None."""
     cuda = device.type == "cuda"
     alloc = (lambda: torch.cuda.memory_allocated(device)) if cuda else (lambda: None)
     gc.collect()
@@ -426,55 +530,42 @@ def measure(cell: Cell, device: torch.device, seed: int, trace_path: str) -> dic
         torch.cuda.reset_peak_memory_stats(device)
     base = alloc()
     t0 = time.perf_counter()
-    step, alias = build(cell, device, seed)
+    step, alias, prog = build(cell, device, seed)
     _sync(device)
     res = {"build_s": time.perf_counter() - t0}
     before = alloc()
+    graphed = _run(step, TIMED_STEPS[cell.spec.kind], device, trace_path, first=True)
+    graphed.update(captures=prog.captures, replays=prog.replays)
+    step = prog = None
+    gc.collect()
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    out = step()  # the warm-up
-    _sync(device)
-    res["first_step_s"] = time.perf_counter() - t0
-    after = alloc()
-    times = []
-    for _ in range(TIMED_STEPS[cell.spec.kind]):
-        out = None  # a prefill's cache goes before the next one is built
-        out, ms = _timed(step, device)
-        times.append(ms)
-    out = None
-    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        torch.cuda.empty_cache()
+    eager_step = build(cell, device, seed)[0]
+    with graphs.disable_capture():
+        eager = _run(eager_step, EAGER_STEPS[cell.spec.kind], device,
+                     trace_path.replace(".trace.", ".eager.trace."), first=False)
+    eager_step = None
+    res["first_step_s"] = graphed.pop("first_step_s")
+    after, peak = graphed.pop("after_first"), graphed["peak_bytes"]
     if cuda:
         new = after - before
         res["memory"] = dict(argument_bytes=before - base, output_bytes=new + alias,
                              temp_bytes=max(peak - after, 0), alias_bytes=alias,
                              per_device_total=peak - base)
+        for run in (graphed, eager):
+            run["peak_bytes"] -= base
     else:
         res["memory"] = dict(argument_bytes=None, output_bytes=None, temp_bytes=None,
                              alias_bytes=alias, per_device_total=None)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts, record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        out = step()
-        _sync(device)
-        window_ms = (time.perf_counter() - t0) * 1e3
-    out = None
-    prof.export_chrome_trace(trace_path)
-    trace = tr.read(trace_path)
-    classes = tr.kernel_classes(trace)
-    res["collectives"] = coll = tr.summarize(tr.parse_collectives(trace))
+    res["collectives"] = coll = tr.summarize(tr.parse_collectives(graphed.pop("collectives")))
+    eager.pop("collectives")
     res["wire_bytes_per_device"] = float(coll["wire_bytes"])
-    # a CPU trace holds no device events: its device figures are not measured
-    device_ms = sum(c["device_ms"] for c in classes.values()) if cuda else None
-    step_ms = statistics.median(times)
-    res["measured"] = dict(
-        device=torch.cuda.get_device_name(device) if cuda else str(device),
-        step_ms=step_ms, steps_ms=times, device_ms=device_ms, window_ms=window_ms,
-        busy=device_ms / step_ms if cuda else None,
-        busy_profiled=device_ms / window_ms if cuda else None,
-        peak_bytes=res["memory"]["per_device_total"],
-        kernels=sum(c["launches"] for c in classes.values()), kernel_classes=classes,
-        trace=os.path.basename(trace_path))
+    g, e = graphed.pop("kept"), eager.pop("kept")
+    res["graphed_equals_eager"] = len(g) == len(e) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(g, e))
+    res["measured"] = dict(device=torch.cuda.get_device_name(device) if cuda else str(device),
+                           **graphed)
+    res["eager"] = eager
     return res
 
 

@@ -29,7 +29,7 @@ import torch
 from repro_torch.api import LeapHandle, Move
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import LeapConfig, MigrationDriver, PoolConfig, graphs, init_state
-from repro_torch.core.state import REGION, SLOT, _default_device, host_to_device
+from repro_torch.core.state import REGION, SLOT, _default_device, state_tensors
 from repro_torch.kernels import ops, paged_attn
 from repro_torch.models.attention import _project_qkv
 from repro_torch.models.blocks import ffn_forward
@@ -149,6 +149,11 @@ class PagedEngine:
         # (repro_torch.load does) to bound the variant count.
         self._decode_step = graphs.Program("decode_step")
         self._decode_shapes: set[int] = set()  # observed decode batch sizes
+        # The prefill: one variant per prompt length, as the JAX engine jits
+        # one per length (its ``_prefill_fns``), each bound to the model's
+        # parameters; the first call of a length runs eagerly, then captures.
+        self._prefill = graphs.Program("prefill", eager_first=True)
+        self._weights = list(model.parameters()) + list(model.buffers())
         if self.device.type == "cuda":
             # the paged-decode kernel's tickets for every batch this pool can
             # hold (a sequence holds at least one page), outside any graph
@@ -224,11 +229,13 @@ class PagedEngine:
         token at position ``length``."""
         cfg, blk = self.cfg, self.pcfg.block_tokens
         prompt = np.asarray(prompt)
-        toks = host_to_device(torch.from_numpy(prompt.astype(np.int64))[None], self.device)
-        logits, cache = self.model.prefill(toks, len(prompt))
+        s, model = len(prompt), self.model
+        # the logits and the cache are the graph's own: used here, before the
+        # next prefill of this length replays over them
+        logits, k, v = self._prefill(
+            s, lambda t: _prefill_pages(model, t, s),
+            [torch.from_numpy(prompt.astype(np.int64))[None]], self._weights, device=self.device)
         first_tok = int(torch.argmax(logits, -1)[0])
-        k, v = _flatten_cache(cache)  # [L, S, KVH, hd]
-        s = len(prompt)
         sid = self._next_sid
         self._next_sid += 1
         seq = Sequence(sid, region, s, [], list(map(int, prompt)) + [first_tok], tenant=tenant)
@@ -293,7 +300,7 @@ class PagedEngine:
             len(sids),
             lambda t, le, k: _paged_step(model, state, t, le, k, cfg, blk),
             [torch.from_numpy(a) for a in (tables, lens, toks)],
-            [state.pool, state.table, state.dirty, state.in_flight],
+            state_tensors(state),
         )
         self.last_logits = logits.clone()  # a replay's logits are the graph's own
         out = torch.argmax(self.last_logits, -1).cpu().tolist()
@@ -463,11 +470,13 @@ class PagedEngine:
         return self.session.drain()
 
 
-def _flatten_cache(cache: list[dict]):
-    """Prefill cache (one dict per layer, batch 1) -> (k, v) each [L, S, KVH, hd]."""
+def _prefill_pages(model: CausalLM, toks: torch.Tensor, s: int):
+    """The prefill program: a prompt ``[1, S]`` -> (last-token logits [1, V],
+    k, v each ``[L, S, KVH, hd]``)."""
+    logits, cache = model.prefill(toks, s)
     k = torch.stack([c["k"][0] for c in cache])
     v = torch.stack([c["v"][0] for c in cache])
-    return k, v
+    return logits, k, v
 
 
 def _paged_step(model: CausalLM, state, tables, lens, toks, cfg: ModelConfig, blk: int):

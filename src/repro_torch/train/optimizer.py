@@ -10,8 +10,10 @@ end in the JAX leaf names, so the decay mask reads the same last component.
 Optimizer state dtype is configurable: fp32 by default, bf16 m/v for the
 nemotron-style configs (``state_dtype``).  The schedule, the clip scale and
 the bias corrections are fp32 tensors, as the reference computes them, not
-Python floats.  The update runs under ``torch.no_grad()`` in place (the
-reference's donated buffers), one leaf at a time and each leaf in flat
+Python floats; their constants are filled on the device, so a step copies
+nothing from the host and can be captured.  The update runs under
+``torch.no_grad()`` in place (the reference's donated buffers), the step
+counter included, one leaf at a time and each leaf in flat
 slices of at most ``_SLICE`` elements, so the fp32 temporaries never exceed
 a few slices' worth; the arithmetic is elementwise, so slicing changes no
 bit.  ``chunked_update`` is accepted and does nothing: the reference keeps
@@ -46,7 +48,8 @@ class OptimizerConfig:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """``x`` as an fp32 0-d tensor, filled on ``device`` (no host copy)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -104,8 +107,8 @@ def _decay_mask(name: str) -> bool:
 @torch.no_grad()
 def apply_updates(params, grads: dict, opt_state: dict, cfg: OptimizerConfig):
     """One AdamW step, in place.  Returns (params, opt_state, metrics), the
-    same objects updated: parameters, m and v are overwritten, ``step``
-    replaced by ``step + 1``."""
+    same objects updated: parameters, m and v are overwritten and the
+    ``step`` tensor is incremented in place."""
     named = _named(params)
     step = opt_state["step"] + 1
     dev = step.device
@@ -130,5 +133,5 @@ def apply_updates(params, grads: dict, opt_state: dict, cfg: OptimizerConfig):
             ps.copy_(ps.float() - lr * update)
             ms.copy_(m32)
             vs.copy_(v32)
-    opt_state["step"] = step
+    opt_state["step"].copy_(step)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

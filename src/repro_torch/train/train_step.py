@@ -97,6 +97,14 @@ def grad_accum(model: lm.CausalLM, batch: dict, cfg: ModelConfig, tcfg: TrainCon
     return {n: a.div_(tcfg.n_micro) for n, a in zip(names, acc)}, loss_sum / tcfg.n_micro
 
 
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """The tensors a training step updates in place: parameters, m, v and the
+    step counter (what the reference donates)."""
+    opt = state.opt
+    return (list(state.params.parameters()) + list(state.params.buffers())
+            + list(opt["m"].values()) + list(opt["v"].values()) + [opt["step"]])
+
+
 def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tcfg: TrainConfig):
     """(state, batch) -> (state, metrics ``loss``, ``grad_norm``, ``lr``), the
     state updated in place.  ``batch`` holds tensors on the model's device."""

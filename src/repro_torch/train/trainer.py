@@ -9,7 +9,13 @@ package's ``train/trainer.py``:
 
 The trainer runs on ``device``: the current CUDA device by default (it
 raises without one); ``device="cpu"`` runs the kernels' plain versions.
-Metrics are read back to the host only on logging steps.
+The step is compiled as the reference jits it (its state donated): one
+``graphs.Program`` a trainer, a variant per batch signature, bound to the
+parameters, m, v and the step counter, which it updates in place.  On the
+card the first step of a variant runs eagerly, as the real step, and the
+program captures after it; every later step replays the graph.  Metrics are
+the graph's own tensors, read back to the host only on logging steps,
+before the next step overwrites them.
 """
 
 from __future__ import annotations
@@ -23,11 +29,18 @@ import torch
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import graphs
 from repro_torch.core.state import _default_device
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.models import lm
 from repro_torch.train.optimizer import init_opt_state
-from repro_torch.train.train_step import TrainConfig, TrainState, init_train_state, train_step
+from repro_torch.train.train_step import (
+    TrainConfig,
+    TrainState,
+    init_train_state,
+    state_tensors,
+    train_step,
+)
 
 
 @dataclasses.dataclass
@@ -53,6 +66,7 @@ class Trainer:
         self.cfg, self.tcfg, self.run_cfg, self.data = cfg, tcfg, run_cfg, data
         self.seed = seed
         self.device = _default_device(device)
+        self._step_fn = graphs.Program("train_step", eager_first=True)
         self.state: TrainState | None = None
         self.step = 0
         self._pending_ckpt = None
@@ -98,9 +112,7 @@ class Trainer:
             self.restore_or_init()
         until = until or self.run_cfg.total_steps
         while self.step < until:
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.data.batch(self.step).items()}
-            self.state, metrics = train_step(self.state, batch, self.cfg, self.tcfg)
+            metrics = self._run_step(self.data.batch(self.step))
             self.step += 1
             if fail_at is not None and self.step >= fail_at:
                 raise RuntimeError(f"simulated node failure at step {self.step}")
@@ -115,3 +127,16 @@ class Trainer:
         if self._pending_ckpt is not None:
             self._pending_ckpt.wait()
         return self.history
+
+    def _run_step(self, batch: dict) -> dict:
+        """One step over the host batch, as a variant of the step program
+        keyed on the batch's shapes and dtypes; returns its metrics."""
+        names = list(batch)
+        host = [torch.from_numpy(batch[k]) for k in names]
+        key = tuple((k, tuple(t.shape), t.dtype) for k, t in zip(names, host))
+        state, cfg, tcfg = self.state, self.cfg, self.tcfg
+
+        def body(*values):
+            return train_step(state, dict(zip(names, values)), cfg, tcfg)[1]
+
+        return self._step_fn(key, body, host, state_tensors(state), device=self.device)

@@ -267,15 +267,26 @@ def test_gather_launches_the_bulk_kernel_on_aligned_operands(cuda):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = {}
-    for aligned in (True, False):
-        shard = _gather_shard(cuda, torch.float32, (1, 16384), 300, 0 if aligned else 1, seed=6)
-        idx = torch.arange(256, device=cuda)
+    # both cases in one profiler session (a second session in the process
+    # sometimes saw no kernel), split at a marker kernel between them, the
+    # device events taken in launch order
+    shards = {aligned: _gather_shard(cuda, torch.float32, (1, 16384), 300,
+                                     0 if aligned else 1, seed=6) for aligned in (True, False)}
+    idx = torch.arange(256, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        leap_copy.gather_blocks(shards[True], idx)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            leap_copy.gather_blocks(shard, idx)
-            torch.cuda.synchronize()
-        names[aligned] = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        torch.cuda._sleep(1)  # the marker: ATen's spin_kernel
+        torch.cuda.synchronize()
+        leap_copy.gather_blocks(shards[False], idx)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    order = [e.name for e in events]
+    marker = [i for i, n in enumerate(order) if "spin_kernel" in n]
+    assert len(marker) == 1, order
+    names = {True: order[: marker[0]], False: order[marker[0] + 1 :]}
     assert [n for n in names[True] if "gather_bulk_kernel" in n], names[True]
     assert not [n for n in names[True] if "move_lanes_kernel" in n], names[True]
     assert [n for n in names[False] if "move_lanes_kernel" in n and "unsigned char" in n], \
@@ -1170,3 +1181,130 @@ def test_graphed_force_pins_no_payload(cuda):
     assert migrator.PROGRAMS["force_areas"].captures >= 1
     assert torch.equal(state.pool[1, slots - n:].cpu(), torch.from_numpy(pool[0, :n]))
     assert graph_pools() - before[1] < 32 * 2**20
+
+
+# -- captured programs: the application's I/O, TPC-H and the trainer's step ---------
+
+
+def _io_state(dev, seed=0):
+    import numpy as np
+
+    from repro_torch.core import LeapState
+
+    rng = np.random.default_rng(seed)
+    n, slots = 64, 96
+    pool = rng.normal(size=(2, slots, 2, 64)).astype(np.float32)
+    table = np.stack([np.arange(n) % 2, np.arange(n) // 2], 1).astype(np.int32)
+    return LeapState.from_numpy(pool, table, rng.random(n) < 0.25, rng.random(n) < 0.5, dev)
+
+
+def test_graphed_write_trap_and_fresh_reads_match_eager(cuda):
+    """One graphed ``leap_write`` against the same write eager: the pool, and
+    dirty set exactly where the block was in flight; then graphed reads
+    (replays of one variant) hand out tensors the next replay leaves alone,
+    equal to the eager reads."""
+    import contextlib
+
+    from repro_torch.core import graphs, state as st
+    from repro_torch.core.pipeline import admission
+
+    ids = torch.tensor([1, 4, 9, 16, 25, 36])
+    vals = torch.randn((6, 2, 64), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for capture in (True, False):
+        s = _io_state(cuda)
+        dirty, in_flight = s.dirty.clone(), s.in_flight.clone()
+        replays = st.IO_PROGRAMS["leap_write"].replays
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            st.leap_write(s, ids, vals)
+            reads = [st.leap_read(s, torch.tensor(r)) for r in ([1, 2, 3], [4, 5, 6], [9, 1, 0])]
+            masks = [admission.busy_mask(s, torch.tensor(r)) for r in ([0, 1], [2, 3])]
+            groups = [st.group_dirty(s, torch.tensor(r), 4) for r in ([0, 1], [2, 3])]
+        torch.cuda.synchronize()
+        assert st.IO_PROGRAMS["leap_write"].replays - replays == (1 if capture else 0)
+        want = dirty.clone()
+        want[ids.to(cuda)] |= in_flight[ids.to(cuda)]
+        assert torch.equal(s.dirty, want) and torch.equal(s.in_flight, in_flight)
+        assert len({t.data_ptr() for t in reads + masks + groups}) == 7
+        out[capture] = [s.pool.cpu()] + [t.cpu() for t in reads + masks + groups]
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    assert torch.equal(out[True][1][0], vals[0])  # block 1 reads back its write
+
+
+def test_graphed_query_takes_two_cutoffs_through_one_variant(cuda):
+    """Q1 with two cutoffs and Q6 with two years through one variant each,
+    captured once and replayed, bit for bit against eager launches; the
+    first result is unchanged by the second call."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.core import graphs
+    from repro_torch.data import tpch
+
+    morsels = torch.from_numpy(tpch.gen_lineitem(64 * 256, 4).reshape(64, 256, 8)).to(cuda)
+    out = {}
+    for capture in (True, False):
+        res = []
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            for q, prog, params in ((tpch.q1_partial, tpch.Q1, (600.0, 2400.0)),
+                                    (tpch.q6_partial, tpch.Q6, (0.0, 730.0))):
+                replays = prog.replays
+                first = q(morsels, params[0])
+                variants = len(prog)
+                kept = first.clone()
+                second = q(morsels, params[1])
+                torch.cuda.synchronize()
+                assert torch.equal(first, kept) and not torch.equal(first, second)
+                assert len(prog) == variants and prog.replays - replays == (2 if capture else 0)
+                res += [first.cpu(), second.cpu()]
+        out[capture] = res
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(out[True][1].double().numpy(),
+                               tpch.q1_reference(morsels.reshape(-1, 8).cpu().numpy(), 2400.0),
+                               rtol=1e-3)
+
+
+def test_graphed_train_step_captures_once_and_replays(cuda, monkeypatch, tmp_path):
+    """The reduced two-layer granite (f32, TF32 off) through the trainer:
+    the first step runs eagerly, then one capture; every later step is one
+    replay, ``step`` advances once a call in place, and loss, parameters, m
+    and v equal an eager trainer's bit for bit."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.core import graphs
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _no_tf32(monkeypatch)
+    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    runs = {}
+    for capture in (True, False):
+        tr = Trainer(cfg, tts.TrainConfig(n_micro=2, optimizer=topt.OptimizerConfig(
+                         peak_lr=1e-3, warmup_steps=1, total_steps=10)),
+                     TrainerConfig(total_steps=4, ckpt_every=1000, log_every=1,
+                                   ckpt_dir=str(tmp_path / str(capture))),
+                     SyntheticLM(DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=1)),
+                     device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        tr.state = tts.init_train_state(gen, cfg, tr.tcfg, cuda)
+        step, ptr = tr.state.opt["step"], tr.state.opt["step"].data_ptr()
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            for n in range(1, 5):
+                tr.run(until=n)
+                assert tr.state.opt["step"] is step and step.data_ptr() == ptr
+                assert int(step) == n
+                assert tr._step_fn.captures == (1 if capture else 0)
+                assert tr._step_fn.replays == (n - 1 if capture else 0)
+        runs[capture] = tr
+    g, e = runs[True], runs[False]
+    assert [h["loss"] for h in g.history] == [h["loss"] for h in e.history]
+    for a, b in zip(tts.state_tensors(g.state), tts.state_tensors(e.state)):
+        assert torch.equal(a, b)
