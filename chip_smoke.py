@@ -91,12 +91,13 @@ printed):
    region (a 10 GiB pool), 32,768 starting in each region and all leaping to
    the next region at once, through the batched generation (one
    ``fused_copy_ppermute`` per region pair a tick, each program one graph
-   replay), under 64 writes and 64 reads a tick; the checks of phase 3,
-   gather and scatter launches equal,
-   and the gather's launches, mean lanes a launch and their lane counts in
-   bins.
-14. A small ppermute drain on the card and on the CPU: bit for bit as in
-   phase 5.
+   replay), under 64 writes and 64 reads a tick; the state is placed on the
+   mesh, one pool tensor a region in its own allocation (checked); the
+   checks of phase 3, gather and scatter launches equal, no ``copy_blocks``,
+   the host ms a tick, and the gather's launches, mean lanes a launch and
+   their lane counts in bins.
+14. A small ppermute drain on the card and on the CPU, both over region
+   shards: bit for bit as in phase 5.
 15. Megastep against batched on the card, same seed, blocking harvest: on a
    small-block pool with tiering, bit-identical pools and tables; on a
    two-tier pool, every block reads back, and the batched drain launches
@@ -258,8 +259,9 @@ printed):
 35. Captured programs against eager launches (``graphs.disable_capture``):
    phases 3 and 4's drains, phase 3's pool under the batched generation and
    under the contest's legacy arm (``chunk_blocks`` 16), and phase 13's
-   ppermute drain, each with blocking harvest, once eager and once graphed
-   (pools, tables, flags and heat bit-identical, the same stats and kernel
+   ppermute drain (over region shards), each with blocking harvest, once
+   eager and once graphed (pools region by region, tables, flags and heat
+   bit-identical, the same stats and kernel
    launch counts, one replay a program; ticks, programs a tick, replays,
    captures, misses, host ms a tick, drain seconds and graph-pool GiB
    printed), and phase 7's deployment undisturbed eager, undisturbed
@@ -278,7 +280,10 @@ printed):
    and under ``graphs.disable_capture()``: phase 3's drain with its 64
    writes and 64 reads a tick (phase 35's runs: state bit for bit; the
    application I/O seconds of both); the host microseconds a call of each
-   application I/O program; TPC-H Q1 and Q6 over phase 19's store during a
+   application I/O program; each I/O program and a 256-lane force on a
+   4-region state over region shards against the one-tensor state (results
+   and states bit for bit, host microseconds a call, the force's device ms
+   and its K6a and K6b launches, one each a region); TPC-H Q1 and Q6 over phase 19's store during a
    leap, two parameters each through one variant (bit for bit, ms);
    granite_3_2b's prefill of phase 7's prompts at full width (logits and
    first tokens bit for bit, seconds); three trainer steps of granite_3_2b
@@ -286,6 +291,12 @@ printed):
    bit for bit, step ms); and phase 34's five dry-run cells (outputs bit
    for bit there, step ms and busy shares).  Then every new program's
    variants, captures and replays, and the graph pools' GiB.
+38. Regions on several cards: with two or more cards, phase 14's ppermute
+   drain with region r on card ``r % cards`` (every copy a peer copy; each
+   program one captured graph spanning the cards), bit for bit against the
+   same drain on one card, with the bytes that crossed between cards by
+   link.  With one card it prints ``regions on several cards: not run (1
+   card)``.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -296,7 +307,8 @@ line (phases 23-25 and the wall seconds of phases 23-36), the
 (phases 31-33), the ``{"dryrun": ...}`` line (phase 34), the
 ``{"graphs_against_eager": ...}`` line (phase 35), the ``{"examples": ...}``
 line (phase 36), the ``{"compile_model_against_eager": ...}`` line (phase
-37), and last ``{"ok": true, "device": {...}}``.  Every time and size of
+37), the ``{"regions_on_several_cards": ...}`` line (phase 38), and last
+``{"ok": true, "device": {...}}``.  Every time and size of
 phases 3, 7, 12 (the rounds), 16, 22, 23, 27 (the MFU) and 30-37 is printed
 with the card's name and power limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
@@ -1111,6 +1123,17 @@ def check_drain(drv, shadow, handles, huge: bool) -> dict:
     )
 
 
+def check_sharded(drv) -> None:
+    """The driver's state is placed on its region mesh: one pool tensor a
+    region, each in its own allocation, on the region's device."""
+    state, mesh = drv.state, drv.mesh
+    check(state.sharded and len(state.pool) == mesh.size, "the pool is one tensor a region")
+    check([t.device for t in state.pool] == list(mesh.devices),
+          "each region's tensor lies on its mesh device")
+    check(len({t.untyped_storage().data_ptr() for t in state.pool}) == mesh.size,
+          "each region's tensor has its own allocation")
+
+
 def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
     """A deployment-size drain: 2 regions through the megastep, or with
     ``ppermute`` 4 regions on a one-card region mesh through the batched
@@ -1145,6 +1168,7 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
     check(out["io_replays"] == fills + 2 * times["io_steps"],
           "every application write and read of the drain was one graph replay")
     if ppermute:
+        check_sharded(drv)
         check(launches["gather_blocks"] == launches["scatter_blocks"] > 0,
               "every point-to-point copy gathered and scattered once")
         check(launches["copy_blocks"] == 0, "the ppermute drain copies only point to point")
@@ -1158,9 +1182,12 @@ def main_path_drain(dev, huge_factor: int, ppermute: bool = False) -> dict:
     out.update(times, gib_per_s=moved / times["seconds"] / 2**30, launches=launches,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                regions=drv.pool_cfg.n_regions, dispatch=drv.cfg.dispatch_mode,
-               backend=drv.cfg.backend)
-    print(f"drain huge_factor={huge_factor} backend={drv.cfg.backend}: {times['seconds']:.3f} s "
-          f"(ticks {times['tick_s']:.3f} s, app I/O {times['io_s']:.3f} s), "
+               backend=drv.cfg.backend, sharded=drv.state.sharded,
+               tick_ms=times["tick_s"] / out["ticks"] * 1e3)
+    print(f"drain huge_factor={huge_factor} backend={drv.cfg.backend}"
+          f"{' over region shards' if drv.state.sharded else ''}: {times['seconds']:.3f} s "
+          f"(ticks {times['tick_s']:.3f} s, {out['tick_ms']:.3f} ms a tick; "
+          f"app I/O {times['io_s']:.3f} s), "
           f"{out['gib_per_s']:.3f} GiB/s, {out['ticks']} ticks, "
           f"{out['dispatches_per_tick']:.2f} dispatches a tick, "
           f"{out['dirty_rejections']} rejections, peak {out['peak_gib']:.2f} GiB, "
@@ -1207,10 +1234,12 @@ SMALL_KW = dict(initial_area_blocks=16, budget_blocks_per_tick=64, max_attempts_
                 tiering=True)
 
 
-def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2):
+def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2, devices=None):
     """A small drain with blocking harvest and values drawn on the CPU, so
-    that two devices, or two dispatch generations, see the same schedule."""
-    mesh = make_region_mesh(n_regions, [d] * n_regions) if n_regions > 2 else None
+    that two devices, or two dispatch generations, see the same schedule.
+    ``devices`` places region r on ``devices[r]`` (default: every region on
+    ``d``)."""
+    mesh = make_region_mesh(n_regions, devices or [d] * n_regions) if n_regions > 2 else None
     slots = 544 if n_regions == 2 else 160
     return drain(d, 512, slots, (2, 64), huge, SEED, io_per_tick=24, cfg_kw=cfg_kw,
                  blocking=True, values_on="cpu", n_regions=n_regions, mesh=mesh)
@@ -1235,6 +1264,8 @@ def card_matches_cpu(dev, ppermute: bool = False) -> None:
         check([h.progress() for h in hg] == [h.progress() for h in hc],
               "card and CPU request progress agree")
         if regions > 2:
+            check_sharded(gpu)
+            check_sharded(cpu)
             after = launch_counts()
             check(after["scatter_blocks"] > before["scatter_blocks"],
                   "the card's ppermute drain ran the scatter kernel")
@@ -3424,8 +3455,13 @@ def graphs_against_eager(dev) -> dict:
         for mode in ("eager", "graphed"):
             runs[mode], res[mode] = graphed_drain_run(dev, name, capture=mode == "graphed")
         g, e = runs["graphed"].state, runs["eager"].state
-        for a, b, what in ((g.pool, e.pool, "pools"), (g.table, e.table, "tables"),
-                           (g.dirty, e.dirty, "dirty flags"), (g.in_flight, e.in_flight, "flags")):
+        if GRAPHED_DRAINS[name][2]:
+            for drv in runs.values():
+                check_sharded(drv)
+        check(all(torch.equal(a, b) for a, b in zip(g.regions, e.regions)),
+              f"{name} drain: graphed and eager pools bit-identical, region by region")
+        for a, b, what in ((g.table, e.table, "tables"), (g.dirty, e.dirty, "dirty flags"),
+                           (g.in_flight, e.in_flight, "flags")):
             check(torch.equal(a, b), f"{name} drain: graphed and eager {what} bit-identical")
         check(np.array_equal(runs["graphed"].heat_snapshot(), runs["eager"].heat_snapshot()),
               f"{name} drain: graphed and eager heat planes bit-identical")
@@ -3530,6 +3566,127 @@ def io_call_us(dev) -> dict:
     print("phase 37 host us a call (graphed / eager): " + ", ".join(
         f"{k} {v['graphed']:.1f} / {v['eager']:.1f}" for k, v in out.items()) + f" [{card()}]")
     del state
+    return out
+
+
+# phase 37: the I/O and the force on a 4-region state placed on a one-card
+# region mesh against the one-tensor state: 4,096 blocks of 64 KiB spread
+# over the regions (groups of HUGE blocks on aligned runs), 320 free slots a
+# region, and a force of one drain area (256 lanes) to the next region
+SHARDED_37 = dict(blocks=4096, free=320, force=256)
+
+
+def sharded_pair(dev) -> tuple:
+    """Two equal states of ``SHARDED_37``: one pool tensor, and one placed on
+    a one-card mesh of ``PP_REGIONS`` regions; every block written once."""
+    n, regions = SHARDED_37["blocks"], PP_REGIONS
+    pc = PoolConfig(regions, n // regions + SHARDED_37["free"], BLOCK, torch.float32,
+                    region_axis="data", huge_factor=HUGE)
+    place = start_regions(n, regions)
+    vals = torch.randn((n,) + BLOCK, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    states = []
+    for placed in (False, True):
+        state = init_state(pc, n, place, device=dev)
+        if placed:
+            state = state.to(state_sharding(pc, make_region_mesh(regions, [dev] * regions)))
+        leap_write(state, np.arange(n), vals)
+        states.append(state)
+    return states, place
+
+
+def same_states(a, b) -> bool:
+    return (all(torch.equal(x, y) for x, y in zip(a.regions, b.regions))
+            and torch.equal(a.table, b.table) and torch.equal(a.dirty, b.dirty)
+            and torch.equal(a.in_flight, b.in_flight))
+
+
+def sharded_against_one_tensor(dev) -> dict:
+    """Phase 37: each application I/O program and the force on a 4-region
+    sharded state against the one-tensor state, graphed: results and states
+    bit for bit, the host microseconds a call (queued without a sync) and
+    the force's device ms a call (CUDA events), with its K6a and K6b
+    launches."""
+    (one, shards), place = sharded_pair(dev)
+    check(shards.sharded and not one.sharded, "phase 37: a sharded and a one-tensor state")
+    n, k = SHARDED_37["blocks"], SHARDED_37["force"]
+    g = torch.Generator().manual_seed(SEED)
+    ids, groups = torch.randperm(n, generator=g)[:IO_PER_TICK], torch.arange(2)
+    offs = torch.zeros(IO_PER_TICK, dtype=torch.int64)
+    vals = torch.randn((IO_PER_TICK,) + BLOCK, device=dev)
+    # the force: the first k blocks of region 0 to region 1's free slots and back
+    fids = torch.arange(k)
+    homes = torch.from_numpy(place[:k].astype(np.int64))
+    free = torch.arange(SHARDED_37["free"])[:k] + n // PP_REGIONS
+    plans = [(fids, homes + 1, free), (fids, homes, free)]  # out, then in again
+    calls = {
+        "leap_read": lambda s: state_mod.leap_read(s, ids),
+        "leap_write": lambda s: state_mod.leap_write(s, ids, vals),
+        "leap_write_rows": lambda s: state_mod.leap_write_rows(s, ids, offs, vals[:, 0]),
+        "block_regions": lambda s: state_mod.block_regions(s, ids),
+        "huge_read": lambda s: state_mod.huge_read(s, groups, HUGE),
+        "group_dirty": lambda s: state_mod.group_dirty(s, groups, HUGE),
+        "group_in_flight": lambda s: state_mod.group_in_flight(s, groups, HUGE),
+    }
+    for name, call in calls.items():
+        a, b = call(one), call(shards)
+        check(torch.equal(a, b) if isinstance(a, torch.Tensor) else same_states(a, b),
+              f"phase 37 {name}: sharded and one-tensor bit for bit")
+    states = dict(one_tensor=one, sharded=shards)
+    turns = ("one_tensor", "sharded", "sharded", "one_tensor")
+    out = {name: {layout: [] for layout in states} for name in calls}
+    for layout in turns:  # in turns, so that neither layout has the warmer host
+        for name, call in calls.items():
+            for _ in range(10):
+                call(states[layout])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(IO_CALLS):
+                call(states[layout])
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            out[name][layout].append(host / IO_CALLS * 1e6)
+    force = {layout: dict(host_us=[], device_ms=[]) for layout in states}
+    for state in states.values():
+        for plan in plans:  # capture the variant; the blocks end where they started
+            migrator.force_areas(state, *plan)
+    for layout in turns:
+        turn = itertools.count()
+
+        def call(state=states[layout]):
+            migrator.force_areas(state, *plans[next(turn) % 2])
+
+        force[layout]["device_ms"].append(time_ms(call))  # 300 calls, behind a sleep kernel
+        before = launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(IO_CALLS):
+            call()
+        force[layout]["host_us"].append((time.perf_counter() - t0) / IO_CALLS * 1e6)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        force[layout].update({kn: (after[kn] - before[kn]) / IO_CALLS
+                              for kn in ("copy_blocks", "gather_blocks", "scatter_blocks")})
+    check(same_states(one, shards), "phase 37 the force: sharded and one-tensor bit for bit")
+    check(force["sharded"]["gather_blocks"] == force["sharded"]["scatter_blocks"] == PP_REGIONS
+          and force["sharded"]["copy_blocks"] == 0,
+          "phase 37 the sharded force: one gather and one scatter a region, no copy_blocks")
+    check(force["one_tensor"]["copy_blocks"] == 1, "phase 37 the one-tensor force: one K1 launch")
+    out["force_areas"] = force
+
+    def pair(v) -> str:
+        return "; ".join(f"{x:.1f}" for x in v)
+
+    print("phase 37 host us a call over 4 regions, two turns each (one tensor / sharded): "
+          + ", ".join(f"{name} {pair(v['one_tensor'])} / {pair(v['sharded'])}"
+                      for name, v in out.items() if name != "force_areas") + f" [{card()}]")
+    f1, fs = force["one_tensor"], force["sharded"]
+    print(f"phase 37 force of {k} lanes of 64 KiB (one tensor / sharded): host "
+          f"{pair(f1['host_us'])} / {pair(fs['host_us'])} us a call, device "
+          f"{'; '.join(f'{x:.4f}' for x in f1['device_ms'])} / "
+          f"{'; '.join(f'{x:.4f}' for x in fs['device_ms'])} ms a call; a sharded force "
+          f"launches gather {fs['gather_blocks']:.0f} and scatter {fs['scatter_blocks']:.0f} "
+          f"times [{card()}]")
+    del one, shards
     return out
 
 
@@ -3677,6 +3834,7 @@ def compile_model_against_eager(dev, drains: dict, dry: dict) -> dict:
                                                     "io_captures", "graph_pool_gib")},
                         eager={k: e[k] for k in ("io_s", "io_steps", "io_replays")})
     out["io_call_us"] = io_call_us(dev)
+    out["sharded_against_one_tensor"] = sharded_against_one_tensor(dev)
     out["tpch"] = tpch_against_eager(dev)
     out["prefill"] = prefill_against_eager(dev)
     out["training"] = trainer_against_eager(dev)
@@ -3698,6 +3856,41 @@ def compile_model_against_eager(dev, drains: dict, dry: dict) -> dict:
         f"{k} {v['variants']}/{v['captures']}/{v['replays']}" for k, v in out["programs"].items()))
     out["graph_pool_gib"] = check_graph_memory("phase 37, at its end")
     return out
+
+
+# -- phase 38: regions on several cards -----------------------------------------------
+
+
+def regions_on_several_cards(dev) -> dict:
+    """Phase 38: with two or more cards, phase 14's small ppermute drain
+    with region r on card ``r % cards`` (graphed: one capture spanning the
+    cards a variant), held bit for bit against the same drain with every
+    region on ``dev``, and the bytes that crossed between cards, by link.
+    With one card it reports that it did not run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"regions on several cards: not run ({cards} card)")
+        return dict(ran=False, cards=cards, launches={})
+    devices = [torch.device("cuda", r % cards) for r in range(PP_REGIONS)]
+    kw = dict(SMALL_KW, backend="ppermute", axis_name="data")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    spread, _, hs, _ = small_drain(dev, 1, kw, PP_REGIONS, devices)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    one, _, ho, _ = small_drain(dev, 1, kw, PP_REGIONS)
+    check_sharded(spread)
+    same_state(spread, one, "regions on several cards against one card")
+    check([h.progress() for h in hs] == [h.progress() for h in ho], "and the same progress")
+    links = {f"{s}->{d}": b for (s, d), b in sorted(spread.stats.bytes_per_link.items())}
+    across = sum(b for (s, d), b in spread.stats.bytes_per_link.items()
+                 if devices[s] != devices[d])
+    check(across > 0, "bytes crossed between cards")
+    print(f"regions on {cards} cards ({[str(d) for d in devices]}): the drain equals the "
+          f"one-card drain bit for bit; {across} bytes across cards; by link {links}; "
+          f"{seconds:.3f} s [{card()}]")
+    return dict(ran=True, cards=cards, devices=[str(d) for d in devices], seconds=seconds,
+                bytes_per_link=links, bytes_across_cards=across, launches=launches)
 
 
 # -- phase 36: the examples, and qwen2_7b through launch.serve ----------------------
@@ -3945,6 +4138,9 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = compile_model_against_eager(dev, graphed["small_drain"], dry)
     wall["phase_37_compile_model_against_eager"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    several = regions_on_several_cards(dev)
+    wall["phase_38_regions_on_several_cards"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -3955,7 +4151,7 @@ def main() -> int:
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
              + [r for r in moe_cpu.values()] + list(xl["runs"].values())
              + list(training.values()) + [r for m in models.values() for r in m["runs"].values()]
-             + list(examples.values()))
+             + list(examples.values()) + ([several] if several["ran"] else []))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase
     # 34's launches there and the earlier phases' in its first row
     phase34 = {row["name"] for row in rows if row.get("phase") == 34}
@@ -3993,6 +4189,7 @@ def main() -> int:
     print(json.dumps({"graphs_against_eager": graphed, "card": smi}))
     print(json.dumps({"examples": examples, "card": smi}))
     print(json.dumps({"compile_model_against_eager": compiled, "card": smi}))
+    print(json.dumps({"regions_on_several_cards": several, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,8 @@ graphed, graphed, eager (eager: inside ``graphs.disable_capture()``, every
 launch from Python; graphed: one CUDA graph replay a program), then graphed
 the same pool through the batched generation and through the legacy one
 (phase 35's ``chunk_blocks`` 16), and the 4-region ppermute drain through
-the batched generation.  Each run is drained twice: once with
+the batched generation (its state placed on a one-card region mesh, one
+pool tensor a region).  Each run is drained twice: once with
 ``LeapConfig(telemetry=True)``, printing the host milliseconds a tick in
 each pipeline stage (the recorder's ``stage`` spans; nested spans each count
 their own whole time) and in ``tick()``, and once under ``torch.profiler``,
@@ -58,7 +59,7 @@ RUNS = (
     ("small (megastep, 2 regions), eager again", MEGASTEP, False),
     ("small (batched, 2 regions), graphed", BATCHED, True),
     ("small (legacy, 2 regions), graphed", LEGACY, True),
-    ("ppermute (batched, 4 regions), graphed", PPERMUTE, True),
+    ("ppermute (batched, 4 regions over region shards), graphed", PPERMUTE, True),
 )
 
 

@@ -87,9 +87,9 @@ class SyncResharder:
         )
         handle = driver.default_session().leap(todo, dst_region, ticket=ticket)
         ok = handle.wait()
-        pool = driver.state.pool
-        if pool.is_cuda:  # synchronous, like the syscall
-            torch.cuda.synchronize(pool.device)
+        for device in driver.state.devices:
+            if device.type == "cuda":  # synchronous, like the syscall
+                torch.cuda.synchronize(device)
         if not ok:  # pragma: no cover - force path always terminates
             raise RuntimeError("sync reshard did not terminate")
         nbytes = len(todo) * self.pool_cfg.block_bytes

@@ -17,10 +17,10 @@ same engine, not separate code paths.
 
 Asynchrony model: every device program is queued on the current CUDA
 stream; the driver only blocks when it *needs* a commit verdict and the
-device hasn't produced it yet.  The driver runs on the device of
-``state.pool`` and builds its heat plane there.  Interleaving application write/compute steps between
-``tick()`` calls reproduces the paper's concurrent-writer races at step
-granularity (see DESIGN.md §2).
+device hasn't produced it yet.  The driver runs on the state's home
+device (its table's) and builds its heat plane there.  Interleaving
+application write/compute steps between ``tick()`` calls reproduces the
+paper's concurrent-writer races at step granularity (see DESIGN.md §2).
 
 Compatibility: ``LeapConfig`` / ``MigrationStats`` / ``RequestState`` /
 ``FreeList`` now live in ``core/config.py`` / ``core/stats.py`` /
@@ -28,7 +28,8 @@ Compatibility: ``LeapConfig`` / ``MigrationStats`` / ``RequestState`` /
 ``from repro_torch.core.driver import LeapConfig`` keeps working.
 ``request()`` and ``drain()`` survive as deprecation shims over the default
 :class:`repro_torch.api.LeapSession`.  ``mesh`` is a
-:class:`repro_torch.launch.mesh.RegionMesh` for the ppermute copy backend.
+:class:`repro_torch.launch.mesh.RegionMesh` for the ppermute copy backend:
+given one, the driver places its state on it (one pool tensor a region).
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from repro_torch.core.state import (
     leap_read,
     leap_write,
     leap_write_rows,
+    state_sharding,
 )
 from repro_torch.core.stats import MigrationStats, RequestState
 from repro_torch.obs import make_recorder
@@ -99,10 +101,14 @@ class MigrationDriver:
         scheduler=None,  # SchedulerPolicy | "leap" | "sync" | "sampling" | None
     ):
         cfg = cfg or LeapConfig()
-        if mesh is not None and any(d != state.device for d in mesh.devices):
-            # One controller drives every region: the state must already sit
-            # where the mesh puts it (state.to(state_sharding(pool_cfg, mesh))).
-            raise ValueError(f"state lives on {state.device}, the mesh on {mesh.devices[0]}")
+        if mesh is not None:
+            if any(d.type == "meta" for d in mesh.devices):
+                raise ValueError(f"the region mesh {[str(d) for d in mesh.devices]} holds no "
+                                 "data on meta: a driver needs a mesh of real devices")
+            # One controller drives every region: like shard_map resharding
+            # its operand, place the state where the mesh puts it (one pool
+            # tensor a region); a state already placed is kept.
+            state = state.to(state_sharding(pool_cfg, mesh))
         # Host mirrors (the driver performs every allocation/remap, so these
         # stay exact without device round-trips).
         table = state.table.cpu().numpy().copy()

@@ -48,6 +48,19 @@ left and captures: lazy initialisation (cuBLAS, the autograd engine's
 device thread) happens outside the capture, and a training step applies
 its update once a call.  Later calls replay.
 
+A program over tensors on several cards (a migration state whose region
+shards lie on distinct cards) runs from its home device, ``bound[0]``'s.
+Its variant is one CUDA graph whose capture spans the cards: the home
+device's capture stream forks to a capture stream on every other card
+(each waits on an event recorded in the capture, so it joins it), the body
+runs with each card's current stream its capture stream (the peer copies'
+events stay inside the one capture), and the forked streams join back
+before the capture ends.  The temporaries of another card come from a
+memory pool of that card which the graph keeps.  A replay waits for the
+work queued before it on every card, and every card's current stream waits
+for the replay.  Its graph thus holds the launches of each card, joined by
+events, with the transfers between them.
+
 A capture that fails raises; nothing falls back to eager launches.  Inside
 :func:`disable_capture`, the counterpart of ``jax.disable_jit``, nothing is
 captured or registered and every program runs eagerly: the tests and
@@ -102,6 +115,15 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     if index not in _streams:
         _streams[index] = torch.cuda.Stream(index)
     return _streams[index]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its card's index ("cuda" names the current card), so
+    that two names of one card compare equal."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _counts() -> dict:
@@ -219,9 +241,11 @@ def _forget(graphs: dict, binding, graph) -> None:
 
 
 class _Graph:
-    """One captured variant over one set of bound tensors."""
+    """One captured variant over one set of bound tensors; ``peers`` are the
+    other cards they lie on."""
 
-    def __init__(self, body, inputs, device: torch.device, pool=None, eager_first=False):
+    def __init__(self, body, inputs, device: torch.device, pool=None, eager_first=False,
+                 peers=()):
         self.groups = _by_dtype(inputs)
         self.flats = {
             dtype: torch.empty(sum(inputs[i].numel() for i in idx), dtype=dtype, device=device)
@@ -240,11 +264,25 @@ class _Graph:
             for t in tensors(self.first_outputs):
                 t.record_stream(current)
             torch.cuda.empty_cache()  # the eager run's temporaries, before the capture
+        self.device, self.peers = device, tuple(peers)
+        self.peer_pools = {}
+        for d in self.peers:
+            with torch.cuda.device(d):
+                self.peer_pools[d] = torch.cuda.MemPool()
         before = _counts()
-        with torch.cuda.device(device), torch.cuda.stream(stream):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.cuda.device(device))
+            stack.enter_context(torch.cuda.stream(stream))
             self.graph.capture_begin(pool=pool)
             try:
+                for d in self.peers:  # fork: each card's capture stream joins the capture
+                    peer = capture_stream(d)
+                    peer.wait_stream(stream)
+                    stack.enter_context(torch.cuda.stream(peer))
+                    stack.enter_context(torch.cuda.use_mem_pool(self.peer_pools[d], d))
                 self.outputs = body(*static)
+                for d in self.peers:  # join
+                    stream.wait_stream(capture_stream(d))
             except BaseException:
                 with contextlib.suppress(RuntimeError):
                     self.graph.capture_end()  # the capture is void; the body's error stands
@@ -275,7 +313,12 @@ class _Graph:
                     n = dsts[i].numel()
                     dsts[i].copy_(pinned[lo : lo + n].view(dsts[i].shape), non_blocking=True)
                     lo += n
+        home = torch.cuda.current_stream(self.device) if self.peers else None
+        for d in self.peers:  # what was queued on the other cards comes first
+            home.wait_stream(torch.cuda.current_stream(d))
         self.graph.replay()
+        for d in self.peers:  # and what comes after on them waits for the replay
+            torch.cuda.current_stream(d).wait_stream(home)
         _advance(self.delta)
 
 
@@ -314,7 +357,7 @@ class Program:
         return or keep a bound tensor.  The program runs on ``device``, by
         default ``bound[0]``'s (a program with nothing bound names it).
         """
-        device = bound[0].device if device is None else torch.device(device)
+        device = _indexed(bound[0].device if device is None else device)
         if not _capture:
             return body(*to_device(inputs, device))
         if device.type != "cuda":
@@ -331,7 +374,7 @@ class Program:
     def warm(self, key, body, inputs, bound) -> None:
         """Compile variant ``key`` ahead of time: capture it on CUDA (nothing
         runs), register it on the CPU.  ``inputs`` give shapes only."""
-        device = bound[0].device
+        device = _indexed(bound[0].device)
         if not _capture:
             return
         if device.type != "cuda":
@@ -345,7 +388,9 @@ class Program:
         graph = graphs.get(binding)
         if graph is None:
             pool = self._pools.get(binding)
-            graph = graphs[binding] = _Graph(body, inputs, device, pool, self.eager_first)
+            peers = list(dict.fromkeys(t.device for t in bound if t.device != device))
+            graph = graphs[binding] = _Graph(body, inputs, device, pool, self.eager_first,
+                                             peers)
             self.captures += 1
             if pool is None:
                 pool = self._pools[binding] = graph.graph.pool()

@@ -33,7 +33,12 @@ Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
 (src, dst) region pair at a time through ``fused_copy_ppermute`` (the
 ``gather_blocks`` and ``scatter_blocks`` kernels around a point-to-point
 transfer on a region mesh).  The legacy generation's counterparts are
-``copy_chunk`` and ``copy_chunk_ppermute``.
+``copy_chunk`` and ``copy_chunk_ppermute``.  A state placed on a region mesh
+holds one pool tensor a region (``state.state_sharding``): the ppermute
+backend's programs, the zero-fill and the force work shard by shard, the
+commits and begins touch the table alone, and the xla backend's programs
+(``fused_copy``, ``fused_copy_runs``, ``copy_chunk``, the megastep), which
+move flat ids over one pool tensor, raise on it.
 
 Every program is compiled the way the JAX package jits it: it goes through
 its own :class:`~repro_torch.core.graphs.Program` in :data:`PROGRAMS`, the
@@ -73,6 +78,9 @@ from repro_torch.core.state import (
     SLOT,
     LeapState,
     flat_pool_view,
+    gather_regions,
+    region_view,
+    scatter_regions,
     state_key,
     state_tensors,
 )
@@ -105,9 +113,22 @@ def _entries(regions: torch.Tensor, slots: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([regions, slots], dim=-1).to(dtype)
 
 
+def _one_tensor(state: LeapState, name: str) -> None:
+    """Raise unless ``state``'s pool is one tensor: the xla backend's
+    programs move flat slot ids over the whole pool."""
+    if state.sharded:
+        raise ValueError(
+            f"{name} copies over the flat pool, and this state holds one tensor a region "
+            "(placed on a region mesh): drive it with the ppermute backend "
+            "(LeapConfig(backend='ppermute')); the xla backend over region shards is not "
+            "ported (ROADMAP.md queue 1, item 5)"
+        )
+
+
 def _run(name: str, body, state: LeapState, operands, *static):
     """``body(state, *operands, *static)`` as a variant of ``PROGRAMS[name]``,
-    keyed on the operands' lengths, the static arguments and the state."""
+    keyed on the operands' lengths, the static arguments and the state (the
+    shards and their devices, on a region mesh)."""
     key = (tuple(t.shape[0] for t in operands), static, state_key(state))
     return PROGRAMS[name](key, lambda *ops_: body(state, *ops_, *static), list(operands),
                           state_tensors(state))
@@ -132,9 +153,10 @@ def _copy_chunk(state: LeapState, block_ids, dst_slots, dst_region: int) -> None
 
 def _copy_chunk_ppermute(state: LeapState, block_ids, dst_slots, src_region: int,
                          dst_region: int, mesh) -> None:
-    slots = state.table[block_ids, SLOT].long()
-    buf = state.pool[src_region][slots].to(mesh.device(dst_region), non_blocking=True)
-    state.pool[dst_region][dst_slots] = buf
+    src, dst = state.pool[src_region], state.pool[dst_region]
+    slots = state.table[block_ids, SLOT].long().to(src.device)
+    buf = src[slots].to(dst.device, non_blocking=True)
+    dst[dst_slots.to(dst.device)] = buf
 
 
 def _commit(state: LeapState, block_ids, dst_regions, dst_slots) -> torch.Tensor:
@@ -164,15 +186,31 @@ def _commit_groups(state: LeapState, block_ids, dst_regions, dst_starts,
     return verdict
 
 
+def _gather_shard(shard, idx):
+    return ops.gather_blocks_impl(region_view(shard), idx)
+
+
+def _scatter_shard(shard, idx, blocks):
+    ops.scatter_blocks_impl(region_view(shard), idx, blocks)
+
+
 def _force(state: LeapState, block_ids, dst_regions, dst_slots) -> None:
-    """The fused copy+flip, its payload moved by one ``copy_blocks`` launch
-    over the flat pool view (no payload temporary).  Its destinations are
-    fresh slots, never a source in the same batch (K1's contract); a pad
-    lane repeats lane 0's copy."""
-    s = state.pool.shape[1]
+    """The fused copy+flip.  On one pool tensor its payload moves by one
+    ``copy_blocks`` launch over the flat pool view (no payload temporary);
+    its destinations are fresh slots, never a source in the same batch
+    (K1's contract).  On region shards K1 cannot reach across shards: every
+    lane is gathered from every region by ``gather_blocks`` and kept from
+    its own (``state.gather_regions``), and every region's shard takes the
+    payload by ``scatter_blocks`` with other regions' lanes at its sink row.
+    A pad lane repeats lane 0's copy."""
     loc = state.table[block_ids].long()
-    ops.copy_blocks_impl(flat_pool_view(state.pool), loc[:, REGION] * s + loc[:, SLOT],
-                         dst_regions * s + dst_slots)
+    if state.sharded:
+        payload = gather_regions(state, loc[:, REGION], loc[:, SLOT], _gather_shard)
+        scatter_regions(state, dst_regions, dst_slots, payload, _scatter_shard)
+    else:
+        s = state.pool.shape[1]
+        ops.copy_blocks_impl(flat_pool_view(state.pool), loc[:, REGION] * s + loc[:, SLOT],
+                             dst_regions * s + dst_slots)
     state.table[block_ids] = _entries(dst_regions, dst_slots, state.table.dtype)
     state.in_flight.index_fill_(0, block_ids, False)
     state.dirty.index_fill_(0, block_ids, False)
@@ -183,7 +221,8 @@ def _force_migrate(state: LeapState, block_ids, dst_slots, dst_region: int) -> N
 
 
 def _zero_fill(state: LeapState, slots, dst_region: int) -> None:
-    state.pool[dst_region].index_fill_(0, slots, 0)
+    shard = state.pool[dst_region]
+    shard.index_fill_(0, slots.to(shard.device), 0)
 
 
 def _fused_copy(state: LeapState, src_flat, dst_flat, impl) -> None:
@@ -196,12 +235,10 @@ def _fused_copy_runs(state: LeapState, src_starts, dst_starts, run: int, impl) -
 
 def _fused_copy_ppermute(state: LeapState, src_slots, dst_slots, src_region: int,
                          dst_region: int, mesh, impl) -> None:
-    pool = state.pool
-    src = flat_pool_view(pool[src_region : src_region + 1])
-    buf = ops.gather_blocks_impl(src, src_slots, impl=impl)
-    buf = buf.to(mesh.device(dst_region), non_blocking=True)
-    dst = flat_pool_view(pool[dst_region : dst_region + 1])
-    ops.scatter_blocks_impl(dst, dst_slots, buf, impl=impl)
+    src, dst = region_view(state.pool[src_region]), region_view(state.pool[dst_region])
+    buf = ops.gather_blocks_impl(src, src_slots.to(src.device), impl=impl)
+    buf = buf.to(dst.device, non_blocking=True)
+    ops.scatter_blocks_impl(dst, dst_slots.to(dst.device), buf, impl=impl)
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +265,7 @@ def copy_chunk(
     source location (non-atomic copy phase, exactly as in the paper).  The
     payload is gathered into a temporary (one chunk) before it is scattered.
     """
+    _one_tensor(state, "copy_chunk")
     _run("copy_chunk", _copy_chunk, state, (block_ids, dst_slots), int(dst_region))
     return state
 
@@ -273,7 +311,8 @@ def force_migrate(
     dst_region: int,
 ) -> LeapState:
     """Fused copy+remap of one area (write-through escalation): no race
-    window exists.  The payload moves through the ``copy_blocks`` kernel;
+    window exists.  The payload moves through the ``copy_blocks`` kernel,
+    or on region shards through ``gather_blocks`` and ``scatter_blocks``;
     the destinations must not be sources of the same call."""
     _run("force_migrate", _force_migrate, state, (block_ids, dst_slots), int(dst_region))
     return state
@@ -300,6 +339,7 @@ def fused_copy(
 ) -> LeapState:
     """Physical copy of the tick's chunk plan: flat slot ids (``region * S +
     slot``) through the ``leap_copy`` kernel over the flat pool view."""
+    _one_tensor(state, "fused_copy")
     _run("fused_copy", _fused_copy, state, (src_flat, dst_flat), impl)
     return state
 
@@ -313,6 +353,7 @@ def fused_copy_runs(
 ) -> LeapState:
     """Physical copy of whole huge blocks: one contiguous ``run``-slot move
     per block, from flat G-aligned start slots."""
+    _one_tensor(state, "fused_copy_runs")
     _run("fused_copy_runs", _fused_copy_runs, state, (src_starts, dst_starts), int(run), impl)
     return state
 
@@ -352,8 +393,10 @@ def force_areas(
 ) -> LeapState:
     """Batched write-through escalation, in place: fused copy+flip, the
     payload moved by one ``copy_blocks`` launch (flat ids computed on the
-    device from the table as it stands).  The destinations must not be
-    sources of the same call."""
+    device from the table as it stands), or on region shards by a
+    ``gather_blocks`` and a ``scatter_blocks`` launch a region (a lane's
+    regions are data, so every region sees every lane).  The destinations
+    must not be sources of the same call."""
     _run("force_areas", _force, state, (block_ids, dst_regions, dst_slots))
     return state
 
@@ -379,10 +422,11 @@ def fused_copy_ppermute(
     The single-controller form of the JAX ``shard_map`` + ``ppermute``
     program: ``gather_blocks`` packs the source region's slots into a
     staging buffer, ``Tensor.to`` moves it to the destination region's
-    device (the point-to-point transfer; on a one-device mesh the buffer
-    is already there and no bytes cross a link), and ``scatter_blocks``
-    unpacks it into the destination slots.  Each kernel sees one region's
-    shard of the flat pool, ``flat_pool_view(pool[r:r+1])``.  Captured, the
+    device (the point-to-point transfer, a peer copy between two cards; on
+    one device the buffer is already there and no bytes cross a link), and
+    ``scatter_blocks`` unpacks it into the destination slots.  Each kernel
+    sees one region's storage, ``state.region_view(pool[r])``: its shard on
+    a region mesh, its slice of the one pool tensor otherwise.  Captured, the
     staging buffer stays in the graph: it is the transfer.
     """
     _run("fused_copy_ppermute", _fused_copy_ppermute, state, (src_slots, dst_slots),
@@ -456,6 +500,7 @@ def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay)
     device.  The program updates the state in place, and the heat plane when
     its phase is present: those are the tensors a captured graph belongs to.
     """
+    _one_tensor(state, "megastep")
     inputs = list(operands)  # the 16 index operands (heat_ids last), then heat_w
     key = (
         tuple(t.shape[0] for t in inputs),

@@ -48,6 +48,11 @@ heat lanes carry weight 0.  The other legacy programs and the promotions'
 ``force_areas`` run at their real lengths, as in the reference.  An empty
 phase dispatches nothing.
 
+On a region mesh the state holds one pool tensor a region (the driver
+places it there): the ppermute backend's copies, the zero-fills and the
+forces run shard by shard inside their programs (``core/migrator.py``),
+so this stage builds the same plans for either layout.
+
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.
 Tier transitions (promotion/adoption) live here too: a promotion is just a

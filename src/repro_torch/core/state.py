@@ -8,7 +8,9 @@ re-mapping virtually.  Here the same separation is:
   (region, slot)                     -- where the bytes live: ``pool[r, s]``
 
 ``pool`` is a single pre-allocated tensor ``[n_regions, slots_per_region,
-*block_shape]`` on one device ("NUMA region" ≙ a slice of device memory).
+*block_shape]`` on one device ("NUMA region" ≙ a slice of device memory),
+or, once placed on a region mesh (:func:`state_sharding`), one tensor per
+region on that region's device (see :class:`LeapState`).
 The ``table`` maps logical blocks to their physical location (it is the page
 table).  ``dirty`` and ``in_flight`` implement the paper's write-detection
 protocol: a write to a block that is currently being copied marks it dirty,
@@ -99,13 +101,22 @@ class PoolConfig:
 class LeapState:
     """Device-resident migration state, updated in place.
 
-    pool:      [R, S, *block_shape]  physical storage, region-major.
+    pool:      [R, S, *block_shape]  physical storage, region-major; or, on a
+                                     region mesh, a tuple of R shards, shard r
+                                     ``[S + 1, *block_shape]`` on the region's
+                                     device in its own allocation, its last
+                                     row a sink that masked-off lanes of a
+                                     write land in (never read).
     table:     [N, 2] int32          logical block -> (region, slot).
     dirty:     [N]    bool           written while in flight (invalidates copy).
     in_flight: [N]    bool           currently under an open copy epoch.
+
+    ``pool[r]`` is region r's storage in either layout (a view ``[S, ...]``
+    of the one tensor, or the shard).  The table and flags live on the home
+    device, :attr:`device`.
     """
 
-    pool: torch.Tensor
+    pool: torch.Tensor | tuple[torch.Tensor, ...]
     table: torch.Tensor
     dirty: torch.Tensor
     in_flight: torch.Tensor
@@ -116,7 +127,40 @@ class LeapState:
 
     @property
     def device(self) -> torch.device:
-        return self.pool.device
+        """The home device: the table's, the flags' and region 0's."""
+        return self.table.device
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the pool is one tensor per region (placed on a region mesh)."""
+        return isinstance(self.pool, tuple)
+
+    @property
+    def pool_shape(self) -> tuple[int, ...]:
+        """``(R, S, *block_shape)`` in either layout."""
+        if self.sharded:
+            shard = self.pool[0]
+            return (len(self.pool), shard.shape[0] - 1) + tuple(shard.shape[1:])
+        return tuple(self.pool.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pool[0].dtype
+
+    @property
+    def regions(self) -> list[torch.Tensor]:
+        """Each region's slots ``[S, *block_shape]`` (views, sink rows left out)."""
+        s = self.pool_shape[1]
+        return [self.pool[r][:s] for r in range(self.pool_shape[0])]
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """Every device the state lives on, the home device first."""
+        out = [self.device]
+        for t in state_tensors(self):
+            if t.device not in out:
+                out.append(t.device)
+        return out
 
     @classmethod
     def from_numpy(cls, pool, table, dirty, in_flight, device) -> "LeapState":
@@ -134,25 +178,49 @@ class LeapState:
         )
 
     def to(self, placement: "LeapState") -> "LeapState":
-        """This state with each tensor on the device that ``placement`` (from
-        :func:`state_sharding`) names for it; a tensor already there is kept."""
-        return LeapState(
-            *(getattr(self, f.name).to(getattr(placement, f.name))
-              for f in dataclasses.fields(self))
-        )
+        """This state where ``placement`` (from :func:`state_sharding`, or a
+        ``LeapState`` of devices) puts it: a tuple of devices for the pool
+        makes one shard per region, each a new allocation; a single device
+        makes one pool tensor again.  Tensors already in place are kept, and
+        a state already placed is returned as it is."""
+        flags = [getattr(self, n).to(getattr(placement, n)) for n in ("table", "dirty", "in_flight")]
+        if isinstance(placement.pool, tuple):
+            devices = tuple(map(torch.device, placement.pool))
+            pool = self.pool
+            if not self.sharded or tuple(t.device for t in pool) != devices:
+                pool = tuple(_shard(region, d) for region, d in zip(self.regions, devices))
+        elif self.sharded:
+            pool = torch.stack([region.to(placement.pool) for region in self.regions])
+        else:
+            pool = self.pool.to(placement.pool)
+        if pool is self.pool and all(a is b for a, b in zip(flags, (self.table, self.dirty,
+                                                                    self.in_flight))):
+            return self
+        return LeapState(pool, *flags)
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """Host copies ``(pool, table, dirty, in_flight)``; a bfloat16 pool
+        """Host copies ``(pool, table, dirty, in_flight)``, the pool as one
+        ``[R, S, *block_shape]`` array in either layout; a bfloat16 pool
         comes back as float32 (numpy has no bfloat16 of its own)."""
-        pool = self.pool.detach().cpu()
+        pool = torch.stack([region.detach().cpu() for region in self.regions])
         if pool.dtype == torch.bfloat16:
             pool = pool.float()
         return (
-            pool.numpy().copy(),
+            pool.numpy(),
             self.table.cpu().numpy().copy(),
             self.dirty.cpu().numpy().copy(),
             self.in_flight.cpu().numpy().copy(),
         )
+
+
+def _shard(region: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Region slots ``[S, *blk]`` as a new ``[S + 1, *blk]`` tensor on
+    ``device``, its sink row zero."""
+    out = torch.empty((region.shape[0] + 1,) + tuple(region.shape[1:]), dtype=region.dtype,
+                      device=device)
+    out[:-1].copy_(region)
+    out[-1].zero_()
+    return out
 
 
 def _tensor_from_host(arr, device) -> torch.Tensor:
@@ -233,9 +301,12 @@ def state_sharding(cfg: PoolConfig, mesh) -> LeapState:
     (a :class:`repro_torch.launch.mesh.RegionMesh`), as a ``LeapState`` of
     ``torch.device`` s for :meth:`LeapState.to`.
 
-    The JAX package shards the pool's region dim over ``cfg.region_axis``
-    and replicates the table and flag vectors.  The port's meshes hold every
-    region on one device so far, so all four tensors go to that device.
+    As the JAX package shards the pool's region dim over ``cfg.region_axis``,
+    the pool becomes one shard per region on ``mesh.device(r)``, even where
+    several regions share a device.  The JAX package replicates the table
+    and the flags; the port keeps one copy on the home device
+    ``mesh.device(0)`` (beside the driver's host mirror), which every
+    program reads from one controller (ROADMAP D5).
     """
     if cfg.region_axis != mesh.axis_name:
         raise ValueError(
@@ -243,8 +314,8 @@ def state_sharding(cfg: PoolConfig, mesh) -> LeapState:
         )
     if mesh.size != cfg.n_regions:
         raise ValueError(f"mesh has {mesh.size} entries for {cfg.n_regions} regions")
-    dev = mesh.device(0)
-    return LeapState(pool=dev, table=dev, dirty=dev, in_flight=dev)
+    home = mesh.device(0)
+    return LeapState(pool=tuple(mesh.devices), table=home, dirty=home, in_flight=home)
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +337,16 @@ def state_sharding(cfg: PoolConfig, mesh) -> LeapState:
 # returns a fresh array from every call.  These programs are the
 # application's, not migration programs: ``migrator.PROGRAMS`` and
 # ``jit_cache_misses`` leave them out, as the reference's ``_PROGRAMS`` does.
+#
+# Over a sharded pool a lane's region is data, read from the table on the
+# device, and a captured graph cannot branch on it.  So the pool programs
+# run a static loop over the regions: a read gathers every lane from every
+# region (a lane of another region reads slot 0) and keeps, lane by lane,
+# the block of its own region; a write writes every region with the lanes
+# of other regions sent to its sink row, so that no masked lane overwrites
+# a real one and, of duplicate ids, the last still wins as in the one
+# tensor.  That reads or writes R times the lanes' bytes; the table and
+# flag programs are the same in both layouts.
 # --------------------------------------------------------------------------
 
 
@@ -309,14 +390,26 @@ IO_PROGRAMS = {
 }
 
 
+# lanes of a sharded read or force gathered at once: a chunk's temporaries
+# are all a graph keeps beside the output (an 8,192-block read of 64 KiB
+# blocks keeps 64 MiB, not R times 512 MiB)
+SHARD_CHUNK = 1024
+
+
 def state_key(state: LeapState) -> tuple:
-    return (tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
-            str(state.device))
+    """What a program's variant keys on of ``state``: shapes, dtype and
+    devices (each shard's on a region mesh)."""
+    key = (state.pool_shape, state.dtype, tuple(state.table.shape), str(state.device))
+    if state.sharded:
+        key += (tuple(str(t.device) for t in state.pool),)
+    return key
 
 
 def state_tensors(state: LeapState) -> list[torch.Tensor]:
-    """The tensors a program over ``state`` is bound to."""
-    return [state.pool, state.table, state.dirty, state.in_flight]
+    """The tensors a program over ``state`` is bound to (every shard of a
+    sharded pool; region 0's first, on the home device)."""
+    pool = list(state.pool) if state.sharded else [state.pool]
+    return pool + [state.table, state.dirty, state.in_flight]
 
 
 def _io(name: str, body, state: LeapState, operands, *static):
@@ -333,8 +426,51 @@ def _locate(state: LeapState, block_ids: torch.Tensor):
     return loc[:, REGION], loc[:, SLOT]
 
 
+def _lanes(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane ``mask`` shaped to broadcast over ``like``'s trailing dims."""
+    return mask.view(mask.shape + (1,) * (like.ndim - mask.ndim))
+
+
+def gather_regions(state: LeapState, region: torch.Tensor, index: torch.Tensor,
+                   take=lambda shard, idx: shard[idx]) -> torch.Tensor:
+    """``out[i] = take(pool[region[i]], index[i])`` on the home device over a
+    sharded pool; ``index`` is ``[K]`` or ``[K, G]`` (a run a lane).  A
+    static loop over the regions, ``SHARD_CHUNK`` lanes at a time: each
+    region's gather on its device, with other regions' lanes at slot 0,
+    combined lane by lane on the home device."""
+    home, shards = state.device, state.pool
+    out = None
+    for lo in range(0, max(region.shape[0], 1), SHARD_CHUNK):
+        reg, idx = region[lo : lo + SHARD_CHUNK], index[lo : lo + SHARD_CHUNK]
+        for r, shard in enumerate(shards):
+            mine = reg == r
+            part = take(shard, torch.where(_lanes(mine, idx), idx, 0).to(shard.device)).to(home)
+            if out is None:
+                out = torch.empty((region.shape[0],) + tuple(part.shape[1:]), dtype=part.dtype,
+                                  device=home)
+            dst = out[lo : lo + SHARD_CHUNK]
+            if r == 0:
+                dst.copy_(part)
+            else:
+                torch.where(_lanes(mine, part), part, dst, out=dst)
+    return out
+
+
+def scatter_regions(state: LeapState, region: torch.Tensor, index: torch.Tensor,
+                    values: torch.Tensor, put) -> None:
+    """``put(pool[region[i]], index[i], values[i])`` for every lane over a
+    sharded pool: one ``put`` a region, on its device, with the lanes of
+    other regions at its sink row."""
+    for r, shard in enumerate(state.pool):
+        sink = shard.shape[0] - 1
+        put(shard, torch.where(region == r, index, sink).to(shard.device),
+            values.to(shard.device))
+
+
 def _read(state: LeapState, ids: torch.Tensor) -> torch.Tensor:
     region, slot = _locate(state, ids)
+    if state.sharded:
+        return gather_regions(state, region, slot)
     return state.pool[region, slot]
 
 
@@ -342,15 +478,30 @@ def _trap(state: LeapState, ids: torch.Tensor) -> None:
     state.dirty[ids] = state.dirty[ids] | state.in_flight[ids]
 
 
+def _put(shard, idx, values) -> None:
+    shard[idx] = values
+
+
 def _write(state: LeapState, ids: torch.Tensor, values: torch.Tensor) -> None:
     region, slot = _locate(state, ids)
-    state.pool[region, slot] = values.to(state.pool.dtype)
+    values = values.to(state.dtype)
+    if state.sharded:
+        scatter_regions(state, region, slot, values, _put)
+    else:
+        state.pool[region, slot] = values
     _trap(state, ids)
 
 
 def _write_rows(state: LeapState, ids, offs, rows) -> None:
     region, slot = _locate(state, ids)
-    state.pool[region, slot, offs] = rows.to(state.pool.dtype)
+    rows = rows.to(state.dtype)
+    if state.sharded:
+        def put(shard, idx, values):
+            shard[idx, offs.to(shard.device)] = values
+
+        scatter_regions(state, region, slot, rows, put)
+    else:
+        state.pool[region, slot, offs] = rows
     _trap(state, ids)
 
 
@@ -399,6 +550,8 @@ def block_regions(state: LeapState, block_ids) -> torch.Tensor:
 def _huge_read(state: LeapState, groups: torch.Tensor, huge_factor: int) -> torch.Tensor:
     region, slot = _locate(state, groups * huge_factor)
     run = torch.arange(huge_factor, device=state.device)
+    if state.sharded:
+        return gather_regions(state, region, slot[:, None] + run[None, :])
     return state.pool[region[:, None], slot[:, None] + run[None, :]]
 
 
@@ -436,13 +589,20 @@ def flat_pool_view(pool: torch.Tensor) -> torch.Tensor:
     A (region, slot) pair becomes the flat slot ``region * S + slot``; the
     payload collapses to 2-D (``rows = prod(blk[:-1])``, ``cols = blk[-1]``).
     The result shares storage with ``pool``, so writes through it land in
-    the pool (the pool is contiguous).
+    the pool (the pool is contiguous).  A sharded pool has no flat view:
+    take :func:`region_view` of each region's storage.
     """
     r, s = pool.shape[:2]
     payload = pool.shape[2:]
     rows = int(np.prod(payload[:-1])) if len(payload) > 1 else 1
     cols = int(payload[-1]) if payload else 1
     return pool.view(r * s, rows, cols)
+
+
+def region_view(storage: torch.Tensor) -> torch.Tensor:
+    """One region's storage ``pool[r]`` (a shard, its sink row included, or
+    a slice of the one tensor) in the kernel layout ``[slots, rows, cols]``."""
+    return flat_pool_view(storage[None])
 
 
 def placement_histogram(state: LeapState, n_regions: int) -> np.ndarray:

@@ -8,9 +8,8 @@ and runs on one card, so here the rules feed accounting: the dry-run
 (``launch/dryrun.py``) reads per-device shapes off them on the production
 meshes, with tensors on ``meta``.  The port's models call no constraint;
 ``constrain`` and ``constrain_params`` are the identity outside a context
-and under a one-device mesh, and raise under a larger one, where the pool
-and the model would have to be sharded over several cards (ROADMAP.md
-queue 1, item 6).
+and under a one-device mesh, and raise under a larger one, where the model
+would have to be sharded over several cards (ROADMAP.md queue 1, item 5).
 
 Two types stand in for JAX's:
   * a mesh is a :class:`MeshShape`: axis names and sizes, no devices
@@ -159,7 +158,7 @@ def _multi_device(ctx: ShardCtx) -> None:
     if ctx.mesh.size > 1:
         raise NotImplementedError(
             f"a sharding constraint on a {ctx.mesh.size}-device mesh needs a model sharded over "
-            "several cards, which is not ported yet (ROADMAP.md queue 1, item 6)"
+            "several cards, which is not ported yet (ROADMAP.md queue 1, item 5)"
         )
 
 

@@ -635,7 +635,7 @@ def run_cell(arch: str, shape: str, mesh_name: str = "h100", force: bool = False
     if arch == "leap_migration":
         art["status"] = SKIP_ONE_CARD
         art["reason"] = ("the reference lowers a shard_map ppermute over the mesh; one card has "
-                         "no mesh to lower it over (ROADMAP.md queue 1, item 6)")
+                         "no mesh to lower it over (ROADMAP.md queue 1, item 5)")
     else:
         cfg = get_config(arch)
         art["status"] = shp.cell_status(cfg, shape)

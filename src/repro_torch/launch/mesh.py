@@ -2,14 +2,17 @@
 
 The JAX package runs that backend under ``shard_map`` on a mesh with one
 device per memory region.  The port drives it from one controller: a
-:class:`RegionMesh` names the ``torch.device`` that holds each region, and
+:class:`RegionMesh` names the ``torch.device`` that holds each region, and a
+state placed on it (``state.to(state_sharding(cfg, mesh))``) holds its pool
+as one tensor per region, each in its own allocation on that region's
+device, with the table and flags on the home device, ``mesh.device(0)``.
 ``migrator.fused_copy_ppermute`` packs a region's slots on its device, moves
-the staging buffer to the destination region's device and unpacks it there.
+the staging buffer to the destination region's device (a peer copy between
+cards; on one card the buffer is already there) and unpacks it there.
 
-So far every region lives on one device (one card, or the CPU for tests):
-the pool is one tensor, and the move between regions is ``Tensor.to`` of a
-buffer that is already there.  A mesh over several cards needs a pool split
-into per-card shards (ROADMAP.md queue 1, multi-device) and raises until then.
+The regions may share a device (every region on one card, or on the CPU for
+tests) or lie on distinct cards; the code that runs over the shards is the
+same, and only the peer copy between two devices differs.
 
 ``make_production_mesh`` and ``make_debug_mesh`` give the JAX package's
 meshes as :class:`~repro_torch.distributed.sharding.MeshShape` s (names and
@@ -48,12 +51,6 @@ class RegionMesh:
         )
         if not devices:
             raise ValueError("a region mesh needs at least one region")
-        if len(set(devices)) > 1:
-            raise NotImplementedError(
-                f"a region mesh over several devices ({sorted(map(str, set(devices)))}) "
-                "needs a pool sharded per device, which is not ported yet "
-                "(ROADMAP.md queue 1, multi-device)"
-            )
         object.__setattr__(self, "devices", devices)
 
     @property
@@ -69,9 +66,9 @@ class RegionMesh:
 def make_region_mesh(
     n_regions: int, devices=None, axis_name: str = "data"
 ) -> RegionMesh:
-    """A mesh of ``n_regions`` regions; ``devices`` lists one device per
-    region (e.g. ``["cpu"] * 4``).  By default every region is the current
-    CUDA device, which must exist."""
+    """A mesh of ``n_regions`` regions, region r on ``devices[r]`` (e.g.
+    ``["cpu"] * 4``, or ``["cuda:0", "cuda:1"]`` for a region a card).  By
+    default every region is the current CUDA device, which must exist."""
     if devices is None:
         devices = [_default_device()] * n_regions
     if len(devices) != n_regions:

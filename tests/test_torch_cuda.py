@@ -1084,11 +1084,12 @@ def test_graphed_decode_matches_eager(cuda, monkeypatch):
         assert (a == b).all()
 
 
-def _program_drain(dev, cfg_kw, capture, n_regions=2):
+def _program_drain(dev, cfg_kw, capture, n_regions=2, devices=None):
     """A seeded drain (every region's blocks to the next region) under
     writes and reads, blocking harvest, sync debug mode raising on every
     tick; returns the driver and every migration program's captures and
-    replays during it."""
+    replays during it.  ``devices`` places region r on ``devices[r]`` (by
+    default every region on ``dev``)."""
     import contextlib
 
     import numpy as np
@@ -1097,7 +1098,7 @@ def _program_drain(dev, cfg_kw, capture, n_regions=2):
                                   leap_write, make_region_mesh, migrator, state_sharding)
 
     n, slots = 256, 320 if n_regions == 2 else 96
-    mesh = make_region_mesh(n_regions, [dev] * n_regions) if n_regions > 2 else None
+    mesh = make_region_mesh(n_regions, devices or [dev] * n_regions) if n_regions > 2 else None
     pc = PoolConfig(n_regions, slots, (2, 64), region_axis="data" if mesh else None)
     place = (np.arange(n) * n_regions // n).astype(np.int32)
     gen = torch.Generator().manual_seed(3)
@@ -1153,6 +1154,83 @@ def test_graphed_program_drain_matches_eager(cuda, mode):
     assert dataclasses.replace(g.stats, jit_cache_misses=0) == dataclasses.replace(
         e.stats, jit_cache_misses=0)
     assert g.stats.dirty_rejections > 0
+
+
+def test_graphed_sharded_force_and_io_match_eager(cuda):
+    """On a 4-region state placed on a one-card mesh (one pool tensor a
+    region): a ``force_areas`` (a pad lane), a ``zero_fill``, writes and
+    reads graphed against the same calls eager, and against the one-tensor
+    pool, bit for bit; the sharded force launches ``gather_blocks`` and
+    ``scatter_blocks`` once a region, graphed and eager alike."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.core import (LeapState, PoolConfig, graphs, make_region_mesh, migrator,
+                                  state_sharding)
+    from repro_torch.core import state as st
+
+    regions, slots, n = 4, 64, 128
+    rng = np.random.default_rng(0)
+    host = (rng.normal(size=(regions, slots, 2, 64)).astype(np.float32),
+            np.stack([np.arange(n) % regions, np.arange(n) // regions], 1).astype(np.int32),
+            rng.random(n) < 0.25, rng.random(n) < 0.5)
+    pc = PoolConfig(regions, slots, (2, 64), region_axis="data")
+    mesh = make_region_mesh(regions, [cuda] * regions)
+    ids, dst_regions = torch.tensor([3, 8, 13, 22, 3]), torch.tensor([1, 2, 3, 0, 1])
+    wids = torch.tensor([5, 17, 30, 64, 127, 99])
+    vals = torch.randn((6, 2, 64), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for name, capture, sharded in (("graphed", True, True), ("eager", False, True),
+                                   ("one_tensor", True, False)):
+        s = LeapState.from_numpy(*host, cuda)
+        if sharded:
+            s = s.to(state_sharding(pc, mesh))
+        assert s.sharded == sharded
+        before = leap_copy.gather_blocks.launches, leap_copy.scatter_blocks.launches
+        with contextlib.nullcontext() if capture else graphs.disable_capture():
+            for lo in (40, 44):  # graphed: one capture, two replays
+                dst = torch.arange(lo, lo + 4)
+                migrator.force_areas(s, ids, dst_regions, torch.cat([dst, dst[:1]]))
+            migrator.zero_fill(s, torch.tensor([50, 51, 50]), 2)
+            st.leap_write(s, wids, vals)
+            st.leap_write_rows(s, wids[:3], torch.tensor([0, 1, 1]), vals[:3, 0])
+            reads = [st.leap_read(s, torch.arange(n)), st.huge_read(s, torch.tensor([1, 7]), 2),
+                     st.block_regions(s, wids), st.group_dirty(s, torch.tensor([0, 3]), 2)]
+        torch.cuda.synchronize()
+        runs[name] = ([t.cpu() for t in reads], s.to_numpy(),
+                      (leap_copy.gather_blocks.launches - before[0],
+                       leap_copy.scatter_blocks.launches - before[1]))
+    for other in ("eager", "one_tensor"):
+        for a, b in zip(runs["graphed"][0], runs[other][0]):
+            assert torch.equal(a, b), other
+        for a, b in zip(runs["graphed"][1], runs[other][1]):
+            assert (a == b).all(), other
+    assert runs["graphed"][2] == runs["eager"][2] == (2 * regions, 2 * regions)
+    assert runs["one_tensor"][2] == (0, 0)
+
+
+def test_drain_over_two_cards_matches_one_card(cuda):
+    """A 4-region ppermute drain with regions 0 and 2 on card 0 and regions
+    1 and 3 on card 1 (every copy crosses between the cards), graphed,
+    against the same drain with every region on card 0: pools, tables,
+    flags, heat and stats bit for bit."""
+    import numpy as np
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    kw = dict(initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+              tiering=True, backend="ppermute", axis_name="data")
+    cards = [torch.device("cuda", r % 2) for r in range(4)]
+    two, _ = _program_drain(cuda, kw, True, 4, devices=cards)
+    one, _ = _program_drain(cuda, kw, True, 4)
+    assert [t.device for t in two.state.pool] == cards
+    for a, b in zip(two.state.to_numpy(), one.state.to_numpy()):
+        assert (a == b).all()
+    assert np.array_equal(two.heat_snapshot(), one.heat_snapshot())
+    assert dataclasses.replace(two.stats, jit_cache_misses=0) == dataclasses.replace(
+        one.stats, jit_cache_misses=0)
+    assert two.stats.blocks_forced > 0
 
 
 def test_graphed_force_pins_no_payload(cuda):

@@ -200,8 +200,12 @@ def test_port_refuses_dispatch_generations_it_lacks():
         T.LeapConfig(fused_dispatch="warp")
     with pytest.raises(ValueError):
         T.LeapConfig(copy_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # a pool sharded per device
-        T.make_region_mesh(2, ["cpu", "meta"])
+    # a mesh over several devices places one pool tensor a region on its device
+    pc = T.PoolConfig(2, 4, (2, 3), region_axis="data")
+    placed = T.init_state(pc, 4, np.array([0, 1, 0, 1]), device="cpu").to(
+        T.state_sharding(pc, T.make_region_mesh(2, ["cpu", "meta"])))
+    assert [t.device.type for t in placed.pool] == ["cpu", "meta"]
+    assert tuple(placed.pool[1].shape) == (5, 2, 3)  # 4 slots and the sink row
     assert T.LeapConfig(fused_dispatch="batched").dispatch_mode == "batched"
     assert T.LeapConfig(backend="ppermute").dispatch_mode == "batched"
 

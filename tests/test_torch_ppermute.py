@@ -12,8 +12,9 @@ against the JAX package.
   bit for bit.
 * A 4-region ppermute drain: the JAX package on a mesh of 4 host devices,
   in a subprocess (``tests/conftest.py`` holds the main process to one JAX
-  device), against the port on ``make_region_mesh(4, ["cpu"] * 4)``, with
-  the same seeded schedule: states, tables, stats (``jit_cache_misses``
+  device), against the port on ``make_region_mesh(4, ["cpu"] * 4)`` (its
+  state one pool tensor a region), batched and legacy, with the same
+  seeded schedule: states, tables, stats (``jit_cache_misses``
   too, the port's caches emptied first) and progress bit for bit, heat
   within 1e-6.
 """
@@ -327,14 +328,19 @@ def _port_ppermute_drain(sched, cfg_kw, scheduler):
     return drv, handles, t
 
 
-@pytest.mark.parametrize("scheduler,writes", [("leap", 12), ("sync", 6)])
-def test_ppermute_drain_matches_jax_on_four_devices(tmp_path, scheduler, writes):
+@pytest.mark.parametrize("scheduler,writes,mode", [("leap", 12, "batched"), ("sync", 6, "batched"),
+                                                   ("leap", 12, "legacy")],
+                         ids=["leap-12", "sync-6", "leap-12-legacy"])
+def test_ppermute_drain_matches_jax_on_four_devices(tmp_path, scheduler, writes, mode):
     """Every region's blocks leap to the next region at once (4 region pairs
     a tick) under writes that dirty copies and force escalations; the sync
     policy forces every move into zero-filled slots (one ``zero_fill`` per
-    destination region)."""
+    destination region).  The port's state is one pool tensor a region.
+    The legacy case moves a chunk a ``copy_chunk_ppermute``."""
     cfg_kw = dict(backend="ppermute", axis_name="data", initial_area_blocks=4,
                   budget_blocks_per_tick=12, max_attempts_before_force=2, tiering=True)
+    if mode == "legacy":
+        cfg_kw.update(fused_dispatch="legacy", chunk_blocks=2)
     sched = _schedule(7, writes)
     np.savez(tmp_path / "sched.npz", **sched)
     params = dict(R=R, N=N, S=S, block=list(BLOCK), cfg=cfg_kw, scheduler=scheduler)
@@ -350,6 +356,8 @@ def test_ppermute_drain_matches_jax_on_four_devices(tmp_path, scheduler, writes)
     before = leap_copy.gather_blocks.launches
     drv, handles, ticks = _port_ppermute_drain(sched, cfg_kw, scheduler)
     assert leap_copy.gather_blocks.launches == before  # CPU: the plain versions
+    assert drv.state.sharded and [t.device for t in drv.state.pool] == [torch.device("cpu")] * R
+    assert len({t.untyped_storage().data_ptr() for t in drv.state.pool}) == R
     assert ticks == int(want["ticks"])
     for name, got in zip(("pool", "table", "dirty", "in_flight"), drv.state.to_numpy()):
         np.testing.assert_array_equal(got, want[name], err_msg=name)
@@ -399,7 +407,7 @@ def test_ppermute_refusals():
     # the two-tier pool needs the xla backend
     with pytest.raises(ValueError, match="two-tier"):
         _ppermute_driver(pc=T.PoolConfig(R, S, BLOCK, region_axis="data", huge_factor=4))
-    # a state that is not on the mesh's device
+    # a mesh on meta, which holds no data (the driver places its state on the mesh)
     with pytest.raises(ValueError, match="mesh"):
         _ppermute_driver(mesh=T.RegionMesh((torch.device("meta"),) * R))
     with pytest.raises(ValueError, match="devices for"):

@@ -202,9 +202,9 @@ def test_constrain_is_the_identity_outside_a_ctx_and_on_one_device():
         assert sh.constrain_params(tree) is tree
     for mesh in (make_production_mesh(), make_production_mesh(multi_pod=True), make_debug_mesh(2)):
         with sh.use_ctx(sh.make_ctx(mesh)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
                 sh.constrain(x, "dp", "tp")
-            with pytest.raises(NotImplementedError, match="item 6"):
+            with pytest.raises(NotImplementedError, match="item 5"):
                 sh.constrain_params(tree)
         assert sh.constrain(x) is x  # the ctx is gone again
 
