@@ -283,7 +283,8 @@ printed):
    application I/O program; each I/O program and a 256-lane force on a
    4-region state over region shards against the one-tensor state (results
    and states bit for bit, host microseconds a call, the force's device ms
-   and its K6a and K6b launches, one each a region); TPC-H Q1 and Q6 over phase 19's store during a
+   and its launches: one of the shard-table instance over shards, one of K1
+   on one tensor); TPC-H Q1 and Q6 over phase 19's store during a
    leap, two parameters each through one variant (bit for bit, ms);
    granite_3_2b's prefill of phase 7's prompts at full width (logits and
    first tokens bit for bit, seconds); three trainer steps of granite_3_2b
@@ -293,10 +294,41 @@ printed):
    variants, captures and replays, and the graph pools' GiB.
 38. Regions on several cards: with two or more cards, phase 14's ppermute
    drain with region r on card ``r % cards`` (every copy a peer copy; each
-   program one captured graph spanning the cards), bit for bit against the
-   same drain on one card, with the bytes that crossed between cards by
-   link.  With one card it prints ``regions on several cards: not run (1
-   card)``.
+   program one captured graph spanning the cards), then the same drain
+   through the xla backend's megastep (one shard-table kernel on the home
+   card reaching the other cards' shards over peer access), each bit for
+   bit against the same drain on one card, with the bytes that crossed
+   between cards by link.  With one card it prints ``regions on several
+   cards: not run (1 card)``.
+39. The xla backend over region shards, on one card: (a) phase 13's mesh
+   and pool (4 regions, 40,960 slots of 64 KiB a region, 131,072 blocks
+   leaping to the next region) through the megastep with tiering on and
+   ``warm_dispatch``, under 64 writes and 64 reads a tick, every program one
+   graph replay: the checks of phase 3, the placement, and one launch of
+   the copy kernels' shard-table instance per zero, force, copy and run
+   phase of every captured megastep (from the counts its capture
+   recorded), no one-tensor K1 or K2 and no K6a or K6b; host ms a tick,
+   ticks and graph-pool GiB, then the same drain in turns with the pool one
+   tensor and over shards (host ms a tick) and over shards under
+   ``torch.profiler`` for the device's busy share; (b) the same on phase 4's two-tier pool
+   (``HUGE`` 32), its runs through K2's instance; (c) a small drain over 4
+   shards under the megastep, batched, legacy and the sync scheduler (zero
+   phases), on the card and on the CPU, blocking harvest: pools region by
+   region, tables, flags and stats bit for bit, heat within 1e-6, and the
+   card's megastep against the same drain on one pool tensor, bit for bit;
+   (d) phase 18's failed-region drain over 4 shards; (e) the shard-table
+   instance against its plain version over 4 shards of 16,384 slots, bit
+   for bit twice in a row, at 1, 3, 131 and 1,024 lanes of 64 KiB f32, 131
+   lanes of an odd bf16 slot, 32 runs of 2 MiB and the zero instance at
+   1,024 lanes; K1's instance at 1,024 lanes and K2's at 32 runs timed in
+   turns against one-tensor K1 and K2 over the same slots, beside their
+   bound and the plain version: the ``copy_blocks_shards`` and
+   ``copy_runs_shards`` rows of the kernels line (the 256-lane force over
+   4 shards is phase 37's); (f) the dry-run's two leap cells on the card
+   through ``python -m repro_torch.launch.dryrun --leap`` in a process of
+   its own (16 region shards of 64 KV pages, 23 GiB), each step one replay,
+   timed beside its byte bound, the kernels each launched named from its
+   trace.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -307,10 +339,11 @@ line (phases 23-25 and the wall seconds of phases 23-36), the
 (phases 31-33), the ``{"dryrun": ...}`` line (phase 34), the
 ``{"graphs_against_eager": ...}`` line (phase 35), the ``{"examples": ...}``
 line (phase 36), the ``{"compile_model_against_eager": ...}`` line (phase
-37), the ``{"regions_on_several_cards": ...}`` line (phase 38), and last
+37), the ``{"regions_on_several_cards": ...}`` line (phase 38), the
+``{"xla_over_shards": ...}`` line (phase 39), and last
 ``{"ok": true, "device": {...}}``.  Every time and size of
-phases 3, 7, 12 (the rounds), 16, 22, 23, 27 (the MFU) and 30-37 is printed
-with the card's name and power limit beside it.
+phases 3, 7, 12 (the rounds), 16, 18, 22, 23, 27 (the MFU) and 30-39 is
+printed with the card's name and power limit beside it.
 Without a CUDA device, or without the rest of the repository, it exits
 non-zero and prints no result.
 """
@@ -325,6 +358,8 @@ import gc
 import importlib.util
 import itertools
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -595,6 +630,9 @@ def launch_counts() -> dict[str, int]:
         "lru_scan_bwd": lru_scan.lru_scan_bwd.launches,
         "gather_blocks": leap_copy.gather_blocks.launches,
         "scatter_blocks": leap_copy.scatter_blocks.launches,
+        "copy_blocks_shards": leap_copy.copy_blocks_shards.launches,
+        "copy_runs_shards": leap_copy.copy_runs_shards.launches,
+        "zero_blocks_shards": leap_copy.zero_blocks_shards.launches,
     }
 
 
@@ -684,6 +722,9 @@ def reset_launch_counts() -> None:
     leap_copy.gather_blocks.launches = 0
     leap_copy.gather_blocks.lanes = 0
     leap_copy.scatter_blocks.launches = 0
+    leap_copy.copy_blocks_shards.launches = 0
+    leap_copy.copy_runs_shards.launches = 0
+    leap_copy.zero_blocks_shards.launches = 0
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -1039,7 +1080,7 @@ def check_payload(drv, shadow) -> None:
 
 def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
           io_per_tick: int = IO_PER_TICK, cfg_kw=None, blocking: bool = False,
-          values_on=None, n_regions: int = 2, mesh=None, window=None):
+          values_on=None, n_regions: int = 2, mesh=None, window=None, scheduler=None):
     """Leap every block from its region r to region (r + 1) % n_regions under
     concurrent writes and reads; return the driver, the shadow of what was
     written, the handles and the host seconds of the drain: all of it, inside
@@ -1048,9 +1089,9 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
     evenly, and each region's blocks are one request.  Writes and reads draw
     their ids from a seeded CPU generator and their values from a seeded
     generator on ``values_on`` (default ``dev``; the CPU where two devices
-    must see the same values).  ``mesh`` places the state for the ppermute
-    backend; ``window``, a context manager, encloses the timed drain (e.g. a
-    profiler)."""
+    must see the same values).  ``mesh`` places the state on a region mesh
+    (one pool tensor a region); ``window``, a context manager, encloses the
+    timed drain (e.g. a profiler); ``scheduler`` is the driver's."""
     pc = PoolConfig(n_regions, slots, block, torch.float32, huge_factor=huge_factor,
                     region_axis=mesh.axis_name if mesh else None)
     place = start_regions(n_blocks, n_regions)
@@ -1061,7 +1102,7 @@ def drain(dev, n_blocks: int, slots: int, block, huge_factor: int, seed: int,
     io.fill(state)
     cfg = LeapConfig(**(cfg_kw or dict(initial_area_blocks=256, budget_blocks_per_tick=1024,
                                        tiering=True)))
-    drv = MigrationDriver(state, pc, cfg, mesh=mesh)
+    drv = MigrationDriver(state, pc, cfg, mesh=mesh, scheduler=scheduler)
     if huge_factor > 1:
         groups = n_blocks // huge_factor
         check(drv.adopt_huge(np.arange(groups)) == groups, "adopt_huge adopts every group")
@@ -1234,15 +1275,19 @@ SMALL_KW = dict(initial_area_blocks=16, budget_blocks_per_tick=64, max_attempts_
                 tiering=True)
 
 
-def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2, devices=None):
+def small_drain(d, huge: int, cfg_kw=SMALL_KW, n_regions: int = 2, devices=None,
+                sharded=None, scheduler=None):
     """A small drain with blocking harvest and values drawn on the CPU, so
     that two devices, or two dispatch generations, see the same schedule.
-    ``devices`` places region r on ``devices[r]`` (default: every region on
+    With ``sharded`` (by default: more than two regions) the state lies on
+    a region mesh, region r on ``devices[r]`` (default: every region on
     ``d``)."""
-    mesh = make_region_mesh(n_regions, devices or [d] * n_regions) if n_regions > 2 else None
+    sharded = n_regions > 2 if sharded is None else sharded
+    mesh = make_region_mesh(n_regions, devices or [d] * n_regions) if sharded else None
     slots = 544 if n_regions == 2 else 160
     return drain(d, 512, slots, (2, 64), huge, SEED, io_per_tick=24, cfg_kw=cfg_kw,
-                 blocking=True, values_on="cpu", n_regions=n_regions, mesh=mesh)
+                 blocking=True, values_on="cpu", n_regions=n_regions, mesh=mesh,
+                 scheduler=scheduler)
 
 
 def card_matches_cpu(dev, ppermute: bool = False) -> None:
@@ -1274,14 +1319,16 @@ def card_matches_cpu(dev, ppermute: bool = False) -> None:
           "the CPU agree")
 
 
-def same_state(a, b, what: str) -> None:
+def same_state(a, b, what: str, rejections: bool = True) -> None:
     """Two small drains that must end bit-identical: pools, tables, flags,
-    host tables and rejections; heat within 1e-6."""
+    host tables and rejections (some, unless ``rejections`` is False: a
+    sync drain forces every move); heat within 1e-6."""
     for x, y in zip(a.state.to_numpy(), b.state.to_numpy()):
         check(np.array_equal(x, y), f"{what}: bit-identical pools, tables and flags")
     check(np.array_equal(a.host_table(), b.host_table()), f"{what}: host tables agree")
     np.testing.assert_allclose(b.heat_snapshot(), a.heat_snapshot(), **HEAT_TOL)
-    check(a.stats.dirty_rejections == b.stats.dirty_rejections > 0, f"{what}: the same rejections")
+    check(a.stats.dirty_rejections == b.stats.dirty_rejections
+          and (a.stats.dirty_rejections > 0 or not rejections), f"{what}: the same rejections")
 
 
 def megastep_matches_batched(dev) -> dict:
@@ -1523,18 +1570,22 @@ def tiering_loop(dev) -> dict:
     return out
 
 
-def failed_region_drain(dev) -> dict:
+def failed_region_drain(dev, mesh=None) -> dict:
     """A four-socket server loses region 3: ``drain_region`` evacuates its
     32,768 blocks of 64 KiB by ``drain_plan`` while the application writes
-    and reads."""
+    and reads.  ``mesh`` places the pool on a region mesh (phase 39)."""
     release()
     pc = PoolConfig(FAILED["regions"], FAILED["slots"], BLOCK, torch.float32,
-                    topology=NumaTopology.quad_socket())
+                    topology=NumaTopology.quad_socket(),
+                    region_axis=mesh.axis_name if mesh else None)
     place = start_regions(N_BLOCKS, FAILED["regions"])
     state = init_state(pc, N_BLOCKS, place, device=dev)
+    if mesh is not None:
+        state = state.to(state_sharding(pc, mesh))
     io = AppIO(dev, N_BLOCKS, BLOCK, SEED + 5)
     io.fill(state)
-    drv = MigrationDriver(state, pc, LeapConfig(**DRAIN_CFG))
+    drv = MigrationDriver(state, pc, LeapConfig(**DRAIN_CFG), mesh=mesh)
+    del state
     session = drv.default_session()
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1560,11 +1611,14 @@ def failed_region_drain(dev) -> dict:
                gib_per_s=n * pc.block_bytes / seconds / 2**30,
                per_region=np.bincount(placement, minlength=4).tolist(),
                bytes_per_link={f"{a}->{b}": v for (a, b), v in sorted(s.bytes_per_link.items())},
-               launches=launches)
-    print(f"failed-region drain: {n} blocks off region {FAILED['region']} in {seconds:.3f} s "
+               launches=launches, sharded=drv.state.sharded)
+    if mesh is not None:
+        check_sharded(drv)
+    print(f"failed-region drain{' over region shards' if mesh else ''}: {n} blocks off region "
+          f"{FAILED['region']} in {seconds:.3f} s "
           f"({out['gib_per_s']:.3f} GiB/s), {s.ticks} ticks, {s.dirty_rejections} rejections, "
           f"blocks a region {out['per_region']}, links {out['bytes_per_link']}, "
-          f"launches {launches}")
+          f"launches {launches} [{card()}]")
     del drv, io
     return out
 
@@ -3605,8 +3659,8 @@ def sharded_against_one_tensor(dev) -> dict:
     """Phase 37: each application I/O program and the force on a 4-region
     sharded state against the one-tensor state, graphed: results and states
     bit for bit, the host microseconds a call (queued without a sync) and
-    the force's device ms a call (CUDA events), with its K6a and K6b
-    launches."""
+    the force's device ms a call (CUDA events), with its launches (one of
+    the shard-table instance over shards, one of K1 on one tensor)."""
     (one, shards), place = sharded_pair(dev)
     check(shards.sharded and not one.sharded, "phase 37: a sharded and a one-tensor state")
     n, k = SHARDED_37["blocks"], SHARDED_37["force"]
@@ -3665,12 +3719,14 @@ def sharded_against_one_tensor(dev) -> dict:
         torch.cuda.synchronize()
         after = launch_counts()
         force[layout].update({kn: (after[kn] - before[kn]) / IO_CALLS
-                              for kn in ("copy_blocks", "gather_blocks", "scatter_blocks")})
+                              for kn in ("copy_blocks", "copy_blocks_shards", "gather_blocks",
+                                         "scatter_blocks")})
     check(same_states(one, shards), "phase 37 the force: sharded and one-tensor bit for bit")
-    check(force["sharded"]["gather_blocks"] == force["sharded"]["scatter_blocks"] == PP_REGIONS
-          and force["sharded"]["copy_blocks"] == 0,
-          "phase 37 the sharded force: one gather and one scatter a region, no copy_blocks")
-    check(force["one_tensor"]["copy_blocks"] == 1, "phase 37 the one-tensor force: one K1 launch")
+    check(force["sharded"]["copy_blocks_shards"] == 1 and force["sharded"]["copy_blocks"]
+          == force["sharded"]["gather_blocks"] == force["sharded"]["scatter_blocks"] == 0,
+          "phase 37 the sharded force: one shard-table launch, no K1, K6a or K6b")
+    check(force["one_tensor"]["copy_blocks"] == 1 and force["one_tensor"]["copy_blocks_shards"]
+          == 0, "phase 37 the one-tensor force: one K1 launch")
     out["force_areas"] = force
 
     def pair(v) -> str:
@@ -3684,8 +3740,8 @@ def sharded_against_one_tensor(dev) -> dict:
           f"{pair(f1['host_us'])} / {pair(fs['host_us'])} us a call, device "
           f"{'; '.join(f'{x:.4f}' for x in f1['device_ms'])} / "
           f"{'; '.join(f'{x:.4f}' for x in fs['device_ms'])} ms a call; a sharded force "
-          f"launches gather {fs['gather_blocks']:.0f} and scatter {fs['scatter_blocks']:.0f} "
-          f"times [{card()}]")
+          f"launches the shard-table instance {fs['copy_blocks_shards']:.0f} time(s) "
+          f"[{card()}]")
     del one, shards
     return out
 
@@ -3862,35 +3918,395 @@ def compile_model_against_eager(dev, drains: dict, dry: dict) -> dict:
 
 
 def regions_on_several_cards(dev) -> dict:
-    """Phase 38: with two or more cards, phase 14's small ppermute drain
-    with region r on card ``r % cards`` (graphed: one capture spanning the
-    cards a variant), held bit for bit against the same drain with every
-    region on ``dev``, and the bytes that crossed between cards, by link.
-    With one card it reports that it did not run."""
+    """Phase 38: with two or more cards, phase 14's small ppermute drain,
+    then the same drain through the xla backend's megastep (one shard-table
+    kernel on ``dev`` reaching the other cards' shards), with region r on
+    card ``r % cards`` (graphed: one capture spanning the cards a variant),
+    each held bit for bit against the same drain with every region on
+    ``dev``, and the bytes that crossed between cards, by link.  With one
+    card it reports that it did not run."""
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"regions on several cards: not run ({cards} card)")
         return dict(ran=False, cards=cards, launches={})
     devices = [torch.device("cuda", r % cards) for r in range(PP_REGIONS)]
-    kw = dict(SMALL_KW, backend="ppermute", axis_name="data")
+    out = dict(ran=True, cards=cards, devices=[str(d) for d in devices], launches={})
+    for name, kw in (("ppermute", dict(SMALL_KW, backend="ppermute", axis_name="data")),
+                     ("xla_megastep", SMALL_KW)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        spread, _, hs, _ = small_drain(dev, 1, kw, PP_REGIONS, devices)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        one, _, ho, _ = small_drain(dev, 1, kw, PP_REGIONS)
+        check_sharded(spread)
+        same_state(spread, one, f"{name}: regions on several cards against one card")
+        check([h.progress() for h in hs] == [h.progress() for h in ho],
+              f"{name}: and the same progress")
+        if name == "xla_megastep":
+            check(launches["copy_blocks_shards"] > 0,
+                  "xla_megastep: one shard-table kernel reached the other cards' shards")
+        links = {f"{s}->{d}": b for (s, d), b in sorted(spread.stats.bytes_per_link.items())}
+        across = sum(b for (s, d), b in spread.stats.bytes_per_link.items()
+                     if devices[s] != devices[d])
+        check(across > 0, f"{name}: bytes crossed between cards")
+        print(f"regions on {cards} cards ({[str(d) for d in devices]}), {name}: the drain "
+              f"equals the one-card drain bit for bit; {across} bytes across cards; by link "
+              f"{links}; {seconds:.3f} s [{card()}]")
+        out[name] = dict(seconds=seconds, bytes_per_link=links, bytes_across_cards=across)
+        out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in launches.items()}
+    return out
+
+
+# -- phase 39: the xla backend over region shards --------------------------------------
+
+# phase 39(a): phase 13's 4-region mesh and pool through the megastep, as phase 3
+SHARD_DRAIN_CFG = dict(DRAIN_CFG, warm_dispatch=True)
+# phase 39(e): the shard-table instance on PP_REGIONS shards of 16,384 slots of
+# 64 KiB (a 4 GiB pool), at 1, 3, 131 and 1,024 lanes (the last timed), 32 runs
+# of HUGE slots (timed), and 131 lanes on an odd bf16 slot
+SHARD_KERNEL = dict(slots=16384, lanes=(1, 3, 131, 1024), runs=32, odd=(5, 7))
+# the shard-table counters, and the kernels a sharded xla path must not launch
+SHARD_COUNTERS = ("copy_blocks_shards", "copy_runs_shards", "zero_blocks_shards")
+ONE_TENSOR_COPIES = ("copy_blocks", "copy_runs", "gather_blocks", "scatter_blocks")
+
+
+def shard_phase_launches(state) -> tuple[int, int]:
+    """Over the captured megasteps bound to ``state``'s shards: how many
+    there are, and how many break the rule that each zero, force, copy and
+    run phase present launches the shard-table instance once (from the
+    launch counts their captures recorded) and nothing launches a
+    one-tensor copy kernel."""
+    fns = {name: getattr(leap_copy, name) for name in SHARD_COUNTERS + ONE_TENSOR_COPIES}
+    checked = broken = 0
+    for key, graphs_ in migrator.MEGASTEP._variants.items():
+        n = key[0]  # the operands' lengths: zero at 7, force at 8, copy at 11, runs at 13
+        want = dict(copy_blocks_shards=bool(n[8]) + bool(n[11]), copy_runs_shards=bool(n[13]),
+                    zero_blocks_shards=bool(n[7]))
+        for binding, graph in graphs_.items():
+            if binding[0][0] != state.pool[0].data_ptr():
+                continue
+            checked += 1
+            got = {name: graph.delta.get((fn, "launches"), 0) for name, fn in fns.items()}
+            broken += got != dict(want, **{name: 0 for name in ONE_TENSOR_COPIES})
+    return checked, broken
+
+
+def device_busy(prof, wall_s: float) -> tuple[float, float]:
+    """(device ms summed over a profile's kernels, their share of ``wall_s``)."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    device_ms = sum(dev_us(e) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return device_ms, device_ms / (wall_s * 1e3)
+
+
+def xla_shards_drain(dev, huge_factor: int, profiled: bool = False) -> dict:
+    """Phase 39(a) and (b): phase 13's pool (4 regions on a one-card mesh,
+    131,072 blocks of 64 KiB, each region's blocks leaping to the next)
+    through the megastep of the xla backend with tiering on, every program
+    one graph replay, under 64 writes and 64 reads a tick; with
+    ``huge_factor`` HUGE, phase 4's two-tier pool.  ``profiled`` drains
+    again in turns, twice with the pool one tensor and once over shards
+    (the host ms a tick of each), then over shards under ``torch.profiler``
+    for the device's busy share."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    seed = SEED + 6 + huge_factor
+    kw = dict(cfg_kw=SHARD_DRAIN_CFG, n_regions=PP_REGIONS, mesh=make_region_mesh(PP_REGIONS))
     reset_launch_counts()
-    t0 = time.perf_counter()
-    spread, _, hs, _ = small_drain(dev, 1, kw, PP_REGIONS, devices)
-    seconds = time.perf_counter() - t0
+    prog, io = program_counts(), io_program_counts()
+    drv, shadow, handles, times = drain(dev, N_BLOCKS, PP_SLOTS, BLOCK, huge_factor, seed, **kw)
     launches = launch_counts()
-    one, _, ho, _ = small_drain(dev, 1, kw, PP_REGIONS)
-    check_sharded(spread)
-    same_state(spread, one, "regions on several cards against one card")
-    check([h.progress() for h in hs] == [h.progress() for h in ho], "and the same progress")
-    links = {f"{s}->{d}": b for (s, d), b in sorted(spread.stats.bytes_per_link.items())}
-    across = sum(b for (s, d), b in spread.stats.bytes_per_link.items()
-                 if devices[s] != devices[d])
-    check(across > 0, "bytes crossed between cards")
-    print(f"regions on {cards} cards ({[str(d) for d in devices]}): the drain equals the "
-          f"one-card drain bit for bit; {across} bytes across cards; by link {links}; "
-          f"{seconds:.3f} s [{card()}]")
-    return dict(ran=True, cards=cards, devices=[str(d) for d in devices], seconds=seconds,
-                bytes_per_link=links, bytes_across_cards=across, launches=launches)
+    io_now = io_program_counts()
+    what = f"phase 39 xla drain over shards huge_factor={huge_factor}"
+    check(drv.cfg.backend == "xla" and drv.cfg.dispatch_mode == "megastep", f"{what}: xla megastep")
+    check_sharded(drv)
+    out = check_drain(drv, shadow, handles, huge=huge_factor > 1)
+    now = program_counts()
+    out.update(captures=now[0] - prog[0], replays=now[1] - prog[1],
+               io_captures=io_now[0] - io[0], io_replays=io_now[1] - io[1],
+               jit_cache_misses=drv.stats.jit_cache_misses,
+               graph_pool_gib=check_graph_memory(what))
+    check(out["replays"] == drv.stats.dispatches, f"{what}: every program one graph replay")
+    check(out["io_replays"] == -(-N_BLOCKS // 16384) + 2 * times["io_steps"],
+          f"{what}: every application write and read one graph replay")
+    checked, broken = shard_phase_launches(drv.state)
+    check(checked > 0 and broken == 0,
+          f"{what}: each copy phase of each of the {checked} megastep graphs launches the "
+          f"shard-table instance once ({broken} do not)")
+    check(all(launches[k] == 0 for k in ONE_TENSOR_COPIES),
+          f"{what}: no one-tensor K1 or K2, no K6a or K6b launch")
+    if huge_factor > 1:
+        check(launches["copy_runs_shards"] > 0, f"{what}: the huge runs went through K2's instance")
+    else:
+        check(launches["copy_blocks_shards"] > 0, f"{what}: the copies went through K1's instance")
+    out.update(times, launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               tick_ms=times["tick_s"] / out["ticks"] * 1e3, megastep_graphs=checked,
+               gib_per_s=N_BLOCKS * drv.pool_cfg.block_bytes / times["seconds"] / 2**30)
+    del drv, shadow, handles
+    busy = ""
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        # what the shards cost the host: the same drain with the pool one
+        # tensor, in turns (shards above, one tensor, one tensor, shards)
+        turns = dict(shards=[out["tick_ms"]], one_tensor=[])
+        for layout in ("one_tensor", "one_tensor", "shards"):
+            release()
+            d = drain(dev, N_BLOCKS, PP_SLOTS, BLOCK, huge_factor, seed,
+                      **(kw if layout == "shards" else dict(kw, mesh=None)))
+            check(d[0].state.sharded == (layout == "shards"), f"{what}: {layout} in turn")
+            turns[layout].append(d[3]["tick_s"] / d[0].stats.ticks * 1e3)
+            del d
+        out["tick_ms_turns"] = turns
+        release()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        again = drain(dev, N_BLOCKS, PP_SLOTS, BLOCK, huge_factor, seed, window=prof, **kw)[3]
+        out["profiled_seconds"] = again["seconds"]
+        out["device_ms"], out["busy"] = device_busy(prof, again["seconds"])
+        out["profiled_tick_ms"] = again["tick_s"] / again["io_steps"] * 1e3
+        busy = (f"busy {out['busy']:.3f} ({out['device_ms']:.2f} device ms over a profiled "
+                f"drain's {out['profiled_seconds']:.3f} s), host ms a tick in turns over "
+                f"shards {'; '.join(f'{x:.3f}' for x in turns['shards'])} and on one pool "
+                f"tensor {'; '.join(f'{x:.3f}' for x in turns['one_tensor'])}, ")
+    print(f"{what}: {out['ticks']} ticks, {out['tick_ms']:.3f} host ms a tick "
+          f"({times['seconds']:.3f} s, {out['gib_per_s']:.3f} GiB/s), {busy}"
+          f"{out['dirty_rejections']} rejections, {out['replays']} replays, "
+          f"{out['captures']} captures, {out['jit_cache_misses']} jit misses, "
+          f"{checked} megastep graphs, graph pools {out['graph_pool_gib']:.3f} GiB, peak "
+          f"{out['peak_gib']:.2f} GiB; launches "
+          f"{ {k: launches[k] for k in SHARD_COUNTERS + ONE_TENSOR_COPIES} } [{card()}]")
+    return out
+
+
+def xla_shards_card_matches_cpu(dev) -> dict:
+    """Phase 39(c): a small 4-region drain over region shards under the
+    megastep, batched and legacy, and under the sync scheduler (forces into
+    zero-filled slots), on the card and on the CPU, blocking harvest: pools
+    region by region, tables, flags and stats bit for bit, heat within
+    1e-6; the card's megastep also against the same drain on one pool
+    tensor, bit for bit."""
+    cases = {"megastep": (dict(SMALL_KW), None), "batched": (dict(SMALL_KW, fused_dispatch=
+                                                                   "batched"), None),
+             "legacy": (dict(SMALL_KW, fused_dispatch="legacy", chunk_blocks=4), None),
+             "megastep_sync": (dict(SMALL_KW), "sync")}
+    out = {}
+    for name, (kw, scheduler) in cases.items():
+        reset_launch_counts()
+        gpu, _, hg, _ = small_drain(dev, 1, kw, PP_REGIONS, scheduler=scheduler)
+        launches = launch_counts()
+        cpu, _, hc, _ = small_drain(torch.device("cpu"), 1, kw, PP_REGIONS, scheduler=scheduler)
+        check_sharded(gpu)
+        check_sharded(cpu)
+        same_state(gpu, cpu, f"phase 39 {name}: card and CPU over shards",
+                   rejections=scheduler is None)
+        check(gpu.stats == cpu.stats, f"phase 39 {name}: card and CPU MigrationStats agree")
+        check([h.progress() for h in hg] == [h.progress() for h in hc],
+              f"phase 39 {name}: card and CPU request progress agree")
+        check(launches["copy_blocks_shards"] > 0
+              and all(launches[k] == 0 for k in ONE_TENSOR_COPIES),
+              f"phase 39 {name}: the card's copies went through the shard table only")
+        if scheduler == "sync":
+            check(launches["zero_blocks_shards"] > 0, "phase 39 sync: zero phases launched")
+        if name == "megastep":
+            one = small_drain(dev, 1, kw, PP_REGIONS, sharded=False)[0]
+            check(not one.state.sharded, "phase 39: a one-tensor drain beside it")
+            same_state(gpu, one, "phase 39 megastep: over shards and on one tensor")
+        out[name] = dict(ticks=gpu.stats.ticks, dispatches=gpu.stats.dispatches,
+                         dirty_rejections=gpu.stats.dirty_rejections,
+                         blocks_forced=gpu.stats.blocks_forced, launches=launches)
+    print(f"phase 39 small xla drains over shards (megastep, batched, legacy, sync) on the card "
+          f"and on the CPU agree; megastep over shards equals one tensor; "
+          f"{ {k: v['launches']['copy_blocks_shards'] for k, v in out.items()} } shard-table "
+          f"copy launches [{card()}]")
+    return out
+
+
+def shard_kernel_rows(dev) -> tuple[list[dict], dict]:
+    """Phase 39(e): the shard-table instance against its plain version over
+    PP_REGIONS shards, bit for bit: K1 at 1, 3, 131 and 1,024 lanes of 64
+    KiB f32 and at 131 lanes of an odd bf16 slot, K2 at 32 runs of 2 MiB,
+    the zero instance at 1,024 lanes; K1 at 1,024 lanes and K2 at 32 runs
+    timed beside their bound, the plain version and one-tensor K1 and K2
+    over the same slots of one pool tensor (no single PyTorch call copies
+    between several tensors, so there is no library time)."""
+    regions, slots = PP_REGIONS, SHARD_KERNEL["slots"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    host = torch.Generator().manual_seed(SEED)
+    shards = [torch.randn((slots + 1,) + BLOCK, generator=g, device=dev) for _ in range(regions)]
+    one = torch.cat([t[:slots] for t in shards])  # the same slots as one tensor
+    slot_bytes = one[0].numel() * one.element_size()
+
+    def plan(lanes: int, run: int = 1):
+        starts = torch.randperm(regions * slots // run, generator=host)[: 2 * lanes] * run
+        return starts[:lanes].to(dev), starts[lanes:].to(dev)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x[:slots], y[:slots]) for x, y in zip(a, b))
+
+    def held(name: str, kernel, plain, pool) -> None:
+        want = [t.clone() for t in pool]
+        plain(want)
+        for _ in range(2):  # in place: a second launch must leave the same bytes
+            kernel(pool)
+            torch.cuda.synchronize()
+            check(same(pool, want), f"phase 39 {name}: the kernel equals its plain version")
+
+    for lanes in SHARD_KERNEL["lanes"]:
+        src, dst = plan(lanes)
+        held(f"K1 over shards, {lanes} lanes",
+             lambda p: leap_copy.copy_blocks_shards(p, src, dst, slots),
+             lambda p: ref.copy_shards_ref(p, src, dst, slots), shards)
+    odd = [torch.randn((slots + 1,) + SHARD_KERNEL["odd"], generator=g, device=dev).bfloat16()
+           for _ in range(regions)]
+    src, dst = plan(131)
+    held("K1 over shards, an odd bf16 slot",
+         lambda p: leap_copy.copy_blocks_shards(p, src, dst, slots),
+         lambda p: ref.copy_shards_ref(p, src, dst, slots), odd)
+    del odd
+    zero = plan(1024)[1]
+    held("the zero instance, 1,024 lanes",
+         lambda p: leap_copy.zero_blocks_shards(p, zero, slots),
+         lambda p: ref.zero_shards_ref(p, zero, slots), [t.clone() for t in shards])
+    rows, zero_row = [], dict(lanes=1024, ms=time_ms(
+        lambda: leap_copy.zero_blocks_shards(shards, zero, slots)),
+        bound_ms=bound_ms(1024 * slot_bytes + 1024 * 8)[0])
+    for name, run, lanes, tpu, one_fn in (
+            ("copy_blocks_shards", 1, 1024, "src/repro/kernels/leap_copy.py:105",
+             lambda s, d: leap_copy.copy_blocks(one, s, d)),
+            ("copy_runs_shards", HUGE, SHARD_KERNEL["runs"], "src/repro/kernels/leap_copy.py:139",
+             lambda s, d: leap_copy.copy_runs(one, s, d, HUGE))):
+        src, dst = plan(lanes, run)
+        if run == 1:
+            kernel = lambda: leap_copy.copy_blocks_shards(shards, src, dst, slots)  # noqa: E731
+        else:
+            kernel = lambda: leap_copy.copy_runs_shards(shards, src, dst, slots, run)  # noqa: E731
+        plain = lambda: ref.copy_shards_ref(shards, src, dst, slots, run)  # noqa: E731
+        want = [t.clone() for t in shards]
+        ref.copy_shards_ref(want, src, dst, slots, run)
+        kernel()
+        torch.cuda.synchronize()
+        check(same(shards, want), f"phase 39 {name}: the kernel equals its plain version")
+        err = max(float((a[:slots] - b[:slots]).abs().max()) for a, b in zip(shards, want))
+        del want
+        b, by = bound_ms(2 * lanes * run * slot_bytes + 2 * lanes * 8)
+        # in turns: shards, one tensor, one tensor, shards
+        ms = [time_ms(kernel)]
+        one_ms = [time_ms(lambda: one_fn(src, dst)), time_ms(lambda: one_fn(src, dst))]
+        ms.append(time_ms(kernel))
+        row = dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/leap_copy.cu",
+                   replaces=tpu, launches=0, max_abs_err=err, ms=statistics.median(ms),
+                   ms_turns=ms, plain_ms=time_ms(plain, iters=10), bound_ms=b, bound_by=by,
+                   library_ms=None, one_tensor_ms=statistics.median(one_ms),
+                   one_tensor_ms_turns=one_ms,
+                   shape=(f"{regions} shards [{slots + 1}, 1, 16384] fp32, {lanes} lanes x "
+                          f"{run * slot_bytes} B"))
+        print(f"{name}: {row['ms']:.4f} ms ({'; '.join(f'{x:.4f}' for x in ms)}; plain "
+              f"{row['plain_ms']:.4f}, one tensor {'; '.join(f'{x:.4f}' for x in one_ms)}, "
+              f"bound {b:.4f}; no library call over several tensors), bit-exact [{card()}]")
+        rows.append(row)
+    print(f"zero instance over shards, 1,024 lanes: {zero_row['ms']:.4f} ms (bound "
+          f"{zero_row['bound_ms']:.4f}), bit-exact [{card()}]")
+    del shards, one
+    torch.cuda.empty_cache()
+    return rows, zero_row
+
+
+def failed_region_drain_over_shards(dev) -> dict:
+    """Phase 39(d): phase 18's failed-region drain with its 4 regions on a
+    one-card mesh, through the xla backend's megastep."""
+    out = failed_region_drain(dev, mesh=make_region_mesh(FAILED["regions"]))
+    check(out["sharded"] and all(out["launches"][k] == 0 for k in ONE_TENSOR_COPIES)
+          and out["launches"]["copy_blocks_shards"] > 0,
+          "phase 39 failed-region drain: over shards, through the shard table only")
+    return out
+
+
+def kernel_label(name: str) -> str:
+    """A trace's kernel name cut to its function, with the functor that
+    tells PyTorch's indexing and elementwise kernels apart."""
+    base = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    base = base.split("<")[0].split("(")[0]
+    tag = re.search(r"index_put_kernel_impl|index_kernel_impl|direct_copy_kernel_cuda|"
+                    r"\w*Functor\w*", name)
+    return f"{base} [{tag.group(0)}]" if tag else base
+
+
+def leap_cells_on_the_card(dev) -> dict:
+    """Phase 39(f): the dry-run's two leap cells on the card through the
+    dry-run's entry point, ``python -m repro_torch.launch.dryrun --leap``,
+    in a process of its own: 16 region shards of 64 KV pages (23 GiB) on
+    the one card, each step one replay, and the kernels of its profiled
+    step named from its trace.  A process of its own: late in this long
+    one the profiler was seen to record only some of a replay's kernels."""
+    release()
+    src = Path(__file__).resolve().parent / "src"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--leap", "--force",
+             "--seed", str(SEED)], capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, DRYRUN_ART_DIR=tmp, PYTHONPATH=str(src)))
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 39 leap cells: the dry-run exits 0\n"
+                                    f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        for backend in ("xla", "ppermute"):
+            art = json.loads((Path(tmp) / "torch" / "h100" /
+                              f"leap_migration__{backend}.json").read_text())
+            what = f"phase 39 leap cell {backend}"
+            check(art["status"] == "OK", f"{what}: {art['status']} {art.get('traceback', '')}")
+            m = art["measured"]
+            check(m["device"] == torch.cuda.get_device_name(0), f"{what}: measured on this card")
+            labels = {kernel_label(k): v for k, v in m["kernels_by_name"].items()}
+            shard_k = sum(v["launches"] for k, v in m["kernels_by_name"].items()
+                          if "move_shard_lanes_kernel" in k)
+            others = [k for k in labels if k in ("move_lanes_kernel", "gather_bulk_kernel")]
+            check(shard_k == (1 if backend == "xla" else 0) and not others,
+                  f"{what}: the profiled step's trace names {shard_k} shard-table launches "
+                  f"and no one-tensor K1, K6a or K6b ({labels})")
+            check(0 < m["device_ms"] <= m["window_ms"],
+                  f"{what}: device time within the profiled step")
+            pool_gib = art["pool_bytes"] / 2**30
+            print(f"{what}: step {m['step_ms']:.4f} ms (median of {len(m['steps_ms'])}; "
+                  f"{min(m['steps_ms']):.4f}-{max(m['steps_ms']):.4f}), device "
+                  f"{m['device_ms']:.4f} ms (busy {m['busy']:.3f}), bound {art['bound_ms']:.4f} "
+                  f"ms ({art['bound_by']}; 2 x {art['area_bytes']} B), step / bound "
+                  f"{m['step_ms'] / art['bound_ms']:.2f}, pool {pool_gib:.2f} GiB over "
+                  f"{art['regions']} shards, peak {m['peak_bytes'] / 2**30:.2f} GiB; the "
+                  f"profiled step's kernels (device ms, launches) "
+                  f"{ {k: (round(v['device_ms'], 4), v['launches']) for k, v in labels.items()} } "
+                  f"[{card()}]")
+            out[backend] = dict(status=art["status"], bound_ms=art["bound_ms"],
+                                area_bytes=art["area_bytes"], pool_gib=pool_gib,
+                                memory=art["memory"], build_s=art["build_s"],
+                                first_step_s=art["first_step_s"], kernels=labels,
+                                measured={k: v for k, v in m.items()
+                                          if k not in ("trace", "kernels_by_name")})
+    out["wall_s"] = wall_s
+    return out
+
+
+def xla_over_shards(dev, compiled: dict) -> tuple[dict, list[dict]]:
+    """Phase 39: (a)-(f) above; returns the phase's record and its kernels
+    line rows.  The 256-lane force over 4 shards against one tensor is
+    phase 37's (``compiled``)."""
+    res = {"drain": xla_shards_drain(dev, 1, profiled=True)}
+    res["drain_huge"] = xla_shards_drain(dev, HUGE)
+    release()
+    res["card_matches_cpu"] = xla_shards_card_matches_cpu(dev)
+    release()
+    res["failed_region_drain"] = failed_region_drain_over_shards(dev)
+    release()
+    rows, res["zero_instance"] = shard_kernel_rows(dev)
+    force = compiled["sharded_against_one_tensor"]["force_areas"]
+    res["force_256_lanes_device_ms"] = {k: v["device_ms"] for k, v in force.items()}
+    res["leap_cells"] = leap_cells_on_the_card(dev)
+    return res, rows
 
 
 # -- phase 36: the examples, and qwen2_7b through launch.serve ----------------------
@@ -4141,6 +4557,10 @@ def main() -> int:
     t0 = time.perf_counter()
     several = regions_on_several_cards(dev)
     wall["phase_38_regions_on_several_cards"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards, shard_rows = xla_over_shards(dev, compiled)
+    rows += shard_rows
+    wall["phase_39_xla_over_shards"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
 
@@ -4151,7 +4571,9 @@ def main() -> int:
              + [load_cpu] + [r for m in moe_res.values() for r in m["runs"].values()]
              + [r for r in moe_cpu.values()] + list(xl["runs"].values())
              + list(training.values()) + [r for m in models.values() for r in m["runs"].values()]
-             + list(examples.values()) + ([several] if several["ran"] else []))
+             + list(examples.values()) + ([several] if several["ran"] else [])
+             + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
+             + list(shards["card_matches_cpu"].values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase
     # 34's launches there and the earlier phases' in its first row
     phase34 = {row["name"] for row in rows if row.get("phase") == 34}
@@ -4190,6 +4612,7 @@ def main() -> int:
     print(json.dumps({"examples": examples, "card": smi}))
     print(json.dumps({"compile_model_against_eager": compiled, "card": smi}))
     print(json.dumps({"regions_on_several_cards": several, "card": smi}))
+    print(json.dumps({"xla_over_shards": shards, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,9 @@ Compatibility: ``LeapConfig`` / ``MigrationStats`` / ``RequestState`` /
 ``from repro_torch.core.driver import LeapConfig`` keeps working.
 ``request()`` and ``drain()`` survive as deprecation shims over the default
 :class:`repro_torch.api.LeapSession`.  ``mesh`` is a
-:class:`repro_torch.launch.mesh.RegionMesh` for the ppermute copy backend:
-given one, the driver places its state on it (one pool tensor a region).
+:class:`repro_torch.launch.mesh.RegionMesh`: given one, the driver places
+its state on it (one pool tensor a region), and either copy backend, every
+dispatch generation and the two-tier pool (xla backend) run over the shards.
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ class MigrationDriver:
         state: LeapState,
         pool_cfg: PoolConfig,
         cfg: LeapConfig | None = None,
-        mesh=None,  # RegionMesh (ppermute backend) | None
+        mesh=None,  # RegionMesh (one pool tensor a region, either backend) | None
         scheduler=None,  # SchedulerPolicy | "leap" | "sync" | "sampling" | None
     ):
         cfg = cfg or LeapConfig()

@@ -86,6 +86,9 @@ _streams: dict[int, torch.cuda.Stream] = {}  # per device: the stream captures r
 _COUNTED = (
     leap_copy.copy_blocks,
     leap_copy.copy_runs,
+    leap_copy.copy_blocks_shards,
+    leap_copy.copy_runs_shards,
+    leap_copy.zero_blocks_shards,
     leap_copy.gather_blocks,
     leap_copy.scatter_blocks,
     heat_scan.heat_scan,

@@ -17,8 +17,9 @@ The JAX package's three dispatch generations are ported:
     ``zero_fill``): one program per chunk and per area, with the
     destination region a static argument; the legacy baseline that the
     paper's figures measure the fused generations against.  Apart from the
-    force, which moves its payload through the ``copy_blocks`` kernel, they
-    are plain tensor indexing, as in the JAX package;
+    force, which moves its payload through the ``copy_blocks`` kernel, and
+    ``copy_chunk`` over region shards, they are plain tensor indexing, as
+    in the JAX package;
   * the batched programs (``begin_areas``/``zero_fill``/``force_areas``/
     ``fused_copy``/``fused_copy_runs``/``fused_copy_ppermute``/
     ``commit_areas``/``commit_groups``/``heat_update``): one program per
@@ -34,11 +35,15 @@ Two copy backends: ``xla`` moves flat slot ids through ``fused_copy`` (the
 ``gather_blocks`` and ``scatter_blocks`` kernels around a point-to-point
 transfer on a region mesh).  The legacy generation's counterparts are
 ``copy_chunk`` and ``copy_chunk_ppermute``.  A state placed on a region mesh
-holds one pool tensor a region (``state.state_sharding``): the ppermute
-backend's programs, the zero-fill and the force work shard by shard, the
-commits and begins touch the table alone, and the xla backend's programs
-(``fused_copy``, ``fused_copy_runs``, ``copy_chunk``, the megastep), which
-move flat ids over one pool tensor, raise on it.
+holds one pool tensor a region (``state.state_sharding``).  There the xla
+backend's copies (``fused_copy``, ``fused_copy_runs``, ``copy_chunk``, the
+force and the megastep's zero, copy and run phases) keep their flat slot ids
+(``region * S + slot``) and go through the copy kernels' shard-table
+instance (``copy_blocks_shards``, ``copy_runs_shards``,
+``zero_blocks_shards``), which finds each lane's shard from its id: one
+launch a phase, as on one tensor.  The ppermute backend's programs and the
+per-region zero-fill work shard by shard; the commits and begins touch the
+table alone.
 
 Every program is compiled the way the JAX package jits it: it goes through
 its own :class:`~repro_torch.core.graphs.Program` in :data:`PROGRAMS`, the
@@ -70,6 +75,8 @@ host or on the state's device; ``table`` stays int32.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch.core import graphs
@@ -78,9 +85,7 @@ from repro_torch.core.state import (
     SLOT,
     LeapState,
     flat_pool_view,
-    gather_regions,
     region_view,
-    scatter_regions,
     state_key,
     state_tensors,
 )
@@ -113,16 +118,9 @@ def _entries(regions: torch.Tensor, slots: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack([regions, slots], dim=-1).to(dtype)
 
 
-def _one_tensor(state: LeapState, name: str) -> None:
-    """Raise unless ``state``'s pool is one tensor: the xla backend's
-    programs move flat slot ids over the whole pool."""
-    if state.sharded:
-        raise ValueError(
-            f"{name} copies over the flat pool, and this state holds one tensor a region "
-            "(placed on a region mesh): drive it with the ppermute backend "
-            "(LeapConfig(backend='ppermute')); the xla backend over region shards is not "
-            "ported (ROADMAP.md queue 1, item 5)"
-        )
+def _shards(state: LeapState) -> list[torch.Tensor]:
+    """A sharded pool's regions in the kernel layout, sink rows included."""
+    return [region_view(t) for t in state.pool]
 
 
 def _run(name: str, body, state: LeapState, operands, *static):
@@ -148,7 +146,11 @@ def _begin(state: LeapState, block_ids: torch.Tensor) -> None:
 
 def _copy_chunk(state: LeapState, block_ids, dst_slots, dst_region: int) -> None:
     loc = state.table[block_ids].long()
-    state.pool[dst_region][dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
+    if state.sharded:
+        s = state.pool_shape[1]
+        _fused_copy(state, loc[:, REGION] * s + loc[:, SLOT], dst_region * s + dst_slots)
+    else:
+        state.pool[dst_region][dst_slots] = state.pool[loc[:, REGION], loc[:, SLOT]]
 
 
 def _copy_chunk_ppermute(state: LeapState, block_ids, dst_slots, src_region: int,
@@ -186,31 +188,15 @@ def _commit_groups(state: LeapState, block_ids, dst_regions, dst_starts,
     return verdict
 
 
-def _gather_shard(shard, idx):
-    return ops.gather_blocks_impl(region_view(shard), idx)
-
-
-def _scatter_shard(shard, idx, blocks):
-    ops.scatter_blocks_impl(region_view(shard), idx, blocks)
-
-
 def _force(state: LeapState, block_ids, dst_regions, dst_slots) -> None:
-    """The fused copy+flip.  On one pool tensor its payload moves by one
-    ``copy_blocks`` launch over the flat pool view (no payload temporary);
-    its destinations are fresh slots, never a source in the same batch
-    (K1's contract).  On region shards K1 cannot reach across shards: every
-    lane is gathered from every region by ``gather_blocks`` and kept from
-    its own (``state.gather_regions``), and every region's shard takes the
-    payload by ``scatter_blocks`` with other regions' lanes at its sink row.
-    A pad lane repeats lane 0's copy."""
+    """The fused copy+flip.  Its payload moves by one ``copy_blocks``
+    launch over flat ids computed on the device from the table (over region
+    shards, its shard-table instance): no payload temporary.  Its
+    destinations are fresh slots, never a source in the same batch (K1's
+    contract).  A pad lane repeats lane 0's copy."""
     loc = state.table[block_ids].long()
-    if state.sharded:
-        payload = gather_regions(state, loc[:, REGION], loc[:, SLOT], _gather_shard)
-        scatter_regions(state, dst_regions, dst_slots, payload, _scatter_shard)
-    else:
-        s = state.pool.shape[1]
-        ops.copy_blocks_impl(flat_pool_view(state.pool), loc[:, REGION] * s + loc[:, SLOT],
-                             dst_regions * s + dst_slots)
+    s = state.pool_shape[1]
+    _fused_copy(state, loc[:, REGION] * s + loc[:, SLOT], dst_regions * s + dst_slots)
     state.table[block_ids] = _entries(dst_regions, dst_slots, state.table.dtype)
     state.in_flight.index_fill_(0, block_ids, False)
     state.dirty.index_fill_(0, block_ids, False)
@@ -225,12 +211,29 @@ def _zero_fill(state: LeapState, slots, dst_region: int) -> None:
     shard.index_fill_(0, slots.to(shard.device), 0)
 
 
-def _fused_copy(state: LeapState, src_flat, dst_flat, impl) -> None:
-    ops.copy_blocks_impl(flat_pool_view(state.pool), src_flat, dst_flat, impl=impl)
+def _fused_copy(state: LeapState, src_flat, dst_flat, impl=None) -> None:
+    """``copy_blocks`` over flat slot ids, in either layout."""
+    if state.sharded:
+        ops.copy_blocks_shards_impl(_shards(state), src_flat, dst_flat,
+                                    slots_per_region=state.pool_shape[1], impl=impl)
+    else:
+        ops.copy_blocks_impl(flat_pool_view(state.pool), src_flat, dst_flat, impl=impl)
 
 
 def _fused_copy_runs(state: LeapState, src_starts, dst_starts, run: int, impl) -> None:
-    ops.copy_runs_impl(flat_pool_view(state.pool), src_starts, dst_starts, run=run, impl=impl)
+    if state.sharded:
+        ops.copy_runs_shards_impl(_shards(state), src_starts, dst_starts,
+                                  slots_per_region=state.pool_shape[1], run=run, impl=impl)
+    else:
+        ops.copy_runs_impl(flat_pool_view(state.pool), src_starts, dst_starts, run=run,
+                           impl=impl)
+
+
+def _zero_flat(state: LeapState, flat) -> None:
+    if state.sharded:
+        ops.zero_blocks_shards_impl(_shards(state), flat, slots_per_region=state.pool_shape[1])
+    else:
+        flat_pool_view(state.pool).index_fill_(0, flat, 0)
 
 
 def _fused_copy_ppermute(state: LeapState, src_slots, dst_slots, src_region: int,
@@ -262,10 +265,12 @@ def copy_chunk(
     """Physical copy of ``block_ids`` into ``(dst_region, dst_slots)``.
 
     Pure data movement — the table is untouched, so readers keep hitting the
-    source location (non-atomic copy phase, exactly as in the paper).  The
-    payload is gathered into a temporary (one chunk) before it is scattered.
+    source location (non-atomic copy phase, exactly as in the paper).  On
+    one pool tensor the payload is gathered into a temporary (one chunk)
+    before it is scattered, by plain indexing; over region shards it moves
+    by one launch of ``copy_blocks_shards``, from flat source ids computed
+    on the device from the table.
     """
-    _one_tensor(state, "copy_chunk")
     _run("copy_chunk", _copy_chunk, state, (block_ids, dst_slots), int(dst_region))
     return state
 
@@ -311,9 +316,9 @@ def force_migrate(
     dst_region: int,
 ) -> LeapState:
     """Fused copy+remap of one area (write-through escalation): no race
-    window exists.  The payload moves through the ``copy_blocks`` kernel,
-    or on region shards through ``gather_blocks`` and ``scatter_blocks``;
-    the destinations must not be sources of the same call."""
+    window exists.  The payload moves through the ``copy_blocks`` kernel
+    (over region shards, its shard-table instance); the destinations must
+    not be sources of the same call."""
     _run("force_migrate", _force_migrate, state, (block_ids, dst_slots), int(dst_region))
     return state
 
@@ -338,8 +343,8 @@ def fused_copy(
     impl: str | None = None,
 ) -> LeapState:
     """Physical copy of the tick's chunk plan: flat slot ids (``region * S +
-    slot``) through the ``leap_copy`` kernel over the flat pool view."""
-    _one_tensor(state, "fused_copy")
+    slot``) through the ``leap_copy`` kernel over the flat pool view, or
+    over region shards through its shard-table instance."""
     _run("fused_copy", _fused_copy, state, (src_flat, dst_flat), impl)
     return state
 
@@ -352,8 +357,8 @@ def fused_copy_runs(
     impl: str | None = None,
 ) -> LeapState:
     """Physical copy of whole huge blocks: one contiguous ``run``-slot move
-    per block, from flat G-aligned start slots."""
-    _one_tensor(state, "fused_copy_runs")
+    per block, from flat G-aligned start slots (over region shards, one
+    launch of the run kernel's shard-table instance)."""
     _run("fused_copy_runs", _fused_copy_runs, state, (src_starts, dst_starts), int(run), impl)
     return state
 
@@ -393,10 +398,9 @@ def force_areas(
 ) -> LeapState:
     """Batched write-through escalation, in place: fused copy+flip, the
     payload moved by one ``copy_blocks`` launch (flat ids computed on the
-    device from the table as it stands), or on region shards by a
-    ``gather_blocks`` and a ``scatter_blocks`` launch a region (a lane's
-    regions are data, so every region sees every lane).  The destinations
-    must not be sources of the same call."""
+    device from the table as it stands; over region shards, one launch of
+    its shard-table instance).  The destinations must not be sources of the
+    same call."""
     _run("force_areas", _force, state, (block_ids, dst_regions, dst_slots))
     return state
 
@@ -479,7 +483,7 @@ def _megastep_phases(
     if begin_ids.shape[0]:
         _begin(state, begin_ids)
     if zero_flat.shape[0]:
-        flat_pool_view(state.pool).index_fill_(0, zero_flat, 0)
+        _zero_flat(state, zero_flat)
     if force_ids.shape[0]:
         _force(state, force_ids, force_regions, force_slots)
     if copy_src.shape[0]:
@@ -491,22 +495,42 @@ def _megastep_phases(
     return verdict_small, verdict_groups
 
 
+# The heat planes a megastep over a sharded state has updated.  The
+# reference's megastep returns that plane committed to the mesh's devices,
+# and its jit cache keys on an operand's committed sharding: the plane the
+# driver made (uncommitted) and the plane a megastep returned are two
+# variants, the first heat phase over a mesh compiling twice.  By id, with
+# a weak reference: a tensor's == is elementwise, so no weak set.
+_committed_heat: dict[int, weakref.ref] = {}
+
+
+def _heat_committed(heat: torch.Tensor) -> bool:
+    ref = _committed_heat.get(id(heat))
+    return ref is not None and ref() is heat
+
+
+def _commit_heat(state: LeapState, heat: torch.Tensor, heat_ids: torch.Tensor) -> None:
+    if state.sharded and heat_ids.shape[0] and not _heat_committed(heat):
+        key = id(heat)
+        _committed_heat[key] = weakref.ref(heat, lambda _: _committed_heat.pop(key, None))
+
+
 def _megastep_variant(state: LeapState, operands, heat, group, impl, heat_decay):
     """``(key, body, inputs, bound)`` of one megastep call for :data:`MEGASTEP`.
 
     The key holds what the JAX megastep's cache keys on: every operand's
     length (which phases are present and at which bucket), the static
-    arguments, the state's and the heat plane's shapes and dtypes, and the
-    device.  The program updates the state in place, and the heat plane when
-    its phase is present: those are the tensors a captured graph belongs to.
+    arguments, the state's and the heat plane's shapes and dtypes, the
+    device (each shard's, over region shards) and whether the heat plane
+    is committed to a mesh (``_committed_heat``).  The program updates the
+    state in place, and the heat plane when its phase is present: those are
+    the tensors a captured graph belongs to.
     """
-    _one_tensor(state, "megastep")
     inputs = list(operands)  # the 16 index operands (heat_ids last), then heat_w
     key = (
         tuple(t.shape[0] for t in inputs),
-        group, impl, float(heat_decay),
-        tuple(state.pool.shape), state.pool.dtype, tuple(state.table.shape),
-        tuple(heat.shape), str(state.device),
+        group, impl, float(heat_decay), state_key(state), tuple(heat.shape),
+        _heat_committed(heat),
     )
     with_heat = bool(inputs[15].shape[0])
     bound = state_tensors(state) + ([heat] if with_heat else [])
@@ -563,6 +587,7 @@ def megastep(
                 run_src, run_dst, heat_ids, heat_w)
     verdict_small, verdict_groups = MEGASTEP(
         *_megastep_variant(state, operands, heat, group, impl, heat_decay))
+    _commit_heat(state, heat, heat_ids)
     return state, verdict_small, verdict_groups, heat
 
 
@@ -572,6 +597,7 @@ def warm_megastep(state: LeapState, *operands, heat: torch.Tensor, group: int = 
     it on CUDA, register it on the CPU.  Nothing runs; the operands (the
     megastep's, ``heat_ids`` and ``heat_w`` last) give lengths only."""
     MEGASTEP.warm(*_megastep_variant(state, operands, heat, group, impl, heat_decay))
+    _commit_heat(state, heat, operands[15])
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,7 @@ class PipelineContext:
     state: LeapState  # device-resident data plane (reassigned per dispatch)
     pool_cfg: PoolConfig
     cfg: LeapConfig
-    mesh: Any = None  # RegionMesh (launch/mesh.py; ppermute backend), or None
+    mesh: Any = None  # RegionMesh (launch/mesh.py) the state is placed on, or None
     topology: Any = None  # NumaTopology, or None (uniform links)
     scheduler: Any = None  # SchedulerPolicy (set by the driver)
     stats: MigrationStats = dataclasses.field(default_factory=MigrationStats)

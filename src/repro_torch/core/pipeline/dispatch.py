@@ -49,9 +49,11 @@ heat lanes carry weight 0.  The other legacy programs and the promotions'
 phase dispatches nothing.
 
 On a region mesh the state holds one pool tensor a region (the driver
-places it there): the ppermute backend's copies, the zero-fills and the
-forces run shard by shard inside their programs (``core/migrator.py``),
-so this stage builds the same plans for either layout.
+places it there): the ppermute backend's copies and the zero-fills run
+shard by shard inside their programs, and the xla backend's copies, the
+forces and the megastep's zero phase take the flat ids of this stage's
+plans to the copy kernels' shard-table instance (``core/migrator.py``), so
+this stage builds the same plans for either layout.
 
 Budget decisions (how much a link grants, congestion deferral) come from
 the budget stage; dirty verdicts are harvested later by the verdict stage.

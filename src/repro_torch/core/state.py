@@ -390,7 +390,7 @@ IO_PROGRAMS = {
 }
 
 
-# lanes of a sharded read or force gathered at once: a chunk's temporaries
+# lanes of a sharded read gathered at once: a chunk's temporaries
 # are all a graph keeps beside the output (an 8,192-block read of 64 KiB
 # blocks keeps 64 MiB, not R times 512 MiB)
 SHARD_CHUNK = 1024
@@ -431,9 +431,8 @@ def _lanes(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.view(mask.shape + (1,) * (like.ndim - mask.ndim))
 
 
-def gather_regions(state: LeapState, region: torch.Tensor, index: torch.Tensor,
-                   take=lambda shard, idx: shard[idx]) -> torch.Tensor:
-    """``out[i] = take(pool[region[i]], index[i])`` on the home device over a
+def gather_regions(state: LeapState, region: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``out[i] = pool[region[i]][index[i]]`` on the home device over a
     sharded pool; ``index`` is ``[K]`` or ``[K, G]`` (a run a lane).  A
     static loop over the regions, ``SHARD_CHUNK`` lanes at a time: each
     region's gather on its device, with other regions' lanes at slot 0,
@@ -444,7 +443,7 @@ def gather_regions(state: LeapState, region: torch.Tensor, index: torch.Tensor,
         reg, idx = region[lo : lo + SHARD_CHUNK], index[lo : lo + SHARD_CHUNK]
         for r, shard in enumerate(shards):
             mine = reg == r
-            part = take(shard, torch.where(_lanes(mine, idx), idx, 0).to(shard.device)).to(home)
+            part = shard[torch.where(_lanes(mine, idx), idx, 0).to(shard.device)].to(home)
             if out is None:
                 out = torch.empty((region.shape[0],) + tuple(part.shape[1:]), dtype=part.dtype,
                                   device=home)

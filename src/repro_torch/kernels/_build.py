@@ -45,6 +45,8 @@ _SIGNATURES = {
     "leap_copy_lanes": (_P, _P, _P, _I64, _I64, _I64, _P),
     "leap_gather_blocks": (_P, _P, _P, _I64, _I64, _P),
     "leap_scatter_blocks": (_P, _P, _P, _I64, _I64, _P),
+    "leap_copy_shards": (_P, ctypes.c_int, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "leap_enable_peer_access": (ctypes.c_int, ctypes.c_int),
     "leap_heat_scan": (_P, _P, _P, _I64, _I64, ctypes.c_float, _P),
     "leap_paged_decode": (
         (_P,) * 10 + (_I64,) * 8 + (ctypes.c_float, ctypes.c_float, ctypes.c_int, _P)

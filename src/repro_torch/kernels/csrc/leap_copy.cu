@@ -57,6 +57,25 @@
 // operands, never after a failure: a refused shared-memory size or launch
 // is returned as an error.
 //
+// move_shard_lanes_kernel: K1 and K2 over a pool held as one tensor a region
+// (a state placed on a region mesh).  The same grid and the same words as
+// move_lanes_kernel, but the two bases become a table of shard base
+// pointers: lane i reads flat slot f = src[i] at base[f / S] + (f % S) *
+// slot_bytes and writes lane_bytes to base[g / S] + (g % S) * slot_bytes for
+// g = dst[i], where S is the slots a region (a shard's sink row, its last,
+// is never addressed).  One launch moves the one-tensor kernel's bytes
+// whatever the regions of the lanes, where a static loop over the regions
+// would read or write every region.  The table (at most kMaxShards
+// pointers) is a kernel parameter passed by value, so a captured graph node
+// holds it and nothing is allocated.  A shard on another card is reached
+// through its device pointer, a remote access over NVLink once peer access
+// is on (leap_enable_peer_access).  A lane of K2 (lane_bytes = run *
+// slot_bytes) never crosses a region: the host checks S % run == 0 and
+// run-aligned starts.  Its zero instance writes zeros to the destinations
+// and reads nothing (the megastep's zero phase).  Bound: bytes, as
+// move_lanes_kernel; the 16-byte words need every base and the slot size
+// 16-byte aligned, else the byte instance runs.
+//
 // Order.  A TPU grid runs in order; CTAs here do not.  copy_blocks and
 // copy_runs need no order: the host (leap_copy.check_copy_plan) checks that
 // lanes do not overlap and that no destination is a source.  scatter_blocks
@@ -144,6 +163,92 @@ int move_lanes(const void* src, void* dst, const void* src_idx, const void* dst_
   if (aligned16(s, d, slot_bytes) && lane_bytes % 16 == 0)
     return launch<uint4, kLastWins>(s, d, si, di, n_lanes, slot_bytes, lane_bytes, st);
   return launch<unsigned char, kLastWins>(s, d, si, di, n_lanes, slot_bytes, lane_bytes, st);
+}
+
+// -- K1 and K2 over region shards: a table of shard base pointers ----------------
+
+constexpr int kMaxShards = 64;
+
+struct ShardTable {
+  char* base[kMaxShards];
+};
+
+template <typename T, bool kZero>
+__global__ void __launch_bounds__(kThreads)
+move_shard_lanes_kernel(const ShardTable shards, const long long* __restrict__ src_idx,
+                        const long long* __restrict__ dst_idx, long long slots_per_region,
+                        long long slot_bytes, long long lane_words) {
+  const long long lane = blockIdx.x;
+  const long long g = dst_idx[lane];
+  T* to = reinterpret_cast<T*>(shards.base[g / slots_per_region] +
+                               (g % slots_per_region) * slot_bytes);
+  const long long step = (long long)gridDim.y * kThreads * kUnroll;
+  const long long first = (long long)blockIdx.y * kThreads * kUnroll + threadIdx.x;
+  if (kZero) {
+    const T zero{};
+    for (long long base = first; base < lane_words; base += step) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + (long long)u * kThreads;
+        if (i < lane_words) to[i] = zero;
+      }
+    }
+    return;
+  }
+  const long long f = src_idx[lane];
+  const T* from = reinterpret_cast<const T*>(shards.base[f / slots_per_region] +
+                                             (f % slots_per_region) * slot_bytes);
+  for (long long base = first; base < lane_words; base += step) {
+    T buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kThreads;
+      if (i < lane_words) buf[u] = from[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kThreads;
+      if (i < lane_words) to[i] = buf[u];
+    }
+  }
+}
+
+template <typename T, bool kZero>
+int launch_shards(const ShardTable& shards, const long long* src_idx, const long long* dst_idx,
+                  long long n_lanes, long long slots_per_region, long long slot_bytes,
+                  long long lane_bytes, cudaStream_t stream) {
+  const long long words = lane_bytes / (long long)sizeof(T);
+  const long long per_cta = (long long)kThreads * kUnroll;
+  long long chunks = (words + per_cta - 1) / per_cta;
+  if (chunks > kMaxChunksY) chunks = kMaxChunksY;
+  if (chunks < 1) chunks = 1;
+  dim3 grid((unsigned)n_lanes, (unsigned)chunks);
+  move_shard_lanes_kernel<T, kZero><<<grid, kThreads, 0, stream>>>(
+      shards, src_idx, dst_idx, slots_per_region, slot_bytes, words);
+  return (int)cudaGetLastError();
+}
+
+template <bool kZero>
+int move_shard_lanes(const void* const* bases, int n_shards, const void* src_idx,
+                     const void* dst_idx, long long n_lanes, long long slots_per_region,
+                     long long slot_bytes, long long lane_bytes, void* stream) {
+  if (n_lanes <= 0 || lane_bytes <= 0) return 0;
+  if (n_lanes > 0x7fffffffLL || n_shards < 1 || n_shards > kMaxShards || slots_per_region < 1)
+    return (int)cudaErrorInvalidValue;
+  ShardTable shards = {};
+  bool words = slot_bytes % 16 == 0 && lane_bytes % 16 == 0;
+  for (int r = 0; r < n_shards; ++r) {
+    shards.base[r] = static_cast<char*>(const_cast<void*>(bases[r]));
+    words = words && reinterpret_cast<uintptr_t>(bases[r]) % 16 == 0;
+  }
+  const long long* si = static_cast<const long long*>(src_idx);
+  const long long* di = static_cast<const long long*>(dst_idx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (words)
+    return launch_shards<uint4, kZero>(shards, si, di, n_lanes, slots_per_region, slot_bytes,
+                                       lane_bytes, st);
+  return launch_shards<unsigned char, kZero>(shards, si, di, n_lanes, slots_per_region,
+                                             slot_bytes, lane_bytes, st);
 }
 
 // -- the gather: a persistent TMA bulk-copy pipeline ---------------------------
@@ -317,4 +422,42 @@ extern "C" int leap_gather_blocks(void* out, const void* pool, const void* idx,
 extern "C" int leap_scatter_blocks(void* pool, const void* blocks, const void* idx,
                                    long long n_lanes, long long slot_bytes, void* stream) {
   return move_lanes<true>(blocks, pool, nullptr, idx, n_lanes, slot_bytes, slot_bytes, stream);
+}
+
+// K1 and K2 over region shards: lane i copies lane_bytes from flat slot
+// src[i] to flat slot dst[i], flat slot f being slot f % slots_per_region of
+// shard f / slots_per_region, whose base is bases[f / slots_per_region]
+// (bases: a host array of n_shards device pointers, at most 64).  With src
+// null the lanes' destinations are zeroed instead.
+extern "C" int leap_copy_shards(const void* const* bases, int n_shards, const void* src,
+                                const void* dst, long long n_lanes, long long slots_per_region,
+                                long long slot_bytes, long long lane_bytes, void* stream) {
+  if (src == nullptr)
+    return move_shard_lanes<true>(bases, n_shards, nullptr, dst, n_lanes, slots_per_region,
+                                  slot_bytes, lane_bytes, stream);
+  return move_shard_lanes<false>(bases, n_shards, src, dst, n_lanes, slots_per_region,
+                                 slot_bytes, lane_bytes, stream);
+}
+
+// Lets kernels on `device` reach memory of `peer` (a region shard on another
+// card); returns cudaErrorPeerAccessUnsupported when the two cannot reach
+// each other, and 0 when access is on, already or now.  The current device
+// is left as it was.
+extern "C" int leap_enable_peer_access(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int was = 0;
+  err = cudaGetDevice(&was);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the (not sticky) error the call recorded
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(was);
+  return (int)(err != cudaSuccess ? err : back);
 }

@@ -71,6 +71,31 @@ def copy_runs_impl(pool, src_starts, dst_starts, *, run: int, impl: str | None =
     return ref.copy_runs_ref(pool, src_starts, dst_starts, run)
 
 
+def copy_blocks_shards_impl(shards, src_flat, dst_flat, *, slots_per_region: int,
+                            impl: str | None = None) -> None:
+    """K1 over region shards, in place: flat slot ``dst_flat[i]`` (slot
+    ``% S`` of shard ``// S``) takes flat slot ``src_flat[i]``."""
+    if _use_kernel(impl, shards[0]):
+        return leap_copy.copy_blocks_shards(shards, src_flat, dst_flat, slots_per_region)
+    return ref.copy_shards_ref(shards, src_flat, dst_flat, slots_per_region)
+
+
+def copy_runs_shards_impl(shards, src_starts, dst_starts, *, slots_per_region: int, run: int,
+                          impl: str | None = None) -> None:
+    """K2 over region shards, in place: one ``run``-slot move a lane."""
+    if _use_kernel(impl, shards[0]):
+        return leap_copy.copy_runs_shards(shards, src_starts, dst_starts, slots_per_region, run)
+    return ref.copy_shards_ref(shards, src_starts, dst_starts, slots_per_region, run)
+
+
+def zero_blocks_shards_impl(shards, dst_flat, *, slots_per_region: int,
+                            impl: str | None = None) -> None:
+    """Zero flat slots of region shards, in place."""
+    if _use_kernel(impl, shards[0]):
+        return leap_copy.zero_blocks_shards(shards, dst_flat, slots_per_region)
+    return ref.zero_shards_ref(shards, dst_flat, slots_per_region)
+
+
 def heat_scan_impl(heat, ids, w, decay, *, impl: str | None = None):
     """Fused decay + accumulate over the heat plane, in place.
 

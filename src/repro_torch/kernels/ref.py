@@ -58,6 +58,49 @@ def copy_runs_ref(
     return pool
 
 
+def _sink_ids(shard: torch.Tensor, mine: torch.Tensor, slots: torch.Tensor,
+              slots_per_region: int) -> torch.Tensor:
+    """``slots`` where ``mine``, else the shard's sink row (its last, past
+    the region's ``S`` slots), on the shard's device."""
+    if shard.shape[0] <= slots_per_region:
+        raise ValueError(f"a shard of {shard.shape[0]} rows has no sink row past "
+                         f"{slots_per_region} slots")
+    return torch.where(mine, slots, shard.shape[0] - 1).to(shard.device)
+
+
+def copy_shards_ref(shards, src_flat: torch.Tensor, dst_flat: torch.Tensor,
+                    slots_per_region: int, run: int = 1) -> None:
+    """In place over region shards ``[S + 1, rows, cols]``: flat slot
+    ``dst_flat[i]`` (slot ``% S`` of shard ``// S``) takes flat slot
+    ``src_flat[i]``; with ``run > 1`` both are starts of ``run`` slots.
+
+    Every lane is first gathered into a buffer on the ids' device, each from
+    its own shard (a loop over the shards, other shards' lanes reading slot
+    0 and dropped), then written into its destination shard (a loop over
+    the shards, other shards' lanes sent to the sink row).  That equals the
+    in-place copy, as no destination is a source."""
+    s, home = slots_per_region, src_flat.device
+    if run > 1:
+        ends = torch.arange(run, device=home)
+        src_flat = (src_flat[:, None] + ends).reshape(-1)
+        dst_flat = (dst_flat[:, None] + ends).reshape(-1)
+    buf = None
+    for r, shard in enumerate(shards):
+        mine = src_flat // s == r
+        part = shard[torch.where(mine, src_flat % s, 0).to(shard.device)].to(home)
+        buf = part if buf is None else torch.where(mine[:, None, None], part, buf)
+    for r, shard in enumerate(shards):
+        shard[_sink_ids(shard, dst_flat // s == r, dst_flat % s, s)] = buf.to(shard.device)
+
+
+def zero_shards_ref(shards, dst_flat: torch.Tensor, slots_per_region: int) -> None:
+    """Zero flat slots ``dst_flat`` of region shards in place (other shards'
+    lanes zero each shard's sink row)."""
+    s = slots_per_region
+    for r, shard in enumerate(shards):
+        shard.index_fill_(0, _sink_ids(shard, dst_flat // s == r, dst_flat % s, s), 0)
+
+
 # -- paged decode attention ---------------------------------------------------
 
 

@@ -41,13 +41,26 @@ per-device argument bytes from ``distributed/sharding.py``'s rules (the
 parameter rules, the inference layout for decode and its flat 2D layout for
 dense weights over 10 GiB a tp shard, the reference's cache and batch
 rules).  Status ``ACCOUNTED``, and no ``roofline`` entry: there is no
-program to read collectives from.  ``--leap``'s cells lower a ``shard_map``
-ppermute over the mesh in the reference; here they are ``SKIP(one card)``.
+program to read collectives from.
+
+``--leap``'s two cells are the reference's migration copy program over a
+KV-page pool of one region a data-axis row (``LEAP_CELL``): ``copy_chunk``
+of one area (the xla backend) or ``copy_chunk_ppermute`` from region 0 to
+region 1.  On ``h100`` the pod's 16 regions sit on the one card, the pool
+built directly as one tensor a region (23 GiB, never a one-tensor copy
+beside it), and the step, one replay of the program's captured graph, is
+timed as the other cells' are: ``measured`` holds the median and every
+step, the profiled step's device ms and busy share, and its kernels by
+name; beside them the step's byte bound (the area read once and written
+once at the card's memory rate).  On ``pod`` and ``multipod`` the cell is
+accounted: per-device argument bytes, a region's 64 slots and the
+replicated table, flags and operands.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod     # CPU, accounting
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_2b --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --leap
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --leap              # card
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --leap --mesh pod   # CPU, accounting
 
 Artifacts: ``<DRYRUN_ART_DIR, else artifacts/dryrun>/torch/<mesh>/
 <arch>__<shape>.json`` (idempotent; ``--force`` reruns), and beside each
@@ -72,8 +85,8 @@ import torch
 
 from repro_torch.configs import shapes as shp
 from repro_torch.configs.base import ARCH_IDS, ModelConfig, canon, get_config
-from repro_torch.core import graphs
-from repro_torch.core.state import _default_device
+from repro_torch.core import graphs, migrator
+from repro_torch.core.state import LeapState, PoolConfig, _default_device
 from repro_torch.distributed.sharding import (
     _EXPERT_LEAVES,
     MeshShape,
@@ -84,7 +97,7 @@ from repro_torch.distributed.sharding import (
     sanitize_spec,
     shard_shape,
 )
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh, make_region_mesh
 from repro_torch.models import lm
 from repro_torch.roofline import flops as fl
 from repro_torch.roofline import model as roof
@@ -94,6 +107,7 @@ from repro_torch.roofline.report import (
     ART_DIR,
     LEAP_BACKENDS,
     MESHES,
+    OK,
     SKIP_ONE_CARD,
 )
 from repro_torch.train.optimizer import OptimizerConfig
@@ -603,7 +617,7 @@ def _measure_cell(art: dict, cfg: ModelConfig, shape: str, device, seed: int,
         "useful_flops_ratio": t.useful_flops_ratio,
         "roofline_fraction": t.roofline_fraction,
     }
-    art["status"] = "OK"
+    art["status"] = OK
 
 
 def _account_cell(art: dict, cfg: ModelConfig, shape: str, mesh: MeshShape) -> None:
@@ -616,6 +630,103 @@ def _account_cell(art: dict, cfg: ModelConfig, shape: str, mesh: MeshShape) -> N
 
 
 # ---------------------------------------------------------------------------
+# The leap cells: the reference's migration copy program on a KV-page pool
+# ---------------------------------------------------------------------------
+
+# The reference's build_leap_cell: one region a data-axis row (16 on the
+# pod, kept on the one card here), 64 slots a region of a KV page sized like
+# gemma2's (46 layers, k and v, 64 tokens, 16 kv heads of 128) in bf16, half
+# the slots holding blocks; its step copies one area of 16 blocks.
+LEAP_CELL = dict(slots=64, payload=(46, 2, 64, 16, 128), area=16)
+LEAP_REGIONS = 16
+LEAP_STEPS = 25  # timed steps of a leap cell, as of a decode cell
+
+
+def leap_cell_state(regions: int, device, seed: int, slots: int, payload,
+                    dtype=torch.bfloat16) -> tuple[LeapState, PoolConfig, object]:
+    """The leap cell's state on a region mesh of ``regions`` regions on
+    ``device``: built directly as one ``[slots + 1, *payload]`` tensor a
+    region (random from ``seed``, each sink row zero), so that no one-tensor
+    pool is ever made.  Block ``b`` lives in region ``b // h``, slot ``b %
+    h``, for ``h = slots // 2``.  Returns ``(state, pool config, mesh)``."""
+    device = torch.device(device)
+    pc = PoolConfig(regions, slots, tuple(payload), dtype, region_axis="data")
+    mesh = make_region_mesh(regions, [device] * regions)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shards = []
+    for _ in range(regions):
+        shard = torch.randn((slots + 1,) + tuple(payload), generator=gen, dtype=dtype,
+                            device=device)
+        shard[-1].zero_()
+        shards.append(shard)
+    half = slots // 2
+    blocks = torch.arange(regions * half)
+    table = torch.stack([blocks // half, blocks % half], 1).to(torch.int32).to(device)
+    flags = [torch.zeros(len(blocks), dtype=torch.bool, device=device) for _ in range(2)]
+    return LeapState(tuple(shards), table, *flags), pc, mesh
+
+
+def leap_step(state: LeapState, mesh, backend: str, area: int):
+    """The cell's step: the reference's ``copy_chunk`` (xla) or
+    ``copy_chunk_ppermute`` (ppermute) of blocks ``[0, area)`` (region 0) to
+    the first free slots of region 1; on the card one replay of the
+    program's captured graph.  A repeat copies the same bytes again."""
+    ids = torch.arange(area)
+    dst = ids + state.pool_shape[1] // 2
+    if backend == "ppermute":
+        return lambda: migrator.copy_chunk_ppermute(state, ids, dst, 0, 1, mesh)
+    return lambda: migrator.copy_chunk(state, ids, dst, 1)
+
+
+def leap_accounting(mesh: MeshShape) -> dict:
+    """Per-device argument bytes of the leap cell on a production mesh, as
+    the reference shards it: the pool's region dim over ``data`` (a
+    device holds its region's 64 slots), the table, the flags and the
+    step's two int32 operands replicated."""
+    c = LEAP_CELL
+    regions = mesh.shape["data"]
+    blocks = regions * c["slots"] // 2
+    shard = c["slots"] * math.prod(c["payload"]) * torch.bfloat16.itemsize
+    replicated = blocks * 2 * 4 + 2 * blocks + 2 * c["area"] * 4
+    return dict(argument_bytes=shard + replicated, pool_shard_bytes=shard,
+                replicated_bytes=replicated, regions=regions)
+
+
+def _leap_cell(art: dict, backend: str, device, seed: int, out_path: str) -> None:
+    """Build the leap cell on ``device`` and time its step (figures of the
+    device are None on the CPU)."""
+    c = LEAP_CELL
+    cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device) if cuda else None
+    t0 = time.perf_counter()
+    state, pc, mesh = leap_cell_state(LEAP_REGIONS, device, seed, c["slots"], c["payload"])
+    _sync(device)
+    art["build_s"] = time.perf_counter() - t0
+    args = torch.cuda.memory_allocated(device) - base if cuda else None
+    area_bytes = c["area"] * pc.block_bytes
+    res = _run(leap_step(state, mesh, backend, c["area"]), LEAP_STEPS, device,
+               out_path.removesuffix(".json") + ".trace.json.gz", first=True)
+    trace = res.pop("collectives")
+    for k in ("kept", "after_first"):
+        res.pop(k)
+    art["first_step_s"] = res.pop("first_step_s")
+    art["memory"] = dict(argument_bytes=args, per_device_total=(
+        res["peak_bytes"] - base if cuda else None))
+    art.update(regions=LEAP_REGIONS, slots=c["slots"], payload=list(c["payload"]),
+               area_blocks=c["area"], area_bytes=area_bytes,
+               bound_ms=2 * area_bytes / roof.HBM_BW * 1e3, bound_by="bytes",
+               pool_bytes=sum(_nbytes(t) for t in state.pool))
+    res["kernels_by_name"] = tr.kernels_by_name(trace) if cuda else {}
+    art["measured"] = dict(device=torch.cuda.get_device_name(device) if cuda else str(device),
+                           **res)
+    art["status"] = OK
+
+
+# ---------------------------------------------------------------------------
 # Runner
 # ---------------------------------------------------------------------------
 
@@ -624,7 +735,8 @@ def run_cell(arch: str, shape: str, mesh_name: str = "h100", force: bool = False
              device=None, seed: int = 0) -> dict:
     """One cell's artifact, written under ``ART_DIR/<mesh_name>/``.  On the
     h100 mesh the cell runs on ``device`` (the current CUDA device by
-    default; raises without one)."""
+    default; raises without one).  A leap cell is ``("leap_migration",
+    backend)``."""
     os.makedirs(os.path.join(ART_DIR, mesh_name), exist_ok=True)
     out_path = os.path.join(ART_DIR, mesh_name, f"{arch}__{shape}.json")
     if os.path.exists(out_path) and not force:
@@ -632,27 +744,28 @@ def run_cell(arch: str, shape: str, mesh_name: str = "h100", force: bool = False
             return json.load(f)
     mesh = _mesh(mesh_name)
     art = {"arch": arch, "shape": shape, "mesh": mesh_name, "n_chips": mesh.size}
-    if arch == "leap_migration":
-        art["status"] = SKIP_ONE_CARD
-        art["reason"] = ("the reference lowers a shard_map ppermute over the mesh; one card has "
-                         "no mesh to lower it over (ROADMAP.md queue 1, item 5)")
-    else:
-        cfg = get_config(arch)
-        art["status"] = shp.cell_status(cfg, shape)
-        if art["status"] is None:
-            if mesh_name == "h100":
-                device = _default_device(device)
-            try:
-                if mesh_name == "h100":
-                    _measure_cell(art, cfg, shape, device, seed, out_path)
-                else:
-                    _account_cell(art, cfg, shape, mesh)
-            except DoesNotFit as e:
-                art["status"] = SKIP_ONE_CARD
-                art["reason"] = str(e)
-            except Exception as e:  # record failures; the runner counts them
-                art["status"] = f"FAIL: {type(e).__name__}: {e}"
-                art["traceback"] = traceback.format_exc()[-4000:]
+    leap = arch == "leap_migration"
+    cfg = None if leap else get_config(arch)
+    art["status"] = None if leap else shp.cell_status(cfg, shape)
+    if art["status"] is None:
+        if mesh_name == "h100":
+            device = _default_device(device)
+        try:
+            if leap and mesh_name == "h100":
+                _leap_cell(art, shape, device, seed, out_path)
+            elif leap:
+                art["memory"] = leap_accounting(mesh)
+                art["status"] = ACCOUNTED
+            elif mesh_name == "h100":
+                _measure_cell(art, cfg, shape, device, seed, out_path)
+            else:
+                _account_cell(art, cfg, shape, mesh)
+        except DoesNotFit as e:
+            art["status"] = SKIP_ONE_CARD
+            art["reason"] = str(e)
+        except Exception as e:  # record failures; the runner counts them
+            art["status"] = f"FAIL: {type(e).__name__}: {e}"
+            art["traceback"] = traceback.format_exc()[-4000:]
     with open(out_path, "w") as f:
         json.dump(art, f, indent=2)
     return art

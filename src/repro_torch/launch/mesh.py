@@ -1,18 +1,25 @@
-"""Region meshes for the ppermute copy backend, and the production meshes.
+"""Region meshes for a pool sharded over its regions, and the production meshes.
 
-The JAX package runs that backend under ``shard_map`` on a mesh with one
-device per memory region.  The port drives it from one controller: a
-:class:`RegionMesh` names the ``torch.device`` that holds each region, and a
-state placed on it (``state.to(state_sharding(cfg, mesh))``) holds its pool
-as one tensor per region, each in its own allocation on that region's
-device, with the table and flags on the home device, ``mesh.device(0)``.
+The JAX package shards the pool's region dim over a mesh axis with one
+device per memory region: its xla backend indexes across the shards
+(GSPMD), its ppermute backend runs under ``shard_map``.  The port drives
+both from one controller: a :class:`RegionMesh` names the ``torch.device``
+that holds each region, and a state placed on it
+(``state.to(state_sharding(cfg, mesh))``) holds its pool as one tensor per
+region, each in its own allocation on that region's device, with the table
+and flags on the home device, ``mesh.device(0)``.
 ``migrator.fused_copy_ppermute`` packs a region's slots on its device, moves
 the staging buffer to the destination region's device (a peer copy between
-cards; on one card the buffer is already there) and unpacks it there.
+cards; on one card the buffer is already there) and unpacks it there.  The
+xla backend's copies are one kernel on the home device that reads and
+writes every shard through its device pointer: on distinct cards a remote
+access over NVLink, so a mesh over several cards turns peer access on
+between them when it is made, and raises if two of them cannot reach each
+other.
 
 The regions may share a device (every region on one card, or on the CPU for
 tests) or lie on distinct cards; the code that runs over the shards is the
-same, and only the peer copy between two devices differs.
+same, and only the accesses between two devices differ.
 
 ``make_production_mesh`` and ``make_debug_mesh`` give the JAX package's
 meshes as :class:`~repro_torch.distributed.sharding.MeshShape` s (names and
@@ -26,6 +33,7 @@ import dataclasses
 import torch
 
 from repro_torch.distributed.sharding import MeshShape
+from repro_torch.kernels.leap_copy import enable_peer_access
 
 
 def _default_device(device=None) -> torch.device:
@@ -52,6 +60,8 @@ class RegionMesh:
         if not devices:
             raise ValueError("a region mesh needs at least one region")
         object.__setattr__(self, "devices", devices)
+        if len({d for d in devices if d.type == "cuda"}) > 1:
+            enable_peer_access(devices)
 
     @property
     def size(self) -> int:

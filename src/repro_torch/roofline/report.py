@@ -11,7 +11,7 @@ statuses the tables read, and ``launch/dryrun.py`` takes them from here.  The ro
 meshes are accounting only (status ``ACCOUNTED``): ``dryrun_table`` shows
 their argument bytes and marks them so, and the roofline tables skip them,
 as every row without a ``roofline`` entry.  ``measured_table`` shows the
-cells measured on a card, with their cut.
+cells measured on a card, with their cut; ``leap_table`` the two leap cells.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ ART_DIR = os.path.abspath(os.path.join(
                                 "dryrun")),
     "torch"))
 MESHES = ("h100", "pod", "multipod")
+OK = "OK"  # a cell built and run on a card
 ACCOUNTED = "ACCOUNTED"  # a production-mesh cell: argument bytes only, no program
 SKIP_ONE_CARD = "SKIP(one card)"
 LEAP_BACKENDS = ("xla", "ppermute")
@@ -76,7 +77,7 @@ def dryrun_table(mesh: str) -> str:
                 f"| {a.get('n_micro', '-')} |"
             )
             continue
-        if status != "OK":
+        if status != OK:
             lines.append(f"| {arch} | {shape} | {status} | - | - | - |")
             continue
         mem = a["memory"]["per_device_total"]
@@ -131,7 +132,7 @@ def measured_table(mesh: str, arts: dict | None = None) -> str:
     ]
     for arch, shape, a in _cells(load(mesh) if arts is None else arts):
         m = a.get("measured")
-        if m is None:
+        if m is None or "roofline" not in a:  # a leap cell: leap_table
             continue
         bound_ms = terms_from_artifact(a).step_time_s * 1e3
         top = "; ".join(f"{k} {c['device_ms']:.1f} ({c['launches']})"
@@ -148,6 +149,46 @@ def measured_table(mesh: str, arts: dict | None = None) -> str:
             f"| {busy} | {peak} | {bound_ms:.2f} ({a['roofline']['dominant']}) | {ratio} "
             f"| {top or '-'} |"
         )
+    return "\n".join(lines)
+
+
+def leap_table(mesh: str, arts: dict | None = None) -> str:
+    """The leap cells: on a card their step (median, device ms, busy share)
+    beside its byte bound and the kernels the trace names; on a production
+    mesh their per-device argument bytes.  ``arts`` as for
+    :func:`measured_table`."""
+    lines = [
+        f"### Mesh `{mesh}` — leap cells",
+        "",
+        "| backend | status | device | step ms | device ms | busy | bound ms | step / bound "
+        "| bytes/device | kernels (ms, launches) |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    arts = load(mesh) if arts is None else arts
+    for backend in LEAP_BACKENDS:
+        a = arts.get(("leap_migration", backend))
+        if a is None:
+            continue
+        m = a.get("measured")
+        if a["status"] == ACCOUNTED:
+            lines.append(f"| {backend} | {ACCOUNTED} | - | - | - | - | - | - "
+                         f"| {fmt_bytes(a['memory']['argument_bytes'])} (arguments only) | - |")
+            continue
+        if m is None:
+            lines.append(f"| {backend} | {a['status']} | - | - | - | - | - | - | - | - |")
+            continue
+        if m["device_ms"] is None:  # a CPU run: no device time to hold to the bound
+            dev = busy = ratio = "not measured"
+        else:
+            dev, busy = f"{m['device_ms']:.4f}", f"{m['busy']:.3f}"
+            ratio = f"{m['step_ms'] / a['bound_ms']:.2f}"
+        args = a["memory"]["argument_bytes"]
+        kernels = "; ".join(f"{k} {c['device_ms']:.4f} ({c['launches']})"
+                            for k, c in m["kernels_by_name"].items()) or "-"
+        lines.append(
+            f"| {backend} | {a['status']} | {m['device']} | {m['step_ms']:.4f} | {dev} | {busy} "
+            f"| {a['bound_ms']:.4f} ({a['bound_by']}) | {ratio} "
+            f"| {'not measured' if args is None else fmt_bytes(args)} | {kernels} |")
     return "\n".join(lines)
 
 
@@ -172,6 +213,8 @@ def main(argv=None):
         print(roofline_table(m))
         print()
         print(measured_table(m))
+        print()
+        print(leap_table(m))
         print()
         print(f"worst cells ({m}):")
         for frac, key, dom in worst_cells(m):

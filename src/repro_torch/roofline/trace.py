@@ -46,9 +46,11 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (class, lower-case substrings of the symbol); the first match wins.  The
 # port's kernels go by their CUDA symbols (kernels/csrc/*.cu): K1, K2 and
-# K6b share move_lanes_kernel.
+# K6b share move_lanes_kernel, and K1 and K2 over region shards
+# move_shard_lanes_kernel.
 KERNEL_CLASSES = (
     ("NCCL", ("nccl",)),
+    ("K1/K2 shards move_shard_lanes", ("move_shard_lanes_kernel",)),
     ("K1/K2/K6b move_lanes", ("move_lanes_kernel",)),
     ("K6a gather_bulk", ("gather_bulk_kernel",)),
     ("K3 heat_scan", ("heat_scan_kernel",)),
@@ -201,6 +203,19 @@ def kernel_classes(trace) -> dict[str, dict]:
         if e.get("cat") not in DEVICE_CATEGORIES:
             continue
         d = out.setdefault(kernel_class(e.get("name", "")), {"device_ms": 0.0, "launches": 0})
+        d["device_ms"] += float(e.get("dur", 0.0)) / 1e3
+        d["launches"] += 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))
+
+
+def kernels_by_name(trace) -> dict[str, dict]:
+    """``{kernel name: {"device_ms", "launches"}}`` over the trace's device
+    events, the largest device time first."""
+    out: dict[str, dict] = {}
+    for e in _events(trace):
+        if e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        d = out.setdefault(e.get("name", ""), {"device_ms": 0.0, "launches": 0})
         d["device_ms"] += float(e.get("dur", 0.0)) / 1e3
         d["launches"] += 1
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))

@@ -1084,12 +1084,14 @@ def test_graphed_decode_matches_eager(cuda, monkeypatch):
         assert (a == b).all()
 
 
-def _program_drain(dev, cfg_kw, capture, n_regions=2, devices=None):
+def _program_drain(dev, cfg_kw, capture, n_regions=2, devices=None, sharded=None, huge=1):
     """A seeded drain (every region's blocks to the next region) under
     writes and reads, blocking harvest, sync debug mode raising on every
     tick; returns the driver and every migration program's captures and
-    replays during it.  ``devices`` places region r on ``devices[r]`` (by
-    default every region on ``dev``)."""
+    replays during it.  With ``sharded`` (by default: more than two regions)
+    the state is placed on a region mesh, region r on ``devices[r]`` (by
+    default every region on ``dev``); ``huge`` adopts every group of that
+    many blocks."""
     import contextlib
 
     import numpy as np
@@ -1098,8 +1100,10 @@ def _program_drain(dev, cfg_kw, capture, n_regions=2, devices=None):
                                   leap_write, make_region_mesh, migrator, state_sharding)
 
     n, slots = 256, 320 if n_regions == 2 else 96
-    mesh = make_region_mesh(n_regions, devices or [dev] * n_regions) if n_regions > 2 else None
-    pc = PoolConfig(n_regions, slots, (2, 64), region_axis="data" if mesh else None)
+    sharded = n_regions > 2 if sharded is None else sharded
+    mesh = make_region_mesh(n_regions, devices or [dev] * n_regions) if sharded else None
+    pc = PoolConfig(n_regions, slots, (2, 64), region_axis="data" if mesh else None,
+                    huge_factor=huge)
     place = (np.arange(n) * n_regions // n).astype(np.int32)
     gen = torch.Generator().manual_seed(3)
     state = init_state(pc, n, place, device=dev)
@@ -1107,6 +1111,8 @@ def _program_drain(dev, cfg_kw, capture, n_regions=2, devices=None):
         state = state.to(state_sharding(pc, mesh))
     leap_write(state, torch.arange(n), torch.randn((n, 2, 64), generator=gen).to(dev))
     drv = MigrationDriver(state, pc, LeapConfig(**cfg_kw), mesh=mesh)
+    if huge > 1:
+        assert drv.adopt_huge(np.arange(n // huge)) == n // huge
     progs = migrator.PROGRAMS.values()
     before = (sum(p.captures for p in progs), sum(p.replays for p in progs))
     s = drv.default_session()
@@ -1160,8 +1166,9 @@ def test_graphed_sharded_force_and_io_match_eager(cuda):
     """On a 4-region state placed on a one-card mesh (one pool tensor a
     region): a ``force_areas`` (a pad lane), a ``zero_fill``, writes and
     reads graphed against the same calls eager, and against the one-tensor
-    pool, bit for bit; the sharded force launches ``gather_blocks`` and
-    ``scatter_blocks`` once a region, graphed and eager alike."""
+    pool, bit for bit; the sharded force launches the copy kernel's
+    shard-table instance once a call, graphed and eager alike, and no
+    ``gather_blocks`` or ``scatter_blocks``."""
     import contextlib
 
     import numpy as np
@@ -1187,7 +1194,9 @@ def test_graphed_sharded_force_and_io_match_eager(cuda):
         if sharded:
             s = s.to(state_sharding(pc, mesh))
         assert s.sharded == sharded
-        before = leap_copy.gather_blocks.launches, leap_copy.scatter_blocks.launches
+        counters = (leap_copy.copy_blocks_shards, leap_copy.gather_blocks,
+                    leap_copy.scatter_blocks)
+        before = [c.launches for c in counters]
         with contextlib.nullcontext() if capture else graphs.disable_capture():
             for lo in (40, 44):  # graphed: one capture, two replays
                 dst = torch.arange(lo, lo + 4)
@@ -1199,38 +1208,146 @@ def test_graphed_sharded_force_and_io_match_eager(cuda):
                      st.block_regions(s, wids), st.group_dirty(s, torch.tensor([0, 3]), 2)]
         torch.cuda.synchronize()
         runs[name] = ([t.cpu() for t in reads], s.to_numpy(),
-                      (leap_copy.gather_blocks.launches - before[0],
-                       leap_copy.scatter_blocks.launches - before[1]))
+                      tuple(c.launches - b for c, b in zip(counters, before)))
     for other in ("eager", "one_tensor"):
         for a, b in zip(runs["graphed"][0], runs[other][0]):
             assert torch.equal(a, b), other
         for a, b in zip(runs["graphed"][1], runs[other][1]):
             assert (a == b).all(), other
-    assert runs["graphed"][2] == runs["eager"][2] == (2 * regions, 2 * regions)
-    assert runs["one_tensor"][2] == (0, 0)
+    assert runs["graphed"][2] == runs["eager"][2] == (2, 0, 0)
+    assert runs["one_tensor"][2] == (0, 0, 0)
 
 
 def test_drain_over_two_cards_matches_one_card(cuda):
-    """A 4-region ppermute drain with regions 0 and 2 on card 0 and regions
-    1 and 3 on card 1 (every copy crosses between the cards), graphed,
-    against the same drain with every region on card 0: pools, tables,
-    flags, heat and stats bit for bit."""
+    """A 4-region ppermute drain, then an xla megastep drain (one
+    shard-table kernel on card 0 reaching card 1's shards), with regions 0
+    and 2 on card 0 and regions 1 and 3 on card 1 (every copy crosses
+    between the cards), graphed, against the same drain with every region
+    on card 0: pools, tables, flags, heat and stats bit for bit."""
     import numpy as np
 
     if torch.cuda.device_count() < 2:
         pytest.skip("needs 2 cards")
-    kw = dict(initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
-              tiering=True, backend="ppermute", axis_name="data")
+    base = dict(initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+                tiering=True)
     cards = [torch.device("cuda", r % 2) for r in range(4)]
-    two, _ = _program_drain(cuda, kw, True, 4, devices=cards)
-    one, _ = _program_drain(cuda, kw, True, 4)
-    assert [t.device for t in two.state.pool] == cards
-    for a, b in zip(two.state.to_numpy(), one.state.to_numpy()):
-        assert (a == b).all()
-    assert np.array_equal(two.heat_snapshot(), one.heat_snapshot())
-    assert dataclasses.replace(two.stats, jit_cache_misses=0) == dataclasses.replace(
-        one.stats, jit_cache_misses=0)
-    assert two.stats.blocks_forced > 0
+    for kw in (dict(base, backend="ppermute", axis_name="data"), base):
+        before = leap_copy.copy_blocks_shards.launches
+        two, _ = _program_drain(cuda, kw, True, 4, devices=cards)
+        one, _ = _program_drain(cuda, kw, True, 4)
+        assert [t.device for t in two.state.pool] == cards
+        for a, b in zip(two.state.to_numpy(), one.state.to_numpy()):
+            assert (a == b).all()
+        assert np.array_equal(two.heat_snapshot(), one.heat_snapshot())
+        assert dataclasses.replace(two.stats, jit_cache_misses=0) == dataclasses.replace(
+            one.stats, jit_cache_misses=0)
+        assert two.stats.blocks_forced > 0
+        if "backend" not in kw:
+            assert leap_copy.copy_blocks_shards.launches > before
+
+
+# -- K1 and K2 over region shards: the shard-table instance --------------------------
+
+
+def _region_shards(dev, dtype, block, regions=4, slots=32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(-100, 100, (slots + 1,) + block, generator=g).to(dtype).to(dev)
+            for _ in range(regions)]
+
+
+def _flat_plan(dev, regions, slots, k, run=1, seed=0):
+    """``k`` lanes between distinct ``run``-aligned starts of every region,
+    then a pad lane repeating lane 0; no destination is a source."""
+    g = torch.Generator().manual_seed(seed)
+    starts = torch.randperm(regions * slots // run, generator=g)[: 2 * k] * run
+    src, dst = starts[:k], starts[k:]
+    return torch.cat([src, src[:1]]).to(dev), torch.cat([dst, dst[:1]]).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block", [(1, 16384), (3, 5)])  # 16-byte words; an odd slot, bytes
+def test_shard_kernels_match_plain(cuda, dtype, block):
+    """K1, K2 and the zero instance over 4 shards against the plain
+    version, bit for bit, the sink rows left out; twice in a row."""
+    regions, slots = 4, 32
+    shards = _region_shards(cuda, dtype, block, regions, slots)
+    for k, run in ((1, 1), (3, 1), (20, 1), (5, 8)):
+        src, dst = _flat_plan(cuda, regions, slots, k, run, seed=k)
+        for _ in range(2):
+            want = [t.clone() for t in shards]
+            got = [t.clone() for t in shards]
+            ref.copy_shards_ref(want, src, dst, slots, run)
+            if run == 1:
+                leap_copy.copy_blocks_shards(got, src, dst, slots)
+            else:
+                leap_copy.copy_runs_shards(got, src, dst, slots, run)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a[:slots], b[:slots]), (k, run)
+            shards = got
+    want, got = [t.clone() for t in shards], [t.clone() for t in shards]
+    zero = _flat_plan(cuda, regions, slots, 9, seed=9)[1]
+    ref.zero_shards_ref(want, zero, slots)
+    before = leap_copy.zero_blocks_shards.launches
+    leap_copy.zero_blocks_shards(got, zero, slots)
+    torch.cuda.synchronize()
+    assert leap_copy.zero_blocks_shards.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a[:slots], b[:slots])
+
+
+def test_shard_kernels_count_and_refuse_what_they_do_not_take(cuda):
+    shards = _region_shards(cuda, torch.float32, (2, 64))
+    src, dst = _flat_plan(cuda, 4, 32, 6)
+    before = (leap_copy.copy_blocks_shards.launches, leap_copy.copy_runs_shards.launches)
+    ops.copy_blocks_shards_impl(shards, src, dst, slots_per_region=32)
+    ops.copy_runs_shards_impl(shards, src[:2] * 0, src[:2] * 0 + 8, slots_per_region=32, run=8)
+    ops.copy_blocks_shards_impl(shards, src[:0], dst[:0], slots_per_region=32)  # no lanes
+    assert (leap_copy.copy_blocks_shards.launches, leap_copy.copy_runs_shards.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="cross a region"):
+        leap_copy.copy_runs_shards(shards, src[:1] * 0, src[:1] * 0 + 10, 30, 4)
+    with pytest.raises(ValueError, match="int64"):
+        leap_copy.copy_blocks_shards(shards, src.int(), dst, 32)
+    with pytest.raises(ValueError, match="CUDA shards"):
+        leap_copy.copy_blocks_shards([shards[0], shards[1].cpu()], src, dst, 32)
+    with pytest.raises(ValueError, match="dtype"):
+        leap_copy.copy_blocks_shards([shards[0], shards[1].double()], src, dst, 32)
+    with pytest.raises(ValueError, match="shards"):
+        leap_copy.copy_blocks_shards([shards[0]] * 65, src, dst, 32)
+
+
+@pytest.mark.parametrize("mode,huge", [("megastep", 1), ("megastep", 4), ("batched", 4),
+                                       ("legacy", 1)])
+def test_graphed_xla_drain_over_shards_matches_eager_and_one_tensor(cuda, mode, huge):
+    """A 4-region xla drain over region shards on the one card, graphed,
+    against the same drain eager and on one pool tensor, bit for bit; its
+    copies launch the shard-table instance, never one-tensor K1, K6a or
+    K6b."""
+    import numpy as np
+
+    kw = dict(initial_area_blocks=16, budget_blocks_per_tick=32, max_attempts_before_force=2,
+              chunk_blocks=4, tiering=True, fused_dispatch=mode)
+    counters = (leap_copy.copy_blocks_shards, leap_copy.copy_runs_shards, leap_copy.copy_blocks,
+                leap_copy.gather_blocks, leap_copy.scatter_blocks)
+    before = [c.launches for c in counters]
+    g, (captures, replays) = _program_drain(cuda, kw, True, 4, huge=huge)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    e, (e_captures, e_replays) = _program_drain(cuda, kw, False, 4, huge=huge)
+    one, _ = _program_drain(cuda, kw, True, 4, sharded=False, huge=huge)
+    assert g.state.sharded and not one.state.sharded
+    assert replays == g.stats.dispatches and 0 < captures <= replays
+    assert e_captures == e_replays == 0
+    for other in (e, one):
+        for a, b in zip(g.state.to_numpy(), other.state.to_numpy()):
+            assert (a == b).all()
+        assert np.array_equal(g.heat_snapshot(), other.heat_snapshot())
+        assert dataclasses.replace(g.stats, jit_cache_misses=0) == dataclasses.replace(
+            other.stats, jit_cache_misses=0)
+    assert g.stats.dirty_rejections > 0
+    assert launches[0] > 0 and launches[2:] == [0, 0, 0]
+    if huge > 1 and mode != "legacy":
+        assert launches[1] > 0
 
 
 def test_graphed_force_pins_no_payload(cuda):

@@ -19,8 +19,9 @@ regions share a device; the table and flags stay on the home device.  Here:
   against the one-tensor pool (duplicate ids in a write, open epochs
   trapping writes), with equal variant counts;
 * (d) ``force_areas``, ``force_migrate`` and ``zero_fill`` on shards against
-  the one-tensor pool;
-* (e) the xla backend's programs refusing a sharded state.
+  the one-tensor pool.
+
+The xla backend's programs over shards: ``tests/test_torch_xla_shards.py``.
 """
 
 import os
@@ -348,32 +349,3 @@ def test_force_and_zero_fill_on_shards_match_the_one_tensor_pool(regions):
     sizes = migrator.program_cache_sizes()
     assert sizes["force_areas"] == 2 and sizes["force_migrate"] == sizes["zero_fill"] == 2
     assert placed.sharded
-
-
-# ---------------------------------------------------------------------------
-# (e) the xla backend's programs refuse a sharded state
-# ---------------------------------------------------------------------------
-
-
-def test_xla_backend_programs_refuse_a_sharded_state():
-    pc = T.PoolConfig(4, 8, BLK, region_axis="data")
-    placed = _placed(pc, _state(pc, 12))
-    two = torch.tensor([0, 1])
-    empty = torch.zeros(0, dtype=torch.int64)
-    calls = {
-        "fused_copy": lambda: migrator.fused_copy(placed, two, two + 8),
-        "fused_copy_runs": lambda: migrator.fused_copy_runs(placed, two * 2, two * 2 + 8, 2),
-        "copy_chunk": lambda: migrator.copy_chunk(placed, two, two, 1),
-        "megastep": lambda: migrator.megastep(placed, *([empty] * 15), torch.zeros(0),
-                                              empty, torch.zeros(0)),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match="ppermute"):
-            call()
-    # a driver over a mesh drives the megastep only through the ppermute backend
-    drv = T.MigrationDriver(_state(pc, 12), pc, T.LeapConfig(),
-                            mesh=T.make_region_mesh(4, ["cpu"] * 4))
-    s = drv.default_session()
-    s.leap(np.arange(4), 1)
-    with pytest.raises(ValueError, match="ppermute"):
-        s.tick()
