@@ -12,7 +12,11 @@ host memory first, then returns while a thread writes; ``wait()`` joins it
 and raises what the writer raised.
 
 A tree is a tensor, an ``nn.Module`` (its named parameters), a dataclass
-(such as ``TrainState``), a dict or a list, nested.  Leaves are named by
+(such as ``TrainState``), a dict or a list, nested.  A state placed over a
+device mesh (``distributed/sharding.py`` ``place``) saves each leaf whole,
+gathered, under the names and in the format of the unplaced state, so a
+checkpoint does not know the mesh it was written under: restore it into an
+unplaced template and ``place`` the result on any mesh, bit for bit.  Leaves are named by
 their path (``params/blocks.0.attn.wq``, ``opt/m/...``, ``opt/step``).
 bfloat16 leaves go to disk as their raw uint16 bits with ``"bfloat16"`` in
 the manifest (numpy has no bfloat16 without ``ml_dtypes``), so the files
@@ -45,13 +49,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import PlacedModel, Sharded, gather
 from repro_torch.models.lm import CausalLM, named_leaves
 
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Sharded)):
         return [(prefix.rstrip("/"), tree)]
-    if isinstance(tree, nn.Module):
+    if isinstance(tree, (nn.Module, PlacedModel)):
         return [(prefix + n, p) for n, p in tree.named_parameters()]
     if dataclasses.is_dataclass(tree):
         items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
@@ -88,9 +93,10 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy that later in-place updates of ``t`` cannot touch."""
-    t = t.detach().to("cpu", copy=True)
+def _to_host(t) -> np.ndarray:
+    """A host copy that later in-place updates of ``t`` cannot touch (a
+    sharded value gathered whole)."""
+    t = gather(t, "cpu") if isinstance(t, Sharded) else t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

@@ -2,20 +2,29 @@
 
 The JAX package's ``distributed/collectives.py``.  ``quantized_mean``
 compresses each gradient leaf around the data-parallel reduction: a
-per-leaf symmetric scale, int8 quantisation, the mean, dequantisation.  On
-one process there is no reduction, and it models the wire format alone
-(quantise, then dequantise), the reference's path without an axis name.
+per-leaf symmetric scale, int8 quantisation, the mean, dequantisation.
+Without an axis name it models the wire format alone (quantise, then
+dequantise), as the reference's path without one does.
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the two
 packages give the same int8 payload bit for bit.
 
-With an ``axis_name`` the reference all-gathers the int8 payload over a
-mesh axis.  The port runs on one card so far: it raises rather than return
-the unreduced round trip (ROADMAP.md, multi-device).
+With an ``axis_name`` the reference runs inside ``shard_map`` and
+all-gathers the int8 payload over a mesh axis
+(``src/repro/distributed/collectives.py:42-46``).  Here that is a leaf
+:class:`~repro_torch.distributed.sharding.Sharded` over the current ctx's
+``DeviceMesh``, each position's shard its own value (``shard_map``'s local
+block): each position quantises its shard, the int8 payloads and scales of
+the positions along the axis are copied to it (int8 between devices), and
+it dequantises them and takes their mean in axis order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from repro_torch.distributed.sharding import Sharded, axis_peers, current_ctx, has_devices
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -32,7 +41,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -
 
 
 def _tree_map(fn, tree):
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Sharded)):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -41,21 +50,55 @@ def _tree_map(fn, tree):
     raise TypeError(f"not a tensor tree: {type(tree).__name__}")
 
 
+def all_gather_int8(x: Sharded, axis_name: str) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """For each position of ``x``'s mesh: the int8 payloads ``[n, *local]``
+    and fp32 scales ``[n]`` of the ``n`` positions along ``axis_name`` (its
+    own among them), in the axis's order, on its device: the reference's
+    ``all_gather`` of ``quantize_int8``'s outputs."""
+    payload = [quantize_int8(t) for t in x.shards]
+    out = []
+    for pos, dev in enumerate(x.mesh.devices):
+        peers = axis_peers(x.mesh, pos, axis_name)
+        out.append((torch.stack([payload[p][0].to(dev) for p in peers]),
+                    torch.stack([payload[p][1].to(dev) for p in peers])))
+    return out
+
+
 def quantized_mean(tree, axis_name: str | None = None):
     """Compress-and-reduce a gradient tree (tensors in nested dicts, lists
     and tuples); each leaf comes back in its own dtype.
 
     Without ``axis_name``: the round trip (quantise, then dequantise), which
-    is what one process can verify numerically.
+    is what one process can verify numerically.  With it: every leaf is a
+    ``Sharded`` value over the current ctx's ``DeviceMesh``; each position
+    gets the mean over the axis of the dequantised payloads
+    (:func:`all_gather_int8`), each term multiplied and added in one
+    rounding, in axis order.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"quantized_mean over mesh axis {axis_name!r}: the port runs on one card; the "
-            f"all-gather of the int8 payload waits for several (ROADMAP.md, multi-device)"
-        )
+    if axis_name is None:
+        def one(g):
+            q, s = quantize_int8(g)
+            return dequantize_int8(q, s, g.dtype)
 
-    def one(g):
-        q, s = quantize_int8(g)
-        return dequantize_int8(q, s, g.dtype)
+        return _tree_map(one, tree)
+    ctx = current_ctx()
+    if ctx is None or not has_devices(ctx.mesh):
+        raise ValueError(f"quantized_mean over mesh axis {axis_name!r} runs under a ctx over a "
+                         "DeviceMesh")
+    if axis_name not in ctx.mesh.axis_names:
+        raise ValueError(f"the ctx's mesh axes {ctx.mesh.axis_names} have no axis {axis_name!r}")
 
-    return _tree_map(one, tree)
+    def reduce(x):
+        if not isinstance(x, Sharded) or x.mesh != ctx.mesh:
+            raise TypeError("quantized_mean over a mesh axis takes Sharded leaves on the ctx's "
+                            "mesh")
+        shards = []
+        for qf, sf in all_gather_int8(x, axis_name):
+            total = torch.zeros(qf.shape[1:], dtype=torch.float32, device=qf.device)
+            for q, s in zip(qf, sf):
+                # one rounding a term, as XLA fuses the reference's product into its sum
+                total = torch.addcmul(total, q.float(), s)
+            shards.append((total / len(qf)).to(x.dtype))
+        return dataclasses.replace(x, shards=shards)
+
+    return _tree_map(reduce, tree)

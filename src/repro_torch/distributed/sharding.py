@@ -1,22 +1,33 @@
 """Sharding rules: logical axes -> mesh axes, parameter rules, activation
-constraints.
+constraints, and placement of parameters over a device mesh.
 
 The JAX package's ``distributed/sharding.py``, with its rules kept as data.
 Model code there asks for logical axes ("dp", "tp", "fsdp", "seq") through
-a context, and GSPMD applies the resulting specs.  The port has no GSPMD
-and runs on one card, so here the rules feed accounting: the dry-run
-(``launch/dryrun.py``) reads per-device shapes off them on the production
-meshes, with tensors on ``meta``.  The port's models call no constraint;
-``constrain`` and ``constrain_params`` are the identity outside a context
-and under a one-device mesh, and raise under a larger one, where the model
-would have to be sharded over several cards (ROADMAP.md queue 1, item 5).
+a context, and GSPMD applies the resulting specs.  The port has no GSPMD:
+a single controller drives every position of a mesh.
 
-Two types stand in for JAX's:
-  * a mesh is a :class:`MeshShape`: axis names and sizes, no devices
-    (what the reference reads through ``mesh.shape[...]`` and
-    ``mesh.axis_names``);
-  * a spec is a plain tuple with one entry per dim: ``None``, an axis name
-    or a tuple of names (the reference's ``PartitionSpec``).
+Two kinds of mesh:
+  * a :class:`MeshShape`: axis names and sizes, no devices (what the
+    reference reads through ``mesh.shape[...]`` and ``mesh.axis_names``).
+    The dry-run (``launch/dryrun.py``) reads per-device shapes off the
+    rules on the production meshes with it, tensors on ``meta``;
+  * a ``launch/mesh.py`` ``DeviceMesh``: a ``MeshShape`` plus one
+    ``torch.device`` per position, row-major.  Positions may share a device
+    (every position on one card, or on the CPU in the tests) or lie on
+    distinct cards; only the copies between positions differ.
+
+On a ``DeviceMesh``, :func:`shard` lays a tensor out as a :class:`Sharded`
+value (one local tensor per position, replicated dims copied to each) and
+:func:`place` applies the parameter rules leaf by leaf to a model or a
+training state.  :func:`constrain` resolves and checks its spec and returns
+its input: a constraint changes no value, and the executor (``models/lm.py``
+``group_train``, ``train/train_step.py``) lays out the activations, a
+data-parallel group's rows on its lead position.  :func:`constrain_params`
+is the reduction of gradients into the parameters' shards.
+
+A spec is a plain tuple with one entry per dim: ``None``, an axis name or a
+tuple of names (the reference's ``PartitionSpec``).  A dim over a tuple of
+axes takes the first axis as the major one, as JAX does.
 
 Default production mapping (DESIGN.md §6):
   dp    = ("pod", "data")   batch parallel (pods are pure DP)
@@ -29,8 +40,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
+
+import torch
+from torch import nn
 
 Spec = tuple  # one entry per dim: None, an axis name, or a tuple of names
 
@@ -154,21 +169,16 @@ def shard_shape(shape: tuple[int, ...], spec: Spec, mesh: MeshShape) -> tuple[in
     return tuple(out)
 
 
-def _multi_device(ctx: ShardCtx) -> None:
-    if ctx.mesh.size > 1:
-        raise NotImplementedError(
-            f"a sharding constraint on a {ctx.mesh.size}-device mesh needs a model sharded over "
-            "several cards, which is not ported yet (ROADMAP.md queue 1, item 5)"
-        )
-
-
 def constrain(x, *logical: str | None):
-    """The identity outside a ctx and under a one-device mesh; raises under a
-    larger mesh (the reference's ``with_sharding_constraint`` has no
-    counterpart without GSPMD)."""
+    """The reference's ``with_sharding_constraint``: the identity outside a
+    ctx.  Under one, the spec is resolved (an unknown logical axis raises
+    ``ValueError``) and sanitized against ``x``'s shape, and ``x`` comes
+    back unchanged: the constraint changes no value, and on a
+    ``DeviceMesh`` the executor places the activations (a data-parallel
+    group's rows on its lead position)."""
     ctx = current_ctx()
     if ctx is not None:
-        _multi_device(ctx)
+        sanitize_spec(tuple(ctx.resolve(lg) for lg in logical), tuple(x.shape), ctx.mesh)
     return x
 
 
@@ -177,6 +187,10 @@ def tp_worthwhile(x_shape: tuple[int, ...], w_elems: int) -> bool:
 
     The reference's napkin rule: constrain iff the layer's weight elements
     exceed 2x the per-device activation elements.  False outside a ctx.
+    The port's models ask nothing of it: on a ``DeviceMesh`` every product
+    runs whole on a group's lead position, so the answer changes no value
+    (tensor-parallel products over the model axis are ROADMAP.md queue 1,
+    item 5).
     """
     ctx = current_ctx()
     if ctx is None:
@@ -191,13 +205,29 @@ def tp_worthwhile(x_shape: tuple[int, ...], w_elems: int) -> bool:
     return w_elems > 2 * tokens_dev * x_shape[-1]
 
 
-def constrain_params(tree):
-    """The identity outside a ctx and under a one-device mesh; raises under a
-    larger mesh, as :func:`constrain`."""
+def constrain_params(grads: dict, into: dict | None = None):
+    """The reference's ``constrain_params`` on each microbatch gradient and on
+    the gradient accumulator (``src/repro/train/train_step.py:81-83``),
+    which pins both to the parameters' shardings so that adding them lowers
+    to a reduce-scatter into the sharded accumulator.  Here it is that
+    reduction: under a ``DeviceMesh`` ctx each whole gradient ``grads[name]``
+    is added into the :class:`Sharded` accumulator ``into[name]``, each
+    position adding its own slice in the accumulator's dtype, in place;
+    returns ``into``.  This is the step's reduction of a block's gradients
+    (``models/lm.py`` ``group_train``).
+
+    Without ``into`` it changes no value and returns ``grads``, under any
+    ctx or none, as a sharding constraint does.
+    """
+    if into is None:
+        return grads
     ctx = current_ctx()
-    if ctx is not None:
-        _multi_device(ctx)
-    return tree
+    if ctx is None or not has_devices(ctx.mesh):
+        raise ValueError("constrain_params(into=...) reduces into shards on a DeviceMesh: "
+                         "call it under use_ctx(make_ctx(mesh)) with one")
+    for name, g in grads.items():
+        into[name].add_(g)
+    return into
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +329,218 @@ def param_shardings(model_or_named_leaves, mesh: MeshShape, ctx: ShardCtx, *,
         resolved = tuple(ctx.resolve(a) if isinstance(a, str) else a for a in logical)
         out[name] = sanitize_spec(resolved, tuple(t.shape), mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Placement over a DeviceMesh (launch/mesh.py): one local tensor a position.
+# ---------------------------------------------------------------------------
+
+
+def has_devices(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (a ``MeshShape`` with devices)."""
+    return getattr(mesh, "devices", None) is not None
+
+
+def _require_devices(mesh) -> None:
+    if not has_devices(mesh):
+        raise ValueError(f"{type(mesh).__name__} {mesh.shape} has no devices: place values on a "
+                         "launch.mesh.DeviceMesh")
+
+
+def coords(mesh: MeshShape, pos: int) -> tuple[int, ...]:
+    """Position ``pos``'s index along each axis (row-major)."""
+    return tuple(int(i) for i in _unravel(pos, mesh.sizes))
+
+
+def _unravel(pos: int, sizes) -> list[int]:
+    out = []
+    for n in reversed(sizes):
+        out.append(pos % n)
+        pos //= n
+    return out[::-1]
+
+
+def position(mesh: MeshShape, index: dict[str, int]) -> int:
+    """The position at ``{axis: index}`` (axes left out at 0)."""
+    pos = 0
+    for name, n in zip(mesh.axis_names, mesh.sizes):
+        pos = pos * n + index.get(name, 0)
+    return pos
+
+
+def _entry_index(mesh: MeshShape, at: dict[str, int], entry) -> int:
+    """The block a position holds along a dim laid out over ``entry``."""
+    if entry is None:
+        return 0
+    idx = 0
+    for a in (entry,) if isinstance(entry, str) else entry:
+        idx = idx * mesh.shape[a] + at[a]
+    return idx
+
+
+def axis_peers(mesh: MeshShape, pos: int, axis: str) -> list[int]:
+    """The positions that differ from ``pos`` along ``axis`` alone, in the
+    axis's order (``pos`` among them)."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no axis {axis!r}")
+    at = dict(zip(mesh.axis_names, coords(mesh, pos)))
+    return [position(mesh, {**at, axis: i}) for i in range(mesh.shape[axis])]
+
+
+def dp_leads(ctx: ShardCtx) -> list[int]:
+    """The lead position of each data-parallel group of ``ctx``, in the
+    order of the batch's blocks over the dp axes: the group's index along
+    them, every other axis at 0.  One group (position 0) when ``ctx.dp`` is
+    empty, as under ``make_decode_2d_ctx``."""
+    mesh = ctx.mesh
+    return [position(mesh, dict(zip(ctx.dp, combo)))
+            for combo in itertools.product(*(range(mesh.shape[a]) for a in ctx.dp))]
+
+
+@dataclasses.dataclass(eq=False)
+class Sharded:
+    """A tensor of global ``shape`` and ``dtype`` laid out over a
+    ``DeviceMesh`` by ``spec`` (sanitized): ``shards[p]`` is position ``p``'s
+    local tensor, of :func:`shard_shape`, on ``mesh.devices[p]``.  A dim
+    the spec leaves whole is copied to every position, so positions that
+    hold the same block hold equal tensors."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: Spec
+    mesh: MeshShape
+    shards: list
+
+    def __post_init__(self) -> None:
+        _require_devices(self.mesh)
+        if len(self.shards) != self.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for {self.mesh.size} positions")
+        local = shard_shape(self.shape, self.spec, self.mesh)
+        entries = list(self.spec) + [None] * (len(self.shape) - len(self.spec))
+        self.slices, blocks = [], {}
+        for pos in range(self.mesh.size):
+            at = dict(zip(self.mesh.axis_names, coords(self.mesh, pos)))
+            idx = tuple(_entry_index(self.mesh, at, e) for e in entries)
+            self.slices.append(tuple(slice(i * n, (i + 1) * n) for i, n in zip(idx, local)))
+            blocks.setdefault(idx, pos)
+        # the first position holding each distinct block, in position order
+        self.owners = sorted(blocks.values())
+
+    def zeros(self, dtype: torch.dtype | None = None) -> Sharded:
+        """Zeros of this layout (in ``dtype``, by default this one's)."""
+        dtype = dtype or self.dtype
+        return dataclasses.replace(self, dtype=dtype, shards=[
+            torch.zeros(s.shape, dtype=dtype, device=s.device) for s in self.shards])
+
+    @torch.no_grad()
+    def add_(self, full: torch.Tensor) -> Sharded:
+        """Add the whole tensor ``full`` in place: each position adds its
+        slice, copied to its device, in this value's dtype."""
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"adding {tuple(full.shape)} to a sharded {self.shape}")
+        for s, sl in zip(self.shards, self.slices):
+            s.add_(full[sl].to(s.device))
+        return self
+
+
+@torch.no_grad()
+def shard(t: torch.Tensor, spec: Spec, mesh: MeshShape) -> Sharded:
+    """``t`` laid out over the ``DeviceMesh`` ``mesh`` by ``spec`` (sanitized
+    against ``t``'s shape first): each position's block copied to its
+    device, in an allocation of its own."""
+    _require_devices(mesh)
+    spec = sanitize_spec(tuple(spec), tuple(t.shape), mesh)
+    local = shard_shape(tuple(t.shape), spec, mesh)
+    x = Sharded(tuple(t.shape), t.dtype, spec, mesh, [None] * mesh.size)
+    x.shards = [torch.empty(local, dtype=t.dtype, device=d).copy_(t[sl])
+                for d, sl in zip(mesh.devices, x.slices)]
+    return x
+
+
+@torch.no_grad()
+def gather(x: Sharded, device) -> torch.Tensor:
+    """The whole tensor on ``device``, bit for bit: each distinct block copied
+    once from the first position that holds it."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    for pos in x.owners:
+        out[x.slices[pos]].copy_(x.shards[pos])
+    return out
+
+
+@dataclasses.dataclass(eq=False)
+class PlacedModel:
+    """A model's parameters placed over a ``DeviceMesh``: ``leaves`` maps each
+    dotted parameter name (the model's ``named_parameters`` order) to its
+    :class:`Sharded` value.  ``models/lm.py`` runs it block by block
+    (``train_step``, ``decode_step``)."""
+
+    cfg: object
+    leaves: dict
+
+    @property
+    def mesh(self) -> MeshShape:
+        return next(iter(self.leaves.values())).mesh
+
+    def named_parameters(self):
+        return self.leaves.items()
+
+
+def place(tree, mesh: MeshShape, ctx: ShardCtx, *, inference: bool = False):
+    """Lay a model or a training state out over the ``DeviceMesh`` ``mesh`` by
+    :func:`param_shardings`, leaf by leaf (the reference's
+    ``jax.device_put(state, param_shardings(...))``).
+
+    * a model (``named_parameters`` and ``cfg``): a :class:`PlacedModel`;
+    * a training state (a dataclass with ``params`` and ``opt``): the same
+      dataclass with the placed model, m and v laid out as their parameters
+      and the step counter on every position;
+    * ``{name: tensor}``: ``{name: Sharded}`` by the parameter rules.
+    """
+    _require_devices(mesh)
+    if ctx.mesh != mesh:
+        raise ValueError("the ctx's mesh is not the mesh to place on")
+    if isinstance(tree, nn.Module):
+        specs = param_shardings(tree, mesh, ctx, inference=inference)
+        return PlacedModel(tree.cfg, {n: shard(p, specs[n], mesh)
+                                      for n, p in tree.named_parameters()})
+    if dataclasses.is_dataclass(tree) and hasattr(tree, "params") and hasattr(tree, "opt"):
+        params = place(tree.params, mesh, ctx, inference=inference)
+        opt = {k: {n: shard(t, params.leaves[n].spec, mesh) for n, t in tree.opt[k].items()}
+               for k in ("m", "v")}
+        opt["step"] = shard(tree.opt["step"], (), mesh)
+        return dataclasses.replace(tree, params=params, opt=opt)
+    specs = param_shardings(tree, mesh, ctx, inference=inference)
+    return {n: shard(t, specs[n], mesh) for n, t in tree.items()}
+
+
+def sharded_leaves(tree) -> list[Sharded]:
+    """Every :class:`Sharded` value in a placed model, a placed training
+    state, or dicts and lists of them."""
+    if isinstance(tree, Sharded):
+        return [tree]
+    if isinstance(tree, PlacedModel):
+        return list(tree.leaves.values())
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in sharded_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for sub in tree for x in sharded_leaves(sub)]
+    return []
+
+
+def position_bytes(tree) -> list[int]:
+    """Bytes each position of the mesh holds of ``tree``'s sharded values."""
+    leaves = sharded_leaves(tree)
+    return [sum(x.shards[p].numel() * x.shards[p].element_size() for x in leaves)
+            for p in range(leaves[0].mesh.size)] if leaves else []
+
+
+def executor_ctx(mesh: MeshShape) -> ShardCtx:
+    """The current ctx, which must be over ``mesh`` (a placed value runs under
+    ``use_ctx(make_ctx(mesh))`` or ``make_decode_2d_ctx(mesh)``)."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh != mesh:
+        raise ValueError("a value placed on a DeviceMesh runs under use_ctx(ctx) with a ctx over "
+                         "that mesh")
+    return ctx

@@ -1,4 +1,5 @@
-"""Region meshes for a pool sharded over its regions, and the production meshes.
+"""Region meshes for a pool sharded over its regions, device meshes for a
+model sharded over its parameters, and the production meshes.
 
 The JAX package shards the pool's region dim over a mesh axis with one
 device per memory region: its xla backend indexes across the shards
@@ -21,6 +22,14 @@ The regions may share a device (every region on one card, or on the CPU for
 tests) or lie on distinct cards; the code that runs over the shards is the
 same, and only the accesses between two devices differ.
 
+A :class:`DeviceMesh` is the reference's ``jax.sharding.Mesh`` for the
+model: axis names and sizes (a ``MeshShape``) and one ``torch.device`` per
+position, row-major.  ``distributed/sharding.py`` ``place`` lays a model or
+a training state out over it by the reference's rules, and one controller
+runs the sharded train and decode steps over it (``train/train_step.py``,
+``models/lm.py``).  Its positions too may share a device or lie on
+distinct cards.
+
 ``make_production_mesh`` and ``make_debug_mesh`` give the JAX package's
 meshes as :class:`~repro_torch.distributed.sharding.MeshShape` s (names and
 sizes, no devices), which the dry-run's accounting reads.
@@ -29,6 +38,7 @@ sizes, no devices), which the dry-run's accounting reads.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -43,6 +53,14 @@ def _default_device(device=None) -> torch.device:
     return _default_device(device)
 
 
+def _pinned(device) -> torch.device:
+    """``device`` with its card's index ("cuda" names the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class RegionMesh:
     """One ``torch.device`` per region along the mesh axis ``axis_name``."""
@@ -52,11 +70,7 @@ class RegionMesh:
 
     def __post_init__(self) -> None:
         # "cuda" and "cuda:0" name one card: pin the index so they compare equal
-        devices = tuple(
-            torch.device("cuda", torch.cuda.current_device()) if d.type == "cuda" and d.index is None
-            else d
-            for d in map(torch.device, self.devices)
-        )
+        devices = tuple(map(_pinned, self.devices))
         if not devices:
             raise ValueError("a region mesh needs at least one region")
         object.__setattr__(self, "devices", devices)
@@ -84,6 +98,38 @@ def make_region_mesh(
     if len(devices) != n_regions:
         raise ValueError(f"{len(devices)} devices for {n_regions} regions")
     return RegionMesh(tuple(devices), axis_name)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh(MeshShape):
+    """A :class:`MeshShape` with ``devices[p]`` holding position ``p``
+    (row-major over the axes).  A card that is not on this host raises;
+    peer access is turned on between distinct cards."""
+
+    devices: tuple = ()
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        devices = tuple(_pinned(d) for d in self.devices)
+        if len(devices) != self.size:
+            raise ValueError(f"{len(devices)} devices for a mesh of {self.size} positions "
+                             f"{self.shape}")
+        for d in devices:
+            if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                raise ValueError(f"{d} is not on this host ({torch.cuda.device_count()} cards)")
+        object.__setattr__(self, "devices", devices)
+        if len({d for d in devices if d.type == "cuda"}) > 1:
+            enable_peer_access(devices)
+
+
+def make_device_mesh(sizes, axis_names, devices=None) -> DeviceMesh:
+    """A mesh of ``sizes`` over ``axis_names``, position ``p`` (row-major) on
+    ``devices[p]`` (e.g. ``["cpu"] * 8``, or a card a position).  By default
+    every position is the current CUDA device, which must exist."""
+    sizes, axis_names = tuple(sizes), tuple(axis_names)
+    if devices is None:
+        devices = [_default_device()] * math.prod(sizes)
+    return DeviceMesh(sizes, axis_names, tuple(devices))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -21,6 +21,14 @@ and ``moe`` layers (written in place by decode); ``{"conv", "h"}`` for
 "m", "h"}`` for ``slstm`` layers (each replaced in the list by the new state
 its decode step returns).
 
+A model placed over a device mesh (``distributed/sharding.py`` ``place``,
+a ``PlacedModel``) runs block by block on each data-parallel group's lead
+position: :func:`group_train` and :func:`decode_step` gather a stage's
+leaves (the embedding, one block, the final norm and head) from their
+shards just before it runs and free them after, and the training backward
+recomputes each block from its saved input, gathering it again, and
+reduces its gradients into the shards as soon as it is done.
+
 The JAX module's function names (``init_params``, ``train_loss``,
 ``prefill``, ``decode_step``, ``init_cache``, ``embed_tokens``,
 ``lm_logits``) remain as thin wrappers.  Weights keep the JAX ``[in, out]`` layout, so
@@ -29,6 +37,8 @@ The JAX module's function names (``init_params``, ``train_loss``,
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -36,7 +46,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device, _tensor_from_host
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import blocks as B
+from repro_torch.models.moe import dp_config
 from repro_torch.models.common import _param, dense_init, embed_init, rms_norm, softcap
 
 
@@ -105,14 +117,9 @@ class CausalLM(nn.Module):
             else:
                 x, a = B.block_train(x, blk, cfg, blk.kind)
             aux = aux + a
-        logits = self.lm_logits(x)  # [B,S,V] fp32
-        labels = batch["labels"].long()
-        mask = (labels >= 0).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-        nll = (lse - ll) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-        loss = nll.sum() / denom
+        nll = masked_nll_sum(self.lm_logits(x), batch["labels"])  # fp32 logits
+        denom = label_count(batch["labels"])
+        loss = nll / denom
         if cfg.moe is not None:
             loss = loss + cfg.moe.aux_loss_weight * aux / max(cfg.n_layers, 1)
         return loss, {"nll": loss, "tokens": denom}
@@ -144,6 +151,20 @@ class CausalLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             x, cache[i] = B.block_decode(x, blk, self.cfg, blk.kind, cache[i], pos)
         return self.lm_logits(x)[:, 0], cache
+
+
+def masked_nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The summed NLL of fp32 ``logits`` [B,S,V] at the positions whose label
+    is >= 0 (label -100 is masked)."""
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return ((lse - ll) * (labels >= 0).float()).sum()
+
+
+def label_count(labels: torch.Tensor) -> torch.Tensor:
+    """The loss's denominator: the labels >= 0, at least 1, as an fp32 0-d tensor."""
+    return torch.clamp((labels >= 0).float().sum(), min=1.0)
 
 
 def _grow_kv(cache: list[dict], cfg: ModelConfig, max_len: int) -> list[dict]:
@@ -279,5 +300,142 @@ def prefill(params: CausalLM, inputs, cfg: ModelConfig, max_len: int):
     return params.prefill(inputs, max_len)
 
 
-def decode_step(params: CausalLM, cache, inputs, pos, cfg: ModelConfig):
+def decode_step(params, cache, inputs, pos, cfg: ModelConfig):
+    """One decode step.  ``params`` a :class:`CausalLM`, or a model placed
+    over a device mesh with ``cache`` from :func:`init_group_caches`, run
+    under a ctx over that mesh."""
+    if isinstance(params, sh.PlacedModel):
+        return _placed_decode_step(params, cache, inputs, int(pos), cfg)
     return params.decode_step(cache, inputs, int(pos))
+
+
+# -- a model placed over a device mesh ------------------------------------------------
+
+
+def _skeleton(placed: sh.PlacedModel) -> CausalLM:
+    """The model's modules on ``meta``, whose parameters a stage binds to
+    gathered tensors while it runs."""
+    if not hasattr(placed, "_skeleton"):
+        placed._skeleton = CausalLM(placed.cfg, device="meta")
+    return placed._skeleton
+
+
+def _stages(placed: sh.PlacedModel) -> tuple[list[str], list[list[str]], list[str]]:
+    """The leaf names of the embedding, of each block and of the head."""
+    cfg, names = placed.cfg, list(placed.leaves)
+    embed = ["embed"] if cfg.embed_inputs else []
+    blocks = [[n for n in names if n.startswith(f"blocks.{i}.")] for i in range(cfg.n_layers)]
+    return embed, blocks, ["final_norm", "lm_head" if _has_head(cfg) else "embed"]
+
+
+@contextlib.contextmanager
+def _bound(skel: nn.Module, placed: sh.PlacedModel, names: list[str], device, grad: bool):
+    """Bind the leaves ``names``, gathered onto ``device``, as the skeleton's
+    parameters (with ``requires_grad`` if ``grad``); yields them, and puts
+    the ``meta`` parameters back after, which frees the gathered ones once
+    the caller drops them."""
+    old, params = [], []
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        sub = skel.get_submodule(owner)
+        old.append((sub, leaf, getattr(sub, leaf)))
+        p = nn.Parameter(sh.gather(placed.leaves[name], device), requires_grad=grad)
+        setattr(sub, leaf, p)
+        params.append(p)
+    try:
+        yield params
+    finally:
+        for sub, leaf, p in old:
+            setattr(sub, leaf, p)
+
+
+def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, device,
+                denom: torch.Tensor, aux_scale: float, into: dict) -> torch.Tensor:
+    """One data-parallel group's share of a training microbatch, on ``device``.
+
+    ``batch`` holds the group's rows; ``denom`` is the count of labels >= 0
+    over the whole microbatch (the reference's masked mean is global) and
+    ``aux_scale`` the MoE aux term's weight for this group's mean over its
+    routing groups.  The forward pass saves each block's input and nothing
+    else; the backward pass recomputes each block from it (as the
+    reference's per-period remat does) and reduces each stage's gradients
+    into ``into``'s shards as soon as that stage is done
+    (``sharding.constrain_params(..., into=)``), so no whole-model gradient
+    is ever alive.  Returns the group's loss term: its masked NLL sum over
+    ``denom`` plus ``aux_scale`` times its summed aux losses.
+    """
+    skel = _skeleton(placed)
+    embed, blocks, head = _stages(placed)
+    with torch.no_grad():
+        with _bound(skel, placed, embed, device, False):
+            x = skel.embed_tokens(batch["inputs"])
+        saved, aux = [], torch.zeros((), dtype=torch.float32, device=device)
+        for blk, names in zip(skel.blocks, blocks):
+            saved.append(x)
+            with _bound(skel, placed, names, device, False):
+                x, a = B.block_train(x, blk, cfg, blk.kind)
+            aux = aux + a
+    x = x.detach().requires_grad_(True)
+    with _bound(skel, placed, head, device, True) as ps:
+        nll = masked_nll_sum(skel.lm_logits(x), batch["labels"]) / denom
+        dx, *grads = torch.autograd.grad(nll, [x, *ps])
+    sh.constrain_params(dict(zip(head, grads)), into=into)
+    seed = torch.full((), aux_scale, dtype=torch.float32, device=device)
+    for blk, names in zip(reversed(skel.blocks), reversed(blocks)):
+        xi = saved.pop().detach().requires_grad_(True)
+        with _bound(skel, placed, names, device, True) as ps:
+            y, a = B.block_train(xi, blk, cfg, blk.kind)
+            outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else ([y], [dx])
+            dx, *grads = torch.autograd.grad(outs, [xi, *ps], seeds, allow_unused=True,
+                                             materialize_grads=True)
+        sh.constrain_params(dict(zip(names, grads)), into=into)
+    if embed:
+        with _bound(skel, placed, embed, device, True) as ps:
+            grads = torch.autograd.grad(skel.embed_tokens(batch["inputs"]), ps, dx)
+        sh.constrain_params(dict(zip(embed, grads)), into=into)
+    return nll.detach() + aux_scale * aux
+
+
+def init_group_caches(placed: sh.PlacedModel, batch: int, max_len: int) -> list[list[dict]]:
+    """One empty decode cache per data-parallel group of the current ctx,
+    each for the group's rows of ``batch`` on its lead position's device."""
+    ctx = sh.executor_ctx(placed.mesh)
+    leads = sh.dp_leads(ctx)
+    rows = _group_rows(batch, len(leads))
+    return [init_cache(placed.cfg, rows, max_len, placed.mesh.devices[p]) for p in leads]
+
+
+def _group_rows(batch: int, dp: int) -> int:
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} rows (dim 0) does not split over {dp} "
+                         "data-parallel groups")
+    return batch // dp
+
+
+@torch.no_grad()
+def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos: int,
+                        cfg: ModelConfig):
+    """``decode_step`` over a placed model: each data-parallel group decodes
+    its rows on its lead position with its cache there, gathering each
+    stage's leaves as it runs; the logits [B,V] come back on position 0's
+    device."""
+    ctx = sh.executor_ctx(placed.mesh)
+    leads = sh.dp_leads(ctx)
+    if len(caches) != len(leads):
+        raise ValueError(f"{len(caches)} caches for {len(leads)} data-parallel groups")
+    dp = len(leads)
+    _group_rows(inputs.shape[0], dp)
+    local = dp_config(cfg, inputs.shape[0] * inputs.shape[1], dp)
+    skel = _skeleton(placed)
+    embed, blocks, head = _stages(placed)
+    home, out = placed.mesh.devices[0], []
+    for g, (lead, rows) in enumerate(zip(leads, inputs.chunk(dp))):
+        dev, cache = placed.mesh.devices[lead], caches[g]
+        with _bound(skel, placed, embed, dev, False):
+            x = skel.embed_tokens(rows.to(dev))
+        for i, (blk, names) in enumerate(zip(skel.blocks, blocks)):
+            with _bound(skel, placed, names, dev, False):
+                x, cache[i] = B.block_decode(x, blk, local, blk.kind, cache[i], pos)
+        with _bound(skel, placed, head, dev, False):
+            out.append(skel.lm_logits(x)[:, 0].to(home))
+    return torch.cat(out), caches

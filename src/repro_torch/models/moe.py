@@ -13,12 +13,16 @@ reference's dense tensors from the slots, for tests.
 
 The JAX package's sharding constraints and its two ``dispatch_mode``
 branches (experts gathered or tokens moved) are the same arithmetic on one
-device, so there is one path here.  The expert products are batched matrix
+device, so there is one path here.  Over a device mesh each data-parallel
+group routes, on its own rows, exactly the reference's routing groups that
+fall in them (:func:`dp_config`).  The expert products are batched matrix
 products over the expert axis, as the reference's are einsums outside any
 Pallas kernel.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +69,27 @@ def capacity(mc: MoEConfig, n_tokens: int) -> int:
 
 def _pick_groups(t: int, target: int) -> int:
     return next(g for g in range(min(target, t), 0, -1) if t % g == 0)
+
+
+def dp_config(cfg: ModelConfig, tokens: int, dp: int) -> ModelConfig:
+    """``cfg`` for each of ``dp`` data-parallel groups that run a call of
+    ``tokens`` tokens (a step's rows split evenly over the groups).
+
+    The reference picks ``g = _pick_groups(tokens, moe.groups)`` over the
+    whole batch, and each routing group (a contiguous run of tokens) has its
+    own capacity.  A dp group holds the rows of ``g / dp`` of them, so it
+    routes with ``groups = g / dp``, which its own token count picks back
+    exactly.  Raises ``ValueError`` naming ``moe.groups`` where ``g`` does not
+    split over the dp groups: no other routing is the reference's.
+    """
+    if cfg.moe is None or dp == 1:
+        return cfg
+    g = _pick_groups(tokens, cfg.moe.groups)
+    if g % dp:
+        raise ValueError(
+            f"moe.groups={cfg.moe.groups} routes {tokens} tokens in {g} groups, which do not "
+            f"split over {dp} data-parallel groups: set moe.groups so that they do")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=g // dp))
 
 
 def route_slots(gates: torch.Tensor, mc: MoEConfig, cap: int):

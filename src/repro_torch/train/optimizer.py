@@ -95,6 +95,15 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+def sharded_global_norm(grads: dict, device) -> torch.Tensor:
+    """:func:`global_norm` of ``{name: Sharded}`` gradients, on ``device``:
+    each leaf's distinct blocks summed once (a dim copied to several
+    positions counts once), in position order."""
+    sums = [sum(torch.sum(torch.square(s.float())) for s in _slices(x.shards[pos])).to(device)
+            for x in grads.values() for pos in x.owners]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
 def _decay_mask(name: str) -> bool:
     """Decay matrices; skip norms/biases/scalars (standard practice).  Reads
     the last component of a dotted parameter name."""
@@ -104,34 +113,70 @@ def _decay_mask(name: str) -> bool:
     )
 
 
+def _scalars(cfg: OptimizerConfig, step_now: torch.Tensor, gnorm: torch.Tensor) -> dict:
+    """The step's fp32 scalars on ``step_now``'s device: the next step, the
+    clip scale, the learning rate and the two bias corrections."""
+    step = step_now + 1
+    dev = step.device
+    step32 = step.to(torch.float32)
+    return {
+        "step": step,
+        "scale": torch.clamp(_f32(cfg.clip_norm, dev) / torch.clamp(gnorm, min=1e-9), max=1.0),
+        "lr": lr_at(cfg, step),
+        "bc1": 1.0 - torch.pow(_f32(cfg.b1, dev), step32),
+        "bc2": 1.0 - torch.pow(_f32(cfg.b2, dev), step32),
+    }
+
+
+def _adamw(name: str, p, g, m, v, k: dict, cfg: OptimizerConfig) -> None:
+    """One leaf's AdamW update in place, ``k`` from :func:`_scalars`."""
+    decay = bool(cfg.weight_decay) and _decay_mask(name)
+    b1, b2 = cfg.b1, cfg.b2
+    for ps, gs, ms, vs in zip(*map(_slices, (p, g, m, v))):
+        g32 = gs.float() * k["scale"]
+        m32 = b1 * ms.float() + (1 - b1) * g32
+        v32 = b2 * vs.float() + (1 - b2) * torch.square(g32)
+        update = (m32 / k["bc1"]) / (torch.sqrt(v32 / k["bc2"]) + cfg.eps)
+        if decay:
+            update = update + cfg.weight_decay * ps.float()
+        ps.copy_(ps.float() - k["lr"] * update)
+        ms.copy_(m32)
+        vs.copy_(v32)
+
+
 @torch.no_grad()
 def apply_updates(params, grads: dict, opt_state: dict, cfg: OptimizerConfig):
     """One AdamW step, in place.  Returns (params, opt_state, metrics), the
     same objects updated: parameters, m and v are overwritten and the
     ``step`` tensor is incremented in place."""
     named = _named(params)
-    step = opt_state["step"] + 1
-    dev = step.device
     gnorm = global_norm(grads)
-    scale = torch.clamp(_f32(cfg.clip_norm, dev) / torch.clamp(gnorm, min=1e-9), max=1.0)
-    lr = lr_at(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    step32 = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(_f32(b1, dev), step32)
-    bc2 = 1.0 - torch.pow(_f32(b2, dev), step32)
-
+    k = _scalars(cfg, opt_state["step"], gnorm)
     for name, p in named.items():
-        decay = bool(cfg.weight_decay) and _decay_mask(name)
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        for ps, gs, ms, vs in zip(*map(_slices, (p, grads[name], m, v))):
-            g32 = gs.float() * scale
-            m32 = b1 * ms.float() + (1 - b1) * g32
-            v32 = b2 * vs.float() + (1 - b2) * torch.square(g32)
-            update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-            if decay:
-                update = update + cfg.weight_decay * ps.float()
-            ps.copy_(ps.float() - lr * update)
-            ms.copy_(m32)
-            vs.copy_(v32)
-    opt_state["step"].copy_(step)
-    return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+        _adamw(name, p, grads[name], opt_state["m"][name], opt_state["v"][name], k, cfg)
+    opt_state["step"].copy_(k["step"])
+    return params, opt_state, {"grad_norm": gnorm, "lr": k["lr"]}
+
+
+@torch.no_grad()
+def apply_sharded_updates(model, grads: dict, opt_state: dict, cfg: OptimizerConfig) -> dict:
+    """:func:`apply_updates` over a model placed on a device mesh (a
+    ``PlacedModel``), shard by shard: parameters, ``{name: Sharded}``
+    gradients, m and v in the same layouts, and the step on every position.
+    Each position updates its own shards with its own copy of the step's
+    scalars, so positions that hold one block stay equal.  Returns the
+    metrics, on position 0's device."""
+    mesh = model.mesh
+    gnorm = sharded_global_norm(grads, mesh.devices[0])
+    steps = opt_state["step"].shards
+    ks = {}  # one set of scalars a device
+    for pos, dev in enumerate(mesh.devices):
+        if dev not in ks:
+            ks[dev] = _scalars(cfg, steps[pos], gnorm.to(dev))
+    for name, x in model.leaves.items():
+        m, v, g = opt_state["m"][name], opt_state["v"][name], grads[name]
+        for pos, dev in enumerate(mesh.devices):
+            _adamw(name, x.shards[pos], g.shards[pos], m.shards[pos], v.shards[pos], ks[dev], cfg)
+    for s, dev in zip(steps, mesh.devices):
+        s.copy_(ks[dev]["step"])
+    return {"grad_norm": gnorm, "lr": ks[mesh.devices[0]]["lr"]}

@@ -6,8 +6,28 @@ The global batch splits into ``n_micro`` microbatches along its leading
 axis; each microbatch's gradients (in the parameter dtype) accumulate into
 ``accum_dtype`` buffers, which are then divided by ``n_micro``.  With one
 microbatch the gradients are used as they come, as in the reference.  The
-reference's ``constrain_params`` is a sharding hint with no meaning on one
-device, so it has no counterpart.  The step updates the state in place.
+step updates the state in place.
+
+Over a device mesh the entry is the reference's own: place the state by the
+rules (``distributed/sharding.py`` ``place``), then call :func:`train_step`
+under ``use_ctx(make_ctx(mesh))``.  One controller runs the step, a
+captured ``graphs.Program`` (a variant per mesh and batch signature; eager
+on the CPU):
+
+  * each microbatch's rows split evenly over the ctx's data-parallel
+    groups (the reference's ``P(("data",), None)`` batch), and each group
+    computes on its lead position (``models/lm.py`` ``group_train``),
+    groups and microbatches in a fixed order;
+  * the loss's denominator is the microbatch's whole count of labels >= 0,
+    taken before any backward pass, and an MoE layer routes the reference's
+    global groups (``models/moe.py`` ``dp_config``), its aux term their mean;
+  * each block's gradients are reduced into ``accum_dtype`` shards of the
+    parameters' layout as soon as its backward is done, the reference's
+    ``constrain_params`` on each microbatch gradient and on the accumulator;
+  * AdamW runs shard by shard (``optimizer.apply_sharded_updates``).
+
+The rules' tensor-parallel specs shard storage only: each product runs
+whole on a group's lead position, so no value depends on them.
 """
 
 from __future__ import annotations
@@ -18,9 +38,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import graphs
 from repro_torch.core.state import _default_device, _tensor_from_host
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import lm
-from repro_torch.train.optimizer import OptimizerConfig, apply_updates, init_opt_state
+from repro_torch.models.moe import dp_config
+from repro_torch.train.optimizer import (
+    OptimizerConfig,
+    apply_sharded_updates,
+    apply_updates,
+    init_opt_state,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,16 +127,73 @@ def grad_accum(model: lm.CausalLM, batch: dict, cfg: ModelConfig, tcfg: TrainCon
 
 def state_tensors(state: TrainState) -> list[torch.Tensor]:
     """The tensors a training step updates in place: parameters, m, v and the
-    step counter (what the reference donates)."""
+    step counter (what the reference donates); of a placed state, every
+    position's shards of them."""
+    if isinstance(state.params, sh.PlacedModel):
+        return [s for x in sh.sharded_leaves(state) for s in x.shards]
     opt = state.opt
     return (list(state.params.parameters()) + list(state.params.buffers())
             + list(opt["m"].values()) + list(opt["v"].values()) + [opt["step"]])
 
 
+# the sharded step: a variant per mesh and batch signature (the module docstring)
+SHARDED_STEP = graphs.Program("sharded_train_step", eager_first=True, fresh=True)
+
+
 def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tcfg: TrainConfig):
     """(state, batch) -> (state, metrics ``loss``, ``grad_norm``, ``lr``), the
-    state updated in place.  ``batch`` holds tensors on the model's device."""
+    state updated in place.  ``batch`` holds tensors on the model's device;
+    of a placed state, on the host or on position 0's device, the step run
+    under a ctx over the state's mesh."""
+    if isinstance(state.params, sh.PlacedModel):
+        return state, _sharded_step(state, batch, cfg, tcfg)
     grads, loss = grad_accum(state.params, batch, cfg, tcfg)
     _, opt, om = apply_updates(state.params, grads, state.opt, tcfg.optimizer)
     state.opt = opt
     return state, {"loss": loss, **om}
+
+
+def _sharded_step(state: TrainState, batch: dict, cfg: ModelConfig, tcfg: TrainConfig) -> dict:
+    """The step over a placed state, as a variant of :data:`SHARDED_STEP`."""
+    mesh = state.params.mesh
+    ctx = sh.executor_ctx(mesh)
+    names = list(batch)
+    values = [batch[k] for k in names]
+    key = (mesh, ctx, tuple((k, tuple(t.shape), t.dtype) for k, t in zip(names, values)), cfg,
+           tcfg)
+
+    def body(*values):
+        return _step_over_mesh(state, dict(zip(names, values)), cfg, tcfg, ctx)
+
+    return SHARDED_STEP(key, body, values, state_tensors(state), device=mesh.devices[0])
+
+
+def _step_over_mesh(state: TrainState, batch: dict, cfg: ModelConfig, tcfg: TrainConfig,
+                    ctx: sh.ShardCtx) -> dict:
+    """The body of :func:`_sharded_step` (the module docstring's design)."""
+    model, mesh = state.params, state.params.mesh
+    leads = sh.dp_leads(ctx)
+    dp, home = len(leads), mesh.devices[0]
+    adt = getattr(torch, tcfg.accum_dtype)
+    acc = {n: x.zeros(adt) for n, x in model.leaves.items()}
+    aux_scale = cfg.moe.aux_loss_weight / max(cfg.n_layers, 1) / dp if cfg.moe else 0.0
+    loss = torch.zeros((), dtype=torch.float32, device=home)
+    for mb in _microbatch(batch, tcfg.n_micro):
+        for k, v in mb.items():
+            if v.shape[0] % dp:
+                raise ValueError(f"a microbatch of {v.shape[0]} rows of {k!r} (dim 0) does not "
+                                 f"split over {dp} data-parallel groups")
+        parts = [{k: v.chunk(dp)[g] for k, v in mb.items()} for g in range(dp)]
+        local = dp_config(cfg, mb["labels"].numel(), dp)
+        denom = lm.label_count(mb["labels"])  # the whole microbatch's, before any backward
+        for lead, part in zip(leads, parts):
+            dev = mesh.devices[lead]
+            part = {k: v.to(dev) for k, v in part.items()}
+            loss += lm.group_train(model, part, local, dev, denom.to(dev), aux_scale,
+                                   acc).to(home)
+    if tcfg.n_micro > 1:
+        for x in acc.values():
+            for s in x.shards:
+                s.div_(tcfg.n_micro)
+    metrics = apply_sharded_updates(model, acc, state.opt, tcfg.optimizer)
+    return {"loss": loss / tcfg.n_micro, **metrics}

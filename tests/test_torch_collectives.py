@@ -1,7 +1,8 @@
 """The port's ``distributed/collectives.py`` against the JAX package's, on
 the CPU: the int8 payload, the scale and the round trip bit for bit on
 seeded float32 and bfloat16 leaves, ties at .5 included (both round half
-to even); with a mesh axis the port raises rather than skip the reduction.
+to even); with a mesh axis the mean over the axis of a ``DeviceMesh``,
+and an axis the mesh lacks raises.
 """
 
 import pytest
@@ -14,6 +15,8 @@ import numpy as np  # noqa: E402
 
 from repro.distributed import collectives as jcol  # noqa: E402
 from repro_torch.distributed import collectives as col  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.launch.mesh import make_device_mesh  # noqa: E402
 
 
 def _torch(a: np.ndarray) -> torch.Tensor:
@@ -73,5 +76,17 @@ def test_quantized_mean_over_a_tree_matches_and_keeps_dtypes():
 
 
 def test_a_mesh_axis_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        col.quantized_mean({"w": torch.ones(3)}, axis_name="data")
+    """With ``axis_name`` the mean is taken over that axis of the ctx's
+    ``DeviceMesh`` (``tests/test_torch_model_sharding.py`` holds it against
+    the reference's ``shard_map``); an axis the mesh lacks raises."""
+    mesh = make_device_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    x = sh.shard(torch.tensor([[1.0, -2.0], [4.0, 8.0]]), ("data", "model"), mesh)
+    with sh.use_ctx(sh.make_ctx(mesh)):
+        got = col.quantized_mean({"w": x}, axis_name="data")["w"]
+        with pytest.raises(ValueError, match="no axis 'pod'"):
+            col.quantized_mean({"w": x}, axis_name="pod")
+    # each position gets the mean of its column's two round trips
+    want = [col.quantized_mean(x.shards[p]) for p in range(4)]
+    for pos in range(4):
+        col_mean = (want[pos % 2] + want[2 + pos % 2]) / 2
+        torch.testing.assert_close(got.shards[pos], col_mean, rtol=0, atol=1e-6)

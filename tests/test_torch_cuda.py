@@ -1503,3 +1503,93 @@ def test_graphed_train_step_captures_once_and_replays(cuda, monkeypatch, tmp_pat
     assert [h["loss"] for h in g.history] == [h["loss"] for h in e.history]
     for a, b in zip(tts.state_tensors(g.state), tts.state_tensors(e.state)):
         assert torch.equal(a, b)
+
+
+def _sharded_run(cfg, mesh, steps: int, capture: bool):
+    """``steps`` sharded train steps of ``cfg`` on ``mesh`` (4 x 2) from seed 0,
+    the batch made on the host; the losses, the parameters and the whole
+    state, gathered."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.core import graphs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    tcfg = tts.TrainConfig(n_micro=2, optimizer=topt.OptimizerConfig(
+        peak_lr=1e-3, warmup_steps=1, total_steps=10))
+    state = tts.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg, "cpu")
+    ctx = sh.make_ctx(mesh)
+    placed = sh.place(state, mesh, ctx)
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32))
+             for k in ("inputs", "labels")}
+    batch["labels"][0, 3:] = -100
+    losses = []
+    with sh.use_ctx(ctx), contextlib.nullcontext() if capture else graphs.disable_capture():
+        for _ in range(steps):
+            losses.append(tts.train_step(placed, batch, cfg, tcfg)[1]["loss"].to("cpu"))
+    return (losses, [sh.gather(x, "cpu") for x in placed.params.leaves.values()],
+            [sh.gather(x, "cpu") for x in sh.sharded_leaves(placed)])
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "recurrentgemma_9b"])
+def test_sharded_train_step_on_a_card_mesh_matches_the_cpu(cuda, arch, monkeypatch):
+    """Reduced granite (2 layers) and recurrentgemma_9b (K5 and its backward
+    under the executor), f32 with TF32 off, on a 4 x 2 mesh with every
+    position on the card: three steps graphed (the first eager, then one
+    capture and two replays) equal three eager steps bit for bit, and the
+    CPU mesh's losses within 1e-5 (step 1) and 1e-4, its parameters within
+    rtol 3e-3 / atol 3e-4; K5 launched forward and backward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.train import train_step as tts
+
+    _no_tf32(monkeypatch)
+    cfg = reduce(get_config(arch))
+    if arch == "granite_3_2b":
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    card = make_device_mesh((4, 2), ("data", "model"))
+    assert set(card.devices) == {torch.device("cuda", torch.cuda.current_device())}
+    before = (tts.SHARDED_STEP.captures, tts.SHARDED_STEP.replays)
+    fwd, bwd = lru_scan.lru_scan.launches, lru_scan.lru_scan_bwd.launches
+    graphed = _sharded_run(cfg, card, 3, True)
+    assert (tts.SHARDED_STEP.captures - before[0], tts.SHARDED_STEP.replays - before[1]) == (1, 2)
+    if arch == "recurrentgemma_9b":
+        assert lru_scan.lru_scan.launches > fwd and lru_scan.lru_scan_bwd.launches > bwd
+    eager = _sharded_run(cfg, card, 3, False)
+    cpu = _sharded_run(cfg, make_device_mesh((4, 2), ("data", "model"), ["cpu"] * 8), 3, False)
+    for a, b in zip(graphed[0] + graphed[2], eager[0] + eager[2]):
+        assert torch.equal(a, b)
+    # losses as the unsharded card-against-CPU tests hold them (step 1 before
+    # any update, later ones after an Adam step that turns last-bit gradient
+    # differences into larger ones where |g| is near eps); parameters within
+    # the reference's sharded-step tolerance (tests/test_multidevice.py:73)
+    for step, (a, b) in enumerate(zip(graphed[0], cpu[0])):
+        tol = 1e-5 if step == 0 else 1e-4
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    for a, b in zip(graphed[1], cpu[1]):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
+
+
+def test_sharded_train_step_over_two_cards_matches_one_card(cuda, monkeypatch):
+    """The reduced two-layer granite on a 4 x 2 mesh whose data-parallel
+    groups alternate between two cards, graphed, against every position on
+    card 0: losses and state within 1e-6 (the products run on two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.launch.mesh import make_device_mesh
+
+    _no_tf32(monkeypatch)
+    cfg = dataclasses.replace(reduce(get_config("granite_3_2b")), n_layers=2)
+    names = ("data", "model")
+    two = _sharded_run(cfg, make_device_mesh((4, 2), names, [f"cuda:{(p // 2) % 2}"
+                                                             for p in range(8)]), 3, True)
+    one = _sharded_run(cfg, make_device_mesh((4, 2), names, ["cuda:0"] * 8), 3, True)
+    for a, b in zip(two[0] + two[2], one[0] + one[2]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -9,8 +9,10 @@ reference's (the reference stacks a period's repeats on a leading axis
 that is never sharded: that axis is dropped before comparing) and the
 per-device parameter bytes are equal.  ``make_ctx``, ``resolve``,
 ``spec``, ``sanitize_spec`` and ``tp_worthwhile`` agree on a grid;
-``constrain`` is the identity outside a ctx and under one device, and
-raises under a larger mesh.
+``constrain`` returns its input under any ctx and raises only on an
+unknown logical axis, and ``constrain_params`` is the identity outside a
+ctx and under a ``MeshShape`` (the model's sharding over a ``DeviceMesh``
+is ``tests/test_torch_model_sharding.py``'s).
 """
 
 import functools
@@ -29,7 +31,11 @@ from repro.distributed import sharding as jsh  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs.base import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.distributed import sharding as sh  # noqa: E402
-from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_debug_mesh,
+    make_device_mesh,
+    make_production_mesh,
+)
 from repro_torch.models import lm  # noqa: E402
 
 MESHES = {
@@ -200,12 +206,16 @@ def test_constrain_is_the_identity_outside_a_ctx_and_on_one_device():
     with sh.use_ctx(sh.make_ctx(one)):
         assert sh.constrain(x, "dp", None) is x
         assert sh.constrain_params(tree) is tree
-    for mesh in (make_production_mesh(), make_production_mesh(multi_pod=True), make_debug_mesh(2)):
+    # a constraint changes no value under a mesh of any size, with devices or
+    # without; an unknown logical axis still raises
+    device_mesh = make_device_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    for mesh in (make_production_mesh(), make_production_mesh(multi_pod=True), make_debug_mesh(2),
+                 device_mesh):
         with sh.use_ctx(sh.make_ctx(mesh)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-                sh.constrain(x, "dp", "tp")
-            with pytest.raises(NotImplementedError, match="item 5"):
-                sh.constrain_params(tree)
+            assert sh.constrain(x, "dp", "tp") is x
+            with pytest.raises(ValueError, match="unknown logical axis"):
+                sh.constrain(x, "dp", "experts")
+            assert sh.constrain_params(tree) is tree
         assert sh.constrain(x) is x  # the ctx is gone again
 
 
