@@ -331,28 +331,45 @@ printed):
    trace.
 40. The model's sharding over a 4 x 2 ``("data", "model")`` ``DeviceMesh``
    with every position on the card (parameters, m and v placed by the
-   reference's rules; the sharded step one graph replay a call): (a)
+   reference's rules; the sharded step one graph replay a call), its
+   products tensor-parallel over the model axis, against the same state on
+   a 4 x 1 mesh (every product whole on a group's one position): (a)
    granite_3_2b at full width, 4 of its 40 layers, batch 8 x 1,024 with
    labels at -100 in one row, ``n_micro`` 2, AdamW at lr 1e-3 from step
-   1: two unsharded steps, two sharded steps graphed and two eager from
-   the same seed: step 1's loss within 2e-4 of the unsharded step's, step
-   2's within rtol 1e-3 (after an update), at most 1% of the parameters
-   outside rtol 3e-3 / atol 3e-4 and the update's error at most 0.2 of its
-   size, each limit short of what a step without update reads (also
-   checked), graphed equal to eager bit for bit, the eager step without a
-   host sync, step ms, peak GiB, and the
-   bytes each position holds equal to ``launch.dryrun.account``; (b)
+   1: two unsharded steps, two 4 x 2 steps graphed and two eager, and two
+   4 x 1 steps graphed, from the same seed: step 1's loss within 2e-4 of
+   the unsharded step's (1e-4 of it where the products split: 4 x 2 adds
+   a row-parallel product's partial sums in another order, and bf16
+   rounds some elements the other way), step 2's within rtol 1e-3 (after
+   an update), at
+   most 1% of the parameters outside rtol 3e-3 / atol 3e-4 and the
+   update's error at most 0.2 of its size, each limit short of what a step
+   without update reads (also checked), graphed equal to eager bit for
+   bit, the eager step without a host sync; for the unsharded, 4 x 1 and
+   4 x 2 runs the step ms, peak GiB, the bytes gathered onto each position
+   and the all-reduces of a step (4 x 2: all-reduces, and no position
+   gathering three quarters of what the 4 x 1 lead gathers), and the bytes
+   each position holds equal to ``launch.dryrun.account``; (b)
    recurrentgemma_9b at full width, the first three layers of its pattern
    (rec, rec, win), batch 4 x 1,024: the unsharded steps, then (their
-   moments freed) the sharded ones, the same tolerances, K5 and its
-   backward launched under the executor; (c) ``quantized_mean`` over the
-   data axis of a gradient of granite's ``w_in`` shape, on the card
-   against the CPU: payloads and scales bit for bit, means within 1 ulp;
-   (d) a granite state at full width and one layer saved under 4 x 2,
-   restored onto 2 x 4 bit for bit, then one finite step; (e) with two or
-   more cards, a step with one position a card against every position on
-   one card; with one card it prints ``model sharding over several cards:
-   not run (1 card)``.
+   moments freed) the 4 x 2 and the 4 x 1 ones, the same tolerances and
+   readings, K5 and its backward launched under the executor, on 4 x 2 on
+   a position's 2,048 channels; (c) ``quantized_mean`` over the data axis
+   of a gradient of granite's ``w_in`` shape, on the card against the CPU:
+   payloads and scales bit for bit, means within 1 ulp; (d) a granite state
+   at full width and one layer saved under 4 x 2, restored onto 2 x 4 bit
+   for bit, then one finite step; (e) with two or more cards, a step with
+   one position a card against every position on one card; with one card
+   it prints ``model sharding over several cards: not run (1 card)``; (f)
+   qwen3_moe_235b_a22b at full width, 1 of its 94 layers, batch 8 x 1,024,
+   ``n_micro`` 2, ``moe.groups`` 4: its 128 experts over the model axis on
+   4 x 2 against 4 x 1, the two states in turn, each placed without a whole
+   copy of its moments: step 1's loss within 1e-4 of 4 x 1's, step 2's
+   within 1e-2 (one step takes the loss from about 12.4 to 0.19), the
+   parameters by a sample of each leaf within (a)'s limits; then K5 and its backward at 40(b)'s per-position shape [1,
+   1,024, 2,048] f32 against their plain versions, bit for bit, timed: the
+   ``phase`` 40 rows of the kernels line, whose launches are 40(b)'s 4 x 2
+   run's.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -590,8 +607,21 @@ PAGED_QWEN = dict(b=8, h=28, kvh=4, hd=128, blk=4, maxb=138, layers=28, layer=14
 # phase 40: the model's sharding over a 4 x 2 mesh on the card (the
 # reference's tests/test_multidevice.py:73 shape and tolerances)
 SHARD_MESH = ((4, 2), ("data", "model"))
+# the same four data-parallel groups without a model axis to split over:
+# every product whole on a group's one position
+SHARD_MESH_4X1 = ((4, 1), ("data", "model"))
 SHARD_GRANITE = dict(config="granite_3_2b", layers=4, batch=8, seq=1024, n_micro=2, steps=2)
 SHARD_RECUR = dict(config="recurrentgemma_9b", layers=3, batch=4, seq=1024, n_micro=1, steps=2)
+# 40(f): qwen3_moe_235b_a22b at full width, 1 of its 94 layers (about 3.7e9
+# parameters: 7.5 GB of bf16 weights, 29.8 GB of f32 moments, 14.9 GB of f32
+# accumulator a state), 8 x 1,024 in two microbatches; moe.groups 4, one
+# routing group a data-parallel group's row (the reference's 1 does not
+# split over 4 groups)
+SHARD_MOE = dict(config="qwen3_moe_235b_a22b", layers=1, batch=8, seq=1024, n_micro=2, steps=2,
+                 moe_groups=4)
+# K5 and its backward where 40(b) runs them: recurrentgemma_9b's 4,096
+# channels over the model axis's 2 positions, a data-parallel group's row
+LRU_TP_SHAPE = (1, SHARD_RECUR["seq"], 4096 // SHARD_MESH[0][1])
 SHARD_CKPT_LAYERS = 1  # 40(d): granite at full width, one layer
 # the optimizer of 40(a), (b) and (d): the full rate from step 1, so that
 # an update moves a parameter by about 1e-3, past SHARD_PARAM_TOL
@@ -611,6 +641,17 @@ SHARD_OPT = dict(peak_lr=1e-3, warmup_steps=1)
 # recurrentgemma)
 SHARD_LOSS_ATOL = 2e-4
 SHARD_STEP_LOSS_RTOL = 1e-3
+# step 1 of a tensor-parallel run: its row-parallel products add two partial
+# sums where one product adds one, and bf16 rounds some of their elements
+# the other way, which moves granite's step-1 loss of about 1,312 by about
+# 1e-5 of it (0.0104 on an H100 80GB HBM3 at 700 W), where 2e-4 holds only a
+# bit-identical forward; a limit of 1e-4 of the loss, ten times that
+SHARD_TP_LOSS_RTOL = 1e-4
+# 40(f)'s later steps: one full-rate step takes qwen3_moe's one layer from a
+# loss of about 12.4 to about 0.19, so a share of the later loss is no
+# measure; 1e-2 of it absolute, between the 4 x 2 run's 2.9e-4 from 4 x 1
+# and the 12.2 of a step without update (on an H100 80GB HBM3 at 700 W)
+SHARD_MOE_LOSS_ATOL = 1e-2
 SHARD_PARAM_TOL = dict(rtol=3e-3, atol=3e-4)
 SHARD_PARAM_OUTSIDE = 1e-2
 SHARD_UPDATE_ERROR = 0.2
@@ -4539,11 +4580,16 @@ def paged_qwen_check(dev) -> dict:
 
 def shard_config(spec: dict):
     """``spec``'s config at full width and ``spec["layers"]`` layers (for
-    recurrentgemma the first layers of its pattern, no tail)."""
+    recurrentgemma the first layers of its pattern, no tail; for the MoE
+    stack ``spec["moe_groups"]`` routing groups)."""
     cfg = get_config(spec["config"])
     if cfg.tail_pattern:
-        return dataclasses.replace(cfg, n_layers=spec["layers"], tail_pattern=())
-    return dataclasses.replace(cfg, n_layers=spec["layers"])
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"], tail_pattern=())
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    if "moe_groups" in spec:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=spec["moe_groups"]))
+    return cfg
 
 
 def shard_tcfg(cfg, spec: dict) -> TrainConfig:
@@ -4562,44 +4608,76 @@ def shard_batch(cfg, spec: dict, dev) -> dict:
     return {"inputs": ids[0], "labels": ids[1]}
 
 
+def placed_train_state(dev, cfg, tcfg, mesh) -> TrainState:
+    """``init_train_state``'s state from seed ``SEED``, placed over ``mesh``
+    without ever holding the whole moments: the model drawn on the card,
+    placed, then freed; m and v zeros in each placed leaf's layout."""
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                           dev).requires_grad_(True)
+    params = sh.place(model, mesh, sh.make_ctx(mesh))
+    del model
+    dt = getattr(torch, tcfg.optimizer.state_dtype)
+    opt = {k: {n: x.zeros(dt) for n, x in params.leaves.items()} for k in ("m", "v")}
+    opt["step"] = sh.shard(torch.zeros((), dtype=torch.int32, device=dev), (), mesh)
+    return TrainState(params=params, opt=opt)
+
+
 def sharded_steps(dev, cfg, spec: dict, mesh, capture: bool = True,
-                  init: dict | None = None) -> tuple:
+                  init: dict | None = None, state: TrainState | None = None) -> tuple:
     """``spec["steps"]`` training steps from seed ``SEED``: on one card
     (``mesh`` None, eager) or placed over ``mesh`` (graphed unless
-    ``capture`` is off).  Returns (state, record); the record's launches
-    are this run's, its counts set to 0 just before it.  ``init``, where
-    given, receives the parameters before the first step."""
+    ``capture`` is off; ``state``, where given, already placed there).
+    Returns (state, record); the record's launches are this run's, its
+    counts set to 0 just before it.  ``init``, where given, receives the
+    parameters before the first step.  Over a mesh the record holds the
+    bytes ``gather_region`` copied onto each position and the collectives
+    run in one step, counted over the first call (the body runs once
+    eagerly, and graphed once more while it is captured; a replay runs no
+    Python)."""
     tcfg = shard_tcfg(cfg, spec)
-    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED), cfg, tcfg, dev)
-    if init is not None:
-        init.update({n: p.clone() for n, p in params_of(state).items()})
-    ctx = None
-    if mesh is not None:
-        ctx = sh.make_ctx(mesh)
-        t0 = time.perf_counter()
-        state = sh.place(state, mesh, ctx)
-        torch.cuda.synchronize()
-        place_s = time.perf_counter() - t0
+    place_s = 0.0
+    if state is None:
+        state = init_train_state(torch.Generator(device=dev).manual_seed(SEED), cfg, tcfg, dev)
+        if init is not None:
+            init.update({n: p.clone() for n, p in params_of(state).items()})
+        if mesh is not None:
+            t0 = time.perf_counter()
+            state = sh.place(state, mesh, sh.make_ctx(mesh))
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t0
+    ctx = sh.make_ctx(mesh) if mesh is not None else None
     batch = shard_batch(cfg, spec, dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     before = (train_step_mod.SHARDED_STEP.captures, train_step_mod.SHARDED_STEP.replays)
-    losses, step_ms = [], []
+    losses, step_ms, per_step = [], [], {}
     eager = mesh is not None and not capture
+    body_runs = 2 if mesh is not None and capture else 1
     with (sh.use_ctx(ctx) if ctx else contextlib.nullcontext()), \
             (graphs.disable_capture() if eager else contextlib.nullcontext()):
-        for _ in range(spec["steps"]):
+        for i in range(spec["steps"]):
+            sh.gathered_bytes.clear()
+            collectives.counts.clear()
             t0 = time.perf_counter()
             # the eager sharded step must not make the host wait for the card
             with no_host_sync(dev) if eager else contextlib.nullcontext():
                 metrics = train_step(state, batch, cfg, tcfg)[1]
             losses.append(float(metrics["loss"]))  # waits for the step
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                per_step = dict(
+                    gathered_bytes=[sh.gathered_bytes[p] // body_runs
+                                    for p in range(mesh.size)] if mesh is not None else [0],
+                    collectives={k: v // body_runs for k, v in collectives.counts.items()})
     rec = dict(config=cfg.name, layers=cfg.n_layers, batch=spec["batch"], seq=spec["seq"],
                n_micro=spec["n_micro"], losses=losses, step_ms=step_ms,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts())
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts(),
+               **per_step)
+    c = rec["collectives"]
+    rec["all_reduces"] = c.get("all_reduce", 0) + c.get("all_reduce_grad", 0) + c.get(
+        "all_reduce_max", 0)
     check(all(np.isfinite(losses)), f"{cfg.name}: finite losses")
     if mesh is not None:
         rec.update(mesh=dict(mesh.shape), graphed=capture, place_s=place_s,
@@ -4608,14 +4686,19 @@ def sharded_steps(dev, cfg, spec: dict, mesh, capture: bool = True,
     return state, rec
 
 
-def losses_agree(got: list, want: list, what: str) -> dict:
+def losses_agree(got: list, want: list, what: str, split: bool = False,
+                 later_atol: float | None = None) -> dict:
     """The sharded run's losses against the unsharded run's: step 1 within
-    ``SHARD_LOSS_ATOL``, later steps within ``SHARD_STEP_LOSS_RTOL`` of it.
-    A step that applied no update would show the unsharded step 1's loss
-    again (the batch is the same each step): its distance, the control,
-    must lie beyond each later limit.  Returns both readings."""
+    ``SHARD_LOSS_ATOL`` (a run whose products ``split`` over the model axis:
+    ``SHARD_TP_LOSS_RTOL`` of it), later steps within
+    ``SHARD_STEP_LOSS_RTOL`` of it (or ``later_atol``).  A step that
+    applied no update would show the unsharded step 1's loss again (the
+    batch is the same each step): its distance, the control, must lie
+    beyond each later limit.  Returns both readings."""
     for i, (a, b) in enumerate(zip(got, want)):
-        limit = SHARD_LOSS_ATOL if i == 0 else SHARD_STEP_LOSS_RTOL * abs(b)
+        first = SHARD_TP_LOSS_RTOL * abs(b) if split else SHARD_LOSS_ATOL
+        later = SHARD_STEP_LOSS_RTOL * abs(b) if later_atol is None else later_atol
+        limit = first if i == 0 else later
         check(abs(a - b) <= limit, f"{what} step {i + 1}: loss {a} against the unsharded {b}")
         check(i == 0 or abs(want[0] - b) > limit,
               f"{what} step {i + 1}: a step without update ({want[0]}) lies beyond the limit")
@@ -4628,17 +4711,30 @@ def params_of(state) -> dict:
     return {n: p.detach() for n, p in state.params.named_parameters()}
 
 
-def sharded_matches(state, want: dict, init: dict, dev, what: str) -> dict:
+def whole_leaf(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def leaf_sample(t: torch.Tensor) -> torch.Tensor:
+    """Every element of a leaf up to 2**20 of them, else an even stride of it
+    (40(f)'s states are compared by sample: two do not fit the card)."""
+    flat = t.reshape(-1)
+    return flat[::max(1, flat.numel() >> 20)].clone()
+
+
+def sharded_matches(state, want: dict, init: dict, dev, what: str, pick=whole_leaf) -> dict:
     """Each placed parameter, gathered on the card, against ``want``'s: the
     share of elements outside ``SHARD_PARAM_TOL`` at most
     ``SHARD_PARAM_OUTSIDE`` and the update's error, ``|got - want| /
     |want - init|`` over every element, at most ``SHARD_UPDATE_ERROR``.
     The control, ``init`` (a step that applied no update), reads an error
-    of 1 and must have more elements outside.  Returns both readings."""
+    of 1 and must have more elements outside.  ``pick`` takes the elements
+    compared from a gathered leaf (``want`` and ``init`` hold them already).
+    Returns both readings."""
     n = outside = control_outside = 0
     worst = err2 = upd2 = 0.0
     for name, x in state.params.leaves.items():
-        got, ref_, ini = sh.gather(x, dev).float(), want[name].float(), init[name].float()
+        got, ref_, ini = pick(sh.gather(x, dev)).float(), want[name].float(), init[name].float()
         outside += int((~torch.isclose(got, ref_, **SHARD_PARAM_TOL)).sum())
         control_outside += int((~torch.isclose(ini, ref_, **SHARD_PARAM_TOL)).sum())
         worst = max(worst, float((got - ref_).abs().max()))
@@ -4678,7 +4774,27 @@ def accounted(cfg, spec: dict, mesh, state) -> dict:
     return dict(position_bytes=got[0], account_bytes=want)
 
 
-def sharded_granite(dev, mesh) -> dict:
+def tensor_parallel_ran(runs: dict, what: str) -> None:
+    """The 4 x 2 run split its products over the model axis: all-reduces ran,
+    and no position gathered as much as the 4 x 1 run's lead (which gathers
+    every leaf whole); the 4 x 1 run ran none."""
+    g42, g41 = max(runs["4x2"]["gathered_bytes"]), max(runs["4x1"]["gathered_bytes"])
+    check(runs["4x2"]["all_reduces"] > 0 and runs["4x1"]["all_reduces"] == 0,
+          f"{what}: all-reduces over the model axis on 4 x 2 only")
+    check(g42 < 0.75 * g41, f"{what}: a 4 x 2 position gathers {g42:,} B a step, short of the "
+          f"4 x 1 lead's {g41:,}")
+
+
+def run_table(runs: dict) -> str:
+    """Step ms, peak GiB, bytes gathered onto the busiest position and
+    all-reduces, a step, of each run."""
+    return "; ".join(
+        f"{k}: step ms {[round(x, 2) for x in r['step_ms']]}, peak {r['peak_gib']:.2f} GiB, "
+        f"{max(r['gathered_bytes']):,} B gathered a position, {r['all_reduces']} all-reduces"
+        for k, r in runs.items())
+
+
+def sharded_granite(dev, mesh, mesh41) -> dict:
     """40(a)."""
     spec = SHARD_GRANITE
     cfg = shard_config(spec)
@@ -4689,34 +4805,39 @@ def sharded_granite(dev, mesh) -> dict:
     del ref_state  # the moments go; the parameters stay for the comparison
     runs = {"unsharded": base}
     states = {}
-    for mode, capture in (("graphed", True), ("eager", False)):
-        states[mode], runs[mode] = sharded_steps(dev, cfg, spec, mesh, capture)
+    for mode, m, capture in (("4x1", mesh41, True), ("4x2", mesh, True), ("eager", mesh, False)):
+        states[mode], runs[mode] = sharded_steps(dev, cfg, spec, m, capture)
         r = runs[mode]
-        r.update(losses_agree(r["losses"], base["losses"], f"40(a) {mode}"),
+        r.update(losses_agree(r["losses"], base["losses"], f"40(a) {mode}", m is mesh),
                  **sharded_matches(states[mode], want, init, dev, f"40(a) {mode}"))
-    g, e = runs["graphed"], runs["eager"]
+        if mode == "4x1":
+            del states[mode]
+            train_step_mod.SHARDED_STEP.clear()
+    g, e = runs["4x2"], runs["eager"]
     check(g["captures"] == 1 and g["replays"] == spec["steps"] - 1,
           "40(a): the first sharded step eager, one capture, then replays")
     check(g["losses"] == e["losses"], "40(a): graphed losses equal eager bit for bit")
-    check(all(torch.equal(a, b) for a, b in zip(state_tensors(states["graphed"]),
+    check(all(torch.equal(a, b) for a, b in zip(state_tensors(states["4x2"]),
                                                 state_tensors(states["eager"]))),
           "40(a): parameters, m, v and step graphed equal eager bit for bit")
+    tensor_parallel_ran(runs, "40(a)")
     out = dict(runs=runs, unsharded_state_bytes=unsharded_bytes,
-               **accounted(cfg, spec, mesh, states["graphed"]))
+               **accounted(cfg, spec, mesh, states["4x2"]))
     print(f"phase 40(a) granite_3_2b ({cfg.n_layers} of 40 layers, batch {spec['batch']} x "
-          f"{spec['seq']}, n_micro {spec['n_micro']}) on a 4 x 2 mesh on one card: losses "
-          f"unsharded {base['losses']}, sharded graphed {g['losses']}, eager {e['losses']}; "
-          f"step ms unsharded {[round(x, 2) for x in base['step_ms']]}, graphed "
-          f"{[round(x, 2) for x in g['step_ms']]}, eager {[round(x, 2) for x in e['step_ms']]}; "
-          f"peak GiB {base['peak_gib']:.2f} / {g['peak_gib']:.2f} / {e['peak_gib']:.2f}; "
-          f"{readings(g)}; {out['position_bytes']:,} B a position "
-          f"(account {out['account_bytes']:,}; unsharded {unsharded_bytes:,}) [{card()}]")
+          f"{spec['seq']}, n_micro {spec['n_micro']}) tensor-parallel on a 4 x 2 mesh on one "
+          f"card against 4 x 1: losses unsharded {base['losses']}, 4 x 2 graphed {g['losses']}, "
+          f"eager {e['losses']}, 4 x 1 {runs['4x1']['losses']}; "
+          f"{run_table({k: runs[k] for k in ('unsharded', '4x1', '4x2')})}; 4 x 2 eager step ms "
+          f"{[round(x, 2) for x in e['step_ms']]}, peak {e['peak_gib']:.2f} GiB; {readings(g)}; "
+          f"4 x 1: {readings(runs['4x1'])}; {out['position_bytes']:,} B a position (account "
+          f"{out['account_bytes']:,}; unsharded {unsharded_bytes:,}) [{card()}]")
     train_step_mod.SHARDED_STEP.clear()
     return out
 
 
-def sharded_recurrent(dev, mesh) -> dict:
-    """40(b): K5 and its backward under the executor."""
+def sharded_recurrent(dev, mesh, mesh41) -> dict:
+    """40(b): K5 and its backward under the executor, on each position's
+    channels."""
     spec = SHARD_RECUR
     cfg = shard_config(spec)
     init = {}
@@ -4724,23 +4845,73 @@ def sharded_recurrent(dev, mesh) -> dict:
     want = params_of(ref_state)
     del ref_state  # the moments go; the parameters stay for the comparison
     release()
-    state, r = sharded_steps(dev, cfg, spec, mesh)
-    r.update(losses_agree(r["losses"], base["losses"], "40(b)"),
-             **sharded_matches(state, want, init, dev, "40(b)"))
-    check(r["launches"]["lru_scan"] > 0 and r["launches"]["lru_scan_bwd"] > 0,
-          "40(b): K5 and K5's backward launched under the executor")
-    out = dict(runs={"unsharded": base, "sharded": r}, **accounted(cfg, spec, mesh, state))
+    runs, acc = {"unsharded": base}, None
+    for mode, m in (("4x2", mesh), ("4x1", mesh41)):
+        state, r = sharded_steps(dev, cfg, spec, m)
+        runs[mode] = r
+        if mode == "4x2":
+            r["lru_scan_plan"] = lru_scan.lru_scan.last_plan.describe()  # of the capture
+            acc = accounted(cfg, spec, mesh, state)
+        r.update(losses_agree(r["losses"], base["losses"], f"40(b) {mode}", m is mesh),
+                 **sharded_matches(state, want, init, dev, f"40(b) {mode}"))
+        check(r["launches"]["lru_scan"] > 0 and r["launches"]["lru_scan_bwd"] > 0,
+              f"40(b) {mode}: K5 and K5's backward launched under the executor")
+        del state
+        train_step_mod.SHARDED_STEP.clear()
+        release()
+    plan, r42 = runs["4x2"]["lru_scan_plan"], runs["4x2"]
+    check(plan["tiles"] * plan["channels_per_cta"] == LRU_TP_SHAPE[2],
+          f"40(b): K5 ran on a position's {LRU_TP_SHAPE[2]} channels")
+    tensor_parallel_ran(runs, "40(b)")
+    out = dict(runs=runs, **acc)
     print(f"phase 40(b) recurrentgemma_9b ({cfg.layer_kinds}, batch {spec['batch']} x "
-          f"{spec['seq']}) on a 4 x 2 mesh on one card: losses unsharded {base['losses']}, "
-          f"sharded {r['losses']}; step ms {[round(x, 2) for x in base['step_ms']]} / "
-          f"{[round(x, 2) for x in r['step_ms']]}; peak GiB {base['peak_gib']:.2f} / "
-          f"{r['peak_gib']:.2f}; K5 {r['launches']['lru_scan']} and K5 bwd "
-          f"{r['launches']['lru_scan_bwd']} launches; {readings(r)}; {out['position_bytes']:,} B "
-          f"a position [{card()}]")
-    del state, want, init
-    train_step_mod.SHARDED_STEP.clear()
+          f"{spec['seq']}) tensor-parallel on a 4 x 2 mesh against 4 x 1: losses unsharded "
+          f"{base['losses']}, 4 x 2 {r42['losses']}, 4 x 1 {runs['4x1']['losses']}; "
+          f"{run_table(runs)}; K5 {r42['launches']['lru_scan']} and K5 bwd "
+          f"{r42['launches']['lru_scan_bwd']} launches on 4 x 2 ({plan['ctas']} CTAs of "
+          f"{plan['channels_per_cta']} channels); {readings(r42)}; 4 x 1: "
+          f"{readings(runs['4x1'])}; {out['position_bytes']:,} B a position [{card()}]")
+    del want, init
     release()
     return out
+
+
+def sharded_moe(dev, mesh, mesh41) -> dict:
+    """40(f): qwen3_moe_235b_a22b at full width, one layer, its experts over
+    the model axis on 4 x 2 against 4 x 1, the two states in turn (the
+    first freed), compared by ``leaf_sample``."""
+    spec = SHARD_MOE
+    cfg = shard_config(spec)
+    tcfg = shard_tcfg(cfg, spec)
+    runs, want, init = {}, None, None
+    for mode, m in (("4x1", mesh41), ("4x2", mesh)):
+        t0 = time.perf_counter()
+        state = placed_train_state(dev, cfg, tcfg, m)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        if init is None:
+            init = {n: leaf_sample(sh.gather(x, dev)) for n, x in state.params.leaves.items()}
+        state, r = sharded_steps(dev, cfg, spec, m, state=state)
+        r["place_s"] = place_s
+        check(r["captures"] == 1 and r["replays"] == spec["steps"] - 1,
+              f"40(f) {mode}: the first step eager, one capture, then a replay")
+        runs[mode] = r
+        if want is None:
+            want = {n: leaf_sample(sh.gather(x, dev)) for n, x in state.params.leaves.items()}
+        else:
+            r.update(losses_agree(r["losses"], runs["4x1"]["losses"], "40(f) 4x2", True,
+                                  SHARD_MOE_LOSS_ATOL),
+                     **sharded_matches(state, want, init, dev, "40(f) 4x2", pick=leaf_sample))
+        del state
+        train_step_mod.SHARDED_STEP.clear()
+        release()
+    tensor_parallel_ran(runs, "40(f)")
+    print(f"phase 40(f) qwen3_moe_235b_a22b (1 of 94 layers, full width, {cfg.moe.n_experts} "
+          f"experts over the model axis, batch {spec['batch']} x {spec['seq']}, n_micro "
+          f"{spec['n_micro']}, moe.groups {cfg.moe.groups}): losses 4 x 1 "
+          f"{runs['4x1']['losses']}, 4 x 2 {runs['4x2']['losses']}; {run_table(runs)}; "
+          f"against 4 x 1 by sample: {readings(runs['4x2'])} [{card()}]")
+    return dict(runs=runs, params=lm.count_params(cfg))
 
 
 def sharded_quantized_mean(dev, mesh) -> dict:
@@ -4835,18 +5006,76 @@ def sharded_over_cards(dev) -> dict:
 
 
 def model_sharding(dev) -> dict:
-    """Phase 40: (a)-(e) of the module docstring."""
+    """Phase 40: (a)-(f) of the module docstring."""
     release()
-    mesh = make_device_mesh(*SHARD_MESH)
+    mesh, mesh41 = make_device_mesh(*SHARD_MESH), make_device_mesh(*SHARD_MESH_4X1)
     check(set(mesh.devices) == {dev}, "40: every position of the mesh on the card")
     out = dict(mesh=dict(mesh.shape), card=card())
-    out["granite"] = sharded_granite(dev, mesh)
+    out["granite"] = sharded_granite(dev, mesh, mesh41)
     release()
-    out["recurrentgemma"] = sharded_recurrent(dev, mesh)
+    out["recurrentgemma"] = sharded_recurrent(dev, mesh, mesh41)
     out["quantized_mean"] = sharded_quantized_mean(dev, mesh)
     out["checkpoint"] = sharded_checkpoint(dev, mesh)
     out["several_cards"] = sharded_over_cards(dev)
+    release()
+    out["moe"] = sharded_moe(dev, mesh, mesh41)
     return out
+
+
+def lru_scan_tp_rows(dev) -> list[dict]:
+    """K5 and its backward at 40(b)'s per-position shape (``LRU_TP_SHAPE``):
+    each against its plain version, bit for bit and run to run, timed as
+    phase 8 times K5 at batch 1 (median of five CUDA-event timings behind a
+    sleep kernel) beside its byte bound, with the plan the forward launched.
+    Their ``launches`` are 40(b)'s 4 x 2 run's."""
+    b, t, r = LRU_TP_SHAPE
+    a, x, h0 = lru_inputs(dev, b, t, r, SEED + 40)
+    got, again = ops.lru_scan(a, x, h0), ops.lru_scan(a, x, h0)
+    plan = lru_scan.lru_scan.last_plan.describe()
+    want = ops.lru_scan(a, x, h0, impl="ref")
+    gy = torch.randn(a.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 40),
+                     device=dev)
+    bwd, bwd_again = lru_scan.lru_scan_bwd(gy, a, got, h0), lru_scan.lru_scan_bwd(gy, a, got, h0)
+    bwd_want = ref.lru_scan_bwd_ref(gy, a, got, h0)
+    torch.cuda.synchronize()
+    what = f"at [{b}, {t}, {r}] f32"
+    check(torch.equal(got, want) and torch.equal(got, again),
+          f"lru_scan {what} == plain version and run to run, bit for bit")
+    for name, k, z, p in zip(("da", "db", "dh0"), bwd, bwd_again, bwd_want):
+        check(torch.equal(k, p) and torch.equal(k, z),
+              f"lru_scan_bwd {name} {what} == plain version and run to run, bit for bit")
+    n = a.numel()
+    bound, by = lru_bound(a, h0)
+    bbound, bby = bound_ms(5 * n * 4 + 2 * b * r * 4, 3.0 * n)
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
+                  replaces="src/repro/kernels/lru_scan.py:56", launches=0, phase=40,
+                  library_ms=None)
+    rows = [
+        dict(name="lru_scan", **common, max_abs_err=float((got - want).abs().max()),
+             ms=time_ms(lambda: lru_scan.lru_scan(a, x, h0), iters=10),
+             plain_ms=time_ms(lambda: ref.lru_scan_ref(a, x, h0), iters=2, repeats=3),
+             bound_ms=bound, bound_by=by,
+             library="none (no single PyTorch call computes a linear recurrence)",
+             shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32 (40(b), a position's "
+                   "channels)", plan=plan),
+        dict(name="lru_scan_bwd", **common,
+             max_abs_err=max(float((k - p).abs().max()) for k, p in zip(bwd, bwd_want)),
+             ms=time_ms(lambda: lru_scan.lru_scan_bwd(gy, a, got, h0), iters=10),
+             plain_ms=time_ms(lambda: ref.lru_scan_bwd_ref(gy, a, got, h0), iters=2, repeats=3),
+             bound_ms=bbound, bound_by=bby,
+             library="none (no single PyTorch call computes a linear recurrence's adjoint)",
+             shape=f"g, a, h, da, db [{b}, {t}, {r}] f32, h0, dh0 [{b}, {r}] f32 (40(b))"),
+    ]
+    for row in rows:
+        print(f"{row['name']} {what}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}, {row['bound_ms'] / row['ms']:.0%} of it), bit-exact "
+              f"[{card()}]")
+    print(f"  lru_scan plan {what}: {plan['ctas']} CTAs of {plan['channels_per_cta']} channels "
+          f"on {plan['sms']} SMs, {plan['rows']} rows x {plan['stages']} stages, route "
+          f"{plan['route']}")
+    del a, x, h0, got, again, want, gy, bwd, bwd_again, bwd_want
+    release()
+    return rows
 
 
 def main() -> int:
@@ -4951,6 +5180,7 @@ def main() -> int:
     wall["phase_39_xla_over_shards"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     sharding = model_sharding(dev)
+    rows += lru_scan_tp_rows(dev)
     wall["phase_40_model_sharding"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
@@ -4965,7 +5195,8 @@ def main() -> int:
              + list(examples.values()) + ([several] if several["ran"] else [])
              + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
              + list(shards["card_matches_cpu"].values())
-             + [r for k in ("granite", "recurrentgemma") for r in sharding[k]["runs"].values()]
+             + [r for k in ("granite", "recurrentgemma", "moe")
+                for r in sharding[k]["runs"].values()]
              + list(sharding["several_cards"].get("runs", {}).values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase
     # 34's launches there and the earlier phases' in its first row
@@ -4973,6 +5204,8 @@ def main() -> int:
     for row in rows:
         if row.get("phase") == 34:
             ps = list(dry.values())
+        elif row.get("phase") == 40:
+            ps = [sharding["recurrentgemma"]["runs"]["4x2"]]
         else:
             ps = paths + ([] if row["name"] in phase34 else list(dry.values()))
         row["launches"] = sum(d["launches"][row["name"]] for d in ps)

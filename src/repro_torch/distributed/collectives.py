@@ -16,15 +16,38 @@ all-gathers the int8 payload over a mesh axis
 block): each position quantises its shard, the int8 payloads and scales of
 the positions along the axis are copied to it (int8 between devices), and
 it dequantises them and takes their mean in axis order.
+
+The tensor-parallel collectives over a data-parallel group's positions
+along the ctx's model axes (a :class:`Group`) are Megatron's f and g, each
+a ``torch.autograd.Function``:
+
+  * :func:`broadcast` (f) copies a replicated activation to every position;
+    its backward is an all-reduce of the positions' gradients;
+  * :func:`all_reduce` (g) adds the positions' partial products, in fp32 in
+    position order, and casts the sum once; its backward is the identity
+    (the gradient copied back to each position);
+  * :func:`all_gather` concatenates the positions' slices (its backward
+    hands each position its slice of the gradient), and
+    :func:`all_reduce_max` takes an elementwise max, with no gradient.
+
+One controller drives every position, so a reduction lands once on the
+group's lead and the next :func:`broadcast` copies it: every position gets
+the same bits.  :data:`counts` counts each collective as it runs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
-from repro_torch.distributed.sharding import Sharded, axis_peers, current_ctx, has_devices
+from repro_torch.distributed.sharding import (
+    Sharded,
+    axis_group,
+    current_ctx,
+    has_devices,
+)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -58,7 +81,7 @@ def all_gather_int8(x: Sharded, axis_name: str) -> list[tuple[torch.Tensor, torc
     payload = [quantize_int8(t) for t in x.shards]
     out = []
     for pos, dev in enumerate(x.mesh.devices):
-        peers = axis_peers(x.mesh, pos, axis_name)
+        peers = axis_group(x.mesh, pos, axis_name)
         out.append((torch.stack([payload[p][0].to(dev) for p in peers]),
                     torch.stack([payload[p][1].to(dev) for p in peers])))
     return out
@@ -102,3 +125,104 @@ def quantized_mean(tree, axis_name: str | None = None):
         return dataclasses.replace(x, shards=shards)
 
     return _tree_map(reduce, tree)
+
+
+# -- tensor-parallel collectives over a group's positions ------------------------
+
+# collectives run, by kind: "all_reduce" (forward), "all_reduce_grad" (a
+# broadcast's backward), "all_gather", "all_reduce_max", "broadcast"
+counts: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """The positions of a mesh along some of its axes, in the axes' order,
+    and their devices; ``devices[0]``, the lead's, holds what a reduction
+    returns."""
+
+    positions: tuple[int, ...]
+    devices: tuple[torch.device, ...]
+
+    @classmethod
+    def along(cls, mesh, pos: int, axes) -> Group:
+        """``pos`` and its peers along ``axes`` (a mesh axis or a tuple)."""
+        ps = tuple(axis_group(mesh, pos, axes))
+        return cls(ps, tuple(mesh.devices[p] for p in ps))
+
+
+def _sum32(parts, device) -> torch.Tensor:
+    """The fp32 sum of ``parts`` on ``device``, added in their order."""
+    total = parts[0].to(device=device, dtype=torch.float32, copy=True)
+    for p in parts[1:]:
+        total.add_(p.to(device=device, dtype=torch.float32))
+    return total
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.device, ctx.dtype = x.device, x.dtype
+        return tuple(x.view_as(x) if d == x.device else x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counts["all_reduce_grad"] += 1
+        return None, _sum32(grads, ctx.device).to(ctx.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, dtype, *parts):
+        ctx.devices, ctx.dtypes = devices, [p.dtype for p in parts]
+        return _sum32(parts, devices[0]).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *(grad.to(device=d, dtype=t) for d, t in zip(ctx.devices, ctx.dtypes)))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, dim, *parts):
+        ctx.devices, ctx.dim = devices, dim
+        ctx.sizes = [p.shape[dim] for p in parts]
+        return torch.cat([p.to(devices[0]) for p in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pieces = grad.split(ctx.sizes, dim=ctx.dim)
+        return (None, None, *(g.to(d) for g, d in zip(pieces, ctx.devices)))
+
+
+def broadcast(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
+    """Megatron's f: ``x`` (on the lead) on every position of ``group``;
+    backward, the positions' gradients added in fp32 in position order and
+    cast once to ``x``'s dtype."""
+    counts["broadcast"] += 1
+    return list(_Broadcast.apply(group.devices, x))
+
+
+def all_reduce(parts: list[torch.Tensor], group: Group, dtype=None) -> torch.Tensor:
+    """Megatron's g: the sum of the positions' ``parts`` on the lead, added
+    in fp32 in position order and cast once to ``dtype`` (by default the
+    parts'); backward, the gradient copied to every position."""
+    counts["all_reduce"] += 1
+    return _AllReduce.apply(group.devices, dtype or parts[0].dtype, *parts)
+
+
+def all_gather(parts: list[torch.Tensor], group: Group, dim: int = -1) -> torch.Tensor:
+    """The positions' ``parts`` concatenated along ``dim``, in position order,
+    on the lead; backward, each position's slice of the gradient."""
+    counts["all_gather"] += 1
+    return _AllGather.apply(group.devices, dim, *parts)
+
+
+@torch.no_grad()
+def all_reduce_max(parts: list[torch.Tensor], group: Group) -> torch.Tensor:
+    """The elementwise max of the positions' ``parts`` on the lead (no
+    gradient: a vocabulary-parallel log-softmax's shift)."""
+    counts["all_reduce_max"] += 1
+    out = parts[0].to(group.devices[0], copy=True)
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(group.devices[0]))
+    return out

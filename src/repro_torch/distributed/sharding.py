@@ -19,11 +19,19 @@ Two kinds of mesh:
 On a ``DeviceMesh``, :func:`shard` lays a tensor out as a :class:`Sharded`
 value (one local tensor per position, replicated dims copied to each) and
 :func:`place` applies the parameter rules leaf by leaf to a model or a
-training state.  :func:`constrain` resolves and checks its spec and returns
-its input: a constraint changes no value, and the executor (``models/lm.py``
-``group_train``, ``train/train_step.py``) lays out the activations, a
-data-parallel group's rows on its lead position.  :func:`constrain_params`
-is the reduction of gradients into the parameters' shards.
+training state.  A data-parallel group is its lead position and the lead's
+peers along the ctx's tensor-parallel axes (:func:`tp_peers`).  The
+executor (``models/lm.py``, ``models/tensor_parallel.py``,
+``train/train_step.py``) runs the products that the reference constrains
+to the model axis tensor-parallel over a group's positions, Megatron's
+column- and row-parallel layout: each position binds only its block of a
+weight (:func:`gather_region`, over the fsdp axis alone), and the
+``distributed/collectives.py`` all-reduces join the partial products.
+:func:`constrain` resolves and checks a spec and returns its input, since
+the executor, not a constraint, lays the activations out;
+:func:`tp_worthwhile` is the reference's rule for which dense products run
+tensor-parallel.  :func:`constrain_params` is the reduction of gradients,
+whole or a position's block, into the parameters' shards.
 
 A spec is a plain tuple with one entry per dim: ``None``, an axis name or a
 tuple of names (the reference's ``PartitionSpec``).  A dim over a tuple of
@@ -34,10 +42,13 @@ Default production mapping (DESIGN.md §6):
   fsdp  = "data"            parameter/optimizer sharding (intra-pod)
   tp    = "model"           tensor parallel (heads / ff columns / vocab / EP)
   seq   = "model"           sequence parallelism on the residual stream
+                            (storage only here: the residual stays whole on
+                            each tensor-parallel position)
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -173,9 +184,10 @@ def constrain(x, *logical: str | None):
     """The reference's ``with_sharding_constraint``: the identity outside a
     ctx.  Under one, the spec is resolved (an unknown logical axis raises
     ``ValueError``) and sanitized against ``x``'s shape, and ``x`` comes
-    back unchanged: the constraint changes no value, and on a
-    ``DeviceMesh`` the executor places the activations (a data-parallel
-    group's rows on its lead position)."""
+    back unchanged: on a ``DeviceMesh`` the executor lays the activations
+    out itself (a group's rows on its positions, and a tensor-parallel
+    product's heads, columns, channels, experts or vocabulary slice on each
+    of the group's tp positions: ``models/tensor_parallel.py``)."""
     ctx = current_ctx()
     if ctx is not None:
         sanitize_spec(tuple(ctx.resolve(lg) for lg in logical), tuple(x.shape), ctx.mesh)
@@ -187,10 +199,13 @@ def tp_worthwhile(x_shape: tuple[int, ...], w_elems: int) -> bool:
 
     The reference's napkin rule: constrain iff the layer's weight elements
     exceed 2x the per-device activation elements.  False outside a ctx.
-    The port's models ask nothing of it: on a ``DeviceMesh`` every product
-    runs whole on a group's lead position, so the answer changes no value
-    (tensor-parallel products over the model axis are ROADMAP.md queue 1,
-    item 5).
+    ``x_shape`` is the global activation the reference's jitted step sees
+    (a whole microbatch ``[B, S, D]``, a decode step's ``[B, 1, D]``): the
+    rule divides its tokens by the data-parallel size itself.  On a
+    ``DeviceMesh`` the executor runs an attention or dense MLP layer
+    tensor-parallel over the model axis exactly when this holds
+    (``models/tensor_parallel.py`` ``plan``), and whole on a group's lead
+    otherwise.
     """
     ctx = current_ctx()
     if ctx is None:
@@ -210,10 +225,14 @@ def constrain_params(grads: dict, into: dict | None = None):
     the gradient accumulator (``src/repro/train/train_step.py:81-83``),
     which pins both to the parameters' shardings so that adding them lowers
     to a reduce-scatter into the sharded accumulator.  Here it is that
-    reduction: under a ``DeviceMesh`` ctx each whole gradient ``grads[name]``
-    is added into the :class:`Sharded` accumulator ``into[name]``, each
-    position adding its own slice in the accumulator's dtype, in place;
-    returns ``into``.  This is the step's reduction of a block's gradients
+    reduction: under a ``DeviceMesh`` ctx each gradient ``grads[name]`` is
+    added into the :class:`Sharded` accumulator ``into[name]`` in the
+    accumulator's dtype, in place; returns ``into``.  A gradient is a whole
+    tensor (:meth:`Sharded.add_`) or, for a leaf bound block by block on a
+    group's tensor-parallel positions, a list of ``(region, block)`` pairs,
+    each added into the shards that hold that block
+    (:meth:`Sharded.add_region_`), so that no whole gradient of such a leaf
+    is formed.  This is the step's reduction of a block's gradients
     (``models/lm.py`` ``group_train``).
 
     Without ``into`` it changes no value and returns ``grads``, under any
@@ -226,7 +245,11 @@ def constrain_params(grads: dict, into: dict | None = None):
         raise ValueError("constrain_params(into=...) reduces into shards on a DeviceMesh: "
                          "call it under use_ctx(make_ctx(mesh)) with one")
     for name, g in grads.items():
-        into[name].add_(g)
+        if isinstance(g, torch.Tensor):
+            into[name].add_(g)
+        else:
+            for region, block in g:
+                into[name].add_region_(block, region)
     return into
 
 
@@ -378,13 +401,30 @@ def _entry_index(mesh: MeshShape, at: dict[str, int], entry) -> int:
     return idx
 
 
-def axis_peers(mesh: MeshShape, pos: int, axis: str) -> list[int]:
-    """The positions that differ from ``pos`` along ``axis`` alone, in the
-    axis's order (``pos`` among them)."""
-    if axis not in mesh.axis_names:
-        raise ValueError(f"mesh axes {mesh.axis_names} have no axis {axis!r}")
+def axis_group(mesh: MeshShape, pos: int, axes) -> list[int]:
+    """The positions that differ from ``pos`` along ``axes`` (an axis name or
+    a tuple of them) alone, in row-major order over ``axes``, the first axis
+    the major one (``pos`` among them)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no axis {a!r}")
     at = dict(zip(mesh.axis_names, coords(mesh, pos)))
-    return [position(mesh, {**at, axis: i}) for i in range(mesh.shape[axis])]
+    return [position(mesh, {**at, **dict(zip(axes, combo))})
+            for combo in itertools.product(*(range(mesh.shape[a]) for a in axes))]
+
+
+def tp_axes(ctx: ShardCtx) -> tuple[str, ...]:
+    """The ctx's tensor-parallel axes as a tuple (empty without any)."""
+    return () if ctx.tp is None else (ctx.tp,) if isinstance(ctx.tp, str) else tuple(ctx.tp)
+
+
+def tp_peers(ctx: ShardCtx, lead: int) -> list[int]:
+    """A data-parallel group's positions: ``lead`` and its peers along the
+    ctx's tensor-parallel axes, in the order of the tensor-parallel index
+    (a dim laid out over those axes puts its ``t``-th block on the
+    ``t``-th)."""
+    return axis_group(ctx.mesh, lead, tp_axes(ctx))
 
 
 def dp_leads(ctx: ShardCtx) -> list[int]:
@@ -438,8 +478,21 @@ class Sharded:
         slice, copied to its device, in this value's dtype."""
         if tuple(full.shape) != self.shape:
             raise ValueError(f"adding {tuple(full.shape)} to a sharded {self.shape}")
+        return self.add_region_(full, whole(self.shape))
+
+    @torch.no_grad()
+    def add_region_(self, block: torch.Tensor, region: tuple) -> Sharded:
+        """Add ``block``, this tensor's ``region`` (a slice a dim, as
+        :func:`gather_region` takes it), in place: each position adds the
+        part of ``block`` that falls in its shard, copied to its device, in
+        this value's dtype; a position whose shard lies outside the region
+        adds nothing."""
+        if tuple(block.shape) != region_shape(region):
+            raise ValueError(f"a block {tuple(block.shape)} for a region {region_shape(region)}")
         for s, sl in zip(self.shards, self.slices):
-            s.add_(full[sl].to(s.device))
+            cut = _intersect(sl, region)
+            if cut is not None:
+                s[_within(cut, sl)].add_(block[_within(cut, region)].to(s.device))
         return self
 
 
@@ -455,6 +508,48 @@ def shard(t: torch.Tensor, spec: Spec, mesh: MeshShape) -> Sharded:
     x.shards = [torch.empty(local, dtype=t.dtype, device=d).copy_(t[sl])
                 for d, sl in zip(mesh.devices, x.slices)]
     return x
+
+
+def whole(shape) -> tuple:
+    """The region that covers a tensor of ``shape``."""
+    return tuple(slice(0, n) for n in shape)
+
+
+def region_shape(region: tuple) -> tuple[int, ...]:
+    return tuple(r.stop - r.start for r in region)
+
+
+def _intersect(a: tuple, b: tuple):
+    """The region both ``a`` and ``b`` cover, or None."""
+    out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop)) for x, y in zip(a, b))
+    return None if any(r.start >= r.stop for r in out) else out
+
+
+def _within(region: tuple, outer: tuple) -> tuple:
+    """``region`` in the coordinates of ``outer``'s first element."""
+    return tuple(slice(r.start - o.start, r.stop - o.start) for r, o in zip(region, outer))
+
+
+# the bytes gather_region has copied onto each position, by position (read
+# around a step; reset with .clear())
+gathered_bytes: collections.Counter = collections.Counter()
+
+
+@torch.no_grad()
+def gather_region(x: Sharded, region: tuple, pos: int) -> torch.Tensor:
+    """``region`` of the tensor (a slice a dim) on position ``pos``'s
+    device, each piece copied from the first position that holds it: a
+    tensor-parallel position's block of a weight, gathered over the fsdp
+    axis alone, or with :func:`whole` the whole leaf.  The bytes copied
+    count in :data:`gathered_bytes` under ``pos``."""
+    out = torch.empty(region_shape(region), dtype=x.dtype, device=x.mesh.devices[pos])
+    for owner in x.owners:
+        sl = x.slices[owner]
+        cut = _intersect(sl, region)
+        if cut is not None:
+            out[_within(cut, region)].copy_(x.shards[owner][_within(cut, sl)])
+    gathered_bytes[pos] += out.numel() * out.element_size()
+    return out
 
 
 @torch.no_grad()

@@ -12,6 +12,14 @@ Three execution paths, as in the JAX package's ``models/attention.py``:
   * paged decode (serving engine): the CUDA kernel behind
     ``repro_torch.kernels.ops.paged_decode_partial``, reading through a leap
     block table.
+
+Handed a ``common.Split``, the train, prefill and decode paths run
+tensor-parallel (the reference's head-sharded constraints,
+``src/repro/models/attention.py:70-73`` and ``:160-161``): each position
+projects its q heads and the KV heads they read, attends over them, and
+multiplies by its rows of ``wo``; one all-reduce adds the partial outputs.
+A decode cache is then a list with one entry per position, each holding
+that position's KV heads.
 """
 
 from __future__ import annotations
@@ -21,7 +29,16 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device
-from repro_torch.models.common import _param, apply_rope, dense_init, rms_norm, softcap
+from repro_torch.distributed import collectives as col
+from repro_torch.models.common import (
+    Split,
+    _param,
+    apply_rope,
+    dense_init,
+    partial_product,
+    rms_norm,
+    softcap,
+)
 
 # -- params -------------------------------------------------------------------
 
@@ -152,24 +169,48 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, d
     }
 
 
-def _attn_seq(x, params: Attention, cfg: ModelConfig, window: int):
+def _out_proj(out, params: Attention, partial: bool):
+    """The heads' outputs through ``wo``: on a tensor-parallel position
+    (``partial``) its rows, a partial product in fp32."""
+    return partial_product(out, params.wo) if partial else out @ params.wo
+
+
+def _attn_seq(x, params: Attention, cfg: ModelConfig, window: int, partial: bool = False):
     """Full-sequence attention: (out [B,S,D] @wo applied, RoPE'd k, v)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(x, params, cfg, positions)
     out = causal_attention(q, k, v, cfg, window)
-    return out.reshape(b, s, -1) @ params.wo, k, v
+    return _out_proj(out.reshape(b, s, -1), params, partial), k, v
+
+
+def _over_positions(fn, x, params: Split):
+    """``fn(x_t, part_t, cfg_t)`` on each position of a split layer; returns
+    the all-reduce of the partial outputs and the list of the rest."""
+    outs = [fn(xi, p, c) for xi, p, c in zip(col.broadcast(x, params.group), params.parts,
+                                             params.cfgs)]
+    return col.all_reduce([o[0] for o in outs], params.group, x.dtype), [o[1] for o in outs]
 
 
 def attn_train(x, params: Attention, cfg: ModelConfig, window: int = 0):
     """[B,S,D] -> [B,S,D]: the training forward (no cache), differentiable."""
+    if isinstance(params, Split):
+        return _over_positions(lambda xi, p, c: (_attn_seq(xi, p, c, window, True)[0], None),
+                               x, params)[0]
     return _attn_seq(x, params, cfg, window)[0]
 
 
 def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
-    """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys."""
+    """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys;
+    split, the list of the positions' caches."""
+    if isinstance(params, Split):
+        return _over_positions(lambda xi, p, c: _prefill(xi, p, c, window, True), x, params)
+    return _prefill(x, params, cfg, window, False)
+
+
+def _prefill(x, params: Attention, cfg: ModelConfig, window: int, partial: bool):
     b, s, _ = x.shape
-    out, k, v = _attn_seq(x, params, cfg, window)
+    out, k, v = _attn_seq(x, params, cfg, window, partial)
     t = cache_len(cfg, window, s)
     if window and s > t:
         # rolling layout: absolute position p lands in slot p % W
@@ -187,8 +228,18 @@ def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
 def attn_decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int = 0):
     """One decode step.  x: [B,1,D]; pos: int (tokens already cached).
 
-    Returns (out [B,1,D], cache), the cache updated in place.
+    Returns (out [B,1,D], cache), the cache updated in place (split: a list
+    of the positions' caches, each updated in place).
     """
+    if isinstance(params, Split):
+        caches = iter(cache)
+        return _over_positions(
+            lambda xi, p, c: _decode(xi, p, c, next(caches), pos, window, True), x, params)
+    return _decode(x, params, cfg, cache, pos, window, False)
+
+
+def _decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int,
+            partial: bool):
     b = x.shape[0]
     t = cache["k"].shape[1]
     positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=x.device)
@@ -201,5 +252,4 @@ def attn_decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, w
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, 1, kvh, g, cfg.head_dim)
     out = _attend(qg, cache["k"], cache["v"], positions[0], kpos, cfg, window)
-    out = out.reshape(b, 1, -1) @ params.wo
-    return out, cache
+    return _out_proj(out.reshape(b, 1, -1), params, partial), cache

@@ -3,13 +3,19 @@
 All math accumulates in fp32 where precision matters (norms, softmax) and
 casts back to the compute dtype; parameters are stored in ``param_dtype``.
 Weights keep the JAX package's ``[in, out]`` layout (``x @ W``), so weights
-carry across unchanged.  The JAX package's sharding constraints are the
-identity on one device, so the models call none; their rules are ported as
-data in ``repro_torch.distributed.sharding``, which the dry-run reads.
+carry across unchanged.  The JAX package's sharding constraints become, on
+a device mesh, tensor-parallel compute: a layer handed a :class:`Split` in
+place of its parameters runs on each of a group's tensor-parallel
+positions over that position's block of its weights and joins the partial
+products with the collectives of ``repro_torch.distributed.collectives``
+(Megatron's column- and row-parallel layout); ``models/tensor_parallel.py``
+decides which layers split, by the reference's own conditions.  Called
+with its parameters, a layer runs whole, as on one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.state import _default_device
+from repro_torch.distributed import collectives as col
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -92,6 +99,55 @@ def embed_init(gen, shape, dtype, device=None) -> torch.Tensor:
     return _truncated_normal(shape, gen, _default_device(device)).to(dtype)
 
 
+# -- tensor-parallel layers ------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class Split:
+    """A layer's parameters over a data-parallel group's tensor-parallel
+    positions (``models/tensor_parallel.py`` builds it): ``parts[t]`` is the
+    layer's module on position ``t`` with its block of each split weight
+    bound, ``cfgs[t]`` the config that block computes under (its heads or
+    channels), ``spans[t]`` the range of the split dim it holds (heads,
+    channels or experts) and ``group`` the positions
+    (``distributed/collectives.py`` ``Group``)."""
+
+    parts: list
+    group: col.Group
+    cfgs: list
+    spans: list
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``x @ w`` with an fp32 result; the backward's products in the
+    operands' dtype, as autograd takes those of ``x @ w``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:  # the CPU has no mixed-dtype product: the same values through fp32
+            y = x2.float() @ w.float()
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, gw
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel partial product ``x @ w`` (``x`` a position's slice of
+    the contracting dim, ``w`` its rows): in fp32, so that the all-reduce
+    that adds the positions' partials rounds the sum once, as the whole
+    product rounds once."""
+    return x @ w if x.dtype == torch.float32 else _PartialProduct.apply(x, w)
+
+
 # -- MLPs -----------------------------------------------------------------------
 
 
@@ -110,7 +166,20 @@ class MLP(nn.Module):
 
 def mlp_forward(x: torch.Tensor, params, kind: str) -> torch.Tensor:
     """Dense FFN.  ``relu2`` is the squared-ReLU of Primer/Nemotron-4 (no gate);
-    ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` computes it."""
+    ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` computes it.
+
+    ``params`` a :class:`Split`: each position computes its columns of
+    ``w_gate`` and ``w_in`` and its rows of ``w_out``, and one all-reduce
+    adds the partial outputs (the reference's ``tp_worthwhile`` constraint
+    on the hidden dim, ``src/repro/models/common.py:72-74``)."""
+    if isinstance(params, Split):
+        xs = col.broadcast(x, params.group)
+        return col.all_reduce([partial_product(_mlp_hidden(xi, p, kind), p.w_out)
+                               for xi, p in zip(xs, params.parts)], params.group, x.dtype)
+    return _mlp_hidden(x, params, kind) @ params.w_out
+
+
+def _mlp_hidden(x: torch.Tensor, params, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         gate = x @ params.w_gate
         act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
@@ -121,7 +190,7 @@ def mlp_forward(x: torch.Tensor, params, kind: str) -> torch.Tensor:
         h = F.gelu(x @ params.w_in, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp kind {kind}")
-    return h @ params.w_out
+    return h
 
 
 def mlp_init(gen, d_model: int, d_ff: int, kind: str, dtype, device=None) -> MLP:

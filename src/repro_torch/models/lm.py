@@ -22,12 +22,18 @@ and ``moe`` layers (written in place by decode); ``{"conv", "h"}`` for
 its decode step returns).
 
 A model placed over a device mesh (``distributed/sharding.py`` ``place``,
-a ``PlacedModel``) runs block by block on each data-parallel group's lead
-position: :func:`group_train` and :func:`decode_step` gather a stage's
-leaves (the embedding, one block, the final norm and head) from their
-shards just before it runs and free them after, and the training backward
-recomputes each block from its saved input, gathering it again, and
-reduces its gradients into the shards as soon as it is done.
+a ``PlacedModel``) runs block by block on each data-parallel group's
+positions, its lead and the lead's tensor-parallel peers:
+:func:`group_train` and :func:`decode_step` bind a stage's leaves (the
+embedding, one block, the final norm and head) just before it runs and
+free them after.  A product that runs tensor-parallel
+(``models/tensor_parallel.py`` ``plan``) binds on each position only that
+position's block of its weights, gathered over the fsdp axis alone, and
+the positions' partial products meet in all-reduces; the rest is gathered
+whole onto the lead and runs there.  The training backward recomputes each
+block from its saved input, binding it again, and reduces each position's
+gradient of its block into the shards that hold that block as soon as the
+block is done.
 
 The JAX module's function names (``init_params``, ``train_loss``,
 ``prefill``, ``decode_step``, ``init_cache``, ``embed_tokens``,
@@ -46,10 +52,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device, _tensor_from_host
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import blocks as B
-from repro_torch.models.moe import dp_config
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import _param, dense_init, embed_init, rms_norm, softcap
+from repro_torch.models.moe import dp_config
 
 
 def _has_head(cfg: ModelConfig) -> bool:
@@ -82,20 +90,18 @@ class CausalLM(nn.Module):
     # -- embedding / head ---------------------------------------------------------
 
     def embed_tokens(self, inputs: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.embed_inputs:
-            x = self.embed[inputs].to(cfg.dtype())
-        else:
-            x = inputs.to(cfg.dtype())  # frontend stub: already embeddings
-        if cfg.embed_scale:
-            x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype())
-        return x
+        # a frontend stub's inputs are already embeddings
+        return _embedded(self.embed[inputs] if self.cfg.embed_inputs else inputs, self.cfg)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits of the head product taken in the compute dtype."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        head = self.lm_head if _has_head(self.cfg) else self.embed.T
-        return softcap((x @ head).float(), self.cfg.final_softcap)
+        return _head_logits(x, self)
+
+    @property
+    def head(self) -> torch.Tensor:
+        """The head's ``[D, V]`` weight: ``lm_head``, or the tied embedding."""
+        return self.lm_head if _has_head(self.cfg) else self.embed.T
 
     # -- training -------------------------------------------------------------------
 
@@ -153,6 +159,20 @@ class CausalLM(nn.Module):
         return self.lm_logits(x)[:, 0], cache
 
 
+def _embedded(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Embedding rows (or a stub's embeddings) in the compute dtype, scaled."""
+    x = x.to(cfg.dtype())
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype())
+    return x
+
+
+def _head_logits(x: torch.Tensor, model) -> torch.Tensor:
+    """fp32 logits of ``x`` (final-normed) against ``model``'s head (on a
+    tensor-parallel position, its vocabulary slice), softcapped."""
+    return softcap((x @ model.head).float(), model.cfg.final_softcap)
+
+
 def masked_nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The summed NLL of fp32 ``logits`` [B,S,V] at the positions whose label
     is >= 0 (label -100 is masked)."""
@@ -160,6 +180,29 @@ def masked_nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     return ((lse - ll) * (labels >= 0).float()).sum()
+
+
+def vocab_parallel_nll_sum(parts: list, labels: torch.Tensor, spans: list,
+                           group: col.Group) -> torch.Tensor:
+    """:func:`masked_nll_sum` of logits split over a group's positions by
+    vocabulary: ``parts[t]`` fp32 ``[B, S, V_t]``, the logits of vocabulary
+    ``spans[t]`` on position ``t``.  The log-sum-exp's max and its sum of
+    exponentials are all-reduced over the positions (the sum, and the
+    label's logit from the one position whose slice holds it, in one
+    all-reduce), so no position holds more than its slice; returns the sum
+    on the lead."""
+    shift = col.all_reduce_max([z.amax(dim=-1, keepdim=True) for z in parts], group)
+    labels = labels.long()
+    stats = []
+    for z, (v0, v1), dev in zip(parts, spans, group.devices):
+        local = labels.to(dev) - v0
+        held = (local >= 0) & (local < v1 - v0)
+        ll = torch.gather(z, -1, local.clamp(0, v1 - v0 - 1)[..., None])
+        stats.append(torch.cat([torch.exp(z - shift.to(dev)).sum(dim=-1, keepdim=True),
+                                torch.where(held[..., None], ll, 0.0)], dim=-1))
+    total = col.all_reduce(stats, group)  # [B, S, 2]: sum of exponentials, label logit
+    lse = (shift + torch.log(total[..., :1]))[..., 0]
+    return ((lse - total[..., 1]) * (labels >= 0).float()).sum()
 
 
 def label_count(labels: torch.Tensor) -> torch.Tensor:
@@ -312,12 +355,15 @@ def decode_step(params, cache, inputs, pos, cfg: ModelConfig):
 # -- a model placed over a device mesh ------------------------------------------------
 
 
-def _skeleton(placed: sh.PlacedModel) -> CausalLM:
-    """The model's modules on ``meta``, whose parameters a stage binds to
-    gathered tensors while it runs."""
-    if not hasattr(placed, "_skeleton"):
-        placed._skeleton = CausalLM(placed.cfg, device="meta")
-    return placed._skeleton
+def _skeletons(placed: sh.PlacedModel, n: int) -> list[CausalLM]:
+    """The model's modules on ``meta``, one set per tensor-parallel position
+    of a group, whose parameters a stage binds to gathered tensors while it
+    runs."""
+    if not hasattr(placed, "_skeletons"):
+        placed._skeletons = []
+    while len(placed._skeletons) < n:
+        placed._skeletons.append(CausalLM(placed.cfg, device="meta"))
+    return placed._skeletons[:n]
 
 
 def _stages(placed: sh.PlacedModel) -> tuple[list[str], list[list[str]], list[str]]:
@@ -329,80 +375,134 @@ def _stages(placed: sh.PlacedModel) -> tuple[list[str], list[list[str]], list[st
 
 
 @contextlib.contextmanager
-def _bound(skel: nn.Module, placed: sh.PlacedModel, names: list[str], device, grad: bool):
-    """Bind the leaves ``names``, gathered onto ``device``, as the skeleton's
-    parameters (with ``requires_grad`` if ``grad``); yields them, and puts
-    the ``meta`` parameters back after, which frees the gathered ones once
-    the caller drops them."""
-    old, params = [], []
+def _bound(skels: list, placed: sh.PlacedModel, names: list[str], plan: tp.Plan,
+           group: col.Group, grad: bool):
+    """Bind the leaves ``names`` as the skeletons' parameters: on each
+    tensor-parallel position ``t`` the region ``plan.regions[name][t]``
+    gathered onto its device (with ``requires_grad`` if ``grad``).  Yields
+    ``[(name, region, parameter)]``, and puts the ``meta`` parameters back
+    after, which frees the gathered ones once the caller drops them."""
+    old, bound = [], []
     for name in names:
         owner, _, leaf = name.rpartition(".")
-        sub = skel.get_submodule(owner)
-        old.append((sub, leaf, getattr(sub, leaf)))
-        p = nn.Parameter(sh.gather(placed.leaves[name], device), requires_grad=grad)
-        setattr(sub, leaf, p)
-        params.append(p)
+        for skel, pos, region in zip(skels, group.positions, plan.regions[name]):
+            if region is None:
+                continue
+            sub = skel.get_submodule(owner)
+            old.append((sub, leaf, getattr(sub, leaf)))
+            p = nn.Parameter(sh.gather_region(placed.leaves[name], region, pos),
+                             requires_grad=grad)
+            setattr(sub, leaf, p)
+            bound.append((name, region, p))
     try:
-        yield params
+        yield bound
     finally:
-        for sub, leaf, p in old:
+        for sub, leaf, p in reversed(old):
             setattr(sub, leaf, p)
 
 
-def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, device,
-                denom: torch.Tensor, aux_scale: float, into: dict) -> torch.Tensor:
-    """One data-parallel group's share of a training microbatch, on ``device``.
+def _reduce_grads(bound: list, grads, into: dict) -> None:
+    """Add each bound parameter's gradient into ``into``'s shards that hold
+    its region (``sharding.constrain_params``)."""
+    pieces = {}
+    for (name, region, _), g in zip(bound, grads):
+        pieces.setdefault(name, []).append((region, g))
+    sh.constrain_params(pieces, into=into)
 
-    ``batch`` holds the group's rows; ``denom`` is the count of labels >= 0
-    over the whole microbatch (the reference's masked mean is global) and
-    ``aux_scale`` the MoE aux term's weight for this group's mean over its
-    routing groups.  The forward pass saves each block's input and nothing
-    else; the backward pass recomputes each block from it (as the
-    reference's per-period remat does) and reduces each stage's gradients
-    into ``into``'s shards as soon as that stage is done
-    (``sharding.constrain_params(..., into=)``), so no whole-model gradient
-    is ever alive.  Returns the group's loss term: its masked NLL sum over
-    ``denom`` plus ``aux_scale`` times its summed aux losses.
+
+def _embed(skels: list, inputs: torch.Tensor, plan: tp.Plan, group: col.Group, cfg):
+    """The embedding stage: whole on the lead, or each position's rows of a
+    vocabulary-split table, a token outside its slice a zero row, added by
+    one all-reduce (exact: one term of each sum is not zero)."""
+    if plan.vocab is None or not cfg.embed_inputs:
+        return skels[0].embed_tokens(inputs)
+    parts = []
+    for skel, (v0, v1), dev in zip(skels, plan.vocab, group.devices):
+        ids = inputs.to(dev).long() - v0
+        held = (ids >= 0) & (ids < v1 - v0)
+        parts.append(torch.where(held[..., None], skel.embed[ids.clamp(0, v1 - v0 - 1)], 0))
+    return _embedded(col.all_reduce(parts, group), cfg)
+
+
+def _logit_parts(skels: list, x: torch.Tensor, plan: tp.Plan, group: col.Group) -> list:
+    """The final norm on the lead, then each position's fp32 logits of its
+    vocabulary slice."""
+    x = rms_norm(x, skels[0].final_norm, skels[0].cfg.norm_eps)
+    return [_head_logits(xi, s) for xi, s in zip(col.broadcast(x, group), skels)]
+
+
+def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.Plan,
+                group: col.Group, denom: torch.Tensor, aux_scale: float,
+                into: dict) -> torch.Tensor:
+    """One data-parallel group's share of a training microbatch, on its
+    positions ``group`` (the lead first), laid out by ``plan``.
+
+    ``batch`` holds the group's rows, on the lead's device; ``denom`` is the
+    count of labels >= 0 over the whole microbatch (the reference's masked
+    mean is global) and ``aux_scale`` the MoE aux term's weight for this
+    group's mean over its routing groups.  The forward pass saves each
+    block's input and nothing else; the backward pass recomputes each block
+    from it (as the reference's per-period remat does) and reduces each
+    stage's gradients into ``into``'s shards as soon as that stage is done,
+    each position's gradient of its block into the shards of that block
+    (``sharding.constrain_params(..., into=)``), so no whole-model gradient,
+    and no whole gradient of a split leaf, is ever alive.  Returns the
+    group's loss term: its masked NLL sum over ``denom`` plus ``aux_scale``
+    times its summed aux losses.
     """
-    skel = _skeleton(placed)
+    skels = _skeletons(placed, plan.n)
     embed, blocks, head = _stages(placed)
+    lead = group.devices[0]
     with torch.no_grad():
-        with _bound(skel, placed, embed, device, False):
-            x = skel.embed_tokens(batch["inputs"])
-        saved, aux = [], torch.zeros((), dtype=torch.float32, device=device)
-        for blk, names in zip(skel.blocks, blocks):
+        with _bound(skels, placed, embed, plan, group, False):
+            x = _embed(skels, batch["inputs"], plan, group, cfg)
+        saved, aux = [], torch.zeros((), dtype=torch.float32, device=lead)
+        for i, names in enumerate(blocks):
             saved.append(x)
-            with _bound(skel, placed, names, device, False):
-                x, a = B.block_train(x, blk, cfg, blk.kind)
+            with _bound(skels, placed, names, plan, group, False):
+                x, a = B.block_train(x, tp.block_view(skels, i, plan, group), cfg,
+                                     cfg.layer_kinds[i])
             aux = aux + a
     x = x.detach().requires_grad_(True)
-    with _bound(skel, placed, head, device, True) as ps:
-        nll = masked_nll_sum(skel.lm_logits(x), batch["labels"]) / denom
-        dx, *grads = torch.autograd.grad(nll, [x, *ps])
-    sh.constrain_params(dict(zip(head, grads)), into=into)
-    seed = torch.full((), aux_scale, dtype=torch.float32, device=device)
-    for blk, names in zip(reversed(skel.blocks), reversed(blocks)):
+    with _bound(skels, placed, head, plan, group, True) as bound:
+        if plan.vocab is None:
+            nll = masked_nll_sum(skels[0].lm_logits(x), batch["labels"])
+        else:
+            nll = vocab_parallel_nll_sum(_logit_parts(skels, x, plan, group), batch["labels"],
+                                         plan.vocab, group)
+        nll = nll / denom
+        dx, *grads = torch.autograd.grad(nll, [x, *(p for _, _, p in bound)])
+    _reduce_grads(bound, grads, into)
+    seed = torch.full((), aux_scale, dtype=torch.float32, device=lead)
+    for i in reversed(range(len(blocks))):
         xi = saved.pop().detach().requires_grad_(True)
-        with _bound(skel, placed, names, device, True) as ps:
-            y, a = B.block_train(xi, blk, cfg, blk.kind)
+        with _bound(skels, placed, blocks[i], plan, group, True) as bound:
+            y, a = B.block_train(xi, tp.block_view(skels, i, plan, group), cfg,
+                                 cfg.layer_kinds[i])
             outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else ([y], [dx])
-            dx, *grads = torch.autograd.grad(outs, [xi, *ps], seeds, allow_unused=True,
-                                             materialize_grads=True)
-        sh.constrain_params(dict(zip(names, grads)), into=into)
+            dx, *grads = torch.autograd.grad(outs, [xi, *(p for _, _, p in bound)], seeds,
+                                             allow_unused=True, materialize_grads=True)
+        _reduce_grads(bound, grads, into)
     if embed:
-        with _bound(skel, placed, embed, device, True) as ps:
-            grads = torch.autograd.grad(skel.embed_tokens(batch["inputs"]), ps, dx)
-        sh.constrain_params(dict(zip(embed, grads)), into=into)
+        with _bound(skels, placed, embed, plan, group, True) as bound:
+            grads = torch.autograd.grad(_embed(skels, batch["inputs"], plan, group, cfg),
+                                        [p for _, _, p in bound], dx)
+        _reduce_grads(bound, grads, into)
     return nll.detach() + aux_scale * aux
 
 
-def init_group_caches(placed: sh.PlacedModel, batch: int, max_len: int) -> list[list[dict]]:
-    """One empty decode cache per data-parallel group of the current ctx,
-    each for the group's rows of ``batch`` on its lead position's device."""
+def init_group_caches(placed: sh.PlacedModel, batch: int, max_len: int) -> list[list]:
+    """One empty decode cache per data-parallel group of the current ctx, for
+    the group's rows of ``batch``: a layer an entry, on the lead's device,
+    or, for a layer whose attention or RG-LRU runs tensor-parallel at this
+    batch, a list of the group's positions' caches, each holding that
+    position's KV heads or channels on its device."""
     ctx = sh.executor_ctx(placed.mesh)
     leads = sh.dp_leads(ctx)
     rows = _group_rows(batch, len(leads))
-    return [init_cache(placed.cfg, rows, max_len, placed.mesh.devices[p]) for p in leads]
+    plan = tp.plan(placed, ctx, (batch, 1, placed.cfg.d_model))
+    return [tp.init_caches(plan, placed.cfg, rows, max_len, tp.group(placed, ctx, lead))
+            for lead in leads]
 
 
 def _group_rows(batch: int, dp: int) -> int:
@@ -416,9 +516,10 @@ def _group_rows(batch: int, dp: int) -> int:
 def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos: int,
                         cfg: ModelConfig):
     """``decode_step`` over a placed model: each data-parallel group decodes
-    its rows on its lead position with its cache there, gathering each
-    stage's leaves as it runs; the logits [B,V] come back on position 0's
-    device."""
+    its rows on its positions with its cache there, binding each stage's
+    leaves as it runs (the layout of ``tensor_parallel.plan`` at ``[B, 1,
+    D]``); a split head's logits are gathered onto the lead, and the logits
+    [B,V] come back on position 0's device."""
     ctx = sh.executor_ctx(placed.mesh)
     leads = sh.dp_leads(ctx)
     if len(caches) != len(leads):
@@ -426,16 +527,22 @@ def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tens
     dp = len(leads)
     _group_rows(inputs.shape[0], dp)
     local = dp_config(cfg, inputs.shape[0] * inputs.shape[1], dp)
-    skel = _skeleton(placed)
+    plan = tp.plan(placed, ctx, (*inputs.shape[:2], cfg.d_model))
+    skels = _skeletons(placed, plan.n)
     embed, blocks, head = _stages(placed)
     home, out = placed.mesh.devices[0], []
-    for g, (lead, rows) in enumerate(zip(leads, inputs.chunk(dp))):
-        dev, cache = placed.mesh.devices[lead], caches[g]
-        with _bound(skel, placed, embed, dev, False):
-            x = skel.embed_tokens(rows.to(dev))
-        for i, (blk, names) in enumerate(zip(skel.blocks, blocks)):
-            with _bound(skel, placed, names, dev, False):
-                x, cache[i] = B.block_decode(x, blk, local, blk.kind, cache[i], pos)
-        with _bound(skel, placed, head, dev, False):
-            out.append(skel.lm_logits(x)[:, 0].to(home))
+    for lead, rows, cache in zip(leads, inputs.chunk(dp), caches):
+        group = tp.group(placed, ctx, lead)
+        with _bound(skels, placed, embed, plan, group, False):
+            x = _embed(skels, rows.to(group.devices[0]), plan, group, cfg)
+        for i, names in enumerate(blocks):
+            with _bound(skels, placed, names, plan, group, False):
+                x, cache[i] = B.block_decode(x, tp.block_view(skels, i, plan, group), local,
+                                             cfg.layer_kinds[i], cache[i], pos)
+        with _bound(skels, placed, head, plan, group, False):
+            if plan.vocab is None:
+                logits = skels[0].lm_logits(x)
+            else:
+                logits = col.all_gather(_logit_parts(skels, x, plan, group), group)
+        out.append(logits[:, 0].to(home))
     return torch.cat(out), caches

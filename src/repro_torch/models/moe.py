@@ -11,13 +11,20 @@ kept set, the positions and the weights are the reference's, so the result
 is the same arithmetic up to the order of sums.  :func:`route` rebuilds the
 reference's dense tensors from the slots, for tests.
 
-The JAX package's sharding constraints and its two ``dispatch_mode``
-branches (experts gathered or tokens moved) are the same arithmetic on one
-device, so there is one path here.  Over a device mesh each data-parallel
-group routes, on its own rows, exactly the reference's routing groups that
-fall in them (:func:`dp_config`).  The expert products are batched matrix
-products over the expert axis, as the reference's are einsums outside any
-Pallas kernel.
+The JAX package's two ``dispatch_mode`` branches (experts gathered or
+tokens moved) are the same arithmetic on one device, so there is one path
+here.  Over a device mesh each data-parallel group routes, on its own rows,
+exactly the reference's routing groups that fall in them
+(:func:`dp_config`), and the experts run over the model axis, the
+reference's training layout (``src/repro/models/moe.py:104-112``): handed a
+``common.Split``, every tensor-parallel position routes the same tokens
+with the whole router, runs the products of its ``E / tp`` experts and
+combines only the picks they hold; one all-reduce adds the partial
+combines.  The expert products are batched matrix products over the expert
+axis, as the reference's are einsums outside any Pallas kernel.  The
+inference layout (experts stationary on the data axis, a token all-to-all)
+is not ported: a model placed that way runs its MoE layers whole on each
+group's lead.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.state import _default_device
-from repro_torch.models.common import _param, dense_init
+from repro_torch.distributed import collectives as col
+from repro_torch.models.common import Split, _param, dense_init
 
 
 class MoE(nn.Module):
@@ -158,8 +166,22 @@ def moe_ffn(x: torch.Tensor, params: MoE, cfg: ModelConfig):
     Tokens split into ``moe.groups`` routing groups (the largest divisor of
     B*S not above it); capacity applies per group.  Each group's buffers
     hold ``E * C`` expert rows and one trash row that takes the dropped
-    picks, which :func:`moe_ffn` never reads back.
+    picks, which :func:`moe_ffn` never reads back.  ``params`` a ``Split``:
+    the experts over the tensor-parallel positions (the module docstring),
+    the aux loss the lead's.
     """
+    if isinstance(params, Split):
+        xs = col.broadcast(x, params.group)
+        outs = [_moe_local(xi, p, cfg, span) for xi, p, span in zip(xs, params.parts, params.spans)]
+        return col.all_reduce([y for y, _ in outs], params.group, dtype=x.dtype), outs[0][1]
+    y, aux = _moe_local(x, params, cfg, (0, cfg.moe.n_experts))
+    return y.to(x.dtype), aux
+
+
+def _moe_local(x: torch.Tensor, params: MoE, cfg: ModelConfig, span: tuple[int, int]):
+    """:func:`moe_ffn` over the experts ``span`` (``params``' expert leaves
+    hold those): (the fp32 combine of the picks they hold [B, S, D], the
+    aux loss).  The other experts' picks go to the trash row."""
     mc = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -169,7 +191,9 @@ def moe_ffn(x: torch.Tensor, params: MoE, cfg: ModelConfig):
     gates = torch.softmax(xt.float() @ params.router, dim=-1)
     cap = capacity(mc, tg)
     slot, weight, aux = route_slots(gates, mc, cap)
-    e, k = mc.n_experts, mc.top_k
+    e, k = span[1] - span[0], mc.top_k
+    slot = slot - span[0] * cap
+    slot = torch.where((slot >= 0) & (slot < e * cap), slot, e * cap)
     rows = e * cap + 1  # buffer rows a group, the last the trash row
     flat = (torch.arange(g, device=x.device)[:, None, None] * rows + slot).reshape(-1)
     # dispatch: every pick's token row into its slot (only the trash row is
@@ -186,4 +210,4 @@ def moe_ffn(x: torch.Tensor, params: MoE, cfg: ModelConfig):
     # compute dtype as the reference casts its combine tensor, summed in fp32
     w = weight.to(x.dtype).float().reshape(-1, 1)
     y = (ye[flat].float() * w).reshape(g, tg, k, d).sum(dim=2)
-    return y.to(x.dtype).reshape(b, s, d), torch.mean(aux)
+    return y.reshape(b, s, d), torch.mean(aux)

@@ -1,0 +1,197 @@
+"""Tensor-parallel compute over a device mesh's model axis: which products of
+a placed model split over a data-parallel group's positions, and the block
+of each weight that each position binds.
+
+The reference leaves this to GSPMD, steered by its parameter rules
+(``distributed/sharding.py`` ``_RULES``) and its activation constraints.
+Here :func:`plan` makes the same choices, on the shape the reference's
+jitted step sees (the global microbatch ``[B, S, D]`` in training, ``[B,
+1, D]`` in decode), for a group of ``n`` tensor-parallel positions
+(``sharding.tp_peers``; ``n > 1``):
+
+  * attention splits by heads iff ``tp_worthwhile`` holds for its four
+    weights (``src/repro/models/attention.py:64-73``) and its q heads split
+    ``n`` ways.  Each position takes its q heads and the KV heads they read:
+    its share of the KV heads when they split too, else the one KV head
+    its q heads share (MQA); q heads that do not split leave the layer
+    whole;
+  * a dense MLP splits its hidden dim iff ``tp_worthwhile`` holds
+    (``src/repro/models/common.py:72-74``) and ``d_ff`` splits;
+  * an RG-LRU block splits its channels whenever they split (the
+    reference constrains nothing there and leaves the weights' own specs);
+  * a MoE layer splits its experts whenever its expert leaves lie over the
+    model axis (the training layout, ``src/repro/models/moe.py:104-112``);
+  * the embedding and the head split the vocabulary where it divides
+    (``src/repro/models/lm.py:104``), the log-softmax then taken over the
+    slices (``models/lm.py`` ``vocab_parallel_nll_sum``).
+
+Anything else runs whole on the group's lead, its leaves gathered whole
+there, as do the mLSTM and sLSTM blocks (their ``wi``, ``wf``, ``wz``,
+``wo_gate``, ``up`` and ``down`` rules stay storage only), the residual
+stream (sequence parallelism is not ported) and, in the inference
+layout, the MoE layers (expert-stationary decode is not ported).  A split
+layer's modules are handed to ``models/attention.py``, ``common.py``,
+``recurrent.py`` and ``moe.py`` as a ``common.Split`` (:func:`block_view`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import types
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.collectives import Group
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks as B
+from repro_torch.models import recurrent as rec
+from repro_torch.models.common import Split
+
+# the dim each split sublayer's leaves are cut along, and the span it takes
+# ("q": q heads, "kv": KV heads, both in elements; "c": channels; "f": hidden
+# units; "e": experts); a leaf not named (norms, the router) is bound whole
+# on every position
+_CUTS = {
+    "attn": {"wq": (1, "q"), "bq": (0, "q"), "wk": (1, "kv"), "wv": (1, "kv"),
+             "bk": (0, "kv"), "bv": (0, "kv"), "wo": (0, "q")},
+    "rec": {"w_x": (1, "c"), "w_gate_branch": (1, "c"), "wi": (1, "c"), "wr": (1, "c"),
+            "conv_w": (1, "c"), "conv_b": (0, "c"), "lam": (0, "c"), "bi": (0, "c"),
+            "br": (0, "c"), "w_rnn_out": (0, "c")},
+    "mlp": {"w_gate": (1, "f"), "w_in": (1, "f"), "w_out": (0, "f")},
+    "moe": {"e_gate": (0, "e"), "e_in": (0, "e"), "e_out": (0, "e")},
+}
+_VOCAB_CUTS = {"embed": 0, "lm_head": 1}
+
+
+@dataclasses.dataclass
+class Plan:
+    """A placed model's tensor-parallel layout at one step shape.
+
+    ``regions[name][t]`` is the region (a slice a dim) of leaf ``name`` that
+    tensor-parallel position ``t`` binds, or None where it binds nothing;
+    ``layers[i]`` maps each split sublayer of block ``i`` (``"attn"``,
+    ``"rec"``, ``"mlp"``, ``"moe"``) to the positions' configs and spans;
+    ``vocab`` holds each position's vocabulary span, or is None where the
+    embedding and the head run whole."""
+
+    n: int
+    regions: dict
+    layers: list
+    vocab: list | None
+
+
+def _even(size: int, n: int, t: int) -> tuple[int, int]:
+    return t * size // n, (t + 1) * size // n
+
+
+def _attn_split(cfg: ModelConfig, n: int):
+    """Each position's (config, spans) of a head-split attention, or None
+    where its q heads, or the KV heads they read, do not split."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if h % n:
+        return None
+    hn, g = h // n, h // kvh
+    if kvh % n and g % hn:
+        return None
+    out = []
+    for t in range(n):
+        h0, h1 = _even(h, n, t)
+        k0, k1 = _even(kvh, n, t) if kvh % n == 0 else (h0 // g, h0 // g + 1)
+        out.append((dataclasses.replace(cfg, n_heads=h1 - h0, n_kv_heads=k1 - k0),
+                    {"q": (h0 * hd, h1 * hd), "kv": (k0 * hd, k1 * hd)}))
+    return out
+
+
+def _numel(leaves: dict, names) -> int:
+    return sum(math.prod(leaves[n].shape) for n in names)
+
+
+def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> Plan:
+    """The layout of ``placed`` under ``ctx`` for a step whose activations
+    are ``x_shape`` (the module docstring); run under ``ctx``, whose
+    ``tp_worthwhile`` it reads."""
+    cfg, leaves = placed.cfg, placed.leaves
+    n = len(sh.tp_peers(ctx, 0))
+    layers = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        p, split = f"blocks.{i}.", {}
+        if n > 1 and kind in ("attn", "win", "moe"):
+            w = _numel(leaves, [f"{p}attn.{k}" for k in ("wq", "wk", "wv", "wo")])
+            heads = _attn_split(cfg, n) if sh.tp_worthwhile(x_shape, w) else None
+            if heads:
+                split["attn"] = ([c for c, _ in heads], [s for _, s in heads])
+        if n > 1 and kind == "rec" and leaves[f"{p}rec.w_x"].shape[1] % n == 0:
+            r = leaves[f"{p}rec.w_x"].shape[1]
+            spans = [{"c": _even(r, n, t)} for t in range(n)]
+            split["rec"] = ([dataclasses.replace(cfg, lru_width=s["c"][1] - s["c"][0])
+                             for s in spans], spans)
+        if n > 1 and kind == "moe" and leaves[f"{p}moe.e_gate"].spec[0] == ctx.tp:
+            e = leaves[f"{p}moe.e_gate"].shape[0]
+            split["moe"] = ([cfg] * n, [{"e": _even(e, n, t)} for t in range(n)])
+        if n > 1 and kind in ("attn", "win", "rec"):
+            mlp = [k for k in (f"{p}mlp.w_gate", f"{p}mlp.w_in", f"{p}mlp.w_out") if k in leaves]
+            f = leaves[f"{p}mlp.w_in"].shape[1]
+            if sh.tp_worthwhile(x_shape, _numel(leaves, mlp)) and f % n == 0:
+                split["mlp"] = ([cfg] * n, [{"f": _even(f, n, t)} for t in range(n)])
+        layers.append(split)
+    vocab = None
+    if n > 1 and cfg.vocab_size % n == 0:
+        vocab = [_even(cfg.vocab_size, n, t) for t in range(n)]
+    regions = {}
+    for name, x in leaves.items():
+        lead_only = [sh.whole(x.shape)] + [None] * (n - 1)
+        regions[name] = lead_only
+        parts = name.split(".")
+        if parts[0] == "blocks" and parts[2] in layers[int(parts[1])]:
+            spans = layers[int(parts[1])][parts[2]][1]
+            cut = _CUTS[parts[2]].get(parts[3])
+            regions[name] = [sh.whole(x.shape) if cut is None else
+                             _cut(x.shape, cut[0], spans[t][cut[1]]) for t in range(n)]
+        elif name in _VOCAB_CUTS and vocab is not None:
+            regions[name] = [_cut(x.shape, _VOCAB_CUTS[name], vocab[t]) for t in range(n)]
+    return Plan(n, regions, layers, vocab)
+
+
+def _cut(shape, dim: int, span: tuple[int, int]) -> tuple:
+    region = list(sh.whole(shape))
+    region[dim] = slice(*span)
+    return tuple(region)
+
+
+def group(placed: sh.PlacedModel, ctx: sh.ShardCtx, lead: int) -> Group:
+    """The positions of ``lead``'s data-parallel group, in tp order."""
+    return Group.along(placed.mesh, lead, sh.tp_axes(ctx))
+
+
+def block_view(skels: list, i: int, p: Plan, grp: Group):
+    """Block ``i`` as ``models/blocks.py`` reads it: the lead skeleton's
+    bound modules, each split sublayer a ``Split`` over every position's
+    skeleton.  Built while the block's leaves are bound."""
+    lead = skels[0].blocks[i]
+    view = types.SimpleNamespace(kind=lead.kind)
+    for name in ("norm1", "norm2", "attn", "rec", "mlp", "moe", "cell"):
+        if hasattr(lead, name):
+            setattr(view, name, getattr(lead, name))
+    for sub, (cfgs, spans) in p.layers[i].items():
+        span = [s["e"] for s in spans] if sub == "moe" else spans
+        setattr(view, sub, Split([getattr(s.blocks[i], sub) for s in skels], grp, cfgs, span))
+    return view
+
+
+def init_caches(p: Plan, cfg: ModelConfig, batch: int, max_len: int, grp: Group) -> list:
+    """One group's decode cache, a layer an entry: for a layer whose mixer
+    splits, a list with each position's cache (its KV heads, or its
+    channels) on its device; else the whole layer's cache on the lead."""
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        if "attn" in p.layers[i]:
+            window = cfg.window if kind == "win" else 0
+            out.append([attn.init_kv_cache(c, batch, max_len, window, d)
+                        for c, d in zip(p.layers[i]["attn"][0], grp.devices)])
+        elif "rec" in p.layers[i]:
+            out.append([rec.init_rec_cache(c, batch, d)
+                        for c, d in zip(p.layers[i]["rec"][0], grp.devices)])
+        else:
+            out.append(B.block_cache_init(cfg, kind, batch, max_len, grp.devices[0]))
+    return out

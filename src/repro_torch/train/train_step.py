@@ -16,18 +16,23 @@ on the CPU):
 
   * each microbatch's rows split evenly over the ctx's data-parallel
     groups (the reference's ``P(("data",), None)`` batch), and each group
-    computes on its lead position (``models/lm.py`` ``group_train``),
-    groups and microbatches in a fixed order;
+    computes on its positions (``models/lm.py`` ``group_train``), groups
+    and microbatches in a fixed order;
+  * a group's positions along the model axis run the products the
+    reference's rules and constraints put there tensor-parallel, each over
+    its block of the weights (``models/tensor_parallel.py`` ``plan``, taken
+    on the global microbatch's shape as the reference's jitted step sees
+    it); the rest runs whole on the group's lead;
   * the loss's denominator is the microbatch's whole count of labels >= 0,
     taken before any backward pass, and an MoE layer routes the reference's
     global groups (``models/moe.py`` ``dp_config``), its aux term their mean;
   * each block's gradients are reduced into ``accum_dtype`` shards of the
-    parameters' layout as soon as its backward is done, the reference's
+    parameters' layout as soon as its backward is done, each position's
+    gradient of its block into the shards of that block, the reference's
     ``constrain_params`` on each microbatch gradient and on the accumulator;
   * AdamW runs shard by shard (``optimizer.apply_sharded_updates``).
 
-The rules' tensor-parallel specs shard storage only: each product runs
-whole on a group's lead position, so no value depends on them.
+A model axis of size 1 runs every product whole on a group's one position.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from repro_torch.core import graphs
 from repro_torch.core.state import _default_device, _tensor_from_host
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import lm
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.moe import dp_config
 from repro_torch.train.optimizer import (
     OptimizerConfig,
@@ -186,10 +192,12 @@ def _step_over_mesh(state: TrainState, batch: dict, cfg: ModelConfig, tcfg: Trai
         parts = [{k: v.chunk(dp)[g] for k, v in mb.items()} for g in range(dp)]
         local = dp_config(cfg, mb["labels"].numel(), dp)
         denom = lm.label_count(mb["labels"])  # the whole microbatch's, before any backward
+        plan = tp.plan(model, ctx, (*mb["inputs"].shape[:2], cfg.d_model))
         for lead, part in zip(leads, parts):
-            dev = mesh.devices[lead]
+            group = tp.group(model, ctx, lead)
+            dev = group.devices[0]
             part = {k: v.to(dev) for k, v in part.items()}
-            loss += lm.group_train(model, part, local, dev, denom.to(dev), aux_scale,
+            loss += lm.group_train(model, part, local, plan, group, denom.to(dev), aux_scale,
                                    acc).to(home)
     if tcfg.n_micro > 1:
         for x in acc.values():

@@ -1593,3 +1593,52 @@ def test_sharded_train_step_over_two_cards_matches_one_card(cuda, monkeypatch):
     one = _sharded_run(cfg, make_device_mesh((4, 2), names, ["cuda:0"] * 8), 3, True)
     for a, b in zip(two[0] + two[2], one[0] + one[2]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "recurrentgemma_9b", "qwen3_moe_235b_a22b"])
+def test_tensor_parallel_step_on_a_card_mesh_matches_4x1(cuda, arch, monkeypatch):
+    """Reduced granite (2 layers), recurrentgemma_9b and qwen3_moe
+    (``moe.groups`` 8), f32 with TF32 off, on a 4 x 2 mesh on the card, its
+    products split over the model axis, against the same steps on a 4 x 1
+    mesh (every product whole on a group's one position): three steps
+    graphed each; losses within rtol 1e-5, parameters within rtol 1e-4 /
+    atol 5e-5 (Adam's first steps on gradients that add their partial sums
+    in another order); all-reduces on 4 x 2 only."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_device_mesh
+
+    _no_tf32(monkeypatch)
+    cfg = reduce(get_config(arch))
+    if arch == "granite_3_2b":
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=8))
+    runs = {}
+    for shape in ((4, 2), (4, 1)):
+        collectives.counts.clear()
+        runs[shape] = _sharded_run(cfg, make_device_mesh(shape, ("data", "model")), 3, True)
+        runs[shape] += (collectives.counts["all_reduce"],)
+    tp, dp = runs[(4, 2)], runs[(4, 1)]
+    assert tp[3] > 0 and dp[3] == 0
+    for a, b in zip(tp[0], dp[0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    for a, b in zip(tp[1], dp[1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-5)
+
+
+def test_lru_scan_at_a_tensor_parallel_position_matches_plain(cuda):
+    """K5 and its backward at a tensor-parallel position's shape of
+    recurrentgemma_9b's sharded step ([1, 1024, 2048] f32: 4,096 channels
+    over 2 positions), bit for bit against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    a = torch.sigmoid(torch.randn((1, 1024, 2048), generator=g, device=cuda) + 2.0)
+    x = torch.randn((1, 1024, 2048), generator=g, device=cuda)
+    h0 = torch.randn((1, 2048), generator=g, device=cuda)
+    h = lru_scan.lru_scan(a, x, h0)
+    assert torch.equal(h, ref.lru_scan_ref(a, x, h0))
+    assert lru_scan.lru_scan.last_plan.describe()["tiles"] == 64
+    gy = torch.randn(h.shape, generator=g, device=cuda)
+    for got, want in zip(lru_scan.lru_scan_bwd(gy, a, h, h0), ref.lru_scan_bwd_ref(gy, a, h, h0)):
+        assert torch.equal(got, want)
