@@ -2469,6 +2469,18 @@ def lru_bound(a: torch.Tensor, h0: torch.Tensor) -> tuple[float, str]:
     return bound_ms(3 * a.numel() * a.element_size() + h0.numel() * 4, 2.0 * a.numel())
 
 
+def lru_bwd_bound(a: torch.Tensor, h0: torch.Tensor) -> tuple[float, str]:
+    """The backward: g, a and h read once, da and db written once, h0 read
+    and dh0 written (f32); 3 flops an element."""
+    return bound_ms(5 * a.numel() * a.element_size() + 2 * h0.numel() * 4, 3.0 * a.numel())
+
+
+def lru_bwd_plan_text(plan: dict) -> str:
+    return (f"{plan['ctas']} CTAs of {plan['channels_per_cta']} channels on {plan['sms']} SMs, "
+            f"{plan['rows']} rows x {plan['stages']} stages, {plan['smem_bytes']} B shared, "
+            f"{plan['in_flight_per_sm']} B in flight an SM, route {plan['route']}")
+
+
 def lru_scan_timing(dev, b: int, t: int, r: int, dtype) -> dict:
     """K5 at [b, t, r] in ``dtype`` against its plain version (f32 bit for
     bit, and run to run; bf16 within ``LRU_BF16_TOL``), timed beside its
@@ -2936,12 +2948,15 @@ def lru_fd_rel_err(dev) -> float:
 
 
 def lru_scan_bwd_checks(dev) -> dict:
-    """The backward kernel at the timed forward shape and at phase 28's
-    training shape, bit for bit against its plain version, timed against its
-    byte bound; and the Function's gradient against finite differences."""
+    """The backward kernel at the timed forward shape, at phase 28's training
+    shape and at phase 40(b)'s 4 x 1 group shape, bit for bit against its
+    plain version and run to run, timed against its byte bound with the
+    plan it launched; and the Function's gradient against finite
+    differences."""
     r = get_config("recurrentgemma_9b").rnn_width
     shapes = {"timed": (RECUR["prompts"], RECUR["prompt_len"], r),
-              "training": (TRAIN_RECUR["batch"], TRAIN_RECUR["seq"], r)}
+              "training": (TRAIN_RECUR["batch"], TRAIN_RECUR["seq"], r),
+              "tp_group": (1, LRU_TP_SHAPE[1], r)}
     out = {}
     for name, (b, t, rr) in shapes.items():
         a, x, h0 = lru_inputs(dev, b, t, rr, SEED + b)
@@ -2955,16 +2970,18 @@ def lru_scan_bwd_checks(dev) -> dict:
         for what, k, z, p in zip(("da", "db", "dh0"), got, again, want):
             check(torch.equal(k, p), f"lru_scan_bwd {what} at {name} == plain version, bit for bit")
             check(torch.equal(k, z), f"lru_scan_bwd {what} is bit-identical run to run")
-        n = a.numel()
-        # g, a and h read once, da and db written once; h0 read, dh0 written
-        bound, by = bound_ms(5 * n * 4 + 2 * b * rr * 4, 3.0 * n)
+        bound, by = lru_bwd_bound(a, h0)
         out[name] = dict(
             shape=f"g, a, h, da, db [{b}, {t}, {rr}] f32, h0, dh0 [{b}, {rr}] f32",
             max_abs_err=max(float((k - p).abs().max()) for k, p in zip(got, want)),
             ms=time_ms(lambda: lru_scan.lru_scan_bwd(gy, a, h, h0)),
             plain_ms=time_ms(lambda: ref.lru_scan_bwd_ref(gy, a, h, h0), iters=2, repeats=3),
-            bound_ms=bound, bound_by=by,
+            bound_ms=bound, bound_by=by, plan=lru_scan.lru_scan_bwd.last_plan.describe(),
         )
+        o = out[name]
+        print(f"lru_scan_bwd at [{b}, {t}, {rr}] f32: {o['ms']:.4f} ms (plain "
+              f"{o['plain_ms']:.4f}, bound {bound:.4f}, {bound / o['ms']:.0%} of it), "
+              f"bit-exact; plan: {lru_bwd_plan_text(o['plan'])} [{card()}]")
         del a, x, h0, gy, h, got, again, want
         torch.cuda.empty_cache()
     fd_err = lru_fd_rel_err(dev)
@@ -2978,12 +2995,15 @@ def lru_scan_bwd_checks(dev) -> dict:
         bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
         library="none (no single PyTorch call computes a linear recurrence's adjoint)",
         note="K5's backward: the TPU side differentiates lru_scan_pallas's oracle by autodiff",
-        shape=main["shape"], training_shape=out["training"], finite_difference_rel_err=fd_err,
+        shape=main["shape"], plan=main["plan"], training_shape=out["training"],
+        tp_group_shape=out["tp_group"], finite_difference_rel_err=fd_err,
     )
     print(f"lru_scan_bwd: {main['ms']:.4f} ms (plain {main['plain_ms']:.4f}, bound "
           f"{main['bound_ms']:.4f}), bit-exact; at the training shape "
-          f"{out['training']['ms']:.4f} ms (bound {out['training']['bound_ms']:.4f}); "
-          f"gradient against finite differences {fd_err:.3g}")
+          f"{out['training']['ms']:.4f} ms (bound {out['training']['bound_ms']:.4f}); at the "
+          f"4 x 1 group's {out['tp_group']['ms']:.4f} ms (bound "
+          f"{out['tp_group']['bound_ms']:.4f}); gradient against finite differences "
+          f"{fd_err:.3g} [{card()}]")
     return row
 
 
@@ -5026,7 +5046,7 @@ def lru_scan_tp_rows(dev) -> list[dict]:
     """K5 and its backward at 40(b)'s per-position shape (``LRU_TP_SHAPE``):
     each against its plain version, bit for bit and run to run, timed as
     phase 8 times K5 at batch 1 (median of five CUDA-event timings behind a
-    sleep kernel) beside its byte bound, with the plan the forward launched.
+    sleep kernel) beside its byte bound, with the plans both launched.
     Their ``launches`` are 40(b)'s 4 x 2 run's."""
     b, t, r = LRU_TP_SHAPE
     a, x, h0 = lru_inputs(dev, b, t, r, SEED + 40)
@@ -5044,9 +5064,9 @@ def lru_scan_tp_rows(dev) -> list[dict]:
     for name, k, z, p in zip(("da", "db", "dh0"), bwd, bwd_again, bwd_want):
         check(torch.equal(k, p) and torch.equal(k, z),
               f"lru_scan_bwd {name} {what} == plain version and run to run, bit for bit")
-    n = a.numel()
+    bwd_plan = lru_scan.lru_scan_bwd.last_plan.describe()
     bound, by = lru_bound(a, h0)
-    bbound, bby = bound_ms(5 * n * 4 + 2 * b * r * 4, 3.0 * n)
+    bbound, bby = lru_bwd_bound(a, h0)
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
                   replaces="src/repro/kernels/lru_scan.py:56", launches=0, phase=40,
                   library_ms=None)
@@ -5064,7 +5084,8 @@ def lru_scan_tp_rows(dev) -> list[dict]:
              plain_ms=time_ms(lambda: ref.lru_scan_bwd_ref(gy, a, got, h0), iters=2, repeats=3),
              bound_ms=bbound, bound_by=bby,
              library="none (no single PyTorch call computes a linear recurrence's adjoint)",
-             shape=f"g, a, h, da, db [{b}, {t}, {r}] f32, h0, dh0 [{b}, {r}] f32 (40(b))"),
+             shape=f"g, a, h, da, db [{b}, {t}, {r}] f32, h0, dh0 [{b}, {r}] f32 (40(b))",
+             plan=bwd_plan),
     ]
     for row in rows:
         print(f"{row['name']} {what}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
@@ -5072,7 +5093,7 @@ def lru_scan_tp_rows(dev) -> list[dict]:
               f"[{card()}]")
     print(f"  lru_scan plan {what}: {plan['ctas']} CTAs of {plan['channels_per_cta']} channels "
           f"on {plan['sms']} SMs, {plan['rows']} rows x {plan['stages']} stages, route "
-          f"{plan['route']}")
+          f"{plan['route']}; lru_scan_bwd plan: {lru_bwd_plan_text(bwd_plan)}")
     del a, x, h0, got, again, want, gy, bwd, bwd_again, bwd_want
     release()
     return rows

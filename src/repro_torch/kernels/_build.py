@@ -53,7 +53,7 @@ _SIGNATURES = {
     ),
     "leap_sm_count": (ctypes.c_int,),
     "leap_lru_scan": (_P, _P, _P, _P, _I64, _I64, _I64) + (ctypes.c_int,) * 6 + (_P,),
-    "leap_lru_scan_bwd": (_P,) * 7 + (_I64, _I64, _I64, ctypes.c_int, _P),
+    "leap_lru_scan_bwd": (_P,) * 7 + (_I64, _I64, _I64) + (ctypes.c_int,) * 6 + (_P,),
 }
 
 _lib: ctypes.CDLL | None = None

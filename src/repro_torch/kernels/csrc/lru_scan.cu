@@ -60,10 +60,38 @@
 // so a step costs about its multiply and add latency (some 8 cycles: 0.13
 // ms for 32,768 steps, under the 0.48 ms byte bound of [1, 32768, 4096]
 // f32).  scripts/tune_lru.py times the ring's variants.
+//
+// The backward (leap_lru_scan_bwd) is the adjoint of the same scan, which
+// the JAX package gets from autodiff of its scan and has no TPU kernel for:
+// from lambda_T = 0,
+//   lambda_t = g_t + a_{t+1} * lambda_{t+1},  db_t = lambda_t,
+//   da_t = lambda_t * h_{t-1} (h_{-1} = h0),  dh0 = a_0 * lambda_0,
+// each multiply and add rounded on its own, in that order, with a float32
+// carry: bit for bit the plain version (ref.lru_scan_bwd_ref).  Bound:
+// bytes (g, a and h read once, da and db written once: five [B, T, R]
+// tensors, 3 flops an element).  It is the forward's design walked
+// backwards through time (plan: kernels/lru_scan.py plan_lru_scan_bwd): the
+// same channel groups, one CTA an SM, and a 4-slot ring whose stage holds
+// three boxes, rows [t0, t0 + rows) of g and a and rows [t0 - 1, t0 + rows -
+// 1) of h, so that row k of h's box is the h_{t-1} that da_t needs.  Stage
+// j of a tile starts at t0 = (steps - 1 - j) * rows: the ragged stage, at
+// the top of time, is walked first, and the last one starts at t0 = 0,
+// where h's box starts at t = -1, a row the tensor map fills with zeros
+// and the kernel replaces by h0.  Each thread runs its channel's chain down
+// the stage's rows, eight rows read ahead into registers, and carries
+// lambda and a_{t+1} in registers from stage to stage; it writes db_t over
+// g_t and da_t over h_{t-1} in the slot, and two tensor-map stores send
+// both boxes out at t0.  dh0 is a plain store when a tile's walk ends.
+// One thread a channel with its steps loaded ahead in its own registers, 256
+// threads a CTA, would put a tensor-parallel position's [1, 1024, 2048] on 8
+// SMs; this grid puts it on 64, 54% of its byte bound on an H100
+// (scripts/tune_lru.py).
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; nothing of libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -82,7 +110,7 @@ struct Plan {
   long long steps;   // stages a tile takes through time
   int rows;          // time rows a stage
   int stages;        // slots in the ring
-  int box_stride;    // bytes from a's box to b's in a slot (box bytes, rounded to kAlign)
+  int box_stride;    // bytes from one box of a slot to the next (box bytes, rounded to kAlign)
 };
 
 template <typename T>
@@ -138,25 +166,34 @@ __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, i
 }
 
 // the box at src in shared memory to (c0 channel, c1 time, c2 batch) of the
-// tensor map, as one bulk group; elements past the tensor's edges are not
-// written
+// tensor map, in the open bulk group; elements past the tensor's edges are
+// not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, unsigned src, int c0, int c1,
                                           int c2) {
   asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
                :: "l"(reinterpret_cast<unsigned long long>(map)), "r"(src), "r"(c0), "r"(c1),
                   "r"(c2)
                : "memory");
+}
+
+// closes the bulk group of the stores issued since the last one
+__device__ __forceinline__ void commit_stores() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
+// Waits for the phase of the mbarrier at bar; a copy that never lands (a
+// transaction count the copies do not meet) traps after some 10 s instead
+// of holding the card.
 __device__ __forceinline__ void wait_landed(unsigned bar, unsigned parity) {
   unsigned done = 0;
+  const long long start = clock64();
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n"
         " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
   }
 }
 
@@ -330,9 +367,11 @@ lru_scan_kernel(const __grid_constant__ CUtensorMap map_a,
       // the rows of h go out as one box; past R and T nothing is written
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
-      if (producer)
+      if (producer) {
         tma_store(&map_out, ring + (unsigned)(at.slot * slot_bytes), (int)(at.grp * kCh), (int)t0,
                   (int)at.batch);
+        commit_stores();
+      }
     } else {
       __syncthreads();  // every thread is done with this slot before it is refilled
     }
@@ -419,91 +458,255 @@ int launch(const void* a, const void* b, const void* h0, void* out, const Plan& 
   }
 }
 
-// -- the backward ----------------------------------------------------------------
+// -- the backward: the same ring, walked down through time ---------------------
 
-constexpr int kThreads = 256;
-constexpr int kDepth = 8;  // time steps loaded ahead of the chain
-
-__device__ __forceinline__ float load(const float* p) { return __ldcs(p); }
-
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { __stcs(p, v); }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
-}
-
-// Steps t0, t0 - 1, .., t0 - kDepth + 1 of one channel for the backward: g_t,
-// a_t and h_{t-1} (h0 at t = 0); steps below 0 read 0.
-template <typename T>
-__device__ __forceinline__ void load_steps_rev(const T* __restrict__ g, const T* __restrict__ a,
-                                               const T* __restrict__ h, float h0, long long base,
-                                               long long t0, long long n_r, float* gv,
-                                               float* av, float* hv) {
+// The adjoint chain down rows rows - 1 .. 0 of one channel's stage: g_k, a_k
+// and h_{k-1} at sg[k * kCh], sa[k * kCh] and sh[k * kCh], h_row0 in place
+// of row 0's h; lam and a_next carry lambda and a of the row above in and
+// out; lambda_k and da_k go to put(k, lambda_k, da_k).  Rows above the last
+// whole group of kGroup run first, one at a time; then the whole groups go
+// into registers a group at a time, in two sets that take turns, the loads
+// of the group below issued before the chain of this one runs (below group
+// 0 the loads read group 0 again: in bounds, unused).
+template <typename T, int kCh, typename Put>
+__device__ __forceinline__ void chain_rev(const T* sg, const T* sa, const T* sh, int rows,
+                                          float h_row0, float& lam, float& a_next, Put put) {
+  const int whole = rows / kGroup;
+  for (int k = rows - 1; k >= whole * kGroup; --k) {
+    const float hv = k == 0 ? h_row0 : widen(sh[k * kCh]);
+    lam = __fadd_rn(widen(sg[k * kCh]), __fmul_rn(a_next, lam));
+    put(k, lam, __fmul_rn(lam, hv));
+    a_next = widen(sa[k * kCh]);
+  }
+  float g0[kGroup], a0[kGroup], h0v[kGroup], g1[kGroup], a1[kGroup], h1v[kGroup];
+  auto fetch = [&](int grp, float* gv, float* av, float* hv) {
+    const int k0 = (grp > 0 ? grp : 0) * kGroup;
 #pragma unroll
-  for (int k = 0; k < kDepth; ++k) {
-    const long long t = t0 - k;
-    const long long off = base + t * n_r;
-    gv[k] = t >= 0 ? load(g + off) : 0.0f;
-    av[k] = t >= 0 ? load(a + off) : 0.0f;
-    hv[k] = t > 0 ? load(h + off - n_r) : (t == 0 ? h0 : 0.0f);
+    for (int i = 0; i < kGroup; ++i) {
+      gv[i] = widen(sg[(k0 + i) * kCh]);
+      av[i] = widen(sa[(k0 + i) * kCh]);
+      hv[i] = widen(sh[(k0 + i) * kCh]);
+    }
+    if (k0 == 0) hv[0] = h_row0;
+  };
+  auto run = [&](int grp, const float* gv, const float* av, const float* hv) {
+#pragma unroll
+    for (int i = kGroup - 1; i >= 0; --i) {
+      lam = __fadd_rn(gv[i], __fmul_rn(a_next, lam));
+      put(grp * kGroup + i, lam, __fmul_rn(lam, hv[i]));
+      a_next = av[i];
+    }
+  };
+  if (whole > 0) fetch(whole - 1, g0, a0, h0v);
+  for (int grp = whole - 1; grp >= 0; grp -= 2) {
+    fetch(grp - 1, g1, a1, h1v);
+    run(grp, g0, a0, h0v);
+    if (grp == 0) break;
+    fetch(grp - 2, g0, a0, h0v);
+    run(grp - 1, g1, a1, h1v);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lru_scan_bwd_kernel(const T* __restrict__ g, const T* __restrict__ a, const T* __restrict__ h,
+// kCh channels a CTA, one a thread; see the note at the head of the file.
+// A slot holds g's box, a's and h's, each box_stride bytes apart.
+template <typename T, bool kTma, int kCh>
+__global__ void __launch_bounds__(kCh)
+lru_scan_bwd_kernel(const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_h,
+                    const __grid_constant__ CUtensorMap map_da,
+                    const __grid_constant__ CUtensorMap map_db, const T* __restrict__ g,
+                    const T* __restrict__ a, const T* __restrict__ h,
                     const float* __restrict__ h0, T* __restrict__ da, T* __restrict__ db,
-                    float* __restrict__ dh0, long long n_t, long long n_r) {
-  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_r) return;
-  const long long batch = blockIdx.y;
-  const long long base = batch * n_t * n_r + r;  // element (batch, 0, r)
-  const float h_init = h0[batch * n_r + r];
-  float lam = 0.0f, a_next = 0.0f;  // lambda_T and a_T: the carry past the end
-  float g_cur[kDepth], a_cur[kDepth], h_cur[kDepth];
-  float g_next[kDepth], a_next_v[kDepth], h_next[kDepth];
-  load_steps_rev(g, a, h, h_init, base, n_t - 1, n_r, g_cur, a_cur, h_cur);
-  for (long long t0 = n_t - 1; t0 >= 0; t0 -= kDepth) {
-    load_steps_rev(g, a, h, h_init, base, t0 - kDepth, n_r, g_next, a_next_v, h_next);
+                    float* __restrict__ dh0, const Plan p) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
+  const unsigned ring = (raw + kAlign - 1) & ~(unsigned)(kAlign - 1);
+  unsigned char* const ring_ptr = smem_raw + (ring - raw);
+  const int slot_bytes = 3 * p.box_stride;
+  const unsigned bars = ring + (unsigned)(p.stages * slot_bytes);
+  const int me = threadIdx.x;
+  const bool producer = kTma && me == 0;
+  const CUtensorMap* const maps[5] = {&map_g, &map_a, &map_h, &map_da, &map_db};
+  const long long gr = gridDim.x, c = blockIdx.x, q = p.tiles / gr, rem = p.tiles % gr;
+  const long long first = c * q + (c < rem ? c : rem), n = q + (c < rem ? 1 : 0);
+  const long long seq = n * p.steps;  // stages this CTA walks
+  unsigned long long policy = 0;
+  if (producer) {
+    policy = read_once_policy();
 #pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const long long t = t0 - k;
-      if (t >= 0) {
-        lam = __fadd_rn(g_cur[k], __fmul_rn(a_next, lam));
-        store(db + base + t * n_r, lam);
-        store(da + base + t * n_r, __fmul_rn(lam, h_cur[k]));
-        a_next = a_cur[k];
+    for (int i = 0; i < 5; ++i)
+      asm volatile("prefetch.tensormap [%0];"
+                   :: "l"(reinterpret_cast<unsigned long long>(maps[i])) : "memory");
+    for (int s = 0; s < p.stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bars + 8 * s), "r"(1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  Cursor ahead_at(first, p), at(first, p);  // the next stage to issue; the stage to compute
+  auto issue = [&]() {  // stage ahead_at into its slot
+    const Cursor& u = ahead_at;
+    const long long t0 = (p.steps - 1 - u.tt) * p.rows;
+    if constexpr (kTma) {
+      if (producer) {
+        const unsigned dst = ring + (unsigned)(u.slot * slot_bytes), bar = bars + 8 * u.slot;
+        // h's box at t0 - 1 lies wholly before the tensor only when a stage
+        // is one row at t0 = 0; it is not loaded then (its row is h0's)
+        const bool load_h = t0 + p.rows - 1 > 0;
+        const unsigned box = (unsigned)(p.rows * kCh * (int)sizeof(T));
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(bar), "r"((load_h ? 3u : 2u) * box) : "memory");
+        const int c0 = (int)(u.grp * kCh), b0 = (int)u.batch;
+        tma_load(dst, &map_g, c0, (int)t0, b0, bar, policy);
+        tma_load(dst + p.box_stride, &map_a, c0, (int)t0, b0, bar, policy);
+        if (load_h) tma_load(dst + 2 * p.box_stride, &map_h, c0, (int)t0 - 1, b0, bar, policy);
+      }
+    } else {
+      unsigned char* const slot = ring_ptr + u.slot * slot_bytes;
+      T* sg = reinterpret_cast<T*>(slot) + me;
+      T* sa = reinterpret_cast<T*>(slot + p.box_stride) + me;
+      T* sh = reinterpret_cast<T*>(slot + 2 * p.box_stride) + me;
+      const long long ch = u.grp * kCh + me;
+      const int rows = (int)(p.n_t - t0 < p.rows ? p.n_t - t0 : p.rows);
+      const long long off = (u.batch * p.n_t + t0) * p.n_r + ch;  // element (batch, t0, ch)
+      const bool live = ch < p.n_r;
+#pragma unroll 8
+      for (int k = 0; k < p.rows; ++k) {
+        const bool in = live && k < rows;
+        sg[k * kCh] = in ? ldcs(g + off + k * p.n_r) : zero<T>();
+        sa[k * kCh] = in ? ldcs(a + off + k * p.n_r) : zero<T>();
+        sh[k * kCh] = in && t0 + k > 0 ? ldcs(h + off + (k - 1) * p.n_r) : zero<T>();
       }
     }
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      g_cur[k] = g_next[k];
-      a_cur[k] = a_next_v[k];
-      h_cur[k] = h_next[k];
+    ahead_at.next(p);
+  };
+
+  // as in the forward: stages in flight while one is computed, one more
+  // slot on the tma route for the stage whose stores may still read it
+  const long long ahead = kTma ? p.stages - 2 : p.stages - 1;
+  for (long long j = 0; j < seq && j < ahead; ++j) issue();
+  float lam = 0.0f, a_next = 0.0f;
+  for (long long j = 0; j < seq; ++j) {
+    if (j + ahead < seq) {
+      if (producer) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      issue();
     }
+    const long long t0 = (p.steps - 1 - at.tt) * p.rows, ch = at.grp * kCh + me;
+    const int rows = (int)(p.n_t - t0 < p.rows ? p.n_t - t0 : p.rows);
+    unsigned char* const slot = ring_ptr + at.slot * slot_bytes;
+    T* sg = reinterpret_cast<T*>(slot) + me;
+    const T* sa = reinterpret_cast<const T*>(slot + p.box_stride) + me;
+    T* sh = reinterpret_cast<T*>(slot + 2 * p.box_stride) + me;
+    if constexpr (kTma) wait_landed(bars + 8 * at.slot, at.parity);
+    if (ch < p.n_r) {
+      if (at.tt == 0) lam = a_next = 0.0f;  // lambda_T and a_T: nothing past the end
+      const float h_row0 = t0 == 0 ? h0[at.batch * p.n_r + ch] : widen(sh[0]);
+      if constexpr (kTma) {
+        // db_k over g_k and da_k over h_{k-1} in the slot, each read just before
+        chain_rev<T, kCh>(sg, sa, sh, rows, h_row0, lam, a_next, [&](int k, float l, float d) {
+          sg[k * kCh] = narrow_to<T>(l);
+          sh[k * kCh] = narrow_to<T>(d);
+        });
+      } else {
+        const long long off = (at.batch * p.n_t + t0) * p.n_r + ch;
+        chain_rev<T, kCh>(sg, sa, sh, rows, h_row0, lam, a_next, [&](int k, float l, float d) {
+          stream_out(db + off + (long long)k * p.n_r, l);
+          stream_out(da + off + (long long)k * p.n_r, d);
+        });
+      }
+      if (at.tt == p.steps - 1) dh0[at.batch * p.n_r + ch] = __fmul_rn(a_next, lam);
+    }
+    if constexpr (kTma) {
+      // db's rows and da's go out as two boxes at t0, one bulk group
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      if (producer) {
+        const unsigned src = ring + (unsigned)(at.slot * slot_bytes);
+        const int c0 = (int)(at.grp * kCh), b0 = (int)at.batch;
+        tma_store(&map_db, src, c0, (int)t0, b0);
+        tma_store(&map_da, src + 2 * p.box_stride, c0, (int)t0, b0);
+        commit_stores();
+      }
+    } else {
+      __syncthreads();  // every thread is done with this slot before it is refilled
+    }
+    at.next(p);
   }
-  dh0[batch * n_r + r] = __fmul_rn(a_next, lam);
+  if (producer) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-template <typename T>
+template <typename T, bool kTma, int kCh>
 int launch_bwd(const void* g, const void* a, const void* h, const void* h0, void* da, void* db,
-               void* dh0, long long n_b, long long n_t, long long n_r, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n_r + kThreads - 1) / kThreads), (unsigned)n_b);
-  lru_scan_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(a), static_cast<const T*>(h),
-      static_cast<const float*>(h0), static_cast<T*>(da), static_cast<T*>(db),
-      static_cast<float*>(dh0), n_t, n_r);
+               void* dh0, const Plan& p, int grid, int smem, cudaStream_t stream) {
+  static bool opted[kMaxDevices];  // per device and instance: the opt-in to kMaxSmem
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(lru_scan_bwd_kernel<T, kTma, kCh>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  CUtensorMap maps[5] = {};
+  const void* bases[5] = {g, a, h, da, db};
+  for (int i = 0; kTma && i < 5; ++i)
+    if (!encode<T>(&maps[i], bases[i], p, kCh)) return (int)cudaErrorInvalidValue;
+  lru_scan_bwd_kernel<T, kTma, kCh><<<grid, kCh, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const T*>(g),
+      static_cast<const T*>(a), static_cast<const T*>(h), static_cast<const float*>(h0),
+      static_cast<T*>(da), static_cast<T*>(db), static_cast<float*>(dh0), p);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(long long n_b, long long n_t, long long n_r) {
-  return n_b < 1 || n_t < 1 || n_r < 1 || n_b > 65535 ||
-         (n_r + kThreads - 1) / kThreads > 0x7fffffffLL;
+template <typename T, bool kTma>
+int launch_bwd(const void* g, const void* a, const void* h, const void* h0, void* da, void* db,
+               void* dh0, const Plan& p, int warps, int grid, int smem, cudaStream_t stream) {
+  switch (warps) {
+    case 1: return launch_bwd<T, kTma, 32>(g, a, h, h0, da, db, dh0, p, grid, smem, stream);
+    case 2: return launch_bwd<T, kTma, 64>(g, a, h, h0, da, db, dh0, p, grid, smem, stream);
+    case 4: return launch_bwd<T, kTma, 128>(g, a, h, h0, da, db, dh0, p, grid, smem, stream);
+    case 8: return launch_bwd<T, kTma, 256>(g, a, h, h0, da, db, dh0, p, grid, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The plan's numbers checked again (kernels/lru_scan.py _plan): into p and
+// the dynamic shared memory in smem, or false for what the kernels cannot
+// run.  `boxes` input boxes a stage: 2 forward, 3 backward.
+bool make_plan(long long n_b, long long n_t, long long n_r, int dtype, int warps, int rows,
+               int stages, int grid, int tma, int boxes, Plan* p, int* smem) {
+  const long long max_coord = 0x7fffffffLL;
+  if (n_b < 1 || n_t < 1 || n_r < 1 || n_b > max_coord || n_t > max_coord || n_r > max_coord)
+    return false;
+  if (dtype != 0 && dtype != 1) return false;
+  if ((warps != 1 && warps != 2 && warps != 4 && warps != 8) || rows < 1 || rows > kMaxRows ||
+      stages < (tma ? 3 : 2) || stages > kMaxStages)
+    return false;
+  const long long itemsize = dtype == 0 ? 4 : 2, n_ch = 32LL * warps;
+  p->n_b = n_b;
+  p->n_t = n_t;
+  p->n_r = n_r;
+  p->groups = (n_r + n_ch - 1) / n_ch;
+  p->tiles = n_b * p->groups;
+  p->rows = rows;
+  p->steps = (n_t + rows - 1) / rows;
+  p->stages = stages;
+  p->box_stride = (int)((rows * n_ch * itemsize + kAlign - 1) / kAlign * kAlign);
+  const long long bytes = kAlign + (long long)stages * ((long long)boxes * p->box_stride + 8);
+  if (bytes > kMaxSmem || grid < 1 || grid > p->tiles) return false;
+  if (tma && (n_r * itemsize) % 16 != 0) return false;
+  *smem = (int)bytes;
+  return true;
+}
+
+bool on_16_bytes(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs)
+    if (reinterpret_cast<unsigned long long>(q) % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -524,52 +727,39 @@ extern "C" int leap_sm_count(int device) {
 extern "C" int leap_lru_scan(const void* a, const void* b, const void* h0, void* out,
                              long long n_b, long long n_t, long long n_r, int dtype, int warps,
                              int rows, int stages, int grid, int tma, void* stream) {
-  const long long max_coord = 0x7fffffffLL;
-  if (n_b < 1 || n_t < 1 || n_r < 1 || n_b > max_coord || n_t > max_coord || n_r > max_coord)
-    return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if ((warps != 1 && warps != 2 && warps != 4 && warps != 8) || rows < 1 || rows > kMaxRows ||
-      stages < (tma ? 3 : 2) || stages > kMaxStages)
-    return (int)cudaErrorInvalidValue;
-  const long long itemsize = dtype == 0 ? 4 : 2, n_ch = 32LL * warps;
   Plan p;
-  p.n_b = n_b;
-  p.n_t = n_t;
-  p.n_r = n_r;
-  p.groups = (n_r + n_ch - 1) / n_ch;
-  p.tiles = n_b * p.groups;
-  p.rows = rows;
-  p.steps = (n_t + rows - 1) / rows;
-  p.stages = stages;
-  p.box_stride = (int)((rows * n_ch * itemsize + kAlign - 1) / kAlign * kAlign);
-  const long long smem = kAlign + (long long)stages * (2LL * p.box_stride + 8);
-  if (smem > kMaxSmem || grid < 1 || grid > p.tiles) return (int)cudaErrorInvalidValue;
-  if (tma) {
-    const bool aligned = reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
-                         reinterpret_cast<unsigned long long>(b) % 16 == 0 &&
-                         reinterpret_cast<unsigned long long>(out) % 16 == 0 &&
-                         (n_r * itemsize) % 16 == 0;
-    if (!aligned) return (int)cudaErrorInvalidValue;
-  }
+  int smem = 0;
+  if (!make_plan(n_b, n_t, n_r, dtype, warps, rows, stages, grid, tma, 2, &p, &smem) ||
+      (tma && !on_16_bytes({a, b, out})))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bytes = (int)smem;
   if (dtype == 0)
-    return tma ? launch<float, true>(a, b, h0, out, p, warps, grid, bytes, s)
-               : launch<float, false>(a, b, h0, out, p, warps, grid, bytes, s);
-  return tma ? launch<__nv_bfloat16, true>(a, b, h0, out, p, warps, grid, bytes, s)
-             : launch<__nv_bfloat16, false>(a, b, h0, out, p, warps, grid, bytes, s);
+    return tma ? launch<float, true>(a, b, h0, out, p, warps, grid, smem, s)
+               : launch<float, false>(a, b, h0, out, p, warps, grid, smem, s);
+  return tma ? launch<__nv_bfloat16, true>(a, b, h0, out, p, warps, grid, smem, s)
+             : launch<__nv_bfloat16, false>(a, b, h0, out, p, warps, grid, smem, s);
 }
 
 // The backward.  g (the gradient of out), a, h (the forward's out), da, db:
 // [n_b, n_t, n_r] contiguous, dtype 0 = float32, 1 = bfloat16; h0, dh0:
-// [n_b, n_r] contiguous float32.  Returns a cudaError_t.
+// [n_b, n_r] contiguous float32.  The plan (kernels/lru_scan.py
+// plan_lru_scan_bwd) as leap_lru_scan takes it; the tma route needs g, a, h,
+// da, db and the row stride on 16 bytes.  A plan the kernel cannot run
+// returns cudaErrorInvalidValue.  Returns a cudaError_t.
 extern "C" int leap_lru_scan_bwd(const void* g, const void* a, const void* h, const void* h0,
                                  void* da, void* db, void* dh0, long long n_b, long long n_t,
-                                 long long n_r, int dtype, void* stream) {
-  if (bad_shape(n_b, n_t, n_r)) return (int)cudaErrorInvalidValue;
+                                 long long n_r, int dtype, int warps, int rows, int stages,
+                                 int grid, int tma, void* stream) {
+  Plan p;
+  int smem = 0;
+  if (!make_plan(n_b, n_t, n_r, dtype, warps, rows, stages, grid, tma, 3, &p, &smem) ||
+      (tma && !on_16_bytes({g, a, h, da, db})))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(g, a, h, h0, da, db, dh0, n_b, n_t, n_r, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(g, a, h, h0, da, db, dh0, n_b, n_t, n_r, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return tma ? launch_bwd<float, true>(g, a, h, h0, da, db, dh0, p, warps, grid, smem, s)
+               : launch_bwd<float, false>(g, a, h, h0, da, db, dh0, p, warps, grid, smem, s);
+  return tma ? launch_bwd<__nv_bfloat16, true>(g, a, h, h0, da, db, dh0, p, warps, grid, smem, s)
+             : launch_bwd<__nv_bfloat16, false>(g, a, h, h0, da, db, dh0, p, warps, grid, smem,
+                                                s);
 }

@@ -22,26 +22,30 @@ plan's numbers to the C entry point, which checks them again.
 
 ``lru_scan_bwd`` wraps the backward of the same source,
 ``leap_lru_scan_bwd``: the reverse-time adjoint scan, which the JAX package
-gets from autodiff of its scan and has no kernel for.  :class:`LruScan`, an
-autograd Function, joins the two: forward the forward kernel, backward the
-backward kernel, and on CPU tensors the plain versions of both.
+gets from autodiff of its scan and has no kernel for.  It runs the
+forward's design walked backwards through time, with a plan of its own,
+:func:`plan_lru_scan_bwd` (three boxes a stage: g, a and h one row down).
+:class:`LruScan`, an autograd Function, joins the two: forward the forward
+kernel, backward the backward kernel, and on CPU tensors the plain versions
+of both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BATCH = 65535  # the backward kernel's grid y dimension
 
 # -- the forward kernel's plan (mirrors csrc/lru_scan.cu) ------------------------
 
 CHANNEL_CHOICES = (32, 64, 128, 256)  # channels a CTA: one to eight warps
 STAGE_BYTES = 32768  # a and b bytes a stage aims at
+BWD_STAGE_BYTES = 49152  # g, a and h bytes a backward stage aims at: three 16 KiB boxes
 STAGES = 4  # slots in the ring: two stages of a and b in flight, one computed, one stored
 MAX_ROWS = 256  # a tensor-map box dimension
 MAX_STAGES = 32
@@ -57,10 +61,13 @@ class LruPlan:
 
     A tile is one (batch row, group of ``channels`` channels); CTA ``c`` of
     ``grid`` takes tiles ``tiles_of(c)``, an even split, and walks each
-    through time ``rows`` rows a stage, ``stages`` stages of a and b in its
-    shared-memory ring.  ``route`` is ``"tma"`` (tensor-map copies in and
-    out, 16-byte aligned operands and rows) or ``"narrow"`` (each thread
-    loads its own channel's elements into the ring and stores its outputs)."""
+    through time ``rows`` rows a stage, ``stages`` stages of its ``boxes``
+    inputs (a and b) in its shared-memory ring.  ``route`` is ``"tma"``
+    (tensor-map copies in and out, 16-byte aligned operands and rows) or
+    ``"narrow"`` (each thread loads its own channel's elements into the ring
+    and stores its outputs)."""
+
+    boxes: ClassVar[int] = 2  # input boxes a stage: a and b
 
     b: int
     t: int
@@ -94,8 +101,9 @@ class LruPlan:
 
     @property
     def slot_bytes(self) -> int:
-        """A stage's shared memory: a's box then b's, each at a 128-byte stride."""
-        return 2 * (-(-self.tile_bytes // SMEM_ALIGN) * SMEM_ALIGN)
+        """A stage's shared memory: the input boxes one after the other (a's
+        then b's), each at a 128-byte stride."""
+        return self.boxes * (-(-self.tile_bytes // SMEM_ALIGN) * SMEM_ALIGN)
 
     @property
     def smem_bytes(self) -> int:
@@ -120,14 +128,14 @@ class LruPlan:
 
     @property
     def in_flight_per_cta(self) -> int:
-        """a and b bytes a CTA has requested ahead of the stage it computes:
-        on the tma route ``stages - 2`` boxes of both (one more slot holds
+        """Input bytes a CTA has requested ahead of the stage it computes: on
+        the tma route ``stages - 2`` stages of every box (one more slot holds
         the stage whose output store may still read it), fewer when its
         whole walk is shorter; on the narrow route the one stage being
         loaded."""
         longest = -(-self.tiles // self.grid) * self.steps
         ahead = 1 if self.route == "narrow" else self.stages - 2
-        return min(ahead, longest) * 2 * self.tile_bytes
+        return min(ahead, longest) * self.boxes * self.tile_bytes
 
     @property
     def in_flight_per_sm(self) -> int:
@@ -150,6 +158,32 @@ class LruPlan:
                     warps=self.warps, rows=self.rows, stages=self.stages,
                     smem_bytes=self.smem_bytes, in_flight_per_sm=self.in_flight_per_sm,
                     tiles=self.tiles, route=self.route)
+
+
+@dataclasses.dataclass(frozen=True)
+class LruBwdPlan(LruPlan):
+    """How one launch of the backward kernel covers ``g, a, h [b, t, r]``:
+    the forward's tiles and ring, each tile walked from the top of time
+    down.  A stage holds three boxes: g's and a's rows ``[t0, t0 + rows)``
+    and h's one row lower, ``[t0 - 1, t0 + rows - 1)``, so that row ``k``
+    of h's box is the ``h_{t-1}`` that ``da_t`` needs (at ``t0 = 0`` its row
+    0 lies before the tensor: zero-filled, and the kernel takes h0).  The
+    outputs go out over the inputs' places: db over g's box, da over h's."""
+
+    boxes: ClassVar[int] = 3  # g, a and h
+
+    def stage(self, step: int) -> tuple[int, int]:
+        """Step ``step`` of a tile's walk (0 first): its first time row
+        ``t0`` and its rows.  Stages lie on multiples of ``rows`` from t =
+        0, so the ragged one, at the top of time, is walked first."""
+        if not 0 <= step < self.steps:
+            raise ValueError(f"step {step} is outside 0..{self.steps - 1}")
+        t0 = (self.steps - 1 - step) * self.rows
+        return t0, min(self.rows, self.t - t0)
+
+    def h_box_start(self, step: int) -> int:
+        """The time row h's box of step ``step`` starts at: one below t0."""
+        return self.stage(step)[0] - 1
 
 
 def _busiest_sm_channels(b: int, r: int, channels: int, n_sm: int) -> int:
@@ -177,6 +211,27 @@ def plan_lru_scan(b: int, t: int, r: int, itemsize: int, n_sm: int, *, aligned: 
     itemsize``) sit on 16 bytes, else ``"narrow"``.  The keywords override
     the choices (``scripts/tune_lru.py`` times such variants).  Raises
     ``ValueError`` for what the kernel does not take."""
+    return _plan(LruPlan, STAGE_BYTES, b, t, r, itemsize, n_sm, aligned=aligned,
+                 channels=channels, rows=rows, stages=stages, persistent=persistent)
+
+
+def plan_lru_scan_bwd(b: int, t: int, r: int, itemsize: int, n_sm: int, *,
+                      aligned: bool = True, channels: int | None = None,
+                      rows: int | None = None, stages: int | None = None,
+                      persistent: bool = True) -> LruBwdPlan:
+    """The backward kernel's plan for ``g, a, h [b, t, r]``: the forward's
+    rules, with ``aligned`` saying that g, a, h, da and db start on 16
+    bytes, and rows for a stage of about ``BWD_STAGE_BYTES`` of g, a and h
+    (three boxes, so 4 stages fit 227 KB).  [1, 1024, 2048] runs 64 CTAs of
+    32 channels, [1, 1024, 4096] 128 of 32, [4, 2048, 4096] 128 of 128 and
+    [8, 2048, 4096] 128 of 256."""
+    return _plan(LruBwdPlan, BWD_STAGE_BYTES, b, t, r, itemsize, n_sm, aligned=aligned,
+                 channels=channels, rows=rows, stages=stages, persistent=persistent)
+
+
+def _plan(cls, stage_bytes: int, b: int, t: int, r: int, itemsize: int, n_sm: int, *,
+          aligned: bool, channels: int | None, rows: int | None, stages: int | None,
+          persistent: bool):
     if itemsize not in (2, 4):
         raise ValueError(f"itemsize must be 4 (float32) or 2 (bfloat16), got {itemsize}")
     if not (b >= 1 and t >= 1 and r >= 1 and n_sm >= 1):
@@ -190,11 +245,11 @@ def plan_lru_scan(b: int, t: int, r: int, itemsize: int, n_sm: int, *, aligned: 
     if channels not in CHANNEL_CHOICES:
         raise ValueError(f"channels must be one of {CHANNEL_CHOICES}, got {channels}")
     if rows is None:
-        rows = min(max(1, STAGE_BYTES // (2 * channels * itemsize)), MAX_ROWS, t)
+        rows = min(max(1, stage_bytes // (cls.boxes * channels * itemsize)), MAX_ROWS, t)
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"rows must be in 1..{MAX_ROWS}, got {rows}")
     route = "tma" if aligned and (r * itemsize) % 16 == 0 else "narrow"
-    slot = 2 * (-(-rows * channels * itemsize // SMEM_ALIGN) * SMEM_ALIGN)
+    slot = cls.boxes * (-(-rows * channels * itemsize // SMEM_ALIGN) * SMEM_ALIGN)
     if stages is None:
         stages = STAGES
     least = 3 if route == "tma" else 2
@@ -205,8 +260,8 @@ def plan_lru_scan(b: int, t: int, r: int, itemsize: int, n_sm: int, *, aligned: 
     grid = min(tiles, n_sm) if persistent else tiles
     if grid > MAX_COORD:
         raise ValueError(f"a grid of {grid} CTAs is too large")
-    return LruPlan(b=b, t=t, r=r, itemsize=itemsize, n_sm=n_sm, channels=channels,
-                   rows=rows, stages=stages, grid=grid, route=route)
+    return cls(b=b, t=t, r=r, itemsize=itemsize, n_sm=n_sm, channels=channels, rows=rows,
+               stages=stages, grid=grid, route=route)
 
 
 _SM_COUNT: dict[int, int] = {}  # device index -> SMs, read once per device
@@ -233,8 +288,8 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     bb, t, r = a.shape
-    if not (1 <= bb <= MAX_BATCH and t >= 1 and r >= 1):
-        raise ValueError(f"needs 1 <= B <= {MAX_BATCH}, T >= 1 and R >= 1, got {tuple(a.shape)}")
+    if not (bb >= 1 and t >= 1 and r >= 1):
+        raise ValueError(f"needs B, T and R >= 1, got {tuple(a.shape)}")
     if tuple(h0.shape) != (bb, r) or not h0.is_floating_point():
         raise ValueError(f"h0 must be a float [{bb}, {r}], got {h0.dtype} {tuple(h0.shape)}")
     for name, x in (("b", b), ("h0", h0)):
@@ -282,7 +337,8 @@ def launch(lib, a, b, h0, out, plan: LruPlan) -> int:
 def lru_scan_bwd(g: torch.Tensor, a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor):
     """The scan's backward: ``g`` the gradient of ``h = lru_scan(a, b, h0)``,
     all ``[B, T, R]`` in ``a.dtype``.  Returns ``(da, db)`` in ``a.dtype`` and
-    ``dh0 [B, R]`` fp32, with an fp32 carry (see ``csrc/lru_scan.cu``)."""
+    ``dh0 [B, R]`` fp32, with an fp32 carry (see ``csrc/lru_scan.cu``).  On
+    CUDA every launch runs the plan :func:`plan_lru_scan_bwd` makes."""
     if a.device.type == "cpu":
         return ref.lru_scan_bwd_ref(g, a, h, h0)
     if not a.is_cuda:
@@ -293,19 +349,32 @@ def lru_scan_bwd(g: torch.Tensor, a: torch.Tensor, h: torch.Tensor, h0: torch.Te
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty_like(h0)
     bb, t, r = a.shape
+    aligned = all(x.data_ptr() % 16 == 0 for x in (g, a, h, da, db))
+    plan = plan_lru_scan_bwd(bb, t, r, a.element_size(), sm_count(a.device), aligned=aligned)
     with torch.cuda.device(a.device):
-        err = _build.load().leap_lru_scan_bwd(
-            g.data_ptr(), a.data_ptr(), h.data_ptr(), h0.data_ptr(), da.data_ptr(),
-            db.data_ptr(), dh0.data_ptr(), bb, t, r, _DTYPES[a.dtype],
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+        err = launch_bwd(_build.load(), g, a, h, h0, da, db, dh0, plan)
     if err:
-        raise RuntimeError(f"leap_lru_scan_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"leap_lru_scan_bwd launch of {plan.describe()} failed: CUDA error {err}")
     lru_scan_bwd.launches += 1
+    lru_scan_bwd.last_plan = plan
     return da, db, dh0
 
 
 lru_scan_bwd.launches = 0  # kernel launches in this process (read by chip_smoke.py)
+lru_scan_bwd.last_plan = None  # the plan of the latest launch
+
+
+def launch_bwd(lib, g, a, h, h0, da, db, dh0, plan: LruBwdPlan) -> int:
+    """``leap_lru_scan_bwd`` of ``lib`` on checked operands, with ``plan``;
+    the CUDA error it returns (0 on success).  Counts nothing:
+    :func:`lru_scan_bwd` is the wrapper."""
+    return lib.leap_lru_scan_bwd(
+        g.data_ptr(), a.data_ptr(), h.data_ptr(), h0.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dh0.data_ptr(), plan.b, plan.t, plan.r, _DTYPES[a.dtype], plan.warps, plan.rows,
+        plan.stages, plan.grid, 1 if plan.route == "tma" else 0,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
 
 
 class LruScan(torch.autograd.Function):

@@ -572,8 +572,10 @@ def test_lru_scan_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("t", [1, 8, 17, 2048])
-@pytest.mark.parametrize("r", [96, 4096])
+@pytest.mark.parametrize("r", [96, 97, 4096])
 def test_lru_scan_backward_kernel_matches_plain(cuda, t, r):
+    """T = 1 and 17: h's box starts at t = -1 (wholly before the tensor at
+    T = 1); R = 97: 388-byte rows take the narrow route."""
     b = 8 if t * r <= 2048 * 128 else 2
     a, x, h0 = _lru_inputs(cuda, b, t, r, torch.float32, seed=t + r)
     g = torch.randn(a.shape, generator=torch.Generator().manual_seed(t)).to(cuda)
@@ -584,6 +586,8 @@ def test_lru_scan_backward_kernel_matches_plain(cuda, t, r):
     want = ref.lru_scan_bwd_ref(g, a, h, h0)
     torch.cuda.synchronize()
     assert lru_scan.lru_scan_bwd.launches == before + 2
+    plan = lru_scan.lru_scan_bwd.last_plan
+    assert plan.route == ("narrow" if r == 97 else "tma") and plan.grid <= plan.n_sm
     for k, w, z in zip(got, want, again):
         assert k.dtype == w.dtype == torch.float32 and k.shape == w.shape
         assert torch.equal(k, w)  # no FMA contraction: bit for bit
@@ -596,6 +600,95 @@ def test_lru_scan_backward_kernel_matches_plain(cuda, t, r):
     assert got16[0].dtype == got16[1].dtype == torch.bfloat16
     for k, w in zip(got16, want16):
         torch.testing.assert_close(k.float(), w.float(), **LRU_BF16_TOL)
+
+
+def _bwd_case(dev, b, t, r, dtype, seed):
+    a, x, h0 = _lru_inputs(dev, b, t, r, dtype, seed=seed)
+    g = torch.randn((b, t, r), generator=torch.Generator().manual_seed(seed + 1)).to(dtype)
+    return g.to(dev), a, ref.lru_scan_ref(a, x, h0), h0
+
+
+def _run_bwd(plan, g, a, h, h0):
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    err = lru_scan.launch_bwd(_build.load(), g, a, h, h0, da, db, dh0, plan)
+    assert err == 0, f"leap_lru_scan_bwd refused {plan.describe()}: CUDA error {err}"
+    return da, db, dh0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape, kw",
+    [
+        ((3, 17, 128), dict(rows=5)),  # four stages, the ragged one (2 rows) walked first
+        ((3, 17, 128), dict(rows=5, stages=3)),
+        ((2, 1, 64), dict(rows=1)),  # h's box wholly before t = 0: not loaded
+        ((2, 9, 160), dict(rows=1, channels=64)),  # a stage a row; a ragged channel group
+        ((2, 300, 96), dict(rows=7, stages=6)),
+        ((4, 33, 256), dict(rows=8, channels=256, persistent=False)),
+        ((3, 17, 97), dict(rows=5)),  # the narrow route
+        ((3, 17, 97), dict(rows=5, stages=2)),
+    ],
+)
+def test_lru_scan_backward_kernel_plan_variants(cuda, shape, kw, dtype):
+    """Plans other than the default, launched as they are: ragged stages, one
+    row a stage, short and long rings, a one-shot grid, both routes; bit for
+    bit against the plain version in f32 and run to run, bf16 within
+    ``LRU_BF16_TOL``."""
+    b, t, r = shape
+    g, a, h, h0 = _bwd_case(cuda, b, t, r, dtype, seed=t * r)
+    plan = lru_scan.plan_lru_scan_bwd(b, t, r, a.element_size(), lru_scan.sm_count(cuda), **kw)
+    got, again = _run_bwd(plan, g, a, h, h0), _run_bwd(plan, g, a, h, h0)
+    want = ref.lru_scan_bwd_ref(g, a, h, h0)
+    torch.cuda.synchronize()
+    for k, z, w in zip(got, again, want):
+        assert torch.equal(k, z)
+        if dtype == torch.float32 or k.dtype == torch.float32:
+            assert torch.equal(k, w)
+        else:
+            torch.testing.assert_close(k.float(), w.float(), **LRU_BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_backward_kernel_operands_off_16_bytes(cuda, dtype):
+    """g, a or h one element into their storage take the narrow route and
+    give what the tma route gives."""
+    b, t, r = 2, 40, 128
+    g, a, h, h0 = _bwd_case(cuda, b, t, r, dtype, seed=7)
+    want = lru_scan.lru_scan_bwd(g, a, h, h0)
+    assert lru_scan.lru_scan_bwd.last_plan.route == "tma"
+    for i in range(3):
+        ops_ = [g, a, h]
+        store = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)
+        ops_[i] = store[1:].view(b, t, r)
+        ops_[i].copy_([g, a, h][i])
+        got = lru_scan.lru_scan_bwd(*ops_, h0)
+        assert lru_scan.lru_scan_bwd.last_plan.route == "narrow"
+        torch.cuda.synchronize()
+        for k, w in zip(got, want):
+            assert torch.equal(k, w)
+
+
+def test_lru_scan_backward_kernel_refused_plan_raises(cuda, monkeypatch):
+    """A plan the backward kernel cannot run comes back as a CUDA error, and
+    the wrapper raises: no step down to another kernel or the plain version."""
+    b, t, r = 2, 40, 128
+    g, a, h, h0 = _bwd_case(cuda, b, t, r, torch.float32, seed=8)
+    store = torch.empty(a.numel() + 1, device=cuda)
+    off = store[1:].view(b, t, r)
+    off.copy_(g)
+    plan = lru_scan.plan_lru_scan_bwd(b, t, r, 4, lru_scan.sm_count(cuda), aligned=True)
+    lib = _build.load()
+    outs = (torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0))
+    assert lru_scan.launch_bwd(lib, off, a, h, h0, *outs, plan) != 0  # tma off 16 B
+    for bad in (dict(grid=plan.tiles + 1), dict(rows=257), dict(stages=2),
+                dict(rows=128, stages=5)):  # 5 x 48 KiB of ring
+        assert lru_scan.launch_bwd(lib, g, a, h, h0, *outs,
+                                   dataclasses.replace(plan, **bad)) != 0
+    monkeypatch.setattr(lru_scan, "plan_lru_scan_bwd", lambda *args, **kw: plan)
+    before = lru_scan.lru_scan_bwd.launches
+    with pytest.raises(RuntimeError, match="leap_lru_scan_bwd"):
+        lru_scan.lru_scan_bwd(off, a, h, h0)
+    assert lru_scan.lru_scan_bwd.launches == before
 
 
 def test_lru_scan_function_launches_both_kernels(cuda):
@@ -1642,3 +1735,5 @@ def test_lru_scan_at_a_tensor_parallel_position_matches_plain(cuda):
     gy = torch.randn(h.shape, generator=g, device=cuda)
     for got, want in zip(lru_scan.lru_scan_bwd(gy, a, h, h0), ref.lru_scan_bwd_ref(gy, a, h, h0)):
         assert torch.equal(got, want)
+    plan = lru_scan.lru_scan_bwd.last_plan
+    assert (plan.grid, plan.channels, plan.route) == (64, 32, "tma")
