@@ -366,7 +366,22 @@ printed):
    4 x 2 against 4 x 1, the two states in turn, each placed without a whole
    copy of its moments: step 1's loss within 1e-4 of 4 x 1's, step 2's
    within 1e-2 (one step takes the loss from about 12.4 to 0.19), the
-   parameters by a sample of each leaf within (a)'s limits; then K5 and its backward at 40(b)'s per-position shape [1,
+   parameters by a sample of each leaf within (a)'s limits; (g) (a)'s 4 x
+   2 run with its residual stream split by sequence (``make_ctx``'s
+   default ``seq_shard=True``) against a 4 x 2 run with it whole on each
+   group's lead (``seq_shard=False``): step 1's loss bit for bit or within
+   1e-4 of it with the op that differs named (a probe of ``rms_norm`` on a
+   position's rows), step 2 and the parameters within (a)'s limits, each
+   run's graphed step ms and the peak a step allocates over the states it
+   finds; (b) the same pair, K5 and its backward launched in both; (h)
+   gemma2_27b at full width, 4 layers, in f32: a 4,608-token prompt of 4
+   rows prefilled unsharded, the cache (5,120 slots; the window's 4,096)
+   placed with ``lm.place_group_caches`` under ``make_ctx`` on 4 x 2 and
+   ``make_decode_2d_ctx`` on 8 positions, 8 decode steps against the
+   unsharded decode: the logits within rel L2 2e-6 and a control (the
+   first step with its newest token not written) beyond it, each
+   position's cache bytes equal to the dry-run's, ms a step; then K5 and
+   its backward at 40(b)'s per-position shape [1,
    1,024, 2,048] f32 against their plain versions, bit for bit, timed: the
    ``phase`` 40 rows of the kernels line, whose launches are 40(b)'s 4 x 2
    run's.
@@ -408,6 +423,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -462,7 +478,8 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
 )
 from repro_torch.load import LoadGenerator, TenantSpec, WorkloadSpec  # noqa: E402
-from repro_torch.models import lm, moe, xlstm  # noqa: E402
+from repro_torch.models import attention, lm, moe, xlstm  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.roofline import model as roofline  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
 from repro_torch.tiering import TieringConfig, TieringPolicy  # noqa: E402
@@ -623,6 +640,13 @@ SHARD_MOE = dict(config="qwen3_moe_235b_a22b", layers=1, batch=8, seq=1024, n_mi
 # channels over the model axis's 2 positions, a data-parallel group's row
 LRU_TP_SHAPE = (1, SHARD_RECUR["seq"], 4096 // SHARD_MESH[0][1])
 SHARD_CKPT_LAYERS = 1  # 40(d): granite at full width, one layer
+# 40(h): gemma2_27b at full width, 4 of its 46 layers (win, attn, win, attn:
+# about 3.45e9 parameters, in f32), 4 rows prefilled
+# unsharded with 4,608 tokens (past the 4,096-slot window, so the rolling
+# buffer wraps: ROADMAP R4), decoded from a cache of 5,120 slots (both slot
+# counts split 2 and 8 ways) placed under make_ctx on 4 x 2 and
+# make_decode_2d_ctx on 8 positions
+SHARD_DECODE = dict(config="gemma2_27b", layers=4, batch=4, prompt=4608, max_len=5120, steps=8)
 # the optimizer of 40(a), (b) and (d): the full rate from step 1, so that
 # an update moves a parameter by about 1e-3, past SHARD_PARAM_TOL
 SHARD_OPT = dict(peak_lr=1e-3, warmup_steps=1)
@@ -653,6 +677,15 @@ SHARD_TP_LOSS_RTOL = 1e-4
 # and the 12.2 of a step without update (on an H100 80GB HBM3 at 700 W)
 SHARD_MOE_LOSS_ATOL = 1e-2
 SHARD_PARAM_TOL = dict(rtol=3e-3, atol=3e-4)
+# 40(h): the L2 norm of a sharded decode step's logits less the unsharded
+# step's, over the unsharded step's.  Read on an H100 80GB HBM3 at 700 W:
+# in f32 1.8e-7 to 2.2e-7, and 1.33e-5 for a step whose newest token is
+# not written (random weights spread attention over the 4,608 keys): a
+# limit of 2e-6 between them.  The decode runs in f32 alone: in bf16 the
+# split products' rounding moves the logits by 6.6e-4 to 8.4e-4, the
+# control by 9.2e-4 to 9.4e-4 (its own 1.3e-5 lost in the rounding), so no
+# limit there tells a sound step from one that lost its newest token
+SHARD_DECODE_TOL = 2e-6
 SHARD_PARAM_OUTSIDE = 1e-2
 SHARD_UPDATE_ERROR = 0.2
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
@@ -4643,10 +4676,12 @@ def placed_train_state(dev, cfg, tcfg, mesh) -> TrainState:
 
 
 def sharded_steps(dev, cfg, spec: dict, mesh, capture: bool = True,
-                  init: dict | None = None, state: TrainState | None = None) -> tuple:
+                  init: dict | None = None, state: TrainState | None = None,
+                  seq_shard: bool = True) -> tuple:
     """``spec["steps"]`` training steps from seed ``SEED``: on one card
     (``mesh`` None, eager) or placed over ``mesh`` (graphed unless
-    ``capture`` is off; ``state``, where given, already placed there).
+    ``capture`` is off; ``state``, where given, already placed there),
+    under ``make_ctx(mesh, seq_shard=seq_shard)``.
     Returns (state, record); the record's launches are this run's, its
     counts set to 0 just before it.  ``init``, where given, receives the
     parameters before the first step.  Over a mesh the record holds the
@@ -4665,11 +4700,12 @@ def sharded_steps(dev, cfg, spec: dict, mesh, capture: bool = True,
             state = sh.place(state, mesh, sh.make_ctx(mesh))
             torch.cuda.synchronize()
             place_s = time.perf_counter() - t0
-    ctx = sh.make_ctx(mesh) if mesh is not None else None
+    ctx = sh.make_ctx(mesh, seq_shard=seq_shard) if mesh is not None else None
     batch = shard_batch(cfg, spec, dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the states, this one's and any other's
     reset_launch_counts()
     before = (train_step_mod.SHARDED_STEP.captures, train_step_mod.SHARDED_STEP.replays)
     losses, step_ms, per_step = [], [], {}
@@ -4693,14 +4729,16 @@ def sharded_steps(dev, cfg, spec: dict, mesh, capture: bool = True,
                     collectives={k: v // body_runs for k, v in collectives.counts.items()})
     rec = dict(config=cfg.name, layers=cfg.n_layers, batch=spec["batch"], seq=spec["seq"],
                n_micro=spec["n_micro"], losses=losses, step_ms=step_ms,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               step_peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+               launches=launch_counts(),
                **per_step)
     c = rec["collectives"]
     rec["all_reduces"] = c.get("all_reduce", 0) + c.get("all_reduce_grad", 0) + c.get(
         "all_reduce_max", 0)
     check(all(np.isfinite(losses)), f"{cfg.name}: finite losses")
     if mesh is not None:
-        rec.update(mesh=dict(mesh.shape), graphed=capture, place_s=place_s,
+        rec.update(mesh=dict(mesh.shape), graphed=capture, place_s=place_s, seq_shard=seq_shard,
                    captures=train_step_mod.SHARDED_STEP.captures - before[0],
                    replays=train_step_mod.SHARDED_STEP.replays - before[1])
     return state, rec
@@ -4825,8 +4863,9 @@ def sharded_granite(dev, mesh, mesh41) -> dict:
     del ref_state  # the moments go; the parameters stay for the comparison
     runs = {"unsharded": base}
     states = {}
-    for mode, m, capture in (("4x1", mesh41, True), ("4x2", mesh, True), ("eager", mesh, False)):
-        states[mode], runs[mode] = sharded_steps(dev, cfg, spec, m, capture)
+    for mode, m, capture, seq in (("4x1", mesh41, True, True), ("4x2", mesh, True, True),
+                                  ("eager", mesh, False, True), (WHOLE, mesh, True, False)):
+        states[mode], runs[mode] = sharded_steps(dev, cfg, spec, m, capture, seq_shard=seq)
         r = runs[mode]
         r.update(losses_agree(r["losses"], base["losses"], f"40(a) {mode}", m is mesh),
                  **sharded_matches(states[mode], want, init, dev, f"40(a) {mode}"))
@@ -4843,6 +4882,9 @@ def sharded_granite(dev, mesh, mesh41) -> dict:
     tensor_parallel_ran(runs, "40(a)")
     out = dict(runs=runs, unsharded_state_bytes=unsharded_bytes,
                **accounted(cfg, spec, mesh, states["4x2"]))
+    out["seq_parallel"] = seq_parallel_readings(
+        dev, cfg, spec, runs, states["4x2"],
+        {n: sh.gather(x, dev) for n, x in states[WHOLE].params.leaves.items()}, init, "40(g)")
     print(f"phase 40(a) granite_3_2b ({cfg.n_layers} of 40 layers, batch {spec['batch']} x "
           f"{spec['seq']}, n_micro {spec['n_micro']}) tensor-parallel on a 4 x 2 mesh on one "
           f"card against 4 x 1: losses unsharded {base['losses']}, 4 x 2 graphed {g['losses']}, "
@@ -4852,6 +4894,60 @@ def sharded_granite(dev, mesh, mesh41) -> dict:
           f"4 x 1: {readings(runs['4x1'])}; {out['position_bytes']:,} B a position (account "
           f"{out['account_bytes']:,}; unsharded {unsharded_bytes:,}) [{card()}]")
     train_step_mod.SHARDED_STEP.clear()
+    return out
+
+
+WHOLE = "4x2 whole stream"  # a 4 x 2 run under make_ctx(seq_shard=False)
+
+
+def seq_probe(dev, cfg, spec: dict) -> bool:
+    """Whether ``rms_norm`` of a position's rows of a group's stream, the one
+    op a sequence-parallel forward runs on other shapes than the whole
+    stream's (its products read the stream gathered), equals the whole
+    stream's rows bit for bit on the card, at a group's microbatch of
+    ``spec``'s shape."""
+    rows = spec["batch"] // spec["n_micro"] // SHARD_MESH[0][0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    x = torch.randn((rows, spec["seq"], cfg.d_model), generator=gen, device=dev).mul_(8)
+    x, w = x.to(cfg.dtype()), torch.randn(cfg.d_model, generator=gen, device=dev).to(cfg.pdtype())
+    whole = rms_norm(x, w, cfg.norm_eps)
+    parts = [rms_norm(xi, w, cfg.norm_eps) for xi in x.chunk(SHARD_MESH[0][1], dim=1)]
+    return torch.equal(whole, torch.cat(parts, dim=1))
+
+
+def seq_parallel_readings(dev, cfg, spec: dict, runs: dict, state, other: dict, init: dict,
+                          what: str) -> dict:
+    """A 4 x 2 run under sequence parallelism against the same run with the
+    residual stream whole on each group's lead (``WHOLE``): step 1's loss
+    bit for bit or within ``SHARD_TP_LOSS_RTOL`` (naming the op that
+    differs when it is not bit for bit), step 2 and the parameters within
+    the ``SHARD_*`` limits (``state``, one run's placed state, against
+    ``other``, the other's parameters gathered); both runs' graphed step ms
+    and the peak a step allocates over the states it finds."""
+    sp, wh = runs["4x2"], runs[WHOLE]
+    bitwise = sp["losses"][0] == wh["losses"][0]
+    norm_equal = seq_probe(dev, cfg, spec)
+    op = None if bitwise else ("rms_norm over a position's rows" if not norm_equal else
+                               "not found: rms_norm over a position's rows is bit for bit")
+    out = dict(step1_bitwise=bitwise, differing_op=op, rms_norm_rows_bitwise=norm_equal,
+               **losses_agree(sp["losses"], wh["losses"], f"{what} against the whole stream",
+                              True),
+               **sharded_matches(state, other, init, dev, f"{what} against the whole stream"),
+               step_ms={k: runs[k]["step_ms"] for k in ("4x2", WHOLE)},
+               step_peak_gib={k: runs[k]["step_peak_gib"] for k in ("4x2", WHOLE)},
+               collectives={k: runs[k]["collectives"] for k in ("4x2", WHOLE)})
+    check(sp["collectives"].get("reduce_scatter", 0) > 0
+          and wh["collectives"].get("reduce_scatter", 0) == 0,
+          f"{what}: reduce-scatters under sequence parallelism only")
+    print(f"phase {what} {cfg.name} ({cfg.n_layers} layers, batch {spec['batch']} x "
+          f"{spec['seq']}) on 4 x 2, the residual stream split by sequence against whole: "
+          f"losses {sp['losses']} against {wh['losses']} (step 1 "
+          f"{'bit for bit' if bitwise else 'differs: ' + op}; rms_norm of a position's rows "
+          f"bit for bit: {norm_equal}); graphed step ms {[round(x, 2) for x in sp['step_ms']]} "
+          f"against {[round(x, 2) for x in wh['step_ms']]}, a step's peak over the states "
+          f"{sp['step_peak_gib']:.3f} against {wh['step_peak_gib']:.3f} GiB "
+          f"(max_memory_allocated); collectives a step "
+          f"{sp['collectives']} against {wh['collectives']}; {readings(out)} [{card()}]")
     return out
 
 
@@ -4865,9 +4961,9 @@ def sharded_recurrent(dev, mesh, mesh41) -> dict:
     want = params_of(ref_state)
     del ref_state  # the moments go; the parameters stay for the comparison
     release()
-    runs, acc = {"unsharded": base}, None
-    for mode, m in (("4x2", mesh), ("4x1", mesh41)):
-        state, r = sharded_steps(dev, cfg, spec, m)
+    runs, acc, seq_params = {"unsharded": base}, None, None
+    for mode, m, seq in (("4x2", mesh, True), (WHOLE, mesh, False), ("4x1", mesh41, True)):
+        state, r = sharded_steps(dev, cfg, spec, m, seq_shard=seq)
         runs[mode] = r
         if mode == "4x2":
             r["lru_scan_plan"] = lru_scan.lru_scan.last_plan.describe()  # of the capture
@@ -4876,6 +4972,12 @@ def sharded_recurrent(dev, mesh, mesh41) -> dict:
                  **sharded_matches(state, want, init, dev, f"40(b) {mode}"))
         check(r["launches"]["lru_scan"] > 0 and r["launches"]["lru_scan_bwd"] > 0,
               f"40(b) {mode}: K5 and K5's backward launched under the executor")
+        if mode == "4x2":  # its parameters stay for the whole-stream run's comparison
+            seq_params = {n: sh.gather(x, dev) for n, x in state.params.leaves.items()}
+        if mode == WHOLE:
+            seq_out = seq_parallel_readings(dev, cfg, spec, runs, state, seq_params, init,
+                                            "40(b) under sequence parallelism")
+            seq_params = None
         del state
         train_step_mod.SHARDED_STEP.clear()
         release()
@@ -4883,7 +4985,7 @@ def sharded_recurrent(dev, mesh, mesh41) -> dict:
     check(plan["tiles"] * plan["channels_per_cta"] == LRU_TP_SHAPE[2],
           f"40(b): K5 ran on a position's {LRU_TP_SHAPE[2]} channels")
     tensor_parallel_ran(runs, "40(b)")
-    out = dict(runs=runs, **acc)
+    out = dict(runs=runs, seq_parallel=seq_out, **acc)
     print(f"phase 40(b) recurrentgemma_9b ({cfg.layer_kinds}, batch {spec['batch']} x "
           f"{spec['seq']}) tensor-parallel on a 4 x 2 mesh against 4 x 1: losses unsharded "
           f"{base['losses']}, 4 x 2 {r42['losses']}, 4 x 1 {runs['4x1']['losses']}; "
@@ -4932,6 +5034,132 @@ def sharded_moe(dev, mesh, mesh41) -> dict:
           f"{runs['4x1']['losses']}, 4 x 2 {runs['4x2']['losses']}; {run_table(runs)}; "
           f"against 4 x 1 by sample: {readings(runs['4x2'])} [{card()}]")
     return dict(runs=runs, params=lm.count_params(cfg))
+
+
+def cache_account(cfg, spec: dict, mesh, ctx) -> int:
+    """The dry-run's per-device cache bytes of a decode cell of ``spec``'s
+    batch and slots under ``ctx`` (``launch.dryrun.cache_specs``, the rule
+    ``account`` applies; under ``make_ctx`` also ``account``'s own group)."""
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.Cell(cfg, dataclasses.replace(SHAPES["decode_32k"], seq_len=spec["max_len"],
+                                                global_batch=spec["batch"]), None)
+    leaves = dryrun.meta_arguments(cell)["cache"]
+    specs = dryrun.cache_specs(cell, leaves, ctx)
+    got = sum(math.prod(sh.shard_shape(tuple(t.shape), specs[n], mesh)) * t.element_size()
+              for n, t in leaves.items())
+    if ctx.dp:  # account lays a model this size out under make_ctx
+        check(dryrun.account(cell, mesh)["arguments"]["cache"] == got,
+              "40(h): cache_specs is account's cache rule")
+    return got
+
+
+def decode_logits_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs difference, L2 norm of the difference over the reference's)
+    of two steps' fp32 logits."""
+    d = got.float() - want
+    return float(d.abs().max()), float(d.norm() / want.norm())
+
+
+def decode_run(dev, spec: dict, cfg, mesh) -> dict:
+    """40(h): the prompt prefilled and decoded unsharded, then decoded from
+    the cache placed under each context; every reading, no check.  Each
+    placed decode's launch counts are set to 0 just before its first step
+    and read just after its last."""
+    b, p0, steps = spec["batch"], spec["prompt"], spec["steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    model = lm.init_params(gen, cfg, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
+                        dtype=torch.int32)
+    toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
+    t0 = time.perf_counter()
+    _, cache = model.prefill(ids[:, :p0], spec["max_len"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ref_cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    want, ms = [], []
+    for i, tok in enumerate(toks):
+        t0 = time.perf_counter()
+        logits, ref_cache = model.decode_step(ref_cache, tok, p0 + i)
+        want.append(logits.float())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del ref_cache
+    model = model.cpu()  # placed from the host: the card holds the shards alone
+    release()
+    out = dict(dtype=cfg.compute_dtype, prefill_s=prefill_s, unsharded_step_ms=ms, runs={})
+    for name, make in (("4x2", sh.make_ctx), ("decode_2d", sh.make_decode_2d_ctx)):
+        ctx = make(mesh)
+        placed = sh.place(model, mesh, ctx, inference=True)
+        with sh.use_ctx(ctx):
+            caches = lm.place_group_caches(placed, cache)
+            got_bytes = lm.cache_position_bytes(placed, caches)
+            spare = copy.deepcopy(caches)
+            with unittest.mock.patch.object(attention, "_write_kv", lambda *a: None):
+                control = lm.decode_step(placed, spare, toks[0], p0, cfg)[0]
+            del spare
+            diffs, step_ms = [], []
+            reset_launch_counts()
+            for i, tok in enumerate(toks):
+                t0 = time.perf_counter()
+                logits, caches = lm.decode_step(placed, caches, tok, p0 + i, cfg)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                diffs.append(decode_logits_diff(logits, want[i]))
+            launches = launch_counts()
+        ctrl = decode_logits_diff(control, want[0])
+        out["runs"][name] = dict(
+            ctx=name, positions=len(sh.tp_peers(ctx, 0)), max_abs=[d[0] for d in diffs],
+            rel_l2=[d[1] for d in diffs], control_max_abs=ctrl[0], control_rel_l2=ctrl[1],
+            step_ms=step_ms, position_cache_bytes=got_bytes,
+            account_cache_bytes=cache_account(cfg, spec, mesh, ctx), launches=launches)
+        del placed, caches
+        release()
+    del model, cache, want
+    release()
+    return out
+
+
+def sharded_decode(dev) -> dict:
+    """40(h): gemma2_27b in f32 decoded from a cache placed over the mesh by
+    the reference's rule (each position its slots of every KV head,
+    combined from flash-decode partials) against the unsharded decode on
+    the card.  The logits of every step lie within ``SHARD_DECODE_TOL`` of
+    the unsharded step's and a control, the first step with its newest
+    token's k and v not written (``attention._write_kv`` a no-op), beyond
+    it.  Each position's cache bytes equal the dry-run's."""
+    spec = SHARD_DECODE
+    mesh = make_device_mesh(*SHARD_MESH)
+    cfg = dataclasses.replace(shard_config(spec), param_dtype="float32",
+                              compute_dtype="float32")
+    r = decode_run(dev, spec, cfg, mesh)
+    r2, rd = r["runs"]["4x2"], r["runs"]["decode_2d"]
+    print(f"phase 40(h) gemma2_27b ({spec['layers']} of 46 layers, win and attn, full width, "
+          f"{lm.count_params(cfg):,} parameters, f32) decoded {spec['steps']} steps "
+          f"from a {spec['prompt']}-token prompt of {spec['batch']} rows prefilled unsharded, "
+          f"the cache of {spec['max_len']} slots (window 4096) placed by the reference's rule; "
+          f"rel L2 of the logits against the unsharded decode, 4 x 2 make_ctx "
+          f"{max(r2['rel_l2']):.4g} (max abs {max(r2['max_abs']):.4g}; control, newest token "
+          f"unwritten, {r2['control_rel_l2']:.4g}), make_decode_2d_ctx on 8 positions "
+          f"{max(rd['rel_l2']):.4g} ({max(rd['max_abs']):.4g}; control "
+          f"{rd['control_rel_l2']:.4g}), limit {SHARD_DECODE_TOL}; ms a step unsharded "
+          f"{statistics.median(r['unsharded_step_ms']):.2f}, 4 x 2 "
+          f"{statistics.median(r2['step_ms']):.2f}, 8 positions "
+          f"{statistics.median(rd['step_ms']):.2f}; prefill {r['prefill_s']:.2f} s; cache "
+          f"bytes a position {r2['position_cache_bytes'][0]:,} and "
+          f"{rd['position_cache_bytes'][0]:,} (dry-run {r2['account_cache_bytes']:,} and "
+          f"{rd['account_cache_bytes']:,}) [{card()}]")
+    for name, run in r["runs"].items():
+        what = f"40(h) {name}"
+        worst = max(run["rel_l2"])
+        check(worst <= SHARD_DECODE_TOL, f"{what}: logits within rel L2 {SHARD_DECODE_TOL} of "
+              f"the unsharded decode ({worst:.3g})")
+        check(run["control_rel_l2"] > SHARD_DECODE_TOL, f"{what}: a step whose newest token "
+              f"is not written ({run['control_rel_l2']:.3g}) lies beyond the limit")
+        check(run["position_cache_bytes"] == [run["account_cache_bytes"]] * mesh.size,
+              f"{what}: each position's cache bytes equal the dry-run's")
+    return dict(config=spec["config"], layers=spec["layers"], batch=spec["batch"],
+                prompt=spec["prompt"], max_len=spec["max_len"], steps=spec["steps"], **r)
 
 
 def sharded_quantized_mean(dev, mesh) -> dict:
@@ -5039,6 +5267,8 @@ def model_sharding(dev) -> dict:
     out["several_cards"] = sharded_over_cards(dev)
     release()
     out["moe"] = sharded_moe(dev, mesh, mesh41)
+    release()
+    out["decode"] = sharded_decode(dev)
     return out
 
 
@@ -5216,7 +5446,7 @@ def main() -> int:
              + list(examples.values()) + ([several] if several["ran"] else [])
              + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
              + list(shards["card_matches_cpu"].values())
-             + [r for k in ("granite", "recurrentgemma", "moe")
+             + [r for k in ("granite", "recurrentgemma", "moe", "decode")
                 for r in sharding[k]["runs"].values()]
              + list(sharding["several_cards"].get("runs", {}).values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase

@@ -28,7 +28,13 @@ a ``torch.autograd.Function``:
     (the gradient copied back to each position);
   * :func:`all_gather` concatenates the positions' slices (its backward
     hands each position its slice of the gradient), and
-    :func:`all_reduce_max` takes an elementwise max, with no gradient.
+    :func:`all_reduce_max` takes an elementwise max, with no gradient;
+  * :func:`reduce_scatter` and :func:`split` are the pair of sequence
+    parallelism: a reduce-scatter adds the positions' partial products as
+    :func:`all_reduce` does and leaves each position its slice of the sum
+    (its backward gathers the slices' gradients onto every position), and
+    a split hands each position its slice of a tensor on the lead (its
+    backward gathers the slices' gradients onto the lead).
 
 One controller drives every position, so a reduction lands once on the
 group's lead and the next :func:`broadcast` copies it: every position gets
@@ -130,7 +136,8 @@ def quantized_mean(tree, axis_name: str | None = None):
 # -- tensor-parallel collectives over a group's positions ------------------------
 
 # collectives run, by kind: "all_reduce" (forward), "all_reduce_grad" (a
-# broadcast's backward), "all_gather", "all_reduce_max", "broadcast"
+# broadcast's backward), "all_gather", "all_reduce_max", "broadcast",
+# "reduce_scatter", "split"
 counts: collections.Counter = collections.Counter()
 
 
@@ -151,11 +158,22 @@ class Group:
 
 
 def _sum32(parts, device) -> torch.Tensor:
-    """The fp32 sum of ``parts`` on ``device``, added in their order."""
-    total = parts[0].to(device=device, dtype=torch.float32, copy=True)
+    """The fp32 sum of ``parts`` on ``device``, added in their order.  f64
+    parts add in f64: no model hands them over, but ``gradcheck`` of these
+    collectives needs the double-precision sums."""
+    dtype = torch.promote_types(parts[0].dtype, torch.float32)
+    total = parts[0].to(device=device, dtype=dtype, copy=True)
     for p in parts[1:]:
-        total.add_(p.to(device=device, dtype=torch.float32))
+        total.add_(p.to(device=device, dtype=dtype))
     return total
+
+
+def _spans(size: int, n: int, what: str) -> list[tuple[int, int]]:
+    """The ``n`` even slices of a dim of ``size``; raises where ``n`` does
+    not divide it."""
+    if size % n:
+        raise ValueError(f"{what}: a dim of {size} does not split over {n} positions")
+    return [(t * size // n, size // n) for t in range(n)]
 
 
 class _Broadcast(torch.autograd.Function):
@@ -194,6 +212,34 @@ class _AllGather(torch.autograd.Function):
         return (None, None, *(g.to(d) for g, d in zip(pieces, ctx.devices)))
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, dim, dtype, *parts):
+        ctx.devices, ctx.dim, ctx.dtypes = devices, dim, [p.dtype for p in parts]
+        spans = _spans(parts[0].shape[dim], len(devices), "reduce_scatter")
+        return tuple(_sum32([p.narrow(dim, *span) for p in parts], d).to(dtype)
+                     for span, d in zip(spans, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *(torch.cat([g.to(d) for g in grads], dim=ctx.dim).to(t)
+                                    for d, t in zip(ctx.devices, ctx.dtypes)))
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, devices, dim, x):
+        ctx.device, ctx.dim = x.device, dim
+        spans = _spans(x.shape[dim], len(devices), "split")
+        # each slice an allocation of its own, so that it outlives x alone
+        return tuple(x.narrow(dim, *span).to(device=d, copy=True)
+                     for span, d in zip(spans, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, torch.cat([g.to(ctx.device) for g in grads], dim=ctx.dim)
+
+
 def broadcast(x: torch.Tensor, group: Group) -> list[torch.Tensor]:
     """Megatron's f: ``x`` (on the lead) on every position of ``group``;
     backward, the positions' gradients added in fp32 in position order and
@@ -215,6 +261,26 @@ def all_gather(parts: list[torch.Tensor], group: Group, dim: int = -1) -> torch.
     on the lead; backward, each position's slice of the gradient."""
     counts["all_gather"] += 1
     return _AllGather.apply(group.devices, dim, *parts)
+
+
+def reduce_scatter(parts: list[torch.Tensor], group: Group, dim: int = 1,
+                   dtype=None) -> list[torch.Tensor]:
+    """The sum of the positions' ``parts``, each position left its slice
+    along ``dim`` on its device (the dim splits evenly over the group, or
+    this raises): each slice added in fp32 in position order and cast once
+    to ``dtype`` (by default the parts'), so that it equals the same slice
+    of :func:`all_reduce`'s sum bit for bit.  Backward, the slices'
+    gradients concatenated onto every position (an all-gather)."""
+    counts["reduce_scatter"] += 1
+    return list(_ReduceScatter.apply(group.devices, dim, dtype or parts[0].dtype, *parts))
+
+
+def split(x: torch.Tensor, group: Group, dim: int = 1) -> list[torch.Tensor]:
+    """``x`` (on the lead) cut evenly along ``dim``, position ``t``'s slice a
+    copy on its device (the dim splits over the group, or this raises);
+    backward, the slices' gradients concatenated on the lead."""
+    counts["split"] += 1
+    return list(_Split.apply(group.devices, dim, x))
 
 
 @torch.no_grad()

@@ -42,8 +42,13 @@ Default production mapping (DESIGN.md §6):
   fsdp  = "data"            parameter/optimizer sharding (intra-pod)
   tp    = "model"           tensor parallel (heads / ff columns / vocab / EP)
   seq   = "model"           sequence parallelism on the residual stream
-                            (storage only here: the residual stays whole on
-                            each tensor-parallel position)
+                            (a data-parallel group's rows of a training
+                            microbatch split over its tensor-parallel
+                            positions where they divide the sequence)
+
+:func:`cache_spec` is the reference's rule for the decode cache, which the
+placed decode (``models/tensor_parallel.py`` ``place_caches``) and the
+dry-run's accounting (``launch/dryrun.py`` ``account``) both follow.
 """
 
 from __future__ import annotations
@@ -185,9 +190,10 @@ def constrain(x, *logical: str | None):
     ctx.  Under one, the spec is resolved (an unknown logical axis raises
     ``ValueError``) and sanitized against ``x``'s shape, and ``x`` comes
     back unchanged: on a ``DeviceMesh`` the executor lays the activations
-    out itself (a group's rows on its positions, and a tensor-parallel
+    out itself (a group's rows on its positions, a tensor-parallel
     product's heads, columns, channels, experts or vocabulary slice on each
-    of the group's tp positions: ``models/tensor_parallel.py``)."""
+    of the group's tp positions, and under sequence parallelism each tp
+    position's rows of the residual stream: ``models/tensor_parallel.py``)."""
     ctx = current_ctx()
     if ctx is not None:
         sanitize_spec(tuple(ctx.resolve(lg) for lg in logical), tuple(x.shape), ctx.mesh)
@@ -352,6 +358,29 @@ def param_shardings(model_or_named_leaves, mesh: MeshShape, ctx: ShardCtx, *,
         resolved = tuple(ctx.resolve(a) if isinstance(a, str) else a for a in logical)
         out[name] = sanitize_spec(resolved, tuple(t.shape), mesh)
     return out
+
+
+def cache_spec(name: str, shape: tuple[int, ...], ctx: ShardCtx, *, long: bool = False) -> Spec:
+    """The reference's ``_cache_shardings`` rule (``src/repro/launch/dryrun.py:
+    83-108``) for one layer's decode-cache leaf ``name`` of global ``shape``,
+    sanitized: k and v ``(dp, tp, None, None)``, their time axis over the
+    tensor-parallel axes (``long``: over every mesh axis, the reference's
+    ``long_500k``); the recurrent and xLSTM states' channels over tp."""
+    seq_axes = tuple(ctx.mesh.axis_names) if long else ctx.tp
+    base, dp = len(shape), ctx.dp
+    if name in ("k", "v") and base == 4:
+        spec = (dp, seq_axes, None, None)
+    elif name == "conv" and base == 3:
+        spec = (dp, None, ctx.tp)
+    elif name == "c" and base == 4:  # mlstm matrix memory
+        spec = (dp, None, ctx.tp, None)
+    elif name == "n" and base == 3:
+        spec = (dp, None, ctx.tp)
+    elif name in ("h", "c", "n", "m") and base == 2:
+        spec = (dp, ctx.tp)
+    else:
+        spec = (None,) * base
+    return sanitize_spec(spec, shape, ctx.mesh)
 
 
 # ---------------------------------------------------------------------------

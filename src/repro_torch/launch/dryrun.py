@@ -91,6 +91,7 @@ from repro_torch.distributed.sharding import (
     _EXPERT_LEAVES,
     MeshShape,
     ShardCtx,
+    cache_spec,
     make_ctx,
     make_decode_2d_ctx,
     param_shardings,
@@ -115,13 +116,15 @@ from repro_torch.train.train_step import TrainConfig, init_train_state, state_te
 
 # a measured cell's estimated peak leaves 8 GiB of the card's 80 GB free
 FIT_BYTES = roof.HBM_BYTES - 8 * 2**30
-# tokens a measured step may hold, so that a cell's five steps take seconds,
+# tokens a measured step may hold, so that a cell's steps take seconds,
 # not many minutes; a decode step holds one token a sequence and is cut by
 # memory alone
 STEP_TOKENS = {"train": 16_384, "prefill": 32_768}
 # warm steps timed after the warm-up, by kind: a decode step takes tens of
-# ms and varies with the host, a train or prefill step takes seconds
-TIMED_STEPS = {"train": 3, "prefill": 3, "decode": 25}
+# ms and varies with the host, a train step takes seconds; a 32k prefill
+# takes up to 27 s on the card, bound by it, and the profiled replay after
+# the timed one reads its device time again
+TIMED_STEPS = {"train": 3, "prefill": 1, "decode": 25}
 # timed steps of the eager run beside the graphed one (a rebuilt cell, no
 # warm-up: the graphed run has warmed the process)
 EAGER_STEPS = {"train": 1, "prefill": 1, "decode": 25}
@@ -214,26 +217,6 @@ def meta_arguments(cell: Cell) -> dict[str, dict[str, torch.Tensor]]:
     return args
 
 
-def _cache_spec(name: str, shape: tuple[int, ...], mesh: MeshShape, ctx: ShardCtx,
-                long: bool) -> tuple:
-    """The reference's ``_cache_shardings`` rule for one layer's cache leaf."""
-    seq_axes = tuple(mesh.axis_names) if long else ctx.tp
-    base, dp = len(shape), ctx.dp
-    if name in ("k", "v") and base == 4:
-        spec = (dp, seq_axes, None, None)
-    elif name == "conv" and base == 3:
-        spec = (dp, None, ctx.tp)
-    elif name == "c" and base == 4:  # mlstm matrix memory
-        spec = (dp, None, ctx.tp, None)
-    elif name == "n" and base == 3:
-        spec = (dp, None, ctx.tp)
-    elif name in ("h", "c", "n", "m") and base == 2:
-        spec = (dp, ctx.tp)
-    else:
-        spec = (None,) * base
-    return sanitize_spec(spec, shape, mesh)
-
-
 def _layout(cell: Cell, params: dict, mesh: MeshShape) -> tuple[ShardCtx, str]:
     """The reference's choice of layout: decode takes the inference layout,
     or the flat 2D one when its dense weights exceed 10 GiB a tp shard."""
@@ -244,6 +227,15 @@ def _layout(cell: Cell, params: dict, mesh: MeshShape) -> tuple[ShardCtx, str]:
     if dense / mesh.shape.get("model", 1) > 10 * 2**30:
         return make_decode_2d_ctx(mesh), "decode_2d"
     return ctx, "inference"
+
+
+def cache_specs(cell: Cell, leaves: dict, ctx: ShardCtx) -> dict:
+    """The spec of each ``"<layer>.<leaf>"`` of a decode cell's cache under
+    ``ctx``: ``sharding.cache_spec``, the rule the placed decode lays its
+    cache out by."""
+    return {n: cache_spec(n.rpartition(".")[2], tuple(t.shape), ctx,
+                          long=cell.spec.name == "long_500k")
+            for n, t in leaves.items()}
 
 
 def account(cell: Cell, mesh: MeshShape) -> dict:
@@ -257,9 +249,7 @@ def account(cell: Cell, mesh: MeshShape) -> dict:
         if group in ("m", "v"):
             specs[group] = specs["params"]
         elif group == "cache":
-            specs[group] = {n: _cache_spec(n.rpartition(".")[2], tuple(t.shape), mesh, ctx,
-                                           long=cell.spec.name == "long_500k")
-                            for n, t in leaves.items()}
+            specs[group] = cache_specs(cell, leaves, ctx)
         elif group == "inputs":
             specs[group] = {n: sanitize_spec((ctx.dp,) + (None,) * (t.ndim - 1), tuple(t.shape),
                                              mesh)

@@ -17,12 +17,26 @@ Handed a ``common.Split``, the train, prefill and decode paths run
 tensor-parallel (the reference's head-sharded constraints,
 ``src/repro/models/attention.py:70-73`` and ``:160-161``): each position
 projects its q heads and the KV heads they read, attends over them, and
-multiplies by its rows of ``wo``; one all-reduce adds the partial outputs.
-A decode cache is then a list with one entry per position, each holding
-that position's KV heads.
+multiplies by its rows of ``wo``; one all-reduce adds the partial outputs
+(in training, over a stream split by sequence, a reduce-scatter:
+``common.tp_output``).  A split prefill returns a list of the positions'
+caches of their KV heads, which a split decode step also takes.
+
+Over a device mesh the decode cache is laid out by the reference's rule
+(``distributed/sharding.py`` ``cache_spec``, ``src/repro/launch/dryrun.py:
+83-108``): the time axis over a group's tensor-parallel positions, each
+holding its slots of every KV head (:class:`SeqKV`), where the positions
+divide the slot count; else whole on the group's lead.  A decode step then
+combines flash-decode partials, the reference's all-reduces of a softmax
+over a time-sharded cache (``src/repro/models/attention.py:8-11``): each
+position attends every q head over its own slots, giving fp32 ``(acc, m,
+l)`` (its softmax's unnormalised sum, max and denominator), and ``m =
+max m_t``, ``l = Σ l_t e^{m_t - m}``, ``o = Σ acc_t e^{m_t - m} / l``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -38,6 +52,8 @@ from repro_torch.models.common import (
     partial_product,
     rms_norm,
     softcap,
+    tp_inputs,
+    tp_output,
 )
 
 # -- params -------------------------------------------------------------------
@@ -185,11 +201,12 @@ def _attn_seq(x, params: Attention, cfg: ModelConfig, window: int, partial: bool
 
 
 def _over_positions(fn, x, params: Split):
-    """``fn(x_t, part_t, cfg_t)`` on each position of a split layer; returns
-    the all-reduce of the partial outputs and the list of the rest."""
-    outs = [fn(xi, p, c) for xi, p, c in zip(col.broadcast(x, params.group), params.parts,
+    """``fn(x_t, part_t, cfg_t)`` on each position of a split layer (``x``
+    whole on the lead, or a stream split by sequence); returns the sum of
+    the partial outputs in ``x``'s layout and the list of the rest."""
+    outs = [fn(xi, p, c) for xi, p, c in zip(tp_inputs(x, params.group), params.parts,
                                              params.cfgs)]
-    return col.all_reduce([o[0] for o in outs], params.group, x.dtype), [o[1] for o in outs]
+    return tp_output([o[0] for o in outs], x, params.group), [o[1] for o in outs]
 
 
 def attn_train(x, params: Attention, cfg: ModelConfig, window: int = 0):
@@ -225,17 +242,116 @@ def _prefill(x, params: Attention, cfg: ModelConfig, window: int, partial: bool)
     return out, {"k": ck, "v": cv}
 
 
-def attn_decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int = 0):
+@dataclasses.dataclass(eq=False)
+class SeqKV:
+    """A layer's k and v cache over a group's positions by sequence:
+    ``parts[t]`` holds ``{"k", "v"}`` ``[B, T / n, KVH, hd]``, the slots
+    ``[t T / n, (t + 1) T / n)`` of every KV head, on ``group.devices[t]``."""
+
+    parts: list
+    group: col.Group
+
+
+def attn_decode(x, params: Attention, cfg: ModelConfig, cache, pos: int, window: int = 0):
     """One decode step.  x: [B,1,D]; pos: int (tokens already cached).
 
-    Returns (out [B,1,D], cache), the cache updated in place (split: a list
-    of the positions' caches, each updated in place).
+    Returns (out [B,1,D], cache), the cache updated in place.  ``cache`` is
+    a dict; with ``params`` a ``Split``, a list of the positions' caches of
+    their KV heads (a split prefill's), or a dict on the group's lead; or
+    a :class:`SeqKV` (the module docstring).
     """
+    if isinstance(cache, SeqKV):
+        return _seq_decode(x, params, cfg, cache.parts, cache.group, pos, window), cache
     if isinstance(params, Split):
+        if isinstance(cache, dict):
+            return _seq_decode(x, params, cfg, [cache], params.group, pos, window), cache
         caches = iter(cache)
         return _over_positions(
             lambda xi, p, c: _decode(xi, p, c, next(caches), pos, window, True), x, params)
     return _decode(x, params, cfg, cache, pos, window, False)
+
+
+def _sub_group(group: col.Group, ts: list[int]) -> col.Group:
+    return col.Group(tuple(group.positions[t] for t in ts), tuple(group.devices[t] for t in ts))
+
+
+def _split_qkv(x, params: Split, positions):
+    """q, k and v of every head on the lead: each position projects its
+    heads, and the heads are gathered, each KV head from the first position
+    that reads it (under MQA every position reads the one head)."""
+    qkv = [_project_qkv(xi, p, c, positions.to(xi.device))
+           for xi, p, c in zip(col.broadcast(x, params.group), params.parts, params.cfgs)]
+    spans = [s["kv"] for s in params.spans]
+    kv = [t for t, span in enumerate(spans) if span not in spans[:t]]
+    held = _sub_group(params.group, kv)
+    return (col.all_gather([q for q, _, _ in qkv], params.group, dim=2),
+            col.all_gather([qkv[t][1] for t in kv], held, dim=2),
+            col.all_gather([qkv[t][2] for t in kv], held, dim=2))
+
+
+def _write_kv(cache: dict, slot: int, k, v) -> None:
+    """The new token's k and v into ``slot`` of one position's cache, on its
+    device."""
+    for name, new in (("k", k), ("v", v)):
+        cache[name][:, slot : slot + 1] = new.to(cache[name].device)
+
+
+def _partial(qg, k, v, pos: int, kpos, cfg: ModelConfig, window: int):
+    """One position's flash-decode partial over its slots: qg [B,1,KVH,G,hd];
+    k/v [B,T_t,KVH,hd]; kpos [T_t] the absolute position each slot holds.
+    Returns fp32 (acc [B,KVH,G,1,hd], m and l [B,KVH,G,1,1]); a position
+    with no visible key gives acc 0, m -inf and l 0."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float() * _scale(cfg), k.float())
+    s = softcap(s, cfg.attn_softcap)
+    mask = (kpos <= pos) & (kpos >= 0)
+    if window:
+        mask &= pos - kpos < window
+    s = torch.where(mask, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))  # no -inf - -inf
+    return torch.einsum("bkgqs,bskd->bkgqd", p, v.float()), m, p.sum(dim=-1, keepdim=True)
+
+
+def _seq_decode(x, params, cfg: ModelConfig, parts: list, group: col.Group, pos: int,
+                window: int):
+    """A decode step against a cache whose slots lie over the first
+    ``len(parts)`` positions of ``group`` (all of them, or the lead alone):
+    q, k and v projected whole on the lead or by heads (``params`` a
+    ``Split``, gathered onto the lead), the new k and v written into the
+    position that owns the slot, every position's partial over its slots
+    combined on the lead, and the output through ``wo`` (row-parallel
+    where split).  Returns out [B,1,D]."""
+    b, hd = x.shape[0], cfg.head_dim
+    tn = parts[0]["k"].shape[1]
+    total = tn * len(parts)
+    holders = _sub_group(group, list(range(len(parts))))
+    positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=x.device)
+    if isinstance(params, Split):
+        q, k, v = _split_qkv(x, params, positions)
+    else:
+        q, k, v = _project_qkv(x, params, cfg, positions)
+    owner, slot = divmod(pos % total if window else pos, tn)
+    _write_kv(parts[owner], slot, k, v)
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    stats = []
+    for t, (qg, part) in enumerate(zip(col.broadcast(q.reshape(b, 1, kvh, g, hd), holders),
+                                       parts)):
+        j = t * tn + torch.arange(tn, device=qg.device)
+        kpos = pos - torch.remainder(pos - j, total) if window else j
+        stats.append(_partial(qg, part["k"], part["v"], pos, kpos, cfg, window))
+    m = col.all_reduce_max([s[1] for s in stats], holders)
+    terms = []
+    for (acc, mt, lt), mm in zip(stats, col.broadcast(m, holders)):
+        w = torch.exp(mt - mm)  # 0 where a position saw no key
+        terms.append(torch.cat([acc * w, lt * w], dim=-1))
+    sums = col.all_reduce(terms, holders)  # [B,KVH,G,1,hd + 1] fp32 on the lead
+    out = (sums[..., :hd] / sums[..., hd:]).permute(0, 3, 1, 2, 4).reshape(b, 1, -1)
+    out = out.to(x.dtype)
+    if not isinstance(params, Split):
+        return out @ params.wo
+    return col.all_reduce([partial_product(o[..., slice(*span["q"])], p.wo) for o, p, span in
+                           zip(col.broadcast(out, params.group), params.parts, params.spans)],
+                          params.group, x.dtype)
 
 
 def _decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int,

@@ -8,6 +8,15 @@ a dense or a mixture-of-experts FFN), ``rec`` (RG-LRU, then a dense FFN), and
 the self-contained xLSTM kinds ``mlstm`` and ``slstm``.  The MoE aux loss
 belongs to training (:func:`block_train`); prefill and decode drop it, as
 the reference does.
+
+In training over a device mesh the residual stream may be split by
+sequence over a data-parallel group's tensor-parallel positions (the
+reference's ``("dp", "seq", None)`` after every residual add,
+``src/repro/models/blocks.py:51-52``): a list with each position's rows.
+The norms and the residual adds then run on each position's rows, a split
+sublayer takes the rows all-gathered and reduce-scatters its output
+(``common.tp_inputs``), and a sublayer that runs whole gathers the rows
+onto the group's lead and splits its output back.
 """
 
 from __future__ import annotations
@@ -20,7 +29,9 @@ from repro_torch.core.state import _default_device
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models import xlstm
-from repro_torch.models.common import MLP, _param, mlp_forward, mlp_init, rms_norm
+from repro_torch.distributed import collectives as col
+from repro_torch.models.common import (MLP, Split, _param, mlp_forward, mlp_init, rms_norm,
+                                       stream_add, stream_norm)
 from repro_torch.models.moe import MoE, moe_ffn, moe_init
 
 _CELLS = {"mlstm": (xlstm.MLSTM, xlstm.mlstm_init), "slstm": (xlstm.SLSTM, xlstm.slstm_init)}
@@ -107,24 +118,43 @@ def _cell(x, params: Block, cfg: ModelConfig, kind: str, cache, mode: str):
     return x + y, cache
 
 
+def _sublayer(fn, h, sub, params):
+    """``fn(h)``; for a stream split by sequence and a sublayer that runs
+    whole (not a ``Split``), ``fn`` on the rows gathered onto the lead and
+    its output (the first of a tuple) split back over the positions."""
+    if not isinstance(h, list) or isinstance(sub, Split):
+        return fn(h)
+    out = fn(col.all_gather(h, params.group, dim=1))
+    if isinstance(out, tuple):
+        return col.split(out[0], params.group, dim=1), *out[1:]
+    return col.split(out, params.group, dim=1)
+
+
 def block_train(x, params: Block, cfg: ModelConfig, kind: str):
-    """[B,S,D] -> ([B,S,D], aux loss fp32 scalar), differentiable; no cache."""
+    """[B,S,D] -> ([B,S,D], aux loss fp32 scalar), differentiable; no cache.
+    ``x`` may be a stream split by sequence (the module docstring; then
+    ``params.group`` holds the positions), and comes back so."""
     _check_kind(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, params.norm1, cfg.norm_eps)
+    lead, group = (x[0], params.group) if isinstance(x, list) else (x, None)
+    aux = torch.zeros((), dtype=torch.float32, device=lead.device)
+    h = stream_norm(x, params.norm1, group, cfg.norm_eps)
     if kind in _CELLS:
         block = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
-        return x + block(h, params.cell, cfg, mode="train"), aux
+        return stream_add(x, _sublayer(lambda h: block(h, params.cell, cfg, mode="train"), h,
+                                       params.cell, params)), aux
     if kind == "rec":
-        x = x + rec.rec_block_train(h, params.rec, cfg)
+        x = stream_add(x, _sublayer(lambda h: rec.rec_block_train(h, params.rec, cfg), h,
+                                    params.rec, params))
     else:
-        x = x + attn.attn_train(h, params.attn, cfg, _window(cfg, kind))
-    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+        window = _window(cfg, kind)
+        x = stream_add(x, _sublayer(lambda h: attn.attn_train(h, params.attn, cfg, window), h,
+                                    params.attn, params))
+    h2 = stream_norm(x, params.norm2, group, cfg.norm_eps)
     if kind == "moe":
-        y, aux = moe_ffn(h2, params.moe, cfg)
+        y, aux = _sublayer(lambda h: moe_ffn(h, params.moe, cfg), h2, params.moe, params)
     else:
-        y = mlp_forward(h2, params.mlp, cfg.mlp_kind)
-    return x + y, aux
+        y = _sublayer(lambda h: mlp_forward(h, params.mlp, cfg.mlp_kind), h2, params.mlp, params)
+    return stream_add(x, y), aux
 
 
 def block_prefill(x, params: Block, cfg: ModelConfig, kind: str):

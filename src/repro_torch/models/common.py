@@ -11,6 +11,15 @@ products with the collectives of ``repro_torch.distributed.collectives``
 (Megatron's column- and row-parallel layout); ``models/tensor_parallel.py``
 decides which layers split, by the reference's own conditions.  Called
 with its parameters, a layer runs whole, as on one device.
+
+Under sequence parallelism (the reference's residual constraint ``("dp",
+"seq", None)`` with ``seq`` on the model axis) the residual stream of a
+group is a list: ``x[t]`` position ``t``'s rows of ``[B, S, D]`` on its
+device.  A split layer then takes its input all-gathered over the
+sequence onto every position and leaves each position its rows of the
+sum of the partial outputs, a reduce-scatter (:func:`tp_inputs`,
+:func:`tp_output`: Megatron's sequence-parallel pair in place of its f
+and g).
 """
 
 from __future__ import annotations
@@ -118,6 +127,40 @@ class Split:
     spans: list
 
 
+def stream_norm(x, weight: torch.Tensor, group: col.Group | None, eps: float):
+    """RMS norm of the residual stream; split by sequence, on each
+    position's rows with its copy of the weight (bound on the lead and
+    broadcast, so its gradient adds the positions')."""
+    if not isinstance(x, list):
+        return rms_norm(x, weight, eps)
+    return [rms_norm(xi, w, eps) for xi, w in zip(x, col.broadcast(weight, group))]
+
+
+def stream_add(x, y):
+    """``x + y`` of two streams in the same layout, whole or split."""
+    return [a + b for a, b in zip(x, y)] if isinstance(x, list) else x + y
+
+
+def tp_inputs(x, group: col.Group) -> list[torch.Tensor]:
+    """Each position's copy of a split layer's input: ``x`` whole on the
+    lead broadcast, or a stream split by sequence (a list of the
+    positions' rows) all-gathered along the sequence onto every position.
+    Backward, the positions' gradients added (and each position's rows
+    handed back to it)."""
+    if isinstance(x, list):
+        return col.broadcast(col.all_gather(x, group, dim=1), group)
+    return col.broadcast(x, group)
+
+
+def tp_output(parts: list[torch.Tensor], x, group: col.Group):
+    """The sum of a split layer's partial outputs in ``x``'s layout and
+    dtype: on the lead (an all-reduce), or for a stream split by sequence
+    each position's rows (a reduce-scatter, the same sums bit for bit)."""
+    if isinstance(x, list):
+        return col.reduce_scatter(parts, group, dim=1, dtype=x[0].dtype)
+    return col.all_reduce(parts, group, x.dtype)
+
+
 class _PartialProduct(torch.autograd.Function):
     """``x @ w`` with an fp32 result; the backward's products in the
     operands' dtype, as autograd takes those of ``x @ w``."""
@@ -171,11 +214,12 @@ def mlp_forward(x: torch.Tensor, params, kind: str) -> torch.Tensor:
     ``params`` a :class:`Split`: each position computes its columns of
     ``w_gate`` and ``w_in`` and its rows of ``w_out``, and one all-reduce
     adds the partial outputs (the reference's ``tp_worthwhile`` constraint
-    on the hidden dim, ``src/repro/models/common.py:72-74``)."""
+    on the hidden dim, ``src/repro/models/common.py:72-74``); ``x`` may be a
+    stream split by sequence (the module docstring)."""
     if isinstance(params, Split):
-        xs = col.broadcast(x, params.group)
-        return col.all_reduce([partial_product(_mlp_hidden(xi, p, kind), p.w_out)
-                               for xi, p in zip(xs, params.parts)], params.group, x.dtype)
+        xs = tp_inputs(x, params.group)
+        return tp_output([partial_product(_mlp_hidden(xi, p, kind), p.w_out)
+                          for xi, p in zip(xs, params.parts)], x, params.group)
     return _mlp_hidden(x, params, kind) @ params.w_out
 
 

@@ -30,10 +30,15 @@ free them after.  A product that runs tensor-parallel
 (``models/tensor_parallel.py`` ``plan``) binds on each position only that
 position's block of its weights, gathered over the fsdp axis alone, and
 the positions' partial products meet in all-reduces; the rest is gathered
-whole onto the lead and runs there.  The training backward recomputes each
-block from its saved input, binding it again, and reduces each position's
-gradient of its block into the shards that hold that block as soon as the
-block is done.
+whole onto the lead and runs there.  Under sequence parallelism
+(``Plan.seq``) the training residual stream is a list of each position's
+rows, and each position saves only its rows of each block's input.  The
+training backward recomputes each block from its saved input, binding it
+again, and reduces each position's gradient of its block into the shards
+that hold that block as soon as the block is done.  A placed decode's
+cache lies over the positions by the reference's rule
+(``tensor_parallel.place_caches``): :func:`init_group_caches` makes it
+empty, :func:`place_group_caches` lays out a whole one (a prefill's).
 
 The JAX module's function names (``init_params``, ``train_loss``,
 ``prefill``, ``decode_step``, ``init_cache``, ``embed_tokens``,
@@ -54,9 +59,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device, _tensor_from_host
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.common import _param, dense_init, embed_init, rms_norm, softcap
+from repro_torch.models.common import (_param, dense_init, embed_init, rms_norm, softcap,
+                                       stream_norm)
 from repro_torch.models.moe import dp_config
 
 
@@ -345,8 +352,8 @@ def prefill(params: CausalLM, inputs, cfg: ModelConfig, max_len: int):
 
 def decode_step(params, cache, inputs, pos, cfg: ModelConfig):
     """One decode step.  ``params`` a :class:`CausalLM`, or a model placed
-    over a device mesh with ``cache`` from :func:`init_group_caches`, run
-    under a ctx over that mesh."""
+    over a device mesh with ``cache`` from :func:`init_group_caches` or
+    :func:`place_group_caches`, run under a ctx over that mesh."""
     if isinstance(params, sh.PlacedModel):
         return _placed_decode_step(params, cache, inputs, int(pos), cfg)
     return params.decode_step(cache, inputs, int(pos))
@@ -413,22 +420,46 @@ def _reduce_grads(bound: list, grads, into: dict) -> None:
 def _embed(skels: list, inputs: torch.Tensor, plan: tp.Plan, group: col.Group, cfg):
     """The embedding stage: whole on the lead, or each position's rows of a
     vocabulary-split table, a token outside its slice a zero row, added by
-    one all-reduce (exact: one term of each sum is not zero)."""
+    one all-reduce (exact: one term of each sum is not zero).  Under
+    sequence parallelism the stream comes out split by sequence: the
+    all-reduce a reduce-scatter, a whole embedding split from the lead."""
     if plan.vocab is None or not cfg.embed_inputs:
-        return skels[0].embed_tokens(inputs)
+        x = skels[0].embed_tokens(inputs)
+        return col.split(x, group, dim=1) if plan.seq else x
     parts = []
     for skel, (v0, v1), dev in zip(skels, plan.vocab, group.devices):
         ids = inputs.to(dev).long() - v0
         held = (ids >= 0) & (ids < v1 - v0)
         parts.append(torch.where(held[..., None], skel.embed[ids.clamp(0, v1 - v0 - 1)], 0))
+    if plan.seq:
+        return [_embedded(x, cfg) for x in col.reduce_scatter(parts, group, dim=1)]
     return _embedded(col.all_reduce(parts, group), cfg)
 
 
-def _logit_parts(skels: list, x: torch.Tensor, plan: tp.Plan, group: col.Group) -> list:
-    """The final norm on the lead, then each position's fp32 logits of its
-    vocabulary slice."""
-    x = rms_norm(x, skels[0].final_norm, skels[0].cfg.norm_eps)
+def _final_norm(skels: list, x, group: col.Group) -> torch.Tensor:
+    """The final norm, on the lead; of a stream split by sequence, on each
+    position's rows (the weight broadcast from the lead), then gathered
+    onto the lead."""
+    x = stream_norm(x, skels[0].final_norm, group, skels[0].cfg.norm_eps)
+    return col.all_gather(x, group, dim=1) if isinstance(x, list) else x
+
+
+def _logit_parts(skels: list, x, plan: tp.Plan, group: col.Group) -> list:
+    """The final norm (:func:`_final_norm`), then each position's fp32
+    logits of its vocabulary slice."""
+    x = _final_norm(skels, x, group)
     return [_head_logits(xi, s) for xi, s in zip(col.broadcast(x, group), skels)]
+
+
+def _leaves(x) -> list[torch.Tensor]:
+    """The tensors of a stream, whole or split by sequence."""
+    return list(x) if isinstance(x, list) else [x]
+
+
+def _detached(x):
+    """The stream as a leaf of a new autograd graph."""
+    out = [xi.detach().requires_grad_(True) for xi in _leaves(x)]
+    return out if isinstance(x, list) else out[0]
 
 
 def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.Plan,
@@ -441,7 +472,8 @@ def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.
     count of labels >= 0 over the whole microbatch (the reference's masked
     mean is global) and ``aux_scale`` the MoE aux term's weight for this
     group's mean over its routing groups.  The forward pass saves each
-    block's input and nothing else; the backward pass recomputes each block
+    block's input and nothing else (under ``plan.seq`` each position's
+    rows of it, on its device); the backward pass recomputes each block
     from it (as the reference's per-period remat does) and reduces each
     stage's gradients into ``into``'s shards as soon as that stage is done,
     each position's gradient of its block into the shards of that block
@@ -463,46 +495,93 @@ def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.
                 x, a = B.block_train(x, tp.block_view(skels, i, plan, group), cfg,
                                      cfg.layer_kinds[i])
             aux = aux + a
-    x = x.detach().requires_grad_(True)
+    x = _detached(x)
+    k = len(_leaves(x))  # the stream's tensors: 1, or a position's rows each
     with _bound(skels, placed, head, plan, group, True) as bound:
         if plan.vocab is None:
-            nll = masked_nll_sum(skels[0].lm_logits(x), batch["labels"])
+            nll = masked_nll_sum(_head_logits(_final_norm(skels, x, group), skels[0]),
+                                 batch["labels"])
         else:
             nll = vocab_parallel_nll_sum(_logit_parts(skels, x, plan, group), batch["labels"],
                                          plan.vocab, group)
         nll = nll / denom
-        dx, *grads = torch.autograd.grad(nll, [x, *(p for _, _, p in bound)])
+        grads = torch.autograd.grad(nll, [*_leaves(x), *(p for _, _, p in bound)])
+    dx, grads = grads[:k], grads[k:]
     _reduce_grads(bound, grads, into)
     seed = torch.full((), aux_scale, dtype=torch.float32, device=lead)
     for i in reversed(range(len(blocks))):
-        xi = saved.pop().detach().requires_grad_(True)
+        xi = _detached(saved.pop())
         with _bound(skels, placed, blocks[i], plan, group, True) as bound:
             y, a = B.block_train(xi, tp.block_view(skels, i, plan, group), cfg,
                                  cfg.layer_kinds[i])
-            outs, seeds = ([y, a], [dx, seed]) if a.requires_grad else ([y], [dx])
-            dx, *grads = torch.autograd.grad(outs, [xi, *(p for _, _, p in bound)], seeds,
-                                             allow_unused=True, materialize_grads=True)
+            outs, seeds = _leaves(y), list(dx)
+            if a.requires_grad:
+                outs, seeds = outs + [a], seeds + [seed]
+            grads = torch.autograd.grad(outs, [*_leaves(xi), *(p for _, _, p in bound)], seeds,
+                                        allow_unused=True, materialize_grads=True)
+        dx, grads = grads[:k], grads[k:]
         _reduce_grads(bound, grads, into)
     if embed:
         with _bound(skels, placed, embed, plan, group, True) as bound:
-            grads = torch.autograd.grad(_embed(skels, batch["inputs"], plan, group, cfg),
-                                        [p for _, _, p in bound], dx)
+            grads = torch.autograd.grad(_leaves(_embed(skels, batch["inputs"], plan, group, cfg)),
+                                        [p for _, _, p in bound], list(dx))
         _reduce_grads(bound, grads, into)
     return nll.detach() + aux_scale * aux
 
 
 def init_group_caches(placed: sh.PlacedModel, batch: int, max_len: int) -> list[list]:
     """One empty decode cache per data-parallel group of the current ctx, for
-    the group's rows of ``batch``: a layer an entry, on the lead's device,
-    or, for a layer whose attention or RG-LRU runs tensor-parallel at this
-    batch, a list of the group's positions' caches, each holding that
-    position's KV heads or channels on its device."""
+    the group's rows of ``batch``: a layer an entry, laid out over the
+    group's positions by the reference's rule (``tensor_parallel.
+    place_caches``: an attention layer's slots over the positions where
+    they divide, an RG-LRU layer's channels where they split, else whole
+    on the lead)."""
+    ctx, plan, groups = _decode_groups(placed, batch)
+    shapes = init_cache(placed.cfg, batch // len(groups), max_len, "meta")
+    return [tp.place_caches(plan, placed.cfg, ctx, shapes, grp, batch,
+                            lambda t, d: torch.zeros(t.shape, dtype=t.dtype, device=d))
+            for grp in groups]
+
+
+def place_group_caches(placed: sh.PlacedModel, cache: list[dict]) -> list[list]:
+    """A whole decode cache (``prefill``'s, or ``init_cache``'s: a dict a
+    layer, every row of the batch, on any device) laid out as
+    :func:`init_group_caches` lays out an empty one, under the current ctx:
+    each data-parallel group's rows over its positions.  The reference's
+    ``jax.device_put(cache, _cache_shardings(...))``."""
+    first = next(iter(cache[0].values()))
+    batch = first.shape[0]
+    ctx, plan, groups = _decode_groups(placed, batch)
+    rows = batch // len(groups)
+    return [tp.place_caches(plan, placed.cfg, ctx,
+                            [{k: v[g * rows:(g + 1) * rows] for k, v in layer.items()}
+                             for layer in cache], grp, batch,
+                            lambda t, d: t.to(device=d, copy=True))
+            for g, grp in enumerate(groups)]
+
+
+def _decode_groups(placed: sh.PlacedModel, batch: int):
+    """The current ctx over ``placed``'s mesh, the plan of a decode step of
+    ``batch`` rows, and each data-parallel group's positions."""
     ctx = sh.executor_ctx(placed.mesh)
     leads = sh.dp_leads(ctx)
-    rows = _group_rows(batch, len(leads))
+    _group_rows(batch, len(leads))
     plan = tp.plan(placed, ctx, (batch, 1, placed.cfg.d_model))
-    return [tp.init_caches(plan, placed.cfg, rows, max_len, tp.group(placed, ctx, lead))
-            for lead in leads]
+    return ctx, plan, [tp.group(placed, ctx, lead) for lead in leads]
+
+
+def cache_position_bytes(placed: sh.PlacedModel, caches: list[list]) -> list[int]:
+    """Bytes of the decode caches ``caches`` (:func:`init_group_caches`'s)
+    each position of the mesh holds, under the current ctx."""
+    ctx = sh.executor_ctx(placed.mesh)
+    out = [0] * placed.mesh.size
+    for lead, cache in zip(sh.dp_leads(ctx), caches):
+        positions = sh.tp_peers(ctx, lead)
+        for layer in cache:
+            parts = layer.parts if isinstance(layer, attn.SeqKV) else layer
+            for pos, part in zip(positions, parts if isinstance(parts, list) else [parts]):
+                out[pos] += sum(t.numel() * t.element_size() for t in part.values())
+    return out
 
 
 def _group_rows(batch: int, dp: int) -> int:

@@ -37,8 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.state import _default_device
-from repro_torch.distributed import collectives as col
-from repro_torch.models.common import Split, _param, dense_init
+from repro_torch.models.common import Split, _param, dense_init, tp_inputs, tp_output
 
 
 class MoE(nn.Module):
@@ -168,12 +167,13 @@ def moe_ffn(x: torch.Tensor, params: MoE, cfg: ModelConfig):
     hold ``E * C`` expert rows and one trash row that takes the dropped
     picks, which :func:`moe_ffn` never reads back.  ``params`` a ``Split``:
     the experts over the tensor-parallel positions (the module docstring),
-    the aux loss the lead's.
+    the aux loss the lead's; ``x`` may then be a stream split by sequence
+    (``common.tp_inputs``), whose tokens every position routes gathered.
     """
     if isinstance(params, Split):
-        xs = col.broadcast(x, params.group)
+        xs = tp_inputs(x, params.group)
         outs = [_moe_local(xi, p, cfg, span) for xi, p, span in zip(xs, params.parts, params.spans)]
-        return col.all_reduce([y for y, _ in outs], params.group, dtype=x.dtype), outs[0][1]
+        return tp_output([y for y, _ in outs], x, params.group), outs[0][1]
     y, aux = _moe_local(x, params, cfg, (0, cfg.moe.n_experts))
     return y.to(x.dtype), aux
 

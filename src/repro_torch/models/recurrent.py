@@ -36,7 +36,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device
 from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops
-from repro_torch.models.common import Split, _param, dense_init, partial_product
+from repro_torch.models.common import (
+    Split,
+    _param,
+    dense_init,
+    partial_product,
+    tp_inputs,
+    tp_output,
+)
 
 _C = 8.0  # Griffin's gate temperature
 
@@ -153,8 +160,10 @@ def _branches(x: torch.Tensor, params: RGLRU):
 
 def _split_conv(x: torch.Tensor, params: Split):
     """Each position's branches and conv output, and every position's copy
-    of the whole conv output (one all-gather)."""
-    xs = col.broadcast(x, params.group)
+    of the whole conv output (one all-gather); ``x`` whole on the lead or
+    a stream split by sequence (``common.tp_inputs``: the conv and the scan
+    read the whole time axis)."""
+    xs = tp_inputs(x, params.group)
     zs, gates, zcs = [], [], []
     for xi, p in zip(xs, params.parts):
         z, gate = _branches(xi, p)
@@ -170,10 +179,9 @@ def rec_block_train(x: torch.Tensor, params: RGLRU, cfg: ModelConfig) -> torch.T
     scan's gradient comes from ``ops.lru_scan``'s backward."""
     if isinstance(params, Split):
         _, gates, zcs, zc_all = _split_conv(x, params)
-        return col.all_reduce([partial_product(rglru_scan(zc, p, xc_all=za)[0] * gate,
-                                               p.w_rnn_out)
-                               for zc, za, gate, p in zip(zcs, zc_all, gates, params.parts)],
-                              params.group, x.dtype)
+        return tp_output([partial_product(rglru_scan(zc, p, xc_all=za)[0] * gate, p.w_rnn_out)
+                          for zc, za, gate, p in zip(zcs, zc_all, gates, params.parts)],
+                         x, params.group)
     z, gate = _branches(x, params)
     zc = causal_conv(z, params.conv_w, params.conv_b)
     y, _ = rglru_scan(zc, params)

@@ -27,11 +27,31 @@ jitted step sees (the global microbatch ``[B, S, D]`` in training, ``[B,
 
 Anything else runs whole on the group's lead, its leaves gathered whole
 there, as do the mLSTM and sLSTM blocks (their ``wi``, ``wf``, ``wz``,
-``wo_gate``, ``up`` and ``down`` rules stay storage only), the residual
-stream (sequence parallelism is not ported) and, in the inference
-layout, the MoE layers (expert-stationary decode is not ported).  A split
-layer's modules are handed to ``models/attention.py``, ``common.py``,
-``recurrent.py`` and ``moe.py`` as a ``common.Split`` (:func:`block_view`).
+``wo_gate``, ``up`` and ``down`` rules stay storage only) and, in the
+inference layout, the MoE layers (expert-stationary decode is not
+ported).  A split layer's modules are handed to ``models/attention.py``,
+``common.py``, ``recurrent.py`` and ``moe.py`` as a ``common.Split``
+(:func:`block_view`).
+
+Sequence parallelism (``Plan.seq``): where ``ctx.seq_shard`` holds and the
+step's sequence splits over the ``n`` positions (the reference's ``("dp",
+"seq", None)`` residual constraint, sanitized), a training step's
+residual stream lies by rows over the group, position ``t`` holding rows
+``[t S / n, (t + 1) S / n)`` of ``[B_g, S, D]``: the embedding, the
+norms, the residual adds and the final norm run on each position's rows,
+the split layers all-gather their input over the sequence and
+reduce-scatter their output, and the layers that run whole gather the
+rows onto the lead and split their output back (``models/blocks.py``).
+The norms' weights bind on the lead and are broadcast to the positions.
+A decode step's one token does not split, so it never applies there.
+
+The decode cache (:func:`place_caches`) follows the
+reference's rule (``sharding.cache_spec``): an attention layer's k and v
+over the group's positions by their time axis, each holding its slots of
+every KV head (``attention.SeqKV``) where the positions divide the slot
+count, and an RG-LRU layer's state by its channels where they split; any
+other layer's cache, and one the positions do not divide, whole on the
+group's lead.
 """
 
 from __future__ import annotations
@@ -44,8 +64,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.collectives import Group
 from repro_torch.models import attention as attn
-from repro_torch.models import blocks as B
-from repro_torch.models import recurrent as rec
 from repro_torch.models.common import Split
 
 # the dim each split sublayer's leaves are cut along, and the span it takes
@@ -73,12 +91,14 @@ class Plan:
     ``layers[i]`` maps each split sublayer of block ``i`` (``"attn"``,
     ``"rec"``, ``"mlp"``, ``"moe"``) to the positions' configs and spans;
     ``vocab`` holds each position's vocabulary span, or is None where the
-    embedding and the head run whole."""
+    embedding and the head run whole; ``seq`` whether the residual stream
+    splits by sequence over the positions."""
 
     n: int
     regions: dict
     layers: list
     vocab: list | None
+    seq: bool
 
 
 def _even(size: int, n: int, t: int) -> tuple[int, int]:
@@ -150,7 +170,8 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
                              _cut(x.shape, cut[0], spans[t][cut[1]]) for t in range(n)]
         elif name in _VOCAB_CUTS and vocab is not None:
             regions[name] = [_cut(x.shape, _VOCAB_CUTS[name], vocab[t]) for t in range(n)]
-    return Plan(n, regions, layers, vocab)
+    seq = n > 1 and ctx.seq_shard and len(x_shape) == 3 and x_shape[1] % n == 0
+    return Plan(n, regions, layers, vocab, seq)
 
 
 def _cut(shape, dim: int, span: tuple[int, int]) -> tuple:
@@ -169,7 +190,7 @@ def block_view(skels: list, i: int, p: Plan, grp: Group):
     bound modules, each split sublayer a ``Split`` over every position's
     skeleton.  Built while the block's leaves are bound."""
     lead = skels[0].blocks[i]
-    view = types.SimpleNamespace(kind=lead.kind)
+    view = types.SimpleNamespace(kind=lead.kind, group=grp)
     for name in ("norm1", "norm2", "attn", "rec", "mlp", "moe", "cell"):
         if hasattr(lead, name):
             setattr(view, name, getattr(lead, name))
@@ -179,19 +200,45 @@ def block_view(skels: list, i: int, p: Plan, grp: Group):
     return view
 
 
-def init_caches(p: Plan, cfg: ModelConfig, batch: int, max_len: int, grp: Group) -> list:
-    """One group's decode cache, a layer an entry: for a layer whose mixer
-    splits, a list with each position's cache (its KV heads, or its
-    channels) on its device; else the whole layer's cache on the lead."""
+def _layer_layout(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer: dict,
+                  batch: int) -> str:
+    """How a group's cache of layer ``i`` lies over its positions by
+    ``sharding.cache_spec`` on the global cache (``batch`` rows): ``"seq"``
+    (k and v by slots), ``"rec"`` (the RG-LRU state by channels) or
+    ``"lead"``.  The xLSTM states stay whole on the lead, as their blocks
+    run there."""
+    if p.n > 1 and kind in ("attn", "win", "moe"):
+        if sh.cache_spec("k", (batch, *layer["k"].shape[1:]), ctx)[1] is not None:
+            return "seq"
+    if p.n > 1 and kind == "rec":
+        if sh.cache_spec("conv", (batch, *layer["conv"].shape[1:]), ctx)[2] is not None:
+            if "rec" not in p.layers[i]:
+                raise ValueError(f"layer {i}: the cache rule splits the RG-LRU state's channels, "
+                                 "the plan does not")
+            return "rec"
+    return "lead"
+
+
+def place_caches(p: Plan, cfg: ModelConfig, ctx: sh.ShardCtx, cache: list, grp: Group,
+                 batch: int, make) -> list:
+    """One group's decode cache from ``cache``, its rows of each layer's
+    whole cache (any device), laid out over its positions ``grp`` (the
+    module docstring): a layer an entry, an ``attention.SeqKV`` of the
+    positions' slots, a list of the positions' ``{"conv", "h"}`` channels,
+    or the layer's dict on the lead.  ``batch`` is the global batch the
+    rule reads; ``make(t, device)`` makes each position's piece from its
+    slice ``t`` of ``cache`` (a copy, or zeros of a ``meta`` slice's shape)."""
     out = []
-    for i, kind in enumerate(cfg.layer_kinds):
-        if "attn" in p.layers[i]:
-            window = cfg.window if kind == "win" else 0
-            out.append([attn.init_kv_cache(c, batch, max_len, window, d)
-                        for c, d in zip(p.layers[i]["attn"][0], grp.devices)])
-        elif "rec" in p.layers[i]:
-            out.append([rec.init_rec_cache(c, batch, d)
-                        for c, d in zip(p.layers[i]["rec"][0], grp.devices)])
+    for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, cache)):
+        how = _layer_layout(p, ctx, i, kind, layer, batch)
+        if how == "seq":
+            tn = layer["k"].shape[1] // p.n
+            out.append(attn.SeqKV([{k: make(v.narrow(1, t * tn, tn), d) for k, v in layer.items()}
+                                   for t, d in enumerate(grp.devices)], grp))
+        elif how == "rec":
+            out.append([{k: make(v[..., c0:c1], d) for k, v in layer.items()}
+                        for (c0, c1), d in zip((s["c"] for s in p.layers[i]["rec"][1]),
+                                               grp.devices)])
         else:
-            out.append(B.block_cache_init(cfg, kind, batch, max_len, grp.devices[0]))
+            out.append({k: make(v, grp.devices[0]) for k, v in layer.items()})
     return out

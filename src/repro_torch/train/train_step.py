@@ -23,6 +23,10 @@ on the CPU):
     its block of the weights (``models/tensor_parallel.py`` ``plan``, taken
     on the global microbatch's shape as the reference's jitted step sees
     it); the rest runs whole on the group's lead;
+  * under ``make_ctx``'s default ``seq_shard=True``, where the group's
+    positions divide the sequence, the residual stream lies by rows over
+    them (sequence parallelism: ``models/tensor_parallel.py`` ``Plan.seq``),
+    each position saving only its rows of each block's input;
   * the loss's denominator is the microbatch's whole count of labels >= 0,
     taken before any backward pass, and an MoE layer routes the reference's
     global groups (``models/moe.py`` ``dp_config``), its aux term their mean;

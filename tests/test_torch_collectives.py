@@ -2,7 +2,10 @@
 the CPU: the int8 payload, the scale and the round trip bit for bit on
 seeded float32 and bfloat16 leaves, ties at .5 included (both round half
 to even); with a mesh axis the mean over the axis of a ``DeviceMesh``,
-and an axis the mesh lacks raises.
+and an axis the mesh lacks raises.  Sequence parallelism's pair:
+``reduce_scatter`` and ``split`` pass ``gradcheck`` in f64 (each one's
+backward is the other half of the pair), and a reduce-scatter equals the
+all-reduce followed by a slice, bit for bit.
 """
 
 import pytest
@@ -90,3 +93,44 @@ def test_a_mesh_axis_raises_naming_the_roadmap():
     for pos in range(4):
         col_mean = (want[pos % 2] + want[2 + pos % 2]) / 2
         torch.testing.assert_close(got.shards[pos], col_mean, rtol=0, atol=1e-6)
+
+
+def _group(n: int) -> col.Group:
+    return col.Group(tuple(range(n)), (torch.device("cpu"),) * n)
+
+
+@pytest.mark.parametrize("n,dim", [(2, 1), (4, 1), (3, 0)])
+def test_reduce_scatter_and_split_pass_gradcheck(n, dim):
+    gen = torch.Generator().manual_seed(n)
+    shape = [2, 3]
+    shape.insert(dim, 2 * n)
+    parts = [torch.randn(shape, generator=gen, dtype=torch.float64, requires_grad=True)
+             for _ in range(n)]
+    grp = _group(n)
+    assert torch.autograd.gradcheck(lambda *ps: tuple(col.reduce_scatter(list(ps), grp, dim)),
+                                    parts)
+    assert torch.autograd.gradcheck(lambda x: tuple(col.split(x, grp, dim)), parts[:1])
+    # split then all-gather is the identity; each slice an allocation of its own
+    slices = col.split(parts[0], grp, dim)
+    assert all(s.untyped_storage().data_ptr() != parts[0].untyped_storage().data_ptr()
+               for s in slices)
+    assert torch.equal(col.all_gather(slices, grp, dim), parts[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_reduce_scatter_is_the_all_reduce_sliced_bit_for_bit(dtype):
+    """fp32 partial products of a row-parallel layer, four positions: each
+    position's rows of the reduce-scatter equal the same rows of the
+    all-reduce, cast once to ``dtype``; counted once each."""
+    gen = torch.Generator().manual_seed(7)
+    parts = [torch.randn(2, 16, 8, generator=gen) * 10.0 ** k for k in range(4)]
+    grp = _group(4)
+    col.counts.clear()
+    whole = col.all_reduce(parts, grp, dtype)
+    rows = col.reduce_scatter(parts, grp, dim=1, dtype=dtype)
+    assert dict(col.counts) == {"all_reduce": 1, "reduce_scatter": 1}
+    assert [tuple(r.shape) for r in rows] == [(2, 4, 8)] * 4 and rows[0].dtype == dtype
+    for t, r in enumerate(rows):
+        assert torch.equal(r, whole[:, 4 * t:4 * t + 4])
+    with pytest.raises(ValueError, match="does not split over 3 positions"):
+        col.reduce_scatter(parts[:3], _group(3), dim=1)
