@@ -190,7 +190,7 @@ printed):
    differences, within 1e-4 relative.
 27. granite_3_2b trained at full width and all 40 layers (bf16 weights, fp32
    Adam moments and accumulator): ``Trainer`` on ``SyntheticLM`` (seed 0),
-   batch 8 × 1,024 in 2 microbatches, lr 3e-3 with warmup 2, 20 steps, no
+   batch 8 × 1,024 in 2 microbatches, lr 3e-3 with warmup 2, 10 steps, no
    checkpoint; finite losses and the last below the first; the loss curve,
    median step ms, tokens/s and peak GiB; model FLOPs a step (6 N D) against
    ``roofline.model.PEAK_FLOPS``, the MFU; one more step profiled (kernels,
@@ -380,7 +380,18 @@ printed):
    ``make_decode_2d_ctx`` on 8 positions, 8 decode steps against the
    unsharded decode: the logits within rel L2 2e-6 and a control (the
    first step with its newest token not written) beyond it, each
-   position's cache bytes equal to the dry-run's, ms a step; then K5 and
+   position's cache bytes equal to the dry-run's, ms a step; (i)
+   qwen3_moe_235b_a22b at full width, 1 layer, in f32, 8 rows: a 16-token
+   prompt prefilled unsharded, the model placed with ``inference=True``
+   (experts stationary over the data axis, their hidden dim over the model
+   axis) under ``make_ctx`` on 4 x 2 and ``make_decode_2d_ctx`` on 8
+   positions, one at a time, 4 decode steps against the unsharded decode:
+   the logits within rel L2 ``SHARD_EXPERT_TOL`` and a control beyond it
+   (4 x 2: the return all-to-all's blocks rotated by one group; 8
+   positions: a position's hidden block left out), two all-to-alls a step
+   on 4 x 2 and none on 8 positions, the picks the unsharded decode drops,
+   each position's expert bytes equal to the dry-run's; ms a step, bytes
+   gathered, peak GiB; then K5 and
    its backward at 40(b)'s per-position shape [1,
    1,024, 2,048] f32 against their plain versions, bit for bit, timed: the
    ``phase`` 40 rows of the kernels line, whose launches are 40(b)'s 4 x 2
@@ -479,6 +490,7 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.load import LoadGenerator, TenantSpec, WorkloadSpec  # noqa: E402
 from repro_torch.models import attention, lm, moe, xlstm  # noqa: E402
+from repro_torch.models import tensor_parallel  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.roofline import model as roofline  # noqa: E402
 from repro_torch.serving.engine import PagedConfig, PagedEngine  # noqa: E402
@@ -573,7 +585,7 @@ PAGED_MOE = {
 # reduced config's prefills on either side of the chunked cell's threshold
 XLSTM = dict(prompts=8, prompt_len=2048, steps=64)
 # phase 27: granite_3_2b trained at full width and depth
-TRAIN_GRANITE = dict(batch=8, seq=1024, n_micro=2, lr=3e-3, warmup=2, steps=20)
+TRAIN_GRANITE = dict(batch=8, seq=1024, n_micro=2, lr=3e-3, warmup=2, steps=10)
 # phase 28: recurrentgemma_9b at full width, one period plus the tail (4 rec, 1 win)
 TRAIN_RECUR = dict(batch=4, seq=2048, n_micro=1, lr=1e-3, warmup=2, steps=6)
 TRAIN_RECUR_LAYERS = 5
@@ -686,6 +698,13 @@ SHARD_PARAM_TOL = dict(rtol=3e-3, atol=3e-4)
 # control by 9.2e-4 to 9.4e-4 (its own 1.3e-5 lost in the rounding), so no
 # limit there tells a sound step from one that lost its newest token
 SHARD_DECODE_TOL = 2e-6
+# 40(i): qwen3_moe_235b_a22b at full width, 1 of its 94 layers, in f32 (about
+# 3.73e9 parameters, 14.9 GB), 8 rows: a 16-token prompt prefilled
+# unsharded, then 4 decode steps; moe.groups max(dp, B // 512) = 4 and
+# dispatch "tokens", as the dry-run sets a decode cell
+SHARD_EXPERT = dict(config="qwen3_moe_235b_a22b", layers=1, batch=8, prompt=16, max_len=32,
+                    steps=4, moe_groups=4)
+SHARD_EXPERT_TOL = 1e-5
 SHARD_PARAM_OUTSIDE = 1e-2
 SHARD_UPDATE_ERROR = 0.2
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
@@ -3116,10 +3135,10 @@ def train_run(dev, cfg, spec: dict, data_seed: int = SEED) -> tuple[Trainer, dic
 
 
 def granite_training(dev) -> dict:
-    """Phase 27: granite_3_2b at full width and all 40 layers, 20 steps."""
+    """Phase 27: granite_3_2b at full width and all 40 layers, 10 steps."""
     cfg = get_config("granite_3_2b")
     tr, res = train_run(dev, cfg, TRAIN_GRANITE)
-    check(res["losses"][-1] < res["losses"][0], "granite_3_2b's loss falls over 20 steps")
+    check(res["losses"][-1] < res["losses"][0], "granite_3_2b's loss falls over 10 steps")
     active = cfg.active_param_count()
     res["model_flops"] = mf = roofline.model_flops(
         active, TRAIN_GRANITE["batch"] * TRAIN_GRANITE["seq"], "train")
@@ -5162,6 +5181,183 @@ def sharded_decode(dev) -> dict:
                 prompt=spec["prompt"], max_len=spec["max_len"], steps=spec["steps"], **r)
 
 
+def expert_bytes(placed, ctx, batch: int) -> list[int]:
+    """The expert bytes each position binds in a decode step of ``batch``
+    rows: its regions of the plan's expert-stationary layers."""
+    plan = tensor_parallel.plan(placed, ctx, (batch, 1, placed.cfg.d_model))
+    out = [0] * placed.mesh.size
+    for i, st in plan.stationary.items():
+        for leaf in ("e_gate", "e_in", "e_out"):
+            x = placed.leaves[f"blocks.{i}.moe.{leaf}"]
+            for g, lead in enumerate(sh.dp_leads(ctx)):
+                for t, pos in enumerate(sh.tp_peers(ctx, lead)):
+                    region = st.region(leaf, x.shape, g, t)
+                    check(region == x.slices[pos], f"40(i): position {pos} binds its own {leaf}")
+                    out[pos] += math.prod(sh.region_shape(region)) * x.dtype.itemsize
+    return out
+
+
+def expert_account(cfg, spec: dict, mesh, ctx) -> int:
+    """The dry-run's per-device bytes of the expert leaves of a decode cell
+    of ``spec``'s batch (``account``'s ``param_shardings(...,
+    inference=True)`` under ``ctx``)."""
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.plan_cell(cfg, "decode_32k", SHARD_MESH[0][0], batch=spec["batch"])
+    params = dryrun.meta_arguments(cell)["params"]
+    specs = sh.param_shardings(params, mesh, ctx, inference=True)
+    return sum(math.prod(sh.shard_shape(tuple(t.shape), specs[n], mesh)) * t.element_size()
+               for n, t in params.items() if n.rsplit(".", 1)[-1] in ("e_gate", "e_in", "e_out"))
+
+
+def dropped_picks(counter: list):
+    """``moe.route_slots`` that adds its dropped picks to ``counter[0]``."""
+    real = moe.route_slots
+
+    def counting(gates, mc, cap):
+        slot, weight, aux = real(gates, mc, cap)
+        counter[0] += int((slot == mc.n_experts * cap).sum())
+        return slot, weight, aux
+
+    return counting
+
+
+def broken_expert_step(name: str):
+    """40(i)'s control: the mechanism broken, as a patch: under make_ctx the
+    return all-to-all's blocks rotated by one group (each group combines
+    another group's rows), on 8 flat positions the last position's hidden
+    block left out of the ``e_out`` sums."""
+    if name == "4x2":
+        real = collectives.all_to_all
+
+        def rotated(parts, group, split_dim, cat_dim):
+            out = real(parts, group, split_dim, cat_dim)
+            if split_dim == 0:  # the return trade
+                out = [o.to(d) for o, d in zip(out[1:] + out[:1], group.devices)]
+            return out
+
+        return unittest.mock.patch.object(collectives, "all_to_all", rotated)
+
+    def short(parts, group, dtype):
+        return collectives.all_reduce(parts[:-1], collectives.Group(group.positions[:-1],
+                                                                    group.devices[:-1]), dtype)
+
+    return unittest.mock.patch.object(moe, "_sum_partials", short)
+
+
+def expert_decode(dev) -> dict:
+    """40(i): qwen3_moe_235b_a22b at full width, one layer, in f32, decoded
+    placed in the inference layout (the experts stationary over the data
+    axis, their hidden dim over the model axis) under ``make_ctx`` on 4 x 2
+    (two token all-to-alls a MoE layer a step) and ``make_decode_2d_ctx`` on
+    8 positions (the experts whole, ``d_ff`` over 8), one context at a time,
+    against the unsharded decode on the card: every step's logits within
+    rel L2 ``SHARD_EXPERT_TOL`` and a control (:func:`broken_expert_step`)
+    beyond it, the picks dropped as the unsharded decode drops them, each
+    position's expert bytes equal to the dry-run's, ms a step and the peak.
+    Each placed decode's launch counts are set to 0 just before its first
+    step and read just after its last."""
+    spec = SHARD_EXPERT
+    mesh = make_device_mesh(*SHARD_MESH)
+    cfg = dataclasses.replace(shard_config(spec), param_dtype="float32", compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch_mode="tokens"))
+    b, p0, steps = spec["batch"], spec["prompt"], spec["steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    model = lm.init_params(gen, cfg, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
+                        dtype=torch.int32)
+    toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
+    _, cache = model.prefill(ids[:, :p0], spec["max_len"])
+    ref_cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    want, ms, dropped = [], [], [0]
+    with unittest.mock.patch.object(moe, "route_slots", dropped_picks(dropped)):
+        for i, tok in enumerate(toks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, ref_cache = model.decode_step(ref_cache, tok, p0 + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            want.append(logits.float())
+    del ref_cache
+    out = dict(params=lm.count_params(cfg), unsharded_step_ms=ms, unsharded_dropped=dropped[0],
+               runs={})
+    for name, make in (("4x2", sh.make_ctx), ("decode_2d", sh.make_decode_2d_ctx)):
+        ctx = make(mesh)
+        release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        placed = sh.place(model, mesh, ctx, inference=True)
+        with sh.use_ctx(ctx):
+            bound = expert_bytes(placed, ctx, b)
+            caches = lm.place_group_caches(placed, cache)
+            spare = copy.deepcopy(caches)
+            with broken_expert_step(name):
+                control = lm.decode_step(placed, spare, toks[0], p0, cfg)[0]
+            del spare
+            diffs, step_ms, a2a, gathered, got_dropped = [], [], [], [], [0]
+            reset_launch_counts()
+            with unittest.mock.patch.object(moe, "route_slots", dropped_picks(got_dropped)):
+                for i, tok in enumerate(toks):
+                    collectives.counts.clear()
+                    sh.gathered_bytes.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, caches = lm.decode_step(placed, caches, tok, p0 + i, cfg)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    a2a.append(collectives.counts["all_to_all"])
+                    gathered.append(max(sh.gathered_bytes.values(), default=0))
+                    diffs.append(decode_logits_diff(logits, want[i]))
+            launches = launch_counts()
+        ctrl = decode_logits_diff(control, want[0])
+        out["runs"][name] = dict(
+            ctx=name, positions=len(sh.tp_peers(ctx, 0)), max_abs=[d[0] for d in diffs],
+            rel_l2=[d[1] for d in diffs], control_max_abs=ctrl[0], control_rel_l2=ctrl[1],
+            step_ms=step_ms, all_to_all_a_step=a2a, gathered_bytes_a_step=gathered,
+            dropped=got_dropped[0], position_expert_bytes=bound,
+            account_expert_bytes=expert_account(cfg, spec, mesh, ctx),
+            placed_bytes=sum(sh.position_bytes(placed)),
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, launches=launches)
+        del placed, caches, control
+        release()
+    del model, cache, want
+    release()
+    r2, rd = out["runs"]["4x2"], out["runs"]["decode_2d"]
+    print(f"phase 40(i) qwen3_moe_235b_a22b (1 of 94 layers, full width, {out['params']:,} "
+          f"parameters, f32, {cfg.moe.n_experts} experts top {cfg.moe.top_k}, moe.groups "
+          f"{cfg.moe.groups}, dispatch tokens) decoded {steps} steps from a {p0}-token prompt of "
+          f"{b} rows prefilled unsharded, placed with inference=True; rel L2 of the logits "
+          f"against the unsharded decode, 4 x 2 make_ctx {max(r2['rel_l2']):.4g} (max abs "
+          f"{max(r2['max_abs']):.4g}; control, the return all-to-all rotated by one group, "
+          f"{r2['control_rel_l2']:.4g}), make_decode_2d_ctx on 8 positions "
+          f"{max(rd['rel_l2']):.4g} ({max(rd['max_abs']):.4g}; control, a position's hidden "
+          f"block left out, {rd['control_rel_l2']:.4g}), limit {SHARD_EXPERT_TOL}; ms a step "
+          f"unsharded {statistics.median(ms):.2f}, 4 x 2 {statistics.median(r2['step_ms']):.2f},"
+          f" 8 positions {statistics.median(rd['step_ms']):.2f}; all-to-alls a step "
+          f"{r2['all_to_all_a_step']} and {rd['all_to_all_a_step']}; expert bytes a position "
+          f"{r2['position_expert_bytes'][0]:,} and {rd['position_expert_bytes'][0]:,} (dry-run "
+          f"{r2['account_expert_bytes']:,} and {rd['account_expert_bytes']:,}); bytes gathered a "
+          f"position a step at most {max(r2['gathered_bytes_a_step']):,} and "
+          f"{max(rd['gathered_bytes_a_step']):,}; picks dropped over {steps} steps unsharded "
+          f"{out['unsharded_dropped']}, placed {r2['dropped']} and {rd['dropped']}; peak "
+          f"{r2['peak_gib']:.2f} and {rd['peak_gib']:.2f} GiB (the unsharded model's "
+          f"{out['params'] * 4 / 2**30:.2f} GiB held beside) [{card()}]")
+    for name, run in out["runs"].items():
+        what = f"40(i) {name}"
+        worst = max(run["rel_l2"])
+        check(worst <= SHARD_EXPERT_TOL, f"{what}: logits within rel L2 {SHARD_EXPERT_TOL} of "
+              f"the unsharded decode ({worst:.3g})")
+        check(run["control_rel_l2"] > SHARD_EXPERT_TOL, f"{what}: the control step "
+              f"({run['control_rel_l2']:.3g}) lies beyond the limit")
+        check(run["all_to_all_a_step"] == [2 if name == "4x2" else 0] * steps,
+              f"{what}: {run['all_to_all_a_step']} all-to-alls a step")
+        check(run["dropped"] == out["unsharded_dropped"],
+              f"{what}: the picks the unsharded decode drops")
+        check(run["position_expert_bytes"] == [run["account_expert_bytes"]] * mesh.size,
+              f"{what}: each position's expert bytes equal the dry-run's")
+    return dict(config=spec["config"], layers=spec["layers"], batch=b, prompt=p0,
+                max_len=spec["max_len"], steps=steps, **out)
+
+
 def sharded_quantized_mean(dev, mesh) -> dict:
     """40(c): each position's gradient a block of granite's w_in [2048, 8192]
     bf16, averaged over the data axis on the card and on the CPU."""
@@ -5269,6 +5465,10 @@ def model_sharding(dev) -> dict:
     out["moe"] = sharded_moe(dev, mesh, mesh41)
     release()
     out["decode"] = sharded_decode(dev)
+    release()
+    t0 = time.perf_counter()
+    out["expert_decode"] = expert_decode(dev)
+    out["expert_decode"]["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5446,7 +5646,7 @@ def main() -> int:
              + list(examples.values()) + ([several] if several["ran"] else [])
              + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
              + list(shards["card_matches_cpu"].values())
-             + [r for k in ("granite", "recurrentgemma", "moe", "decode")
+             + [r for k in ("granite", "recurrentgemma", "moe", "decode", "expert_decode")
                 for r in sharding[k]["runs"].values()]
              + list(sharding["several_cards"].get("runs", {}).values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase

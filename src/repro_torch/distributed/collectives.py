@@ -36,6 +36,11 @@ a ``torch.autograd.Function``:
     a split hands each position its slice of a tensor on the lead (its
     backward gathers the slices' gradients onto the lead).
 
+Between data-parallel groups, :func:`all_to_all` trades blocks among the
+groups' positions that share a tensor-parallel index: expert-stationary
+MoE decode (``models/moe.py`` ``moe_stationary``) sends each group's token
+buffers to the groups that hold their experts and the outputs back.
+
 One controller drives every position, so a reduction lands once on the
 group's lead and the next :func:`broadcast` copies it: every position gets
 the same bits.  :data:`counts` counts each collective as it runs.
@@ -136,8 +141,8 @@ def quantized_mean(tree, axis_name: str | None = None):
 # -- tensor-parallel collectives over a group's positions ------------------------
 
 # collectives run, by kind: "all_reduce" (forward), "all_reduce_grad" (a
-# broadcast's backward), "all_gather", "all_reduce_max", "broadcast",
-# "reduce_scatter", "split"
+# broadcast's backward), "all_gather", "all_reduce_max", "all_to_all",
+# "broadcast", "reduce_scatter", "split"
 counts: collections.Counter = collections.Counter()
 
 
@@ -292,3 +297,23 @@ def all_reduce_max(parts: list[torch.Tensor], group: Group) -> torch.Tensor:
     for p in parts[1:]:
         out = torch.maximum(out, p.to(group.devices[0]))
     return out
+
+
+@torch.no_grad()
+def all_to_all(parts: list[torch.Tensor], group: Group, split_dim: int,
+               cat_dim: int) -> list[torch.Tensor]:
+    """What each position of ``group`` receives when every position ``i``
+    cuts its ``parts[i]`` evenly along ``split_dim`` (the dim splits over
+    the group, or this raises) and sends block ``j`` to position ``j``:
+    position ``j``'s blocks from every position, concatenated along
+    ``cat_dim`` in position order, on its device.  ``group`` holds the
+    data-parallel groups' positions that share a tensor-parallel index.
+    Decode alone trades tokens this way, so it has no backward (no
+    autograd ``Function``)."""
+    counts["all_to_all"] += 1
+    n = len(group.devices)
+    if len(parts) != n:
+        raise ValueError(f"all_to_all: {len(parts)} parts for {n} positions")
+    spans = _spans(parts[0].shape[split_dim], n, "all_to_all")
+    return [torch.cat([p.narrow(split_dim, *span).to(d) for p in parts], dim=cat_dim)
+            for span, d in zip(spans, group.devices)]

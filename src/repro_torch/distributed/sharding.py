@@ -25,7 +25,8 @@ executor (``models/lm.py``, ``models/tensor_parallel.py``,
 ``train/train_step.py``) runs the products that the reference constrains
 to the model axis tensor-parallel over a group's positions, Megatron's
 column- and row-parallel layout: each position binds only its block of a
-weight (:func:`gather_region`, over the fsdp axis alone), and the
+weight (:func:`gather_region`, over the fsdp axis alone; a decode step
+binds a position's own shard without a copy, :func:`bind_region`), and the
 ``distributed/collectives.py`` all-reduces join the partial products.
 :func:`constrain` resolves and checks a spec and returns its input, since
 the executor, not a constraint, lays the activations out;
@@ -352,12 +353,17 @@ def param_shardings(model_or_named_leaves, mesh: MeshShape, ctx: ShardCtx, *,
     leaves = model_or_named_leaves
     if hasattr(leaves, "named_parameters"):
         leaves = dict(leaves.named_parameters())
-    out = {}
-    for name, t in leaves.items():
-        logical = param_spec(tuple(name.split(".")), t.ndim, inference=inference)
-        resolved = tuple(ctx.resolve(a) if isinstance(a, str) else a for a in logical)
-        out[name] = sanitize_spec(resolved, tuple(t.shape), mesh)
-    return out
+    return {name: rule_spec(name, tuple(t.shape), ctx, mesh, inference=inference)
+            for name, t in leaves.items()}
+
+
+def rule_spec(name: str, shape: tuple[int, ...], ctx: ShardCtx, mesh: MeshShape | None = None,
+              *, inference: bool = False) -> Spec:
+    """The mesh spec the rules give the leaf ``name`` (dotted) of ``shape``
+    under ``ctx``, sanitized against ``mesh`` (by default the ctx's)."""
+    logical = param_spec(tuple(name.split(".")), len(shape), inference=inference)
+    resolved = tuple(ctx.resolve(a) if isinstance(a, str) else a for a in logical)
+    return sanitize_spec(resolved, tuple(shape), ctx.mesh if mesh is None else mesh)
 
 
 def cache_spec(name: str, shape: tuple[int, ...], ctx: ShardCtx, *, long: bool = False) -> Spec:
@@ -579,6 +585,16 @@ def gather_region(x: Sharded, region: tuple, pos: int) -> torch.Tensor:
             out[_within(cut, region)].copy_(x.shards[owner][_within(cut, sl)])
     gathered_bytes[pos] += out.numel() * out.element_size()
     return out
+
+
+def bind_region(x: Sharded, region: tuple, pos: int) -> torch.Tensor:
+    """``region`` of the tensor on position ``pos``'s device for a read-only
+    step (decode): the position's own shard itself where the region is
+    exactly the block it holds (no copy, nothing counted in
+    :data:`gathered_bytes`), else :func:`gather_region`'s copy."""
+    if tuple(region) == x.slices[pos]:
+        return x.shards[pos]
+    return gather_region(x, region, pos)
 
 
 @torch.no_grad()

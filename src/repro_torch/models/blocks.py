@@ -178,11 +178,20 @@ def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int)
     _check_kind(kind)
     if kind in _CELLS:
         return _cell(x, params, cfg, kind, cache, "decode")
+    x, h2, cache = block_decode_mixer(x, params, cfg, kind, cache, pos)
+    return x + ffn_forward(h2, params, cfg), cache
+
+
+def block_decode_mixer(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int):
+    """A decode step of a block with an FFN (not the xLSTM kinds) up to its
+    second norm: (the stream after the mixer's residual add, its second
+    norm, the cache as :func:`block_decode` returns it).  The FFN's output
+    added to the stream completes the block; an executor that runs an FFN
+    across data-parallel groups (expert-stationary MoE) takes it here."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     if kind == "rec":
         y, cache = rec.rec_block_decode(h, params.rec, cfg, cache)
     else:
         y, cache = attn.attn_decode(h, params.attn, cfg, cache, pos, _window(cfg, kind))
     x = x + y
-    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-    return x + ffn_forward(h2, params, cfg), cache
+    return x, rms_norm(x, params.norm2, cfg.norm_eps), cache

@@ -26,7 +26,11 @@ a ``PlacedModel``) runs block by block on each data-parallel group's
 positions, its lead and the lead's tensor-parallel peers:
 :func:`group_train` and :func:`decode_step` bind a stage's leaves (the
 embedding, one block, the final norm and head) just before it runs and
-free them after.  A product that runs tensor-parallel
+free them after.  Training runs one group's microbatch rows through the
+whole model at a time; a decode step runs layer by layer across the groups,
+so that an expert-stationary MoE layer (``tensor_parallel.StationaryLayout``)
+can trade every group's tokens at once, and binds a position's own shard
+without a copy wherever its region is exactly that shard.  A product that runs tensor-parallel
 (``models/tensor_parallel.py`` ``plan``) binds on each position only that
 position's block of its weights, gathered over the fsdp axis alone, and
 the positions' partial products meet in all-reduces; the rest is gathered
@@ -64,7 +68,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (_param, dense_init, embed_init, rms_norm, softcap,
                                        stream_norm)
-from repro_torch.models.moe import dp_config
+from repro_torch.models.moe import dp_config, moe_stationary
 
 
 def _has_head(cfg: ModelConfig) -> bool:
@@ -383,12 +387,15 @@ def _stages(placed: sh.PlacedModel) -> tuple[list[str], list[list[str]], list[st
 
 @contextlib.contextmanager
 def _bound(skels: list, placed: sh.PlacedModel, names: list[str], plan: tp.Plan,
-           group: col.Group, grad: bool):
+           group: col.Group, grad: bool, own: bool = False):
     """Bind the leaves ``names`` as the skeletons' parameters: on each
     tensor-parallel position ``t`` the region ``plan.regions[name][t]``
-    gathered onto its device (with ``requires_grad`` if ``grad``).  Yields
-    ``[(name, region, parameter)]``, and puts the ``meta`` parameters back
-    after, which frees the gathered ones once the caller drops them."""
+    gathered onto its device (with ``requires_grad`` if ``grad``; with
+    ``own``, a read-only step's, the position's shard itself where it is
+    that region: ``sharding.bind_region``).  Yields ``[(name, region,
+    parameter)]``, and puts the ``meta`` parameters back after, which frees
+    the gathered ones once the caller drops them."""
+    bind = sh.bind_region if own else sh.gather_region
     old, bound = [], []
     for name in names:
         owner, _, leaf = name.rpartition(".")
@@ -397,8 +404,7 @@ def _bound(skels: list, placed: sh.PlacedModel, names: list[str], plan: tp.Plan,
                 continue
             sub = skel.get_submodule(owner)
             old.append((sub, leaf, getattr(sub, leaf)))
-            p = nn.Parameter(sh.gather_region(placed.leaves[name], region, pos),
-                             requires_grad=grad)
+            p = nn.Parameter(bind(placed.leaves[name], region, pos), requires_grad=grad)
             setattr(sub, leaf, p)
             bound.append((name, region, p))
     try:
@@ -482,6 +488,9 @@ def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.
     group's loss term: its masked NLL sum over ``denom`` plus ``aux_scale``
     times its summed aux losses.
     """
+    if plan.stationary:
+        raise ValueError("a MoE model placed in the inference layout (expert-stationary) "
+                         "decodes; place it with inference=False to train")
     skels = _skeletons(placed, plan.n)
     embed, blocks, head = _stages(placed)
     lead = group.devices[0]
@@ -594,11 +603,17 @@ def _group_rows(batch: int, dp: int) -> int:
 @torch.no_grad()
 def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos: int,
                         cfg: ModelConfig):
-    """``decode_step`` over a placed model: each data-parallel group decodes
-    its rows on its positions with its cache there, binding each stage's
-    leaves as it runs (the layout of ``tensor_parallel.plan`` at ``[B, 1,
-    D]``); a split head's logits are gathered onto the lead, and the logits
-    [B,V] come back on position 0's device."""
+    """``decode_step`` over a placed model, in the layout of
+    ``tensor_parallel.plan`` at ``[B, 1, D]``, layer by layer across the
+    data-parallel groups: every group's embedding; then for each block each
+    group's attention half on its positions with its cache there, and the
+    FFN, per group for a dense MLP or a MoE layer in the training layout,
+    across the groups for an expert-stationary MoE layer
+    (``moe.moe_stationary``: each group's tokens to the groups that hold
+    their experts and back); then each group's head.  Each stage binds its
+    leaves as it runs, a position's own shard without a copy wherever its
+    region is that shard; a split head's logits are gathered onto the lead,
+    and the logits [B,V] come back on position 0's device."""
     ctx = sh.executor_ctx(placed.mesh)
     leads = sh.dp_leads(ctx)
     if len(caches) != len(leads):
@@ -609,16 +624,28 @@ def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tens
     plan = tp.plan(placed, ctx, (*inputs.shape[:2], cfg.d_model))
     skels = _skeletons(placed, plan.n)
     embed, blocks, head = _stages(placed)
+    groups = [tp.group(placed, ctx, lead) for lead in leads]
+    xs = []
+    for group, rows in zip(groups, inputs.chunk(dp)):
+        with _bound(skels, placed, embed, plan, group, False, own=True):
+            xs.append(_embed(skels, rows.to(group.devices[0]), plan, group, cfg))
+    for i, names in enumerate(blocks):
+        kind, hs = cfg.layer_kinds[i], []
+        for g, (group, cache) in enumerate(zip(groups, caches)):
+            with _bound(skels, placed, names, plan, group, False, own=True):
+                view = tp.block_view(skels, i, plan, group)
+                if i in plan.stationary:
+                    xs[g], h, cache[i] = B.block_decode_mixer(xs[g], view, local, kind, cache[i],
+                                                              pos)
+                    hs.append(h)
+                else:
+                    xs[g], cache[i] = B.block_decode(xs[g], view, local, kind, cache[i], pos)
+        if hs:
+            ys = moe_stationary(hs, tp.bind_stationary(placed, plan, i, groups), local)
+            xs = [x + y for x, y in zip(xs, ys)]
     home, out = placed.mesh.devices[0], []
-    for lead, rows, cache in zip(leads, inputs.chunk(dp), caches):
-        group = tp.group(placed, ctx, lead)
-        with _bound(skels, placed, embed, plan, group, False):
-            x = _embed(skels, rows.to(group.devices[0]), plan, group, cfg)
-        for i, names in enumerate(blocks):
-            with _bound(skels, placed, names, plan, group, False):
-                x, cache[i] = B.block_decode(x, tp.block_view(skels, i, plan, group), local,
-                                             cfg.layer_kinds[i], cache[i], pos)
-        with _bound(skels, placed, head, plan, group, False):
+    for group, x in zip(groups, xs):
+        with _bound(skels, placed, head, plan, group, False, own=True):
             if plan.vocab is None:
                 logits = skels[0].lm_logits(x)
             else:

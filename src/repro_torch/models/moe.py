@@ -12,19 +12,33 @@ is the same arithmetic up to the order of sums.  :func:`route` rebuilds the
 reference's dense tensors from the slots, for tests.
 
 The JAX package's two ``dispatch_mode`` branches (experts gathered or
-tokens moved) are the same arithmetic on one device, so there is one path
-here.  Over a device mesh each data-parallel group routes, on its own rows,
-exactly the reference's routing groups that fall in them
-(:func:`dp_config`), and the experts run over the model axis, the
-reference's training layout (``src/repro/models/moe.py:104-112``): handed a
-``common.Split``, every tensor-parallel position routes the same tokens
-with the whole router, runs the products of its ``E / tp`` experts and
-combines only the picks they hold; one all-reduce adds the partial
-combines.  The expert products are batched matrix products over the expert
-axis, as the reference's are einsums outside any Pallas kernel.  The
-inference layout (experts stationary on the data axis, a token all-to-all)
-is not ported: a model placed that way runs its MoE layers whole on each
-group's lead.
+tokens moved) are the same arithmetic on one device, so one path runs
+there.  Over a device mesh each data-parallel group routes, on its own
+rows, exactly the reference's routing groups that fall in them
+(:func:`dp_config`), and the layer runs in the layout its expert leaves
+were placed in:
+
+  * the training layout (``src/repro/models/moe.py:104-112``), the experts
+    over the model axis: handed a ``common.Split``, every tensor-parallel
+    position routes the same tokens with the whole router, runs the
+    products of its ``E / tp`` experts and combines only the picks they
+    hold; one all-reduce adds the partial combines;
+  * the inference layout (``sharding._EXPERT_INFERENCE``, the reference's
+    ``"tokens"`` branch, ``src/repro/models/moe.py:93-103``), the experts
+    stationary over the data axis and each expert's hidden dim over the
+    model axis: :func:`moe_stationary` runs one layer for every
+    data-parallel group at once.  Each group fills its ``[G/dp, E, C, D]``
+    buffers, an all-to-all sends each block of ``E/dp`` experts to the group
+    that holds them, every position of that group runs its ``d_ff`` block
+    of those experts on the buffers of all ``G`` routing groups, the
+    ``e_out`` partial sums add in fp32 over the positions, and a second
+    all-to-all returns each group's rows for its combine.  Where the layout
+    leaves the experts whole (``make_decode_2d_ctx``, or ``E`` that the
+    groups do not divide) each group runs every expert on its own buffers,
+    ``d_ff`` still over its positions, and nothing is traded.
+
+The expert products are batched matrix products over the expert axis, as
+the reference's are einsums outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.state import _default_device
+from repro_torch.distributed import collectives as col
 from repro_torch.models.common import Split, _param, dense_init, tp_inputs, tp_output
 
 
@@ -182,32 +197,142 @@ def _moe_local(x: torch.Tensor, params: MoE, cfg: ModelConfig, span: tuple[int, 
     """:func:`moe_ffn` over the experts ``span`` (``params``' expert leaves
     hold those): (the fp32 combine of the picks they hold [B, S, D], the
     aux loss).  The other experts' picks go to the trash row."""
-    mc = cfg.moe
-    b, s, d = x.shape
-    t = b * s
-    g = _pick_groups(t, mc.groups)
-    tg = t // g
-    xt = x.reshape(g, tg, d)
-    gates = torch.softmax(xt.float() @ params.router, dim=-1)
-    cap = capacity(mc, tg)
-    slot, weight, aux = route_slots(gates, mc, cap)
-    e, k = span[1] - span[0], mc.top_k
+    xt, cap, slot, weight, aux = _route(x, params.router, cfg.moe)
+    e = span[1] - span[0]
     slot = slot - span[0] * cap
     slot = torch.where((slot >= 0) & (slot < e * cap), slot, e * cap)
+    flat, xe = _dispatch(xt, slot, e, cap)
+    h = _hidden(xe, params.e_gate, params.e_in)
+    ye = _by_group(torch.bmm(h, params.e_out), xe.shape[0])
+    return _combine(ye, flat, weight, x.dtype).reshape(x.shape), torch.mean(aux)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, mc: MoEConfig):
+    """``x`` [B, S, D] in its routing groups (the largest divisor of B*S not
+    above ``mc.groups``): (xt [G, T/G, D], the capacity, and
+    :func:`route_slots`' slot, weight and aux)."""
+    b, s, d = x.shape
+    g = _pick_groups(b * s, mc.groups)
+    tg = b * s // g
+    xt = x.reshape(g, tg, d)
+    gates = torch.softmax(xt.float() @ router, dim=-1)
+    cap = capacity(mc, tg)
+    return (xt, cap, *route_slots(gates, mc, cap))
+
+
+def _dispatch(xt: torch.Tensor, slot: torch.Tensor, e: int, cap: int):
+    """Every pick's token row into its slot: (each pick's row among the
+    groups' ``[E * C + 1]`` rows, flat; the buffers [G, E, C, D] without
+    the trash row).  Only the trash row is written twice, and nothing reads
+    it."""
+    g, tg, d = xt.shape
+    k = slot.shape[-1]
     rows = e * cap + 1  # buffer rows a group, the last the trash row
-    flat = (torch.arange(g, device=x.device)[:, None, None] * rows + slot).reshape(-1)
-    # dispatch: every pick's token row into its slot (only the trash row is
-    # written twice, and nothing reads it)
-    xe = x.new_zeros((g * rows, d))
+    flat = (torch.arange(g, device=xt.device)[:, None, None] * rows + slot).reshape(-1)
+    xe = xt.new_zeros((g * rows, d))
     xe[flat] = xt[:, :, None, :].expand(g, tg, k, d).reshape(-1, d)
-    xe = xe.view(g, rows, d)[:, : e * cap].reshape(g, e, cap, d)
-    xe = xe.transpose(0, 1).reshape(e, g * cap, d)  # expert-major for the products
-    h = F.silu(torch.bmm(xe, params.e_gate)) * torch.bmm(xe, params.e_in)
-    ye = torch.bmm(h, params.e_out)  # [E, G*C, D]
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
-    ye = torch.cat([ye, ye.new_zeros((g, 1, d))], dim=1).reshape(g * rows, d)
-    # combine: each token's kept picks, weighted by their gates cast to the
-    # compute dtype as the reference casts its combine tensor, summed in fp32
-    w = weight.to(x.dtype).float().reshape(-1, 1)
-    y = (ye[flat].float() * w).reshape(g, tg, k, d).sum(dim=2)
-    return y.reshape(b, s, d), torch.mean(aux)
+    return flat, xe.view(g, rows, d)[:, : e * cap].reshape(g, e, cap, d)
+
+
+def _hidden(xe: torch.Tensor, e_gate: torch.Tensor, e_in: torch.Tensor) -> torch.Tensor:
+    """The experts' gated hidden units [E, G*C, F] of buffers [G, E, C, D],
+    expert-major for the products."""
+    g, e, cap, d = xe.shape
+    xe = xe.transpose(0, 1).reshape(e, g * cap, d)
+    return F.silu(torch.bmm(xe, e_gate)) * torch.bmm(xe, e_in)
+
+
+def _by_group(ye: torch.Tensor, g: int) -> torch.Tensor:
+    """Expert-major outputs [E, G*C, D] as buffers [G, E, C, D]."""
+    e, gc, d = ye.shape
+    return ye.reshape(e, g, gc // g, d).transpose(0, 1)
+
+
+def _combine(ye: torch.Tensor, flat: torch.Tensor, weight: torch.Tensor, dtype) -> torch.Tensor:
+    """Each token's kept picks of the expert outputs ``ye`` [G, E, C, D],
+    weighted by their gates cast to the compute dtype as the reference casts
+    its combine tensor, summed in fp32: [G, T/G, D]; a dropped pick reads
+    the zero trash row."""
+    g, e, cap, d = ye.shape
+    ye = torch.cat([ye.reshape(g, e * cap, d), ye.new_zeros((g, 1, d))], dim=1).reshape(-1, d)
+    w = weight.to(dtype).float().reshape(-1, 1)
+    return (ye[flat].float() * w).reshape(g, -1, weight.shape[-1], d).sum(dim=2)
+
+
+# -- expert-stationary decode ------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class Stationary:
+    """An inference-layout MoE layer bound for every data-parallel group at
+    once (``models/tensor_parallel.py`` ``bind_stationary`` builds it).
+
+    ``routers[g]`` is group ``g``'s router on its lead; ``parts[g][t]`` the
+    ``{"e_gate", "e_in", "e_out"}`` blocks that the ``t``-th of
+    ``groups[g]``'s positions holds (its experts, its ``d_ff`` block);
+    ``groups[g]`` those positions, the lead first; ``exchanges`` the sets of
+    groups that trade tokens, each ``(group indices, collectives.Group`` of
+    their leads``)`` in the order of the expert blocks they hold (none where
+    every group holds every expert)."""
+
+    routers: list
+    parts: list
+    groups: list
+    exchanges: list
+
+
+def _bmm32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` batched, with an fp32 result (a partial sum over ``d_ff``)."""
+    if h.dtype == torch.float32:
+        return torch.bmm(h, w)
+    if h.is_cuda:
+        return torch.bmm(h, w, out_dtype=torch.float32)
+    return torch.bmm(h.float(), w.float())  # the CPU has no mixed-dtype product
+
+
+def _sum_partials(parts: list, group: col.Group, dtype) -> torch.Tensor:
+    """The positions' ``e_out`` partial sums added in fp32 on the lead."""
+    return col.all_reduce(parts, group, dtype)
+
+
+def _held_experts(xe: torch.Tensor, parts: list, group: col.Group) -> torch.Tensor:
+    """The outputs [G, E_g, C, D] of the experts a group holds, on its lead,
+    for buffers ``xe`` [G, E_g, C, D] on its lead: each position runs its
+    ``d_ff`` block of every expert, and the ``e_out`` products' partial
+    sums add in fp32 over the positions."""
+    ins = col.broadcast(xe, group)
+    return _by_group(_sum_partials([_bmm32(_hidden(x, p["e_gate"], p["e_in"]), p["e_out"])
+                                    for x, p in zip(ins, parts)], group, xe.dtype), xe.shape[0])
+
+
+def _trade(bufs: list, layer: Stationary, split_dim: int, cat_dim: int) -> list:
+    """``bufs`` (a group's each) after an all-to-all within each exchange."""
+    out = list(bufs)
+    for idx, leads in layer.exchanges:
+        for g, b in zip(idx, col.all_to_all([bufs[g] for g in idx], leads, split_dim, cat_dim)):
+            out[g] = b
+    return out
+
+
+@torch.no_grad()
+def moe_stationary(xs: list, layer: Stationary, cfg: ModelConfig) -> list:
+    """One inference-layout MoE layer for every data-parallel group: ``xs[g]``
+    group ``g``'s normed rows [B_g, S, D] on its lead, ``cfg`` a group's
+    config (:func:`dp_config`).  Returns each group's FFN output, in the
+    rows' dtype, on its lead (the module docstring).  The products equal
+    the reference's ``"tokens"`` branch; its aux loss belongs to training
+    and is dropped."""
+    mc = cfg.moe
+    routed, bufs = [], []
+    for x, router in zip(xs, layer.routers):
+        xt, cap, slot, weight, _ = _route(x, router, mc)
+        flat, xe = _dispatch(xt, slot, mc.n_experts, cap)
+        routed.append((flat, weight))
+        bufs.append(xe)
+    # [G/dp, E, C, D] a group -> [G, E/dp, C, D] on the group that holds those experts
+    bufs = _trade(bufs, layer, 1, 0)
+    outs = [_held_experts(xe, parts, group)
+            for xe, parts, group in zip(bufs, layer.parts, layer.groups)]
+    outs = _trade(outs, layer, 0, 1)
+    return [_combine(ye, flat, weight, x.dtype).reshape(x.shape).to(x.dtype)
+            for ye, (flat, weight), x in zip(outs, routed, xs)]

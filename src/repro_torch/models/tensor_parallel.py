@@ -21,17 +21,24 @@ jitted step sees (the global microbatch ``[B, S, D]`` in training, ``[B,
     reference constrains nothing there and leaves the weights' own specs);
   * a MoE layer splits its experts whenever its expert leaves lie over the
     model axis (the training layout, ``src/repro/models/moe.py:104-112``);
+    placed in the inference layout (``sharding._EXPERT_INFERENCE``) it is
+    expert-stationary (:class:`StationaryLayout`): each data-parallel group's
+    positions hold the group's block of the experts, or every expert where
+    the layout leaves them whole, and each position its block of their
+    hidden dim, and the layer runs across the groups (``models/moe.py``
+    ``moe_stationary``), each position reading its own shard alone.  A MoE
+    layer whose expert leaves lie in neither layout raises;
   * the embedding and the head split the vocabulary where it divides
     (``src/repro/models/lm.py:104``), the log-softmax then taken over the
     slices (``models/lm.py`` ``vocab_parallel_nll_sum``).
 
 Anything else runs whole on the group's lead, its leaves gathered whole
 there, as do the mLSTM and sLSTM blocks (their ``wi``, ``wf``, ``wz``,
-``wo_gate``, ``up`` and ``down`` rules stay storage only) and, in the
-inference layout, the MoE layers (expert-stationary decode is not
-ported).  A split layer's modules are handed to ``models/attention.py``,
-``common.py``, ``recurrent.py`` and ``moe.py`` as a ``common.Split``
-(:func:`block_view`).
+``wo_gate``, ``up`` and ``down`` rules stay storage only).  A split
+layer's modules are handed to ``models/attention.py``, ``common.py``,
+``recurrent.py`` and ``moe.py`` as a ``common.Split`` (:func:`block_view`);
+an expert-stationary layer's blocks as a ``moe.Stationary``
+(:func:`bind_stationary`).
 
 Sequence parallelism (``Plan.seq``): where ``ctx.seq_shard`` holds and the
 step's sequence splits over the ``n`` positions (the reference's ``("dp",
@@ -64,6 +71,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.collectives import Group
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.common import Split
 
 # the dim each split sublayer's leaves are cut along, and the span it takes
@@ -80,6 +88,10 @@ _CUTS = {
     "moe": {"e_gate": (0, "e"), "e_in": (0, "e"), "e_out": (0, "e")},
 }
 _VOCAB_CUTS = {"embed": 0, "lm_head": 1}
+# an expert-stationary MoE layer's leaves: the dims cut by the group's
+# experts ("e") and by the position's hidden units ("f")
+_EXPERT_CUTS = {"e_gate": {0: "e", 2: "f"}, "e_in": {0: "e", 2: "f"},
+                "e_out": {0: "e", 1: "f"}}
 
 
 @dataclasses.dataclass
@@ -92,13 +104,43 @@ class Plan:
     ``"rec"``, ``"mlp"``, ``"moe"``) to the positions' configs and spans;
     ``vocab`` holds each position's vocabulary span, or is None where the
     embedding and the head run whole; ``seq`` whether the residual stream
-    splits by sequence over the positions."""
+    splits by sequence over the positions; ``stationary[i]`` block ``i``'s
+    expert-stationary MoE layer, whose router and expert leaves bind
+    nothing through ``regions``."""
 
     n: int
     regions: dict
     layers: list
     vocab: list | None
     seq: bool
+    stationary: dict
+
+
+@dataclasses.dataclass(frozen=True)
+class StationaryLayout:
+    """An expert-stationary MoE layer's layout: ``experts[g]`` the experts
+    data-parallel group ``g`` holds (``sharding.dp_leads`` order; every
+    expert where the layout leaves them whole), ``hidden[t]`` the ``d_ff``
+    span tensor-parallel position ``t`` holds (None: it holds nothing, for
+    ``d_ff`` whole on the lead), ``exchanges`` the sets of groups that trade
+    tokens, as group indices in the order of their expert blocks (none
+    where every group holds every expert)."""
+
+    experts: list
+    hidden: list
+    exchanges: list
+
+    def region(self, leaf: str, shape: tuple, g: int, t: int):
+        """The region of expert leaf ``leaf`` (``e_gate``, ``e_in`` [E, D, F]
+        or ``e_out`` [E, F, D]) that group ``g``'s position ``t`` binds, or
+        None."""
+        if self.hidden[t] is None:
+            return None
+        spans = {"e": self.experts[g], "f": self.hidden[t]}
+        region = list(sh.whole(shape))
+        for dim, what in _EXPERT_CUTS[leaf].items():
+            region[dim] = slice(*spans[what])
+        return tuple(region)
 
 
 def _even(size: int, n: int, t: int) -> tuple[int, int]:
@@ -133,7 +175,7 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
     ``tp_worthwhile`` it reads."""
     cfg, leaves = placed.cfg, placed.leaves
     n = len(sh.tp_peers(ctx, 0))
-    layers = []
+    layers, stationary = [], {}
     for i, kind in enumerate(cfg.layer_kinds):
         p, split = f"blocks.{i}.", {}
         if n > 1 and kind in ("attn", "win", "moe"):
@@ -146,9 +188,13 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
             spans = [{"c": _even(r, n, t)} for t in range(n)]
             split["rec"] = ([dataclasses.replace(cfg, lru_width=s["c"][1] - s["c"][0])
                              for s in spans], spans)
-        if n > 1 and kind == "moe" and leaves[f"{p}moe.e_gate"].spec[0] == ctx.tp:
-            e = leaves[f"{p}moe.e_gate"].shape[0]
-            split["moe"] = ([cfg] * n, [{"e": _even(e, n, t)} for t in range(n)])
+        if kind == "moe":
+            layout = _moe_layout(leaves, p, ctx)
+            if layout == "stationary":
+                stationary[i] = _stationary(leaves[f"{p}moe.e_gate"], ctx, n)
+            elif n > 1 and leaves[f"{p}moe.e_gate"].spec[0] == ctx.tp:
+                e = leaves[f"{p}moe.e_gate"].shape[0]
+                split["moe"] = ([cfg] * n, [{"e": _even(e, n, t)} for t in range(n)])
         if n > 1 and kind in ("attn", "win", "rec"):
             mlp = [k for k in (f"{p}mlp.w_gate", f"{p}mlp.w_in", f"{p}mlp.w_out") if k in leaves]
             f = leaves[f"{p}mlp.w_in"].shape[1]
@@ -163,7 +209,9 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
         lead_only = [sh.whole(x.shape)] + [None] * (n - 1)
         regions[name] = lead_only
         parts = name.split(".")
-        if parts[0] == "blocks" and parts[2] in layers[int(parts[1])]:
+        if parts[0] == "blocks" and parts[2] == "moe" and int(parts[1]) in stationary:
+            regions[name] = [None] * n  # bound by bind_stationary
+        elif parts[0] == "blocks" and parts[2] in layers[int(parts[1])]:
             spans = layers[int(parts[1])][parts[2]][1]
             cut = _CUTS[parts[2]].get(parts[3])
             regions[name] = [sh.whole(x.shape) if cut is None else
@@ -171,7 +219,55 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
         elif name in _VOCAB_CUTS and vocab is not None:
             regions[name] = [_cut(x.shape, _VOCAB_CUTS[name], vocab[t]) for t in range(n)]
     seq = n > 1 and ctx.seq_shard and len(x_shape) == 3 and x_shape[1] % n == 0
-    return Plan(n, regions, layers, vocab, seq)
+    return Plan(n, regions, layers, vocab, seq, stationary)
+
+
+def _moe_layout(leaves: dict, p: str, ctx: sh.ShardCtx) -> str:
+    """``"training"`` where block ``p``'s expert leaves lie as the training
+    rules lay them out under ``ctx`` (also where both layouts leave every
+    dim whole), ``"stationary"`` where they lie as the inference rules do;
+    raises for any other layout."""
+    for layout, inference in (("training", False), ("stationary", True)):
+        if all(leaves[f"{p}moe.{k}"].spec == sh.rule_spec(k, leaves[f"{p}moe.{k}"].shape, ctx,
+                                                          inference=inference)
+               for k in _EXPERT_CUTS):
+            return layout
+    specs = {k: leaves[f"{p}moe.{k}"].spec for k in _EXPERT_CUTS}
+    raise ValueError(f"{p}moe: expert leaves laid out {specs}, which is neither the training "
+                     "nor the inference layout under this ctx")
+
+
+def _axes(entry) -> tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _stationary(e_gate: sh.Sharded, ctx: sh.ShardCtx, n: int) -> StationaryLayout:
+    """The layout of an expert-stationary layer from its ``e_gate`` [E, D, F]
+    (``e_in`` and ``e_out`` follow the same rules): the experts over the
+    axes of dim 0, which must be data-parallel axes, and ``d_ff`` over the
+    ctx's tensor-parallel axes, each where the layout splits it."""
+    mesh, (e, _, f) = ctx.mesh, e_gate.shape
+    e_axes, f_axes = _axes(e_gate.spec[0]), _axes(e_gate.spec[2])
+    if not set(e_axes) <= set(ctx.dp):
+        raise ValueError(f"experts over {e_axes}: expert-stationary decode trades tokens "
+                         f"between data-parallel groups, over {ctx.dp}")
+    if f_axes and f_axes != sh.tp_axes(ctx):
+        raise ValueError(f"d_ff over {f_axes}, not the tensor-parallel axes {ctx.tp}")
+    leads = sh.dp_leads(ctx)
+    n_e = sh._axis_prod(mesh, e_gate.spec[0])
+    experts = []
+    for lead in leads:
+        at = dict(zip(mesh.axis_names, sh.coords(mesh, lead)))
+        experts.append(_even(e, n_e, sh._entry_index(mesh, at, e_gate.spec[0])))
+    hidden = ([_even(f, n, t) for t in range(n)] if f_axes
+              else [(0, f)] + [None] * (n - 1))
+    exchanges = []
+    if n_e > 1:
+        for lead in leads:
+            idx = [leads.index(q) for q in sh.axis_group(mesh, lead, e_axes)]
+            if idx not in exchanges:
+                exchanges.append(idx)
+    return StationaryLayout(experts, hidden, exchanges)
 
 
 def _cut(shape, dim: int, span: tuple[int, int]) -> tuple:
@@ -198,6 +294,28 @@ def block_view(skels: list, i: int, p: Plan, grp: Group):
         span = [s["e"] for s in spans] if sub == "moe" else spans
         setattr(view, sub, Split([getattr(s.blocks[i], sub) for s in skels], grp, cfgs, span))
     return view
+
+
+def bind_stationary(placed: sh.PlacedModel, p: Plan, i: int, groups: list) -> moe.Stationary:
+    """Block ``i``'s expert-stationary MoE layer bound for every
+    data-parallel group ``groups`` at once: each group's router on its
+    lead, and each position's experts and ``d_ff`` block
+    (:meth:`StationaryLayout.region`), which is exactly the shard it holds, so
+    that nothing is copied (``sharding.bind_region``)."""
+    st, pre = p.stationary[i], f"blocks.{i}.moe."
+    leaves = {k: placed.leaves[pre + k] for k in _EXPERT_CUTS}
+    router = placed.leaves[pre + "router"]
+    parts, held = [], []
+    for g, grp in enumerate(groups):
+        ts = [t for t in range(p.n) if st.hidden[t] is not None]
+        parts.append([{k: sh.bind_region(x, st.region(k, x.shape, g, t), grp.positions[t])
+                       for k, x in leaves.items()} for t in ts])
+        held.append(Group(tuple(grp.positions[t] for t in ts), tuple(grp.devices[t] for t in ts)))
+    exchanges = [(idx, Group(tuple(groups[g].positions[0] for g in idx),
+                             tuple(groups[g].devices[0] for g in idx)))
+                 for idx in st.exchanges]
+    routers = [sh.bind_region(router, sh.whole(router.shape), grp.positions[0]) for grp in groups]
+    return moe.Stationary(routers, parts, held, exchanges)
 
 
 def _layer_layout(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer: dict,
