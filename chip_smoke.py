@@ -389,13 +389,30 @@ printed):
    the logits within rel L2 ``SHARD_EXPERT_TOL`` and a control beyond it
    (4 x 2: the return all-to-all's blocks rotated by one group; 8
    positions: a position's hidden block left out), two all-to-alls a step
-   on 4 x 2 and none on 8 positions, the picks the unsharded decode drops,
-   each position's expert bytes equal to the dry-run's; ms a step, bytes
-   gathered, peak GiB; then K5 and
-   its backward at 40(b)'s per-position shape [1,
+   on 4 x 2 and none on 8 positions, the picks the unsharded decode drops
+   (these three read on the eager run), each position's expert bytes equal
+   to the dry-run's; ms a step, bytes gathered, peak GiB; (j) the
+   reference's sharded inference programs: ``lm.prefill`` over the placed
+   model (``lm.PLACED_PREFILL``) and the placed decode step captured once
+   a loop (``lm.PLACED_DECODE``, the position a device operand), for (h)'s
+   gemma2, (i)'s qwen3_moe and recurrentgemma_9b at full width, 3 layers
+   (rec, rec, win), f32, 4 rows, a 2,048-token prompt, max_len 2,560
+   (K5 at [1, 2048, 2048] a position), under both contexts: the placed
+   prefill's logits and caches within rel L2 ``PLACED_PREFILL_TOL`` and
+   ``PLACED_CACHE_TOL`` of the unsharded prefill's (laid out by
+   ``place_group_caches``) and a control beyond each (the prompt with its
+   middle token changed), its replay equal to an eager prefill bit for bit
+   and the graphs' pools within ``PLACED_PREFILL_POOL_GIB`` beside it; the captured
+   decode (from (h)'s and (i)'s placed caches, and from recurrentgemma's
+   placed prefill) equal to the eager decode under
+   ``graphs.disable_capture()`` bit for bit, logits and caches, with one
+   variant, one capture and a replay each later step, and the limits
+   against the unsharded decode; seconds of each prefill, ms a step graphed
+   and eager; then K5 and its backward at 40(b)'s per-position shape [1,
    1,024, 2,048] f32 against their plain versions, bit for bit, timed: the
    ``phase`` 40 rows of the kernels line, whose launches are 40(b)'s 4 x 2
-   run's.
+   run's; and K5 at 40(j)'s [1, 2048, 2048], whose launches are 40(j)'s
+   4 x 2 prefills'.
 
 Output: human-readable lines, then the ``{"kernels": [...]}`` line, the
 ``{"drains": ...}`` line, the ``{"serving": ...}`` line, the
@@ -705,6 +722,30 @@ SHARD_DECODE_TOL = 2e-6
 SHARD_EXPERT = dict(config="qwen3_moe_235b_a22b", layers=1, batch=8, prompt=16, max_len=32,
                     steps=4, moe_groups=4)
 SHARD_EXPERT_TOL = 1e-5
+# 40(j): the reference's sharded inference programs ported (lm.prefill over
+# the placed model, PLACED_PREFILL; the placed decode step, PLACED_DECODE,
+# one capture a loop): 40(h)'s gemma2 and 40(i)'s qwen3_moe, and
+# recurrentgemma_9b at full width, its first 3 layers (rec, rec, win 2,048),
+# in f32, 4 rows, a prompt as long as its window (ROADMAP R4), so K5 runs at
+# [1, 2048, 2048] a position on 4 x 2
+PLACED_RECUR = dict(config="recurrentgemma_9b", layers=3, batch=4, prompt=2048, max_len=2560,
+                    steps=8)
+# 40(j): the placed prefill against the unsharded one, rel L2 of the last
+# position's logits and of every cache tensor taken together (against
+# place_group_caches of the unsharded cache); each control is the unsharded
+# prefill of the prompt with its middle token changed.  Read on an H100
+# 80GB HBM3 at 700 W (gemma2, qwen3_moe, recurrentgemma; 4 x 2 and 8
+# positions): logits 1.5e-7 to 9.6e-7, controls 1.41e-5, 0.49 and 1.84e-5;
+# caches 2.1e-7 to 1.29e-6, controls 0.0215, 0.353 and 0.0311
+PLACED_PREFILL_TOL = 4e-6
+PLACED_CACHE_TOL = 1e-5
+# 40(j): recurrentgemma's decode against its unsharded decode, rel L2 of
+# the logits: read 1.6e-7 and 1.9e-7, its control (the first step with its
+# newest token unwritten) 1.45e-5
+PLACED_RECUR_TOL = 2e-6
+# the live graphs' pools while the placed prefill's graph lives (its
+# temporaries and outputs): read 0.07 to 7.67 GiB (gemma2 on 8 positions)
+PLACED_PREFILL_POOL_GIB = 12.0
 SHARD_PARAM_OUTSIDE = 1e-2
 SHARD_UPDATE_ERROR = 0.2
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
@@ -5080,21 +5121,193 @@ def decode_logits_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[float, fl
     return float(d.abs().max()), float(d.norm() / want.norm())
 
 
+def rel_l2(got, want) -> float:
+    """The L2 norm of ``got - want`` over ``want``'s, over every tensor of two
+    outputs of one layout (``graphs.tensors``) taken together."""
+    num = den = 0.0
+    for g, w in zip(graphs.tensors(got), graphs.tensors(want), strict=True):
+        w = w.float().to(g.device)
+        num += float((g.float() - w).square().sum())
+        den += float(w.square().sum())
+    return math.sqrt(num / den)
+
+
+def same(a, b) -> bool:
+    """Two outputs of one layout bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(graphs.tensors(a), graphs.tensors(b),
+                                                 strict=True))
+
+
+def middle_changed(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """40(j)'s control prompt: ``ids`` with each row's middle token changed."""
+    out = ids.clone()
+    m = ids.shape[1] // 2
+    out[:, m] = (out[:, m] + 1) % vocab
+    return out
+
+
+def unsharded_prefill(model, cfg, prompt: torch.Tensor, max_len: int) -> dict:
+    """The unsharded prefill (timed) and 40(j)'s control: the prefill of the
+    prompt with its middle token changed, its logits' and its cache's rel
+    L2 against the prompt's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompt, max_len)
+    torch.cuda.synchronize()
+    out = dict(prefill_s=time.perf_counter() - t0, logits=logits, cache=cache)
+    c_logits, c_cache = model.prefill(middle_changed(prompt, cfg.vocab_size), max_len)
+    out.update(control_logits_rel_l2=rel_l2(c_logits, logits),
+               control_cache_rel_l2=rel_l2(c_cache, cache))
+    return out
+
+
+def placed_prefill(dev, placed, cfg, prompt: torch.Tensor, max_len: int, want: dict,
+                   want_caches: list) -> tuple[dict, list]:
+    """40(j): ``lm.prefill`` over ``placed`` under the current ctx, as a
+    :data:`lm.PLACED_PREFILL` variant (cleared first): its first call runs
+    eagerly and captures, its second replays; then once eagerly under
+    ``graphs.disable_capture()`` and without a host sync.  The replay's
+    logits and caches against the eager call's bit for bit, against the
+    unsharded prefill ``want`` (the caches against ``want_caches``, its
+    cache laid out by ``lm.place_group_caches``) by rel L2; seconds of each
+    call, the graph pool's GiB, variants, captures and replays, and the
+    launches of the two graphed calls (counts set to 0 just before them).
+    Returns (the record, the replay's caches)."""
+    prog = lm.PLACED_PREFILL
+    prog.clear()
+    before = (prog.captures, prog.replays)
+    reset_launch_counts()
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(placed, prompt, cfg, max_len)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    rec = dict(first_s=secs[0], graphed_s=secs[1], variants=len(prog),
+               captures=prog.captures - before[0], replays=prog.replays - before[1],
+               pool_gib=program_pool_gib(prog), launches=launches,
+               graph_pools_gib=check_graph_memory("40(j): the graphs' pools beside the placed "
+                                                  "prefill's", PLACED_PREFILL_POOL_GIB),
+               logits_rel_l2=rel_l2(logits, want["logits"]),
+               cache_rel_l2=rel_l2(caches, want_caches))
+    with graphs.disable_capture(), no_host_sync(dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_logits, e_caches = lm.prefill(placed, prompt, cfg, max_len)
+        torch.cuda.synchronize()
+    rec.update(eager_s=time.perf_counter() - t0,
+               graphed_equals_eager=torch.equal(logits, e_logits) and same(caches, e_caches))
+    del e_logits, e_caches
+    prog.clear()
+    return rec, caches
+
+
+def placed_decode(dev, placed, cfg, caches: list, toks: list, p0: int, want: list,
+                  eager_patch=contextlib.nullcontext, before_step=None, after_step=None,
+                  sync_free: bool = True) -> dict:
+    """40(h)-(j): decode steps from ``caches`` through ``lm.decode_step``
+    over ``placed`` under the current ctx: graphed (one
+    :data:`lm.PLACED_DECODE` variant, cleared first: the first step runs
+    eagerly and captures, the later ones replay), then from a copy taken
+    before them eagerly under ``graphs.disable_capture()`` (without a host
+    sync where ``sync_free``; inside ``eager_patch()``, with
+    ``before_step()`` and ``after_step()`` around each step, whose readings
+    come back): every step's logits against ``want`` (rel L2 and max abs),
+    the graphed logits and caches against the eager ones bit for bit, ms a
+    step of each, variants, captures and replays, and the graphed run's
+    launches (counts set to 0 just before it)."""
+    spare = copy.deepcopy(caches)
+    prog = lm.PLACED_DECODE
+    prog.clear()
+    before = (prog.captures, prog.replays)
+    reset_launch_counts()
+    got, ms, diffs = [], [], []
+    for i, tok in enumerate(toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.decode_step(placed, caches, tok, p0 + i, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(logits)
+        diffs.append(decode_logits_diff(logits, want[i]))
+    rec = dict(max_abs=[d[0] for d in diffs], rel_l2=[d[1] for d in diffs], step_ms=ms,
+               launches=launch_counts(), variants=len(prog),
+               captures=prog.captures - before[0], replays=prog.replays - before[1],
+               pool_gib=program_pool_gib(prog))
+    eager_ms, reads, equal = [], [], True
+    with graphs.disable_capture(), eager_patch():
+        for i, tok in enumerate(toks):
+            if before_step is not None:
+                before_step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_host_sync(dev) if sync_free else contextlib.nullcontext():
+                logits, spare = lm.decode_step(placed, spare, tok, p0 + i, cfg)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            equal &= torch.equal(logits, got[i])
+            if after_step is not None:
+                reads.append(after_step())
+    rec.update(eager_step_ms=eager_ms, graphed_equals_eager=equal and same(caches, spare),
+               eager_reads=reads)
+    prog.clear()
+    return rec
+
+
+def check_placed(what: str, pre: dict, dec: dict, steps: int, tol: float) -> None:
+    """40(j)'s checks of a placed prefill's record and of a decode loop's."""
+    check(pre["graphed_equals_eager"], f"{what}: the placed prefill replayed equals the eager "
+          "one, bit for bit")
+    check((pre["variants"], pre["captures"], pre["replays"]) == (1, 1, 1),
+          f"{what}: one prefill variant, captured once and replayed once "
+          f"({pre['variants']}, {pre['captures']}, {pre['replays']})")
+    check(pre["logits_rel_l2"] <= PLACED_PREFILL_TOL, f"{what}: prefill logits within rel L2 "
+          f"{PLACED_PREFILL_TOL} of the unsharded prefill ({pre['logits_rel_l2']:.3g})")
+    check(pre["cache_rel_l2"] <= PLACED_CACHE_TOL, f"{what}: prefill caches within rel L2 "
+          f"{PLACED_CACHE_TOL} of the unsharded prefill's ({pre['cache_rel_l2']:.3g})")
+    check(dec["graphed_equals_eager"], f"{what}: the captured decode equals the eager decode, "
+          "logits and caches bit for bit")
+    check((dec["variants"], dec["captures"], dec["replays"]) == (1, 1, steps - 1),
+          f"{what}: one decode variant and one capture for the loop of {steps} steps "
+          f"({dec['variants']}, {dec['captures']}, {dec['replays']})")
+    worst = max(dec["rel_l2"])
+    check(worst <= tol, f"{what}: decode logits within rel L2 {tol} of the unsharded decode "
+          f"({worst:.3g})")
+
+
+def check_prefill_controls(what: str, ref: dict) -> None:
+    check(ref["control_logits_rel_l2"] > PLACED_PREFILL_TOL, f"{what}: the control prefill's "
+          f"logits ({ref['control_logits_rel_l2']:.3g}) lie beyond the limit")
+    check(ref["control_cache_rel_l2"] > PLACED_CACHE_TOL, f"{what}: the control prefill's cache "
+          f"({ref['control_cache_rel_l2']:.3g}) lies beyond the limit")
+
+
+def placed_text(pre: dict, dec: dict) -> str:
+    return (f"prefill {pre['graphed_s']:.3f} s replayed, {pre['eager_s']:.3f} eager, "
+            f"{pre['first_s']:.3f} first (eager and capture), pool {pre['pool_gib']:.2f} GiB, "
+            f"logits rel L2 {pre['logits_rel_l2']:.3g}, cache {pre['cache_rel_l2']:.3g}; decode "
+            f"ms a step graphed {statistics.median(dec['step_ms'][1:]):.2f} (first "
+            f"{dec['step_ms'][0]:.2f}), eager {statistics.median(dec['eager_step_ms']):.2f}, "
+            f"rel L2 {max(dec['rel_l2']):.3g}, {dec['captures']} capture, {dec['replays']} "
+            f"replays")
+
+
 def decode_run(dev, spec: dict, cfg, mesh) -> dict:
-    """40(h): the prompt prefilled and decoded unsharded, then decoded from
-    the cache placed under each context; every reading, no check.  Each
-    placed decode's launch counts are set to 0 just before its first step
-    and read just after its last."""
+    """40(h) and 40(j)'s gemma2: the prompt prefilled (and its control) and
+    decoded unsharded; then under each context the placed prefill
+    (:func:`placed_prefill`, against the unsharded cache placed) and the
+    placed decode from the unsharded cache placed (:func:`placed_decode`),
+    with 40(h)'s control; every reading, no check."""
     b, p0, steps = spec["batch"], spec["prompt"], spec["steps"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 45)
     model = lm.init_params(gen, cfg, dev)
     ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
                         dtype=torch.int32)
     toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
-    t0 = time.perf_counter()
-    _, cache = model.prefill(ids[:, :p0], spec["max_len"])
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    ref_out = unsharded_prefill(model, cfg, ids[:, :p0], spec["max_len"])
+    cache = ref_out["cache"]
     ref_cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
     want, ms = [], []
     for i, tok in enumerate(toks):
@@ -5106,35 +5319,32 @@ def decode_run(dev, spec: dict, cfg, mesh) -> dict:
     del ref_cache
     model = model.cpu()  # placed from the host: the card holds the shards alone
     release()
-    out = dict(dtype=cfg.compute_dtype, prefill_s=prefill_s, unsharded_step_ms=ms, runs={})
+    out = dict(dtype=cfg.compute_dtype, prefill_s=ref_out["prefill_s"], unsharded_step_ms=ms,
+               control_logits_rel_l2=ref_out["control_logits_rel_l2"],
+               control_cache_rel_l2=ref_out["control_cache_rel_l2"], runs={})
     for name, make in (("4x2", sh.make_ctx), ("decode_2d", sh.make_decode_2d_ctx)):
         ctx = make(mesh)
         placed = sh.place(model, mesh, ctx, inference=True)
         with sh.use_ctx(ctx):
             caches = lm.place_group_caches(placed, cache)
+            pre, _ = placed_prefill(dev, placed, cfg, ids[:, :p0], spec["max_len"], ref_out,
+                                    caches)
+            release()
             got_bytes = lm.cache_position_bytes(placed, caches)
             spare = copy.deepcopy(caches)
-            with unittest.mock.patch.object(attention, "_write_kv", lambda *a: None):
+            with graphs.disable_capture(), unittest.mock.patch.object(attention, "_write_kv",
+                                                                      lambda *a: None):
                 control = lm.decode_step(placed, spare, toks[0], p0, cfg)[0]
             del spare
-            diffs, step_ms = [], []
-            reset_launch_counts()
-            for i, tok in enumerate(toks):
-                t0 = time.perf_counter()
-                logits, caches = lm.decode_step(placed, caches, tok, p0 + i, cfg)
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                diffs.append(decode_logits_diff(logits, want[i]))
-            launches = launch_counts()
+            dec = placed_decode(dev, placed, cfg, caches, toks, p0, want)
         ctrl = decode_logits_diff(control, want[0])
         out["runs"][name] = dict(
-            ctx=name, positions=len(sh.tp_peers(ctx, 0)), max_abs=[d[0] for d in diffs],
-            rel_l2=[d[1] for d in diffs], control_max_abs=ctrl[0], control_rel_l2=ctrl[1],
-            step_ms=step_ms, position_cache_bytes=got_bytes,
-            account_cache_bytes=cache_account(cfg, spec, mesh, ctx), launches=launches)
+            ctx=name, positions=len(sh.tp_peers(ctx, 0)), **dec, control_max_abs=ctrl[0],
+            control_rel_l2=ctrl[1], position_cache_bytes=got_bytes,
+            account_cache_bytes=cache_account(cfg, spec, mesh, ctx), prefill=pre)
         del placed, caches
         release()
-    del model, cache, want
+    del model, cache, want, ref_out
     release()
     return out
 
@@ -5146,7 +5356,8 @@ def sharded_decode(dev) -> dict:
     the card.  The logits of every step lie within ``SHARD_DECODE_TOL`` of
     the unsharded step's and a control, the first step with its newest
     token's k and v not written (``attention._write_kv`` a no-op), beyond
-    it.  Each position's cache bytes equal the dry-run's."""
+    it.  Each position's cache bytes equal the dry-run's.  40(j): the
+    placed prefill and the captured decode (:func:`check_placed`)."""
     spec = SHARD_DECODE
     mesh = make_device_mesh(*SHARD_MESH)
     cfg = dataclasses.replace(shard_config(spec), param_dtype="float32",
@@ -5162,13 +5373,23 @@ def sharded_decode(dev) -> dict:
           f"unwritten, {r2['control_rel_l2']:.4g}), make_decode_2d_ctx on 8 positions "
           f"{max(rd['rel_l2']):.4g} ({max(rd['max_abs']):.4g}; control "
           f"{rd['control_rel_l2']:.4g}), limit {SHARD_DECODE_TOL}; ms a step unsharded "
-          f"{statistics.median(r['unsharded_step_ms']):.2f}, 4 x 2 "
-          f"{statistics.median(r2['step_ms']):.2f}, 8 positions "
-          f"{statistics.median(rd['step_ms']):.2f}; prefill {r['prefill_s']:.2f} s; cache "
-          f"bytes a position {r2['position_cache_bytes'][0]:,} and "
+          f"{statistics.median(r['unsharded_step_ms']):.2f}, 4 x 2 graphed "
+          f"{statistics.median(r2['step_ms'][1:]):.2f} (eager "
+          f"{statistics.median(r2['eager_step_ms']):.2f}), 8 positions graphed "
+          f"{statistics.median(rd['step_ms'][1:]):.2f} (eager "
+          f"{statistics.median(rd['eager_step_ms']):.2f}); prefill {r['prefill_s']:.2f} s; "
+          f"cache bytes a position {r2['position_cache_bytes'][0]:,} and "
           f"{rd['position_cache_bytes'][0]:,} (dry-run {r2['account_cache_bytes']:,} and "
           f"{rd['account_cache_bytes']:,}) [{card()}]")
+    print(f"phase 40(j) gemma2_27b placed prefill and captured decode, unsharded prefill "
+          f"{r['prefill_s']:.3f} s (control, middle token changed: logits rel L2 "
+          f"{r['control_logits_rel_l2']:.3g}, cache {r['control_cache_rel_l2']:.3g}); 4 x 2: "
+          f"{placed_text(r2['prefill'], r2)}; 8 positions: {placed_text(rd['prefill'], rd)}; "
+          f"limits {PLACED_PREFILL_TOL}, {PLACED_CACHE_TOL} [{card()}]")
+    check_prefill_controls("40(j) gemma2", r)
     for name, run in r["runs"].items():
+        check_placed(f"40(j) gemma2 {name}", run["prefill"], run, spec["steps"],
+                     SHARD_DECODE_TOL)
         what = f"40(h) {name}"
         worst = max(run["rel_l2"])
         check(worst <= SHARD_DECODE_TOL, f"{what}: logits within rel L2 {SHARD_DECODE_TOL} of "
@@ -5255,8 +5476,10 @@ def expert_decode(dev) -> dict:
     rel L2 ``SHARD_EXPERT_TOL`` and a control (:func:`broken_expert_step`)
     beyond it, the picks dropped as the unsharded decode drops them, each
     position's expert bytes equal to the dry-run's, ms a step and the peak.
-    Each placed decode's launch counts are set to 0 just before its first
-    step and read just after its last."""
+    The decode is captured (:func:`placed_decode`); the all-to-alls, the
+    bytes gathered and the dropped picks are read on its eager run, whose
+    host counters a replay does not advance.  40(j): the placed prefill
+    (:func:`placed_prefill`), whose MoE layer runs expert-stationary."""
     spec = SHARD_EXPERT
     mesh = make_device_mesh(*SHARD_MESH)
     cfg = dataclasses.replace(shard_config(spec), param_dtype="float32", compute_dtype="float32")
@@ -5267,7 +5490,8 @@ def expert_decode(dev) -> dict:
     ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
                         dtype=torch.int32)
     toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
-    _, cache = model.prefill(ids[:, :p0], spec["max_len"])
+    ref_out = unsharded_prefill(model, cfg, ids[:, :p0], spec["max_len"])
+    cache = ref_out["cache"]
     ref_cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
     want, ms, dropped = [], [], [0]
     with unittest.mock.patch.object(moe, "route_slots", dropped_picks(dropped)):
@@ -5280,7 +5504,17 @@ def expert_decode(dev) -> dict:
             want.append(logits.float())
     del ref_cache
     out = dict(params=lm.count_params(cfg), unsharded_step_ms=ms, unsharded_dropped=dropped[0],
-               runs={})
+               prefill_s=ref_out["prefill_s"],
+               control_logits_rel_l2=ref_out["control_logits_rel_l2"],
+               control_cache_rel_l2=ref_out["control_cache_rel_l2"], runs={})
+
+    def before_step():
+        collectives.counts.clear()
+        sh.gathered_bytes.clear()
+
+    def after_step():
+        return (collectives.counts["all_to_all"], max(sh.gathered_bytes.values(), default=0))
+
     for name, make in (("4x2", sh.make_ctx), ("decode_2d", sh.make_decode_2d_ctx)):
         ctx = make(mesh)
         release()
@@ -5289,37 +5523,30 @@ def expert_decode(dev) -> dict:
         with sh.use_ctx(ctx):
             bound = expert_bytes(placed, ctx, b)
             caches = lm.place_group_caches(placed, cache)
+            pre, _ = placed_prefill(dev, placed, cfg, ids[:, :p0], spec["max_len"], ref_out,
+                                    caches)
             spare = copy.deepcopy(caches)
-            with broken_expert_step(name):
+            with graphs.disable_capture(), broken_expert_step(name):
                 control = lm.decode_step(placed, spare, toks[0], p0, cfg)[0]
             del spare
-            diffs, step_ms, a2a, gathered, got_dropped = [], [], [], [], [0]
-            reset_launch_counts()
-            with unittest.mock.patch.object(moe, "route_slots", dropped_picks(got_dropped)):
-                for i, tok in enumerate(toks):
-                    collectives.counts.clear()
-                    sh.gathered_bytes.clear()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    logits, caches = lm.decode_step(placed, caches, tok, p0 + i, cfg)
-                    torch.cuda.synchronize()
-                    step_ms.append((time.perf_counter() - t0) * 1e3)
-                    a2a.append(collectives.counts["all_to_all"])
-                    gathered.append(max(sh.gathered_bytes.values(), default=0))
-                    diffs.append(decode_logits_diff(logits, want[i]))
-            launches = launch_counts()
+            got_dropped = [0]
+            dec = placed_decode(dev, placed, cfg, caches, toks, p0, want,
+                                eager_patch=lambda: unittest.mock.patch.object(
+                                    moe, "route_slots", dropped_picks(got_dropped)),
+                                before_step=before_step, after_step=after_step, sync_free=False)
         ctrl = decode_logits_diff(control, want[0])
+        reads = dec.pop("eager_reads")
         out["runs"][name] = dict(
-            ctx=name, positions=len(sh.tp_peers(ctx, 0)), max_abs=[d[0] for d in diffs],
-            rel_l2=[d[1] for d in diffs], control_max_abs=ctrl[0], control_rel_l2=ctrl[1],
-            step_ms=step_ms, all_to_all_a_step=a2a, gathered_bytes_a_step=gathered,
+            ctx=name, positions=len(sh.tp_peers(ctx, 0)), **dec, control_max_abs=ctrl[0],
+            control_rel_l2=ctrl[1], all_to_all_a_step=[r[0] for r in reads],
+            gathered_bytes_a_step=[r[1] for r in reads],
             dropped=got_dropped[0], position_expert_bytes=bound,
             account_expert_bytes=expert_account(cfg, spec, mesh, ctx),
             placed_bytes=sum(sh.position_bytes(placed)),
-            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, launches=launches)
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, prefill=pre)
         del placed, caches, control
         release()
-    del model, cache, want
+    del model, cache, want, ref_out
     release()
     r2, rd = out["runs"]["4x2"], out["runs"]["decode_2d"]
     print(f"phase 40(i) qwen3_moe_235b_a22b (1 of 94 layers, full width, {out['params']:,} "
@@ -5331,8 +5558,11 @@ def expert_decode(dev) -> dict:
           f"{r2['control_rel_l2']:.4g}), make_decode_2d_ctx on 8 positions "
           f"{max(rd['rel_l2']):.4g} ({max(rd['max_abs']):.4g}; control, a position's hidden "
           f"block left out, {rd['control_rel_l2']:.4g}), limit {SHARD_EXPERT_TOL}; ms a step "
-          f"unsharded {statistics.median(ms):.2f}, 4 x 2 {statistics.median(r2['step_ms']):.2f},"
-          f" 8 positions {statistics.median(rd['step_ms']):.2f}; all-to-alls a step "
+          f"unsharded {statistics.median(ms):.2f}, 4 x 2 "
+          f"{statistics.median(r2['step_ms'][1:]):.2f},"
+          f" 8 positions {statistics.median(rd['step_ms'][1:]):.2f} (graphed; eager "
+          f"{statistics.median(r2['eager_step_ms']):.2f} and "
+          f"{statistics.median(rd['eager_step_ms']):.2f}); all-to-alls a step (eager run) "
           f"{r2['all_to_all_a_step']} and {rd['all_to_all_a_step']}; expert bytes a position "
           f"{r2['position_expert_bytes'][0]:,} and {rd['position_expert_bytes'][0]:,} (dry-run "
           f"{r2['account_expert_bytes']:,} and {rd['account_expert_bytes']:,}); bytes gathered a "
@@ -5341,7 +5571,14 @@ def expert_decode(dev) -> dict:
           f"{out['unsharded_dropped']}, placed {r2['dropped']} and {rd['dropped']}; peak "
           f"{r2['peak_gib']:.2f} and {rd['peak_gib']:.2f} GiB (the unsharded model's "
           f"{out['params'] * 4 / 2**30:.2f} GiB held beside) [{card()}]")
+    print(f"phase 40(j) qwen3_moe_235b_a22b placed prefill (expert-stationary) and captured "
+          f"decode, unsharded prefill {out['prefill_s']:.3f} s (control, middle token changed: "
+          f"logits rel L2 {out['control_logits_rel_l2']:.3g}, cache "
+          f"{out['control_cache_rel_l2']:.3g}); 4 x 2: {placed_text(r2['prefill'], r2)}; 8 "
+          f"positions: {placed_text(rd['prefill'], rd)} [{card()}]")
+    check_prefill_controls("40(j) qwen3_moe", out)
     for name, run in out["runs"].items():
+        check_placed(f"40(j) qwen3_moe {name}", run["prefill"], run, steps, SHARD_EXPERT_TOL)
         what = f"40(i) {name}"
         worst = max(run["rel_l2"])
         check(worst <= SHARD_EXPERT_TOL, f"{what}: logits within rel L2 {SHARD_EXPERT_TOL} of "
@@ -5356,6 +5593,122 @@ def expert_decode(dev) -> dict:
               f"{what}: each position's expert bytes equal the dry-run's")
     return dict(config=spec["config"], layers=spec["layers"], batch=b, prompt=p0,
                 max_len=spec["max_len"], steps=steps, **out)
+
+
+def placed_recurrent(dev) -> dict:
+    """40(j): recurrentgemma_9b at full width, its first 3 layers, in f32, 4
+    rows: a 2,048-token prompt prefilled (and its control) and decoded
+    unsharded; then under ``make_ctx`` on 4 x 2 and ``make_decode_2d_ctx``
+    on 8 positions the placed prefill (:func:`placed_prefill`: K5 on each
+    position's channels) and the captured decode from its caches
+    (:func:`placed_decode`), with a control (the first step with its
+    newest token unwritten) beyond ``PLACED_RECUR_TOL``."""
+    spec = PLACED_RECUR
+    mesh = make_device_mesh(*SHARD_MESH)
+    cfg = dataclasses.replace(shard_config(spec), param_dtype="float32", compute_dtype="float32")
+    b, p0, steps = spec["batch"], spec["prompt"], spec["steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    model = lm.init_params(gen, cfg, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
+                        dtype=torch.int32)
+    toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
+    ref_out = unsharded_prefill(model, cfg, ids[:, :p0], spec["max_len"])
+    cache = [{k: v.clone() for k, v in layer.items()} for layer in ref_out["cache"]]
+    want, ms = [], []
+    for i, tok in enumerate(toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, p0 + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(logits.float())
+    del cache
+    model = model.cpu()
+    release()
+    out = dict(params=lm.count_params(cfg), prefill_s=ref_out["prefill_s"],
+               unsharded_step_ms=ms, control_logits_rel_l2=ref_out["control_logits_rel_l2"],
+               control_cache_rel_l2=ref_out["control_cache_rel_l2"], runs={})
+    for name, make in (("4x2", sh.make_ctx), ("decode_2d", sh.make_decode_2d_ctx)):
+        ctx = make(mesh)
+        placed = sh.place(model, mesh, ctx, inference=True)
+        with sh.use_ctx(ctx):
+            whole = lm.place_group_caches(placed, ref_out["cache"])
+            pre, caches = placed_prefill(dev, placed, cfg, ids[:, :p0], spec["max_len"], ref_out,
+                                         whole)
+            pre["lru_scan_plan"] = lru_scan.lru_scan.last_plan.describe()
+            del whole
+            release()
+            spare = copy.deepcopy(caches)
+            with graphs.disable_capture(), unittest.mock.patch.object(attention, "_write_kv",
+                                                                      lambda *a: None):
+                control = lm.decode_step(placed, spare, toks[0], p0, cfg)[0]
+            del spare
+            dec = placed_decode(dev, placed, cfg, caches, toks, p0, want)
+        ctrl = decode_logits_diff(control, want[0])
+        out["runs"][name] = dict(ctx=name, positions=len(sh.tp_peers(ctx, 0)), **dec,
+                                 control_max_abs=ctrl[0], control_rel_l2=ctrl[1], prefill=pre)
+        del placed, caches, control
+        release()
+    del model, want, ref_out
+    release()
+    r2, rd = out["runs"]["4x2"], out["runs"]["decode_2d"]
+    plan = r2["prefill"]["lru_scan_plan"]
+    print(f"phase 40(j) recurrentgemma_9b ({spec['layers']} layers: rec, rec, win; full width, "
+          f"{out['params']:,} parameters, f32) prefilled placed from a {p0}-token prompt of {b} "
+          f"rows, then decoded {steps} steps captured; unsharded prefill "
+          f"{out['prefill_s']:.3f} s, decode {statistics.median(ms):.2f} ms a step (control, "
+          f"middle token changed: logits rel L2 {out['control_logits_rel_l2']:.3g}, cache "
+          f"{out['control_cache_rel_l2']:.3g}); 4 x 2: {placed_text(r2['prefill'], r2)}, "
+          f"control (newest token unwritten) {r2['control_rel_l2']:.3g}; 8 positions: "
+          f"{placed_text(rd['prefill'], rd)}, control {rd['control_rel_l2']:.3g}; limit "
+          f"{PLACED_RECUR_TOL}; K5 launches {r2['prefill']['launches']['lru_scan']} and "
+          f"{rd['prefill']['launches']['lru_scan']} over two prefills, 4 x 2 plan "
+          f"{plan['ctas']} CTAs of {plan['channels_per_cta']} channels [{card()}]")
+    check_prefill_controls("40(j) recurrentgemma", out)
+    for name, run in out["runs"].items():
+        what = f"40(j) recurrentgemma {name}"
+        check_placed(what, run["prefill"], run, steps, PLACED_RECUR_TOL)
+        check(run["control_rel_l2"] > PLACED_RECUR_TOL, f"{what}: a step whose newest token "
+              f"is not written ({run['control_rel_l2']:.3g}) lies beyond the limit")
+        # two graphed prefills: 2 rec layers, each position's channels a group
+        check(run["prefill"]["launches"]["lru_scan"] == 2 * 2 * mesh.size,
+              f"{what}: K5 launched on every position's channels of both rec layers")
+    return dict(config=spec["config"], layers=spec["layers"], batch=b, prompt=p0,
+                max_len=spec["max_len"], steps=steps, **out)
+
+
+def lru_scan_placed_row(dev, launches: int) -> dict:
+    """K5 at 40(j)'s per-position prefill shape [1, 2048, 2048] (a
+    data-parallel group's row, a position's channels of recurrentgemma's
+    4,096 on 4 x 2) against its plain version, bit for bit and run to run,
+    timed as :func:`lru_scan_tp_rows` times it; ``launches`` are 40(j)'s
+    4 x 2 prefill's."""
+    b, t, r = 1, PLACED_RECUR["prompt"], 4096 // SHARD_MESH[0][1]
+    a, x, h0 = lru_inputs(dev, b, t, r, SEED + 41)
+    got, again = lru_scan.lru_scan(a, x, h0), lru_scan.lru_scan(a, x, h0)
+    plan = lru_scan.lru_scan.last_plan.describe()
+    want = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    what = f"at [{b}, {t}, {r}] f32"
+    check(torch.equal(got, want) and torch.equal(got, again),
+          f"lru_scan {what} == plain version and run to run, bit for bit")
+    bound, by = lru_bound(a, h0)
+    row = dict(name="lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/lru_scan.cu",
+               replaces="src/repro/kernels/lru_scan.py:56", launches=launches, phase="40j",
+               library_ms=None, max_abs_err=float((got - want).abs().max()),
+               ms=time_ms(lambda: lru_scan.lru_scan(a, x, h0), iters=10),
+               plain_ms=time_ms(lambda: ref.lru_scan_ref(a, x, h0), iters=2, repeats=3),
+               bound_ms=bound, bound_by=by,
+               library="none (no single PyTorch call computes a linear recurrence)",
+               shape=f"a, b, out [{b}, {t}, {r}] f32, h0 [{b}, {r}] f32 (40(j), a position's "
+                     "channels in the placed prefill)", plan=plan)
+    print(f"lru_scan {what}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+          f"{bound:.4f}, {bound / row['ms']:.0%} of it), bit-exact; plan {plan['ctas']} CTAs of "
+          f"{plan['channels_per_cta']} channels on {plan['sms']} SMs, {plan['rows']} rows x "
+          f"{plan['stages']} stages [{card()}]")
+    del a, x, h0, got, again, want
+    release()
+    return row
 
 
 def sharded_quantized_mean(dev, mesh) -> dict:
@@ -5469,6 +5822,10 @@ def model_sharding(dev) -> dict:
     t0 = time.perf_counter()
     out["expert_decode"] = expert_decode(dev)
     out["expert_decode"]["wall_s"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    out["placed_recurrent"] = placed_recurrent(dev)
+    out["placed_recurrent"]["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5632,6 +5989,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sharding = model_sharding(dev)
     rows += lru_scan_tp_rows(dev)
+    rows.append(lru_scan_placed_row(
+        dev, sharding["placed_recurrent"]["runs"]["4x2"]["prefill"]["launches"]["lru_scan"]))
     wall["phase_40_model_sharding"] = time.perf_counter() - t0
     for phase, sec in wall.items():
         print(f"{phase}: {sec:.1f} s wall")
@@ -5646,7 +6005,9 @@ def main() -> int:
              + list(examples.values()) + ([several] if several["ran"] else [])
              + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
              + list(shards["card_matches_cpu"].values())
-             + [r for k in ("granite", "recurrentgemma", "moe", "decode", "expert_decode")
+             + [r for k in ("granite", "recurrentgemma", "moe", "decode", "expert_decode",
+                            "placed_recurrent") for r in sharding[k]["runs"].values()]
+             + [r["prefill"] for k in ("decode", "expert_decode", "placed_recurrent")
                 for r in sharding[k]["runs"].values()]
              + list(sharding["several_cards"].get("runs", {}).values()))
     # a kernel with a phase-34 row (timed at that phase's shape) counts phase
@@ -5657,6 +6018,8 @@ def main() -> int:
             ps = list(dry.values())
         elif row.get("phase") == 40:
             ps = [sharding["recurrentgemma"]["runs"]["4x2"]]
+        elif row.get("phase") == "40j":
+            ps = [sharding["placed_recurrent"]["runs"]["4x2"]["prefill"]]
         else:
             ps = paths + ([] if row["name"] in phase34 else list(dry.values()))
         row["launches"] = sum(d["launches"][row["name"]] for d in ps)

@@ -73,6 +73,7 @@ are.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import weakref
 
 import torch
@@ -207,6 +208,11 @@ def to_device(inputs, device: torch.device) -> list[torch.Tensor]:
     return out
 
 
+def _fields(out) -> dict:
+    """The fields of a dataclass instance."""
+    return {f.name: getattr(out, f.name) for f in dataclasses.fields(out)}
+
+
 def _fresh(out):
     """``out`` with every tensor in it copied (on the current stream)."""
     if isinstance(out, torch.Tensor):
@@ -215,11 +221,14 @@ def _fresh(out):
         return type(out)(_fresh(o) for o in out)
     if isinstance(out, dict):
         return {k: _fresh(v) for k, v in out.items()}
+    if dataclasses.is_dataclass(out) and not isinstance(out, type):
+        return dataclasses.replace(out, **{k: _fresh(v) for k, v in _fields(out).items()})
     return out
 
 
 def tensors(out):
-    """The tensors in ``out`` (a tensor, or tuples, lists and dicts of them)."""
+    """The tensors in ``out`` (a tensor, or tuples, lists, dicts and
+    dataclasses of them)."""
     if isinstance(out, torch.Tensor):
         yield out
     elif isinstance(out, (tuple, list)):
@@ -228,6 +237,8 @@ def tensors(out):
     elif isinstance(out, dict):
         for o in out.values():
             yield from tensors(o)
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        yield from tensors(_fields(out))
 
 
 def _forget(graphs: dict, binding, graph) -> None:

@@ -19,8 +19,9 @@ tensor-parallel (the reference's head-sharded constraints,
 projects its q heads and the KV heads they read, attends over them, and
 multiplies by its rows of ``wo``; one all-reduce adds the partial outputs
 (in training, over a stream split by sequence, a reduce-scatter:
-``common.tp_output``).  A split prefill returns a list of the positions'
-caches of their KV heads, which a split decode step also takes.
+``common.tp_output``).  A split prefill gathers the positions' KV heads
+into the layer's whole cache on the lead, each head from the first
+position that holds it.
 
 Over a device mesh the decode cache is laid out by the reference's rule
 (``distributed/sharding.py`` ``cache_spec``, ``src/repro/launch/dryrun.py:
@@ -32,6 +33,17 @@ over a time-sharded cache (``src/repro/models/attention.py:8-11``): each
 position attends every q head over its own slots, giving fp32 ``(acc, m,
 l)`` (its softmax's unnormalised sum, max and denominator), and ``m =
 max m_t``, ``l = Σ l_t e^{m_t - m}``, ``o = Σ acc_t e^{m_t - m} / l``.
+
+A decode step's position ``pos`` is an int, or a 0-dim int64 tensor on the
+lead's device (the reference's traced ``pos``: a captured step then serves
+every position).  Everything that depends on it is computed from it on the
+card, RoPE's positions, the masks and the rolling slots' positions alike,
+and the new k and v are written by :func:`_write_kv`: given a tensor slot,
+each position writes its local slot ``g - t T / n`` (``g`` the global slot)
+only where that lies in its slots, and elsewhere writes the slot it names
+back to itself.  A step over a :class:`SeqKV` or a split layer takes an int
+``pos`` as such a tensor; only the unsharded step writes an int's slot
+directly.
 """
 
 from __future__ import annotations
@@ -219,9 +231,11 @@ def attn_train(x, params: Attention, cfg: ModelConfig, window: int = 0):
 
 def attn_prefill(x, params: Attention, cfg: ModelConfig, window: int = 0):
     """Returns (out [B,S,D] @wo applied, cache dict) — cache holds RoPE'd keys;
-    split, the list of the positions' caches."""
+    split, the layer's whole cache on the lead (:func:`gather_heads`)."""
     if isinstance(params, Split):
-        return _over_positions(lambda xi, p, c: _prefill(xi, p, c, window, True), x, params)
+        out, caches = _over_positions(lambda xi, p, c: _prefill(xi, p, c, window, True), x,
+                                      params)
+        return out, {k: gather_heads([c[k] for c in caches], params) for k in ("k", "v")}
     return _prefill(x, params, cfg, window, False)
 
 
@@ -252,53 +266,78 @@ class SeqKV:
     group: col.Group
 
 
-def attn_decode(x, params: Attention, cfg: ModelConfig, cache, pos: int, window: int = 0):
-    """One decode step.  x: [B,1,D]; pos: int (tokens already cached).
+def attn_decode(x, params: Attention, cfg: ModelConfig, cache, pos, window: int = 0):
+    """One decode step.  x: [B,1,D]; pos: the tokens already cached, an int
+    or a 0-dim int64 tensor on the lead's device.
 
     Returns (out [B,1,D], cache), the cache updated in place.  ``cache`` is
-    a dict; with ``params`` a ``Split``, a list of the positions' caches of
-    their KV heads (a split prefill's), or a dict on the group's lead; or
-    a :class:`SeqKV` (the module docstring).
+    a dict (with ``params`` a ``Split``, on the group's lead), or a
+    :class:`SeqKV` (the module docstring).
     """
     if isinstance(cache, SeqKV):
         return _seq_decode(x, params, cfg, cache.parts, cache.group, pos, window), cache
     if isinstance(params, Split):
-        if isinstance(cache, dict):
-            return _seq_decode(x, params, cfg, [cache], params.group, pos, window), cache
-        caches = iter(cache)
-        return _over_positions(
-            lambda xi, p, c: _decode(xi, p, c, next(caches), pos, window, True), x, params)
-    return _decode(x, params, cfg, cache, pos, window, False)
+        return _seq_decode(x, params, cfg, [cache], params.group, pos, window), cache
+    return _decode(x, params, cfg, cache, pos, window)
 
 
 def _sub_group(group: col.Group, ts: list[int]) -> col.Group:
     return col.Group(tuple(group.positions[t] for t in ts), tuple(group.devices[t] for t in ts))
 
 
-def _split_qkv(x, params: Split, positions):
-    """q, k and v of every head on the lead: each position projects its
-    heads, and the heads are gathered, each KV head from the first position
-    that reads it (under MQA every position reads the one head)."""
-    qkv = [_project_qkv(xi, p, c, positions.to(xi.device))
-           for xi, p, c in zip(col.broadcast(x, params.group), params.parts, params.cfgs)]
+def gather_heads(pieces: list, params: Split):
+    """The positions' ``pieces`` of a split layer's KV heads (dim 2)
+    concatenated on the lead, each KV head from the first position that
+    reads it (under MQA every position reads the one head)."""
     spans = [s["kv"] for s in params.spans]
     kv = [t for t, span in enumerate(spans) if span not in spans[:t]]
-    held = _sub_group(params.group, kv)
+    return col.all_gather([pieces[t] for t in kv], _sub_group(params.group, kv), dim=2)
+
+
+def _split_qkv(x, params: Split, positions):
+    """q, k and v of every head on the lead: each position projects its
+    heads, and the heads are gathered (:func:`gather_heads`)."""
+    qkv = [_project_qkv(xi, p, c, positions.to(xi.device))
+           for xi, p, c in zip(col.broadcast(x, params.group), params.parts, params.cfgs)]
     return (col.all_gather([q for q, _, _ in qkv], params.group, dim=2),
-            col.all_gather([qkv[t][1] for t in kv], held, dim=2),
-            col.all_gather([qkv[t][2] for t in kv], held, dim=2))
+            gather_heads([k for _, k, _ in qkv], params),
+            gather_heads([v for _, _, v in qkv], params))
 
 
-def _write_kv(cache: dict, slot: int, k, v) -> None:
+def _on(pos, device):
+    """``pos`` (an int, or a 0-dim tensor) for use on ``device``."""
+    return pos.to(device) if isinstance(pos, torch.Tensor) else pos
+
+
+def _positions(pos, b: int, device) -> torch.Tensor:
+    """RoPE's positions [B, 1] of a decode step at ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(1, 1).expand(b, 1)
+    return torch.full((b, 1), int(pos), dtype=torch.int64, device=device)
+
+
+def _write_kv(cache: dict, slot, k, v) -> None:
     """The new token's k and v into ``slot`` of one position's cache, on its
-    device."""
+    device.  A tensor ``slot`` (0-dim int64) is written only where it lies
+    in the cache's slots; elsewhere the slot it names, clamped, is written
+    back to itself, so that one captured step serves every position."""
+    dev, n = cache["k"].device, cache["k"].shape[1]
+    if not isinstance(slot, torch.Tensor):
+        for name, new in (("k", k), ("v", v)):
+            cache[name][:, slot : slot + 1] = new.to(dev)
+        return
+    slot = slot.to(dev)
+    held = (slot >= 0) & (slot < n)
+    idx = slot.clamp(0, n - 1).reshape(1)
     for name, new in (("k", k), ("v", v)):
-        cache[name][:, slot : slot + 1] = new.to(cache[name].device)
+        c = cache[name]
+        c.index_copy_(1, idx, torch.where(held, new.to(dev), c.index_select(1, idx)))
 
 
-def _partial(qg, k, v, pos: int, kpos, cfg: ModelConfig, window: int):
+def _partial(qg, k, v, pos, kpos, cfg: ModelConfig, window: int):
     """One position's flash-decode partial over its slots: qg [B,1,KVH,G,hd];
-    k/v [B,T_t,KVH,hd]; kpos [T_t] the absolute position each slot holds.
+    k/v [B,T_t,KVH,hd]; kpos [T_t] the absolute position each slot holds;
+    ``pos`` on qg's device.
     Returns fp32 (acc [B,KVH,G,1,hd], m and l [B,KVH,G,1,1]); a position
     with no visible key gives acc 0, m -inf and l 0."""
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float() * _scale(cfg), k.float())
@@ -312,7 +351,7 @@ def _partial(qg, k, v, pos: int, kpos, cfg: ModelConfig, window: int):
     return torch.einsum("bkgqs,bskd->bkgqd", p, v.float()), m, p.sum(dim=-1, keepdim=True)
 
 
-def _seq_decode(x, params, cfg: ModelConfig, parts: list, group: col.Group, pos: int,
+def _seq_decode(x, params, cfg: ModelConfig, parts: list, group: col.Group, pos,
                 window: int):
     """A decode step against a cache whose slots lie over the first
     ``len(parts)`` positions of ``group`` (all of them, or the lead alone):
@@ -325,20 +364,23 @@ def _seq_decode(x, params, cfg: ModelConfig, parts: list, group: col.Group, pos:
     tn = parts[0]["k"].shape[1]
     total = tn * len(parts)
     holders = _sub_group(group, list(range(len(parts))))
-    positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=x.device)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    positions = _positions(pos, b, x.device)
     if isinstance(params, Split):
         q, k, v = _split_qkv(x, params, positions)
     else:
         q, k, v = _project_qkv(x, params, cfg, positions)
-    owner, slot = divmod(pos % total if window else pos, tn)
-    _write_kv(parts[owner], slot, k, v)
+    slot = pos % total if window else pos
+    for t, part in enumerate(parts):  # each position writes where it holds the slot
+        _write_kv(part, slot - t * tn, k, v)
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     stats = []
     for t, (qg, part) in enumerate(zip(col.broadcast(q.reshape(b, 1, kvh, g, hd), holders),
                                        parts)):
         j = t * tn + torch.arange(tn, device=qg.device)
-        kpos = pos - torch.remainder(pos - j, total) if window else j
-        stats.append(_partial(qg, part["k"], part["v"], pos, kpos, cfg, window))
+        p = _on(pos, qg.device)
+        kpos = p - torch.remainder(p - j, total) if window else j
+        stats.append(_partial(qg, part["k"], part["v"], p, kpos, cfg, window))
     m = col.all_reduce_max([s[1] for s in stats], holders)
     terms = []
     for (acc, mt, lt), mm in zip(stats, col.broadcast(m, holders)):
@@ -354,18 +396,16 @@ def _seq_decode(x, params, cfg: ModelConfig, parts: list, group: col.Group, pos:
                           params.group, x.dtype)
 
 
-def _decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos: int, window: int,
-            partial: bool):
+def _decode(x, params: Attention, cfg: ModelConfig, cache: dict, pos, window: int):
     b = x.shape[0]
     t = cache["k"].shape[1]
-    positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=x.device)
+    positions = _positions(pos, b, x.device)
     q, k, v = _project_qkv(x, params, cfg, positions)
-    slot = pos % t if window else pos
-    cache["k"][:, slot : slot + 1] = k
-    cache["v"][:, slot : slot + 1] = v
+    _write_kv(cache, pos % t if window else pos, k, v)
     j = torch.arange(t, device=x.device)
-    kpos = pos - torch.remainder(pos - j, t) if window else j
+    p = _on(pos, x.device)
+    kpos = p - torch.remainder(p - j, t) if window else j
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, 1, kvh, g, cfg.head_dim)
     out = _attend(qg, cache["k"], cache["v"], positions[0], kpos, cfg, window)
-    return _out_proj(out.reshape(b, 1, -1), params, partial), cache
+    return out.reshape(b, 1, -1) @ params.wo, cache

@@ -162,19 +162,26 @@ def block_prefill(x, params: Block, cfg: ModelConfig, kind: str):
     _check_kind(kind)
     if kind in _CELLS:
         return _cell(x, params, cfg, kind, None, "prefill")
+    x, h2, cache = block_prefill_mixer(x, params, cfg, kind)
+    return x + ffn_forward(h2, params, cfg), cache
+
+
+def block_prefill_mixer(x, params: Block, cfg: ModelConfig, kind: str):
+    """:func:`block_prefill` of a block with an FFN up to its second norm,
+    as :func:`block_decode_mixer` is of a decode step."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     if kind == "rec":
         y, cache = rec.rec_block_prefill(h, params.rec, cfg)
     else:
         y, cache = attn.attn_prefill(h, params.attn, cfg, _window(cfg, kind))
     x = x + y
-    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-    return x + ffn_forward(h2, params, cfg), cache
+    return x, rms_norm(x, params.norm2, cfg.norm_eps), cache
 
 
-def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int):
+def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos):
     """[B,1,D] -> (x', cache').  An attention cache is updated in place and
-    returned; a ``rec``, ``mlstm`` or ``slstm`` layer returns a new state."""
+    returned; a ``rec``, ``mlstm`` or ``slstm`` layer returns a new state.
+    ``pos`` is an int or a 0-dim int64 tensor (``attention.attn_decode``)."""
     _check_kind(kind)
     if kind in _CELLS:
         return _cell(x, params, cfg, kind, cache, "decode")
@@ -182,7 +189,7 @@ def block_decode(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int)
     return x + ffn_forward(h2, params, cfg), cache
 
 
-def block_decode_mixer(x, params: Block, cfg: ModelConfig, kind: str, cache, pos: int):
+def block_decode_mixer(x, params: Block, cfg: ModelConfig, kind: str, cache, pos):
     """A decode step of a block with an FFN (not the xLSTM kinds) up to its
     second norm: (the stream after the mixer's residual add, its second
     norm, the cache as :func:`block_decode` returns it).  The FFN's output

@@ -24,13 +24,18 @@ its decode step returns).
 A model placed over a device mesh (``distributed/sharding.py`` ``place``,
 a ``PlacedModel``) runs block by block on each data-parallel group's
 positions, its lead and the lead's tensor-parallel peers:
-:func:`group_train` and :func:`decode_step` bind a stage's leaves (the
-embedding, one block, the final norm and head) just before it runs and
-free them after.  Training runs one group's microbatch rows through the
-whole model at a time; a decode step runs layer by layer across the groups,
-so that an expert-stationary MoE layer (``tensor_parallel.StationaryLayout``)
-can trade every group's tokens at once, and binds a position's own shard
-without a copy wherever its region is exactly that shard.  A product that runs tensor-parallel
+:func:`group_train`, :func:`prefill` and :func:`decode_step` bind a
+stage's leaves (the embedding, one block, the final norm and head) just
+before it runs and free them after.  Training runs one group's microbatch
+rows through the whole model at a time; a prefill and a decode step run
+layer by layer across the groups, so that an expert-stationary MoE layer
+(``tensor_parallel.StationaryLayout``) can trade every group's tokens at
+once, and bind a position's own shard without a copy wherever its region
+is exactly that shard.  They are the reference's two jitted inference
+programs (``src/repro/launch/dryrun.py:159-162`` and ``:194-198``), each a
+``graphs.Program`` (:data:`PLACED_PREFILL`, :data:`PLACED_DECODE`): the
+decode step's position is an operand, so one captured step serves a whole
+decode loop, and it updates the cache in place.  A product that runs tensor-parallel
 (``models/tensor_parallel.py`` ``plan``) binds on each position only that
 position's block of its weights, gathered over the fsdp axis alone, and
 the positions' partial products meet in all-reduces; the rest is gathered
@@ -42,7 +47,8 @@ again, and reduces each position's gradient of its block into the shards
 that hold that block as soon as the block is done.  A placed decode's
 cache lies over the positions by the reference's rule
 (``tensor_parallel.place_caches``): :func:`init_group_caches` makes it
-empty, :func:`place_group_caches` lays out a whole one (a prefill's).
+empty, :func:`place_group_caches` lays out a whole one, and a placed
+:func:`prefill` returns it so laid out.
 
 The JAX module's function names (``init_params``, ``train_loss``,
 ``prefill``, ``decode_step``, ``init_cache``, ``embed_tokens``,
@@ -53,6 +59,7 @@ The JAX module's function names (``init_params``, ``train_loss``,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -60,6 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import graphs
 from repro_torch.core.state import _default_device, _tensor_from_host
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
@@ -223,14 +231,16 @@ def label_count(labels: torch.Tensor) -> torch.Tensor:
 
 def _grow_kv(cache: list[dict], cfg: ModelConfig, max_len: int) -> list[dict]:
     """Pad global-attention prefill caches (length S) out to max_len slots."""
-    out = []
-    for kind, c in zip(cfg.layer_kinds, cache):
-        if kind in ("attn", "moe"):
-            pad = max_len - c["k"].shape[1]
-            if pad > 0:
-                c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) for k, v in c.items()}
-        out.append(c)
-    return out
+    return [_grown(kind, c, max_len) for kind, c in zip(cfg.layer_kinds, cache)]
+
+
+def _grown(kind: str, c: dict, max_len: int) -> dict:
+    """One layer's prefill cache, a global-attention one padded to max_len slots."""
+    if kind in ("attn", "moe"):
+        pad = max_len - c["k"].shape[1]
+        if pad > 0:
+            c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) for k, v in c.items()}
+    return c
 
 
 # -- parameters -----------------------------------------------------------------
@@ -350,17 +360,27 @@ def train_loss(params: CausalLM, batch: dict, cfg: ModelConfig = None):
     return params.train_loss(batch)
 
 
-def prefill(params: CausalLM, inputs, cfg: ModelConfig, max_len: int):
+def prefill(params, inputs, cfg: ModelConfig, max_len: int):
+    """A prompt's last-position logits and decode cache.  ``params`` a
+    :class:`CausalLM`, or a model placed over a device mesh, run under a ctx
+    over that mesh (:func:`_placed_prefill`: one :data:`PLACED_PREFILL`
+    variant a signature), whose cache comes back laid out as
+    :func:`place_group_caches` lays out a whole one."""
+    if isinstance(params, sh.PlacedModel):
+        return _placed_prefill(params, inputs, cfg, max_len)
     return params.prefill(inputs, max_len)
 
 
 def decode_step(params, cache, inputs, pos, cfg: ModelConfig):
     """One decode step.  ``params`` a :class:`CausalLM`, or a model placed
-    over a device mesh with ``cache`` from :func:`init_group_caches` or
-    :func:`place_group_caches`, run under a ctx over that mesh."""
+    over a device mesh with ``cache`` from :func:`init_group_caches`,
+    :func:`place_group_caches` or a placed :func:`prefill`, run under a ctx
+    over that mesh (:func:`_placed_decode`: one :data:`PLACED_DECODE`
+    variant serves every position).  ``pos`` is an int or a 0-dim integer
+    tensor."""
     if isinstance(params, sh.PlacedModel):
-        return _placed_decode_step(params, cache, inputs, int(pos), cfg)
-    return params.decode_step(cache, inputs, int(pos))
+        return _placed_decode(params, cache, inputs, pos, cfg)
+    return params.decode_step(cache, inputs, pos if isinstance(pos, torch.Tensor) else int(pos))
 
 
 # -- a model placed over a device mesh ------------------------------------------------
@@ -600,55 +620,196 @@ def _group_rows(batch: int, dp: int) -> int:
     return batch // dp
 
 
+# the reference's two jitted inference programs over a mesh
+# (src/repro/launch/dryrun.py:159-162 and :194-198): a variant a mesh, ctx,
+# input signature and cache layout (decode) or max_len (prefill), never a
+# position, which a decode step reads from a device tensor.  Both hand out
+# fresh outputs: the logits, and the prefill's caches, are the caller's.
+PLACED_DECODE = graphs.Program("placed_decode_step", eager_first=True, fresh=True)
+PLACED_PREFILL = graphs.Program("placed_prefill", eager_first=True, fresh=True)
+
+
+def _shards(placed: sh.PlacedModel) -> list[torch.Tensor]:
+    """Every position's shard of every leaf: the tensors a placed program
+    reads besides its operands."""
+    return [t for x in placed.leaves.values() for t in x.shards]
+
+
+def _layout(layer) -> tuple:
+    """A layer's decode cache as a variant key: its pieces' names, shapes,
+    dtypes and devices."""
+    if isinstance(layer, attn.SeqKV):
+        return ("seq", layer.group.positions, tuple(_layout(p) for p in layer.parts))
+    if isinstance(layer, list):
+        return ("positions", tuple(_layout(p) for p in layer))
+    return tuple((k, tuple(layer[k].shape), layer[k].dtype, layer[k].device) for k in sorted(layer))
+
+
+def _placed_decode(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos,
+                   cfg: ModelConfig):
+    """``decode_step`` over a placed model as a variant of
+    :data:`PLACED_DECODE`, keyed as the reference's jit keys its step: the
+    mesh and ctx, the inputs' shape and dtype, each layer's kind and cache
+    layout, and the config.  ``pos`` is an operand, on the card a device
+    tensor the replay copies in, so that a decode loop captures once.  The
+    graph belongs to every shard of the model and every tensor of the
+    caches (the reference donates the cache), which it updates in place."""
+    mesh = placed.mesh
+    ctx = sh.executor_ctx(mesh)
+    if len(caches) != len(sh.dp_leads(ctx)):
+        raise ValueError(f"{len(caches)} caches for {len(sh.dp_leads(ctx))} data-parallel groups")
+    layout = tuple(tuple(zip(cfg.layer_kinds, (_layout(layer) for layer in cache)))
+                   for cache in caches)
+    key = (mesh, ctx, tuple(inputs.shape), inputs.dtype, layout, cfg)
+    pos = torch.as_tensor(pos).to(torch.int64).reshape(())
+
+    def body(inputs, pos):
+        return _placed_decode_step(placed, caches, inputs, pos, cfg)
+
+    logits = PLACED_DECODE(key, body, [inputs, pos],
+                           _shards(placed) + list(graphs.tensors(caches)), device=mesh.devices[0])
+    return logits, caches
+
+
+def _copy_into(old, new) -> None:
+    """A layer's new decode state copied into its old tensors: a dict, or a
+    list of the positions' dicts."""
+    if isinstance(old, dict):
+        for k, t in old.items():
+            if new[k] is not t:
+                t.copy_(new[k])
+    else:
+        for o, n in zip(old, new):
+            _copy_into(o, n)
+
+
 @torch.no_grad()
-def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos: int,
-                        cfg: ModelConfig):
-    """``decode_step`` over a placed model, in the layout of
-    ``tensor_parallel.plan`` at ``[B, 1, D]``, layer by layer across the
-    data-parallel groups: every group's embedding; then for each block each
+def _placed_decode_step(placed: sh.PlacedModel, caches: list, inputs: torch.Tensor, pos,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The body of :data:`PLACED_DECODE`: ``decode_step`` over a placed model,
+    in the layout of ``tensor_parallel.plan`` at ``[B, 1, D]``, layer by
+    layer across the data-parallel groups (:func:`_over_groups`); each
     group's attention half on its positions with its cache there, and the
     FFN, per group for a dense MLP or a MoE layer in the training layout,
-    across the groups for an expert-stationary MoE layer
-    (``moe.moe_stationary``: each group's tokens to the groups that hold
-    their experts and back); then each group's head.  Each stage binds its
-    leaves as it runs, a position's own shard without a copy wherever its
-    region is that shard; a split head's logits are gathered onto the lead,
-    and the logits [B,V] come back on position 0's device."""
+    across the groups for an expert-stationary MoE layer.  ``pos`` is a
+    0-dim int64 tensor on position 0's device.  Every cache tensor is
+    updated in place: a layer whose step returns a new state (RG-LRU,
+    xLSTM) has it copied into its old tensors, as the reference's donated
+    cache is (``launch/dryrun.py`` ``_decode_in_place`` on one device).
+    Returns the logits [B,V] on position 0's device."""
     ctx = sh.executor_ctx(placed.mesh)
-    leads = sh.dp_leads(ctx)
-    if len(caches) != len(leads):
-        raise ValueError(f"{len(caches)} caches for {len(leads)} data-parallel groups")
-    dp = len(leads)
-    _group_rows(inputs.shape[0], dp)
-    local = dp_config(cfg, inputs.shape[0] * inputs.shape[1], dp)
+    groups = [tp.group(placed, ctx, lead) for lead in sh.dp_leads(ctx)]
+    _group_rows(inputs.shape[0], len(groups))
     plan = tp.plan(placed, ctx, (*inputs.shape[:2], cfg.d_model))
+
+    def block(g, i, x, view, local, stationary):
+        kind, cache = cfg.layer_kinds[i], caches[g][i]
+        if stationary:
+            x, h, new = B.block_decode_mixer(x, view, local, kind, cache, pos)
+        else:
+            (x, new), h = B.block_decode(x, view, local, kind, cache, pos), None
+        if new is not cache:
+            _copy_into(cache, new)
+        return x, h
+
+    return _over_groups(placed, inputs, cfg, plan, groups, block)
+
+
+def _placed_prefill(placed: sh.PlacedModel, inputs: torch.Tensor, cfg: ModelConfig,
+                    max_len: int):
+    """``prefill`` over a placed model as a variant of :data:`PLACED_PREFILL`,
+    keyed on the mesh and ctx, the inputs' shape and dtype, ``max_len`` and
+    the config (the reference jits ``lm.prefill`` with the parameters'
+    and the inputs' shardings); its graph belongs to every shard of the
+    model.  Returns (logits [B,V] on position 0's device, one cache a
+    data-parallel group)."""
+    mesh = placed.mesh
+    ctx = sh.executor_ctx(mesh)
+    key = (mesh, ctx, tuple(inputs.shape), inputs.dtype, max_len, cfg)
+
+    def body(inputs):
+        return _placed_prefill_step(placed, inputs, cfg, max_len)
+
+    return PLACED_PREFILL(key, body, [inputs], _shards(placed), device=mesh.devices[0])
+
+
+@torch.no_grad()
+def _placed_prefill_step(placed: sh.PlacedModel, inputs: torch.Tensor, cfg: ModelConfig,
+                         max_len: int):
+    """The body of :data:`PLACED_PREFILL`: the prompt through the blocks
+    layer by layer across the data-parallel groups (:func:`_over_groups`),
+    in the layout of ``tensor_parallel.plan`` at ``[B, S, D]`` with the
+    residual stream whole on each group's lead (a prefill saves nothing for
+    a backward; split by sequence its sums are the same bit for bit).  The
+    MoE layers route ``B S`` tokens (``moe.dp_config``).  Each block's cache
+    is laid out at once by the decode's rule (``tensor_parallel.place_layer``,
+    as :func:`place_group_caches` lays out a whole cache): an attention
+    cache, whole on the group's lead (a split layer's KV heads gathered),
+    grown to ``max_len`` slots first; an RG-LRU state split by channels
+    kept on its positions where the decode splits it the same way."""
+    ctx = sh.executor_ctx(placed.mesh)
+    b, s = inputs.shape[:2]
+    groups = [tp.group(placed, ctx, lead) for lead in sh.dp_leads(ctx)]
+    _group_rows(b, len(groups))
+    plan = dataclasses.replace(tp.plan(placed, ctx, (b, s, cfg.d_model)), seq=False)
+    layout = tp.plan(placed, ctx, (b, 1, cfg.d_model))  # the decode's
+    caches = [[] for _ in groups]
+
+    def block(g, i, x, view, local, stationary):
+        kind, group = cfg.layer_kinds[i], groups[g]
+        if stationary:
+            x, h, c = B.block_prefill_mixer(x, view, local, kind)
+        else:
+            (x, c), h = B.block_prefill(x, view, local, kind), None
+        if not isinstance(c, list):
+            c = _grown(kind, c, max_len)
+        caches[g].append(tp.place_layer(layout, ctx, i, kind, c, group, b,
+                                        lambda t, d: t.to(device=d, copy=True)))
+        return x, h
+
+    return _over_groups(placed, inputs, cfg, plan, groups, block), caches
+
+
+def _over_groups(placed: sh.PlacedModel, inputs: torch.Tensor, cfg: ModelConfig,
+                 plan: tp.Plan, groups: list, block) -> torch.Tensor:
+    """A placed forward layer by layer across the data-parallel groups
+    ``groups``, each group's rows of ``inputs`` on its positions: every
+    group's embedding; then for each block ``i`` and group ``g``, with the
+    block's leaves bound, ``block(g, i, x, view, local, stationary)`` ->
+    (the stream, and for an expert-stationary MoE layer its second norm,
+    else None), and the stationary FFN across the groups
+    (``moe.moe_stationary``: each group's tokens to the groups that hold
+    their experts and back); then each group's head at its last position.
+    Each stage binds its leaves as it runs, a position's own shard without
+    a copy wherever its region is that shard; a split head's logits are
+    gathered onto the lead.  Returns the logits [B,V] on position 0's
+    device."""
+    dp = len(groups)
+    local = dp_config(cfg, inputs.shape[0] * inputs.shape[1], dp)
     skels = _skeletons(placed, plan.n)
     embed, blocks, head = _stages(placed)
-    groups = [tp.group(placed, ctx, lead) for lead in leads]
     xs = []
     for group, rows in zip(groups, inputs.chunk(dp)):
         with _bound(skels, placed, embed, plan, group, False, own=True):
             xs.append(_embed(skels, rows.to(group.devices[0]), plan, group, cfg))
     for i, names in enumerate(blocks):
-        kind, hs = cfg.layer_kinds[i], []
-        for g, (group, cache) in enumerate(zip(groups, caches)):
+        hs = []
+        for g, group in enumerate(groups):
             with _bound(skels, placed, names, plan, group, False, own=True):
-                view = tp.block_view(skels, i, plan, group)
-                if i in plan.stationary:
-                    xs[g], h, cache[i] = B.block_decode_mixer(xs[g], view, local, kind, cache[i],
-                                                              pos)
-                    hs.append(h)
-                else:
-                    xs[g], cache[i] = B.block_decode(xs[g], view, local, kind, cache[i], pos)
+                xs[g], h = block(g, i, xs[g], tp.block_view(skels, i, plan, group), local,
+                                 i in plan.stationary)
+            if h is not None:
+                hs.append(h)
         if hs:
             ys = moe_stationary(hs, tp.bind_stationary(placed, plan, i, groups), local)
             xs = [x + y for x, y in zip(xs, ys)]
     home, out = placed.mesh.devices[0], []
     for group, x in zip(groups, xs):
+        x = x[:, -1:]
         with _bound(skels, placed, head, plan, group, False, own=True):
             if plan.vocab is None:
                 logits = skels[0].lm_logits(x)
             else:
                 logits = col.all_gather(_logit_parts(skels, x, plan, group), group)
         out.append(logits[:, 0].to(home))
-    return torch.cat(out), caches
+    return torch.cat(out)

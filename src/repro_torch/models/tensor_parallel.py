@@ -58,7 +58,8 @@ over the group's positions by their time axis, each holding its slots of
 every KV head (``attention.SeqKV``) where the positions divide the slot
 count, and an RG-LRU layer's state by its channels where they split; any
 other layer's cache, and one the positions do not divide, whole on the
-group's lead.
+group's lead.  A placed prefill lays out each layer's cache as its block
+finishes (:func:`place_layer`).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ import math
 import types
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.collectives import Group
 from repro_torch.models import attention as attn
@@ -346,17 +348,32 @@ def place_caches(p: Plan, cfg: ModelConfig, ctx: sh.ShardCtx, cache: list, grp: 
     or the layer's dict on the lead.  ``batch`` is the global batch the
     rule reads; ``make(t, device)`` makes each position's piece from its
     slice ``t`` of ``cache`` (a copy, or zeros of a ``meta`` slice's shape)."""
-    out = []
-    for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, cache)):
-        how = _layer_layout(p, ctx, i, kind, layer, batch)
-        if how == "seq":
-            tn = layer["k"].shape[1] // p.n
-            out.append(attn.SeqKV([{k: make(v.narrow(1, t * tn, tn), d) for k, v in layer.items()}
-                                   for t, d in enumerate(grp.devices)], grp))
-        elif how == "rec":
-            out.append([{k: make(v[..., c0:c1], d) for k, v in layer.items()}
-                        for (c0, c1), d in zip((s["c"] for s in p.layers[i]["rec"][1]),
-                                               grp.devices)])
-        else:
-            out.append({k: make(v, grp.devices[0]) for k, v in layer.items()})
-    return out
+    return [place_layer(p, ctx, i, kind, layer, grp, batch, make)
+            for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, cache))]
+
+
+def place_layer(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer, grp: Group,
+                batch: int, make):
+    """Layer ``i``'s entry of :func:`place_caches` from ``layer``, the group's
+    rows of its whole cache, or of an RG-LRU layer a list of the positions'
+    pieces of it by channels (a split prefill's state): kept on their
+    positions where the rule splits the channels into the same spans, else
+    gathered whole first."""
+    pieces = layer if isinstance(layer, list) else None
+    if pieces is not None:
+        layer = {k: v.new_empty((*v.shape[:-1], sum(q[k].shape[-1] for q in pieces)),
+                                device="meta") for k, v in pieces[0].items()}
+    how = _layer_layout(p, ctx, i, kind, layer, batch)
+    if pieces is not None:
+        if how == "rec" and [q["h"].shape[-1] for q in pieces] == [
+                c1 - c0 for c0, c1 in (s["c"] for s in p.layers[i]["rec"][1])]:
+            return [{k: make(v, d) for k, v in q.items()} for q, d in zip(pieces, grp.devices)]
+        layer = {k: col.all_gather([q[k] for q in pieces], grp, dim=-1) for k in pieces[0]}
+    if how == "seq":
+        tn = layer["k"].shape[1] // p.n
+        return attn.SeqKV([{k: make(v.narrow(1, t * tn, tn), d) for k, v in layer.items()}
+                           for t, d in enumerate(grp.devices)], grp)
+    if how == "rec":
+        return [{k: make(v[..., c0:c1], d) for k, v in layer.items()}
+                for (c0, c1), d in zip((s["c"] for s in p.layers[i]["rec"][1]), grp.devices)]
+    return {k: make(v, grp.devices[0]) for k, v in layer.items()}

@@ -1737,3 +1737,62 @@ def test_lru_scan_at_a_tensor_parallel_position_matches_plain(cuda):
         assert torch.equal(got, want)
     plan = lru_scan.lru_scan_bwd.last_plan
     assert (plan.grid, plan.channels, plan.route) == (64, 32, "tma")
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "recurrentgemma_9b", "qwen3_moe_235b_a22b"])
+def test_captured_placed_decode_matches_eager(cuda, arch, monkeypatch):
+    """A reduced model (f32, TF32 off) placed with ``inference=True`` on a
+    4 x 2 mesh and on 8 flat positions, every position on the card: the
+    placed prefill replayed equals an eager one bit for bit (one capture);
+    then 10 decode steps captured once (the first eager, nine replays of one
+    ``PLACED_DECODE`` variant at positions 12-21) equal 10 eager steps bit
+    for bit, logits and caches; K5 runs on the positions' channels."""
+    import copy
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.smoke import reduce
+    from repro_torch.core import graphs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+
+    _no_tf32(monkeypatch)
+    cfg = reduce(get_config(arch))
+    if cfg.moe is not None:  # the dry-run's routing groups at this shape
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=4))
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 12), generator=g, dtype=torch.int32)
+    toks = [torch.randint(0, cfg.vocab_size, (8, 1), generator=g, dtype=torch.int32)
+            for _ in range(10)]
+    mesh = make_device_mesh((4, 2), ("data", "model"))
+    for make in (sh.make_ctx, sh.make_decode_2d_ctx):
+        ctx = make(mesh)
+        placed = sh.place(model, mesh, ctx, inference=True)
+        lm.PLACED_PREFILL.clear()
+        lm.PLACED_DECODE.clear()
+        scans = lru_scan.lru_scan.launches
+        pre, dec = lm.PLACED_PREFILL, lm.PLACED_DECODE
+        before = (pre.captures, pre.replays, dec.captures, dec.replays)
+        with sh.use_ctx(ctx):
+            lm.prefill(placed, prompt, cfg, 32)  # eager, then the capture
+            logits, graphed = lm.prefill(placed, prompt, cfg, 32)  # a replay
+            with graphs.disable_capture():
+                want, eager = lm.prefill(placed, prompt, cfg, 32)
+            assert (pre.captures - before[0], pre.replays - before[1]) == (1, 1)
+            assert torch.equal(logits, want)
+            assert all(torch.equal(a, b) for a, b in zip(graphs.tensors(graphed),
+                                                         graphs.tensors(eager)))
+            if arch == "recurrentgemma_9b":
+                assert lru_scan.lru_scan.launches > scans
+            lm.PLACED_PREFILL.clear()
+            again = copy.deepcopy(eager)
+            for i, t in enumerate(toks):
+                got, graphed = lm.decode_step(placed, graphed, t, 12 + i, cfg)
+                with graphs.disable_capture():
+                    want, again = lm.decode_step(placed, again, t, 12 + i, cfg)
+                assert torch.equal(got, want), (make.__name__, i)
+            assert (len(dec), dec.captures - before[2], dec.replays - before[3]) == (1, 1, 9)
+            assert all(torch.equal(a, b) for a, b in zip(graphs.tensors(graphed),
+                                                         graphs.tensors(again)))
+        lm.PLACED_DECODE.clear()

@@ -216,8 +216,11 @@ def test_attention_mqa_and_whole_heads_match_one_device(heads, kv, split):
 
 def test_split_attention_prefill_and_decode_match_the_whole_layer():
     """(c) Attention split by heads over 2 positions (4 q heads, 2 KV heads)
-    through prefill and a decode step: outputs within 1e-5, each position's
-    cache holding its KV head."""
+    through prefill and a decode step: outputs within 1e-5; the split
+    prefill's cache is the whole layer's, its KV heads gathered on the lead,
+    and the decode reads it laid over the positions by sequence (the
+    placed layout, ``attention.SeqKV``) at an int and at a tensor
+    position."""
     from repro_torch.models import attention as attn
 
     cfg = _cfg("gemma2_27b", n_layers=4)
@@ -233,18 +236,25 @@ def test_split_attention_prefill_and_decode_match_the_whole_layer():
     x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator().manual_seed(9))
     for window in (0, cfg.window):
         want, cache = attn.attn_prefill(x, layer, cfg, window)
-        got, caches = attn.attn_prefill(x, split, cfg, window)
+        got, whole = attn.attn_prefill(x, split, cfg, window)
         torch.testing.assert_close(got, want, **BLOCK_TOL)
-        assert [c["k"].shape[2] for c in caches] == [1, 1]
-        torch.testing.assert_close(torch.cat([c["k"] for c in caches], 2), cache["k"], **BLOCK_TOL)
-        pad = [torch.nn.functional.pad(c["k"], (0, 0, 0, 0, 0, 4)) for c in (cache, *caches)]
-        full = [{"k": k, "v": torch.nn.functional.pad(c["v"], (0, 0, 0, 0, 0, 4))}
-                for k, c in zip(pad, (cache, *caches))]
-        if window:  # a rolling cache holds the last window steps already
-            full = [cache, *caches]
-        want, _ = attn.attn_decode(x[:, :1], layer, cfg, full[0], 12, window)
-        got, _ = attn.attn_decode(x[:, :1], split, cfg, full[1:], 12, window)
-        torch.testing.assert_close(got, want, **BLOCK_TOL)
+        assert whole["k"].shape[2] == cfg.n_kv_heads
+        for k in ("k", "v"):
+            torch.testing.assert_close(whole[k], cache[k], **BLOCK_TOL)
+        if not window:  # a global layer's 12 slots padded to 16 (a rolling one holds 8)
+            cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4)) for k, v in cache.items()}
+            whole = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4)) for k, v in whole.items()}
+        tn = whole["k"].shape[1] // 2
+        for pos in (12, torch.tensor(12)):
+            ref = {k: v.clone() for k, v in cache.items()}
+            seq = attn.SeqKV([{k: v[:, t * tn:(t + 1) * tn].clone() for k, v in whole.items()}
+                              for t in range(2)], grp)
+            want, _ = attn.attn_decode(x[:, :1], layer, cfg, ref, pos, window)
+            got, _ = attn.attn_decode(x[:, :1], split, cfg, seq, pos, window)
+            torch.testing.assert_close(got, want, **BLOCK_TOL)
+            for k in ("k", "v"):
+                torch.testing.assert_close(torch.cat([p[k] for p in seq.parts], 1), ref[k],
+                                           **BLOCK_TOL)
 
 
 def _head_parts(cfg, head: torch.Tensor, n: int):
