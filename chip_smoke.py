@@ -174,7 +174,7 @@ printed):
    routing call's slots equal (a mismatch prints the token's gate gap),
    equal tokens, tables and flags, pools and logits within 1e-5.
 25. xlstm_125m in full (12 layers, d 768, sLSTM at layers 3, 7 and 11, bf16)
-   through ``lm.prefill`` and ``lm.decode_step``: 8 prompts of 2048 tokens
+   through ``lm.prefill`` and ``lm.decode_step``: 8 prompts of 1024 tokens
    (the chunked mLSTM), then 64 greedy decode steps, twice, with the sLSTM
    layers' per-token prefill loops timed; finite logits and the same tokens.
    Then the reduced config on the card and on the CPU in lockstep (f32, TF32
@@ -236,7 +236,9 @@ printed):
 
 34. Five dry-run cells at full width through ``launch.dryrun.run_cell`` on
    the card (the dry-run cuts the batch to fit and holds at most
-   ``STEP_TOKENS`` tokens a step, and keeps every layer here):
+   ``STEP_TOKENS`` tokens a step; granite's ``prefill_32k`` and
+   ``train_4k`` run 10 of its 40 layers, ``DRYRUN_LAYERS``, every other
+   cell every layer):
    granite_3_2b ``decode_32k``, ``prefill_32k`` and ``train_4k``, and
    recurrentgemma_9b ``prefill_32k`` (which launches K5) and ``long_500k``
    (decode at position 524,287).  Each cell's step is a captured program:
@@ -250,7 +252,9 @@ printed):
    are no more than the profiled step's wall, nor than the median
    unprofiled step by more than ``DRYRUN_TRACE_TOL``; recurrentgemma's
    profiled prefill launches K5 once per ``rec`` layer, named from the
-   trace.  Then ``roofline.report.measured_table("h100")`` of these five
+   trace (each run is profiled ``dryrun.PROFILED_STEPS`` times and keeps
+   the trace with the most device events: the profiler loses records).
+   Then ``roofline.report.measured_table("h100")`` of these five
    artifacts, and the LRU-scan kernel against its plain version, bit for
    bit and run to run, at the shape that prefill gives it (a, b, out [1,
    32768, 4096] f32), timed against its byte bound, with the plan it
@@ -408,7 +412,22 @@ printed):
    ``graphs.disable_capture()`` bit for bit, logits and caches, with one
    variant, one capture and a replay each later step, and the limits
    against the unsharded decode; seconds of each prefill, ms a step graphed
-   and eager; then K5 and its backward at 40(b)'s per-position shape [1,
+   and eager; (k) xlstm_125m at full width and depth (12 layers, d 768)
+   split by heads over the model axis (``SHARD_XLSTM``): two bf16 train
+   steps of 8 x 128 unsharded, on 4 x 2 graphed and eager with the stream
+   split by sequence, and graphed with it whole: step 1 within
+   ``SHARD_TP_LOSS_RTOL`` of the unsharded loss, step 2 and the parameters
+   within the ``SHARD_*`` limits (the share of elements outside
+   ``XLSTM_PARAM_OUTSIDE``), graphed equal to eager bit for bit, by
+   sequence against whole (40(g)'s readings), each position's bytes equal
+   to ``account``'s and 1/2 of every cell leaf bound a position; then in
+   f32 the placed prefill of 8 x 128 tokens (the chunked mLSTM) and 8
+   captured decode steps from its caches against the unsharded prefill
+   and decode: logits, caches and the states after the last step within
+   the ``XLSTM_*_TOL`` limits and the unsharded run of a control prompt
+   (its middle token changed) beyond each, replays equal to eager bit for
+   bit, one variant each, each position's cache bytes equal to the
+   dry-run's; then K5 and its backward at 40(b)'s per-position shape [1,
    1,024, 2,048] f32 against their plain versions, bit for bit, timed: the
    ``phase`` 40 rows of the kernels line, whose launches are 40(b)'s 4 x 2
    run's; and K5 at 40(j)'s [1, 2048, 2048], whose launches are 40(j)'s
@@ -600,7 +619,7 @@ PAGED_MOE = {
 }
 # phase 25: xlstm_125m in full, prompts long enough for the chunked mLSTM; the
 # reduced config's prefills on either side of the chunked cell's threshold
-XLSTM = dict(prompts=8, prompt_len=2048, steps=64)
+XLSTM = dict(prompts=8, prompt_len=1024, steps=64)
 # phase 27: granite_3_2b trained at full width and depth
 TRAIN_GRANITE = dict(batch=8, seq=1024, n_micro=2, lr=3e-3, warmup=2, steps=10)
 # phase 28: recurrentgemma_9b at full width, one period plus the tail (4 rec, 1 win)
@@ -635,6 +654,11 @@ HEADROOM_BYTES = 8 * 2**30
 DRYRUN_CELLS = (("granite_3_2b", "decode_32k"), ("granite_3_2b", "prefill_32k"),
                 ("granite_3_2b", "train_4k"), ("recurrentgemma_9b", "prefill_32k"),
                 ("recurrentgemma_9b", "long_500k"))
+# granite's 32k prefill and 4k training step at 10 of their 40 layers (all
+# 40 took 186.6 and 123.2 s of the 1,200 s limit on an H100 80GB HBM3 at
+# 700 W; 40(k) takes about as much): the depth cut as the dry-run records
+# a reduced config; every other cell keeps every layer
+DRYRUN_LAYERS = {("granite_3_2b", "prefill_32k"): 10, ("granite_3_2b", "train_4k"): 10}
 DRYRUN_ARG_TOL = 0.01  # argument bytes, meta against the allocator (which rounds each tensor up)
 # the profiled step's device ms over the median unprofiled step: tracing
 # lengthens each kernel a little (granite's 32k prefill read 1.0% over)
@@ -748,6 +772,30 @@ PLACED_RECUR_TOL = 2e-6
 PLACED_PREFILL_POOL_GIB = 12.0
 SHARD_PARAM_OUTSIDE = 1e-2
 SHARD_UPDATE_ERROR = 0.2
+# 40(k): xlstm_125m at full width and depth (12 layers: 9 mLSTM, 3 sLSTM;
+# d 768, 4 heads, sLSTM FFN 1,024) on 4 x 2, its blocks split by heads over
+# the model axis.  Training in bf16: two sharded steps of 8 x 128 in one
+# microbatch (two rows a data-parallel group), the stream split by
+# sequence and whole.  Inference in f32: the placed prefill of 8 x 128
+# tokens (the chunked mLSTM: 128 >= 2 x 64) and 8 captured decode steps
+# from its caches, against the unsharded prefill and decode
+SHARD_XLSTM = dict(config="xlstm_125m", layers=12, batch=8, seq=128, n_micro=1, steps=2,
+                   prompt=128, max_len=136, decode_steps=8)
+# 40(k): rel L2 against the unsharded run of the placed prefill's logits
+# and caches, of the decode's logits and of its states after the last
+# step; each control is the unsharded run of the prompt with its middle
+# token changed.  Read on an H100 80GB HBM3 at 700 W: 1.47e-6, 9.9e-7,
+# 1.07e-6 and 7.4e-7, the controls 4.1e-3, 9.9e-3, 3.8e-3 and 6.8e-3
+XLSTM_PREFILL_TOL = 4e-6
+XLSTM_CACHE_TOL = 1e-5
+XLSTM_DECODE_TOL = 4e-6
+XLSTM_STATE_TOL = 1e-5
+# 40(k)'s parameters after two full-rate bf16 steps: Adam's first update
+# moves an element by about lr whatever its gradient's size, so an element
+# whose tiny gradient changes sign between the split and the whole products
+# lands 2 lr apart.  Read on an H100 80GB HBM3 at 700 W: 0.25% to 1.04% of
+# the elements outside rtol 3e-3 / atol 3e-4, a step without update 74%
+XLSTM_PARAM_OUTSIDE = 3e-2
 K6A_ROUNDS = 7  # phase 12: K6a at 256 and 1,024 lanes against index_select, in turns
 # phase 12: K6a's lane counts (either side of the H100's 132 SMs, one drain
 # area and a tick's budget) and its slots: a ragged last tile, 240 and 512 B
@@ -3562,17 +3610,20 @@ def dryrun_cells(dev) -> dict:
     res, arts = {}, {}
     for arch, shape in DRYRUN_CELLS:
         release()
+        full = get_config(arch)
+        layers = DRYRUN_LAYERS.get((arch, shape), full.n_layers)
+        cut = dataclasses.replace(full, n_layers=layers)
         reset_launch_counts()
         t0 = time.perf_counter()
-        art = dryrun.run_cell(arch, shape, "h100", force=True, device=dev, seed=SEED)
+        with unittest.mock.patch.object(dryrun, "get_config", lambda _: cut):
+            art = dryrun.run_cell(arch, shape, "h100", force=True, device=dev, seed=SEED)
         wall_s = time.perf_counter() - t0
         launches = launch_counts()
         what = f"dry-run {arch} {shape}"
         check(art["status"] == "OK", f"{what}: {art['status']} {art.get('traceback', '')}")
-        full = get_config(arch)
-        check(art["config"] == full.name and art["full"]["n_layers"] == full.n_layers
-              and (art["reduced"] is None or art["reduced"]["layers"] == full.n_layers),
-              f"{what}: full width and all {full.n_layers} layers")
+        check(art["config"] == full.name and art["full"]["n_layers"] == layers
+              and (art["reduced"] is None or art["reduced"]["layers"] == layers),
+              f"{what}: full width and {layers} of {full.n_layers} layers")
         mem, m = art["memory"], art["measured"]
         want = art["accounting"]["argument_bytes"]
         check(abs(mem["argument_bytes"] - want) <= DRYRUN_ARG_TOL * want,
@@ -3587,19 +3638,21 @@ def dryrun_cells(dev) -> dict:
               f"{what}: device {m['device_ms']:.2f} ms within the median unprofiled step's "
               f"{m['step_ms']:.2f} ms (+{DRYRUN_TRACE_TOL:.0%})")
         if arch == "recurrentgemma_9b" and shape == "prefill_32k":
-            n_rec = full.layer_kinds.count("rec")
+            n_rec = cut.layer_kinds.count("rec")
             k5 = m["kernel_classes"].get("K5 lru_scan", {}).get("launches", 0)
             check(k5 == n_rec, f"{what}: the trace names K5 {k5} times, once per rec layer "
                                f"({n_rec})")
-            # graphed: the eager first step, timed replays, a profiled one;
-            # then eager: timed steps and a profiled one
-            steps = (1 + dryrun.TIMED_STEPS["prefill"] + 1) + (dryrun.EAGER_STEPS["prefill"] + 1)
+            # graphed: the eager first step, timed replays, the profiled ones;
+            # then eager: timed steps and the profiled ones
+            steps = ((1 + dryrun.TIMED_STEPS["prefill"] + dryrun.PROFILED_STEPS)
+                     + (dryrun.EAGER_STEPS["prefill"] + dryrun.PROFILED_STEPS))
             check(launches["lru_scan"] == steps * n_rec,
                   f"{what}: lru_scan launched once per rec layer and step, graphed or eager")
         e = art["eager"]
         check(art["graphed_equals_eager"],
               f"{what}: the second step's outputs graphed and eager, bit for bit")
-        check(m["captures"] == 1 and m["replays"] == dryrun.TIMED_STEPS[SHAPES[shape].kind] + 1,
+        check(m["captures"] == 1 and m["replays"]
+              == dryrun.TIMED_STEPS[SHAPES[shape].kind] + dryrun.PROFILED_STEPS,
               f"{what}: one capture, then every graphed step a replay")
         bound_ms = art["roofline"]["step_time_s"] * 1e3
         print(f"dry-run {arch} {shape} ({art['reduced'] or 'not cut'}): step "
@@ -3609,7 +3662,8 @@ def dryrun_cells(dev) -> dict:
               f"step's {m['window_ms']:.2f} ms), peak {m['peak_bytes'] / 2**30:.2f} "
               f"GiB, arguments {mem['argument_bytes']} B (meta {want}), bound {bound_ms:.3f} ms "
               f"({art['roofline']['dominant']}), step / bound {m['step_ms'] / bound_ms:.2f}, "
-              f"{m['kernels']} device events, wall {wall_s:.1f} s [{card()}]")
+              f"{m['kernels']} device events (of {m['profiled_events']} in the profiled "
+              f"steps), wall {wall_s:.1f} s [{card()}]")
         print(f"dry-run {arch} {shape} graphed against eager: step {m['step_ms']:.2f} against "
               f"{e['step_ms']:.2f} ms (eager {e['steps_ms']}), busy {m['busy']:.3f} against "
               f"{e['busy']:.3f}, peak {m['peak_bytes'] / 2**30:.2f} against "
@@ -4840,7 +4894,8 @@ def leaf_sample(t: torch.Tensor) -> torch.Tensor:
     return flat[::max(1, flat.numel() >> 20)].clone()
 
 
-def sharded_matches(state, want: dict, init: dict, dev, what: str, pick=whole_leaf) -> dict:
+def sharded_matches(state, want: dict, init: dict, dev, what: str, pick=whole_leaf,
+                    outside_limit: float = SHARD_PARAM_OUTSIDE) -> dict:
     """Each placed parameter, gathered on the card, against ``want``'s: the
     share of elements outside ``SHARD_PARAM_TOL`` at most
     ``SHARD_PARAM_OUTSIDE`` and the update's error, ``|got - want| /
@@ -4862,11 +4917,11 @@ def sharded_matches(state, want: dict, init: dict, dev, what: str, pick=whole_le
         del got, ref_, ini
     out = dict(param_max_abs_diff=worst, param_outside=outside / n,
                param_control_outside=control_outside / n, update_error=math.sqrt(err2 / upd2))
-    check(out["param_outside"] <= SHARD_PARAM_OUTSIDE,
+    check(out["param_outside"] <= outside_limit,
           f"{what}: {outside} of {n} parameters outside rtol 3e-3 / atol 3e-4")
     check(out["update_error"] <= SHARD_UPDATE_ERROR,
           f"{what}: the update's error {out['update_error']:.4g} of its size")
-    check(out["param_control_outside"] > SHARD_PARAM_OUTSIDE,
+    check(out["param_control_outside"] > outside_limit,
           f"{what}: a step without update lies beyond the parameters' limit")
     return out
 
@@ -5677,6 +5732,194 @@ def placed_recurrent(dev) -> dict:
                 max_len=spec["max_len"], steps=steps, **out)
 
 
+def cell_regions_split(placed, ctx, spec: dict) -> bool:
+    """Whether every position of a group binds 1/n of each leaf of every
+    xLSTM block's cell (``up`` its two branches' spans) under the plan of a
+    step of ``spec``'s shape, the sLSTM FFN's leaves too where its hidden
+    units split."""
+    cfg = placed.cfg
+    with sh.use_ctx(ctx):
+        p = tensor_parallel.plan(placed, ctx, (spec["batch"], spec["seq"], cfg.d_model))
+    ok = all("cell" in p.layers[i] for i in range(cfg.n_layers))
+    for name, x in placed.leaves.items():
+        if ".cell." in name:
+            for region in p.regions[name]:
+                pieces = region if isinstance(region, list) else [region]
+                ok &= sum(math.prod(sh.region_shape(r)) for r in pieces) * p.n == math.prod(
+                    x.shape)
+    return ok
+
+
+def xlstm_decode(model, toks: list, cache: list, p0: int) -> tuple[list, list, list]:
+    """Unsharded decode steps from ``cache`` (a copy): (each step's fp32
+    logits, ms a step, the state after the last step)."""
+    cache = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    want, ms = [], []
+    for i, tok in enumerate(toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, p0 + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(logits.float())
+    return want, ms, cache
+
+
+def sharded_xlstm_training(dev, mesh) -> dict:
+    """40(k)'s training: ``SHARD_XLSTM``'s two steps unsharded (eager), then on
+    4 x 2 graphed and eager with the stream split by sequence, and graphed
+    with it whole: step 1 within ``SHARD_TP_LOSS_RTOL`` of the unsharded
+    loss, the parameters within the ``SHARD_*`` limits, graphed equal to
+    eager bit for bit, the split by sequence against the whole stream
+    (:func:`seq_parallel_readings`), and the bytes a position holds equal
+    to ``account``'s."""
+    spec = SHARD_XLSTM
+    cfg = shard_config(spec)
+    init = {}
+    ref_state, base = sharded_steps(dev, cfg, spec, None, init=init)
+    want = params_of(ref_state)
+    del ref_state
+    release()
+    runs, states = {"unsharded": base}, {}
+    for mode, capture, seq in (("4x2", True, True), ("eager", False, True), (WHOLE, True, False)):
+        states[mode], runs[mode] = sharded_steps(dev, cfg, spec, mesh, capture, seq_shard=seq)
+        r = runs[mode]
+        r.update(losses_agree(r["losses"], base["losses"], f"40(k) {mode}", True),
+                 **sharded_matches(states[mode], want, init, dev, f"40(k) {mode}",
+                                   outside_limit=XLSTM_PARAM_OUTSIDE))
+        train_step_mod.SHARDED_STEP.clear()
+    g, e = runs["4x2"], runs["eager"]
+    check(g["captures"] == 1 and g["replays"] == spec["steps"] - 1,
+          "40(k): the first sharded step eager, one capture, then replays")
+    check(g["losses"] == e["losses"], "40(k): graphed losses equal eager bit for bit")
+    check(all(torch.equal(a, b) for a, b in zip(state_tensors(states["4x2"]),
+                                                state_tensors(states["eager"]))),
+          "40(k): parameters, m, v and step graphed equal eager bit for bit")
+    check(g["collectives"].get("all_gather", 0) > 0 and g["collectives"].get("all_reduce", 0) > 0,
+          "40(k): the xLSTM blocks gathered z and the conv outputs and added partials over the "
+          "model axis")
+    out = dict(runs=runs, **accounted(cfg, spec, mesh, states["4x2"]),
+               regions_split=cell_regions_split(states["4x2"].params, sh.make_ctx(mesh), spec))
+    check(out["regions_split"], "40(k): each position binds 1/2 of every split xLSTM leaf")
+    del states["eager"]
+    out["seq_parallel"] = seq_parallel_readings(
+        dev, cfg, spec, runs, states["4x2"],
+        {n: sh.gather(x, dev) for n, x in states[WHOLE].params.leaves.items()}, init,
+        "40(k) training")
+    print(f"phase 40(k) xlstm_125m training (12 layers, full width, bf16, batch {spec['batch']} x "
+          f"{spec['seq']}) split by heads on 4 x 2: losses unsharded {base['losses']}, 4 x 2 "
+          f"graphed {g['losses']}, eager {e['losses']}, whole stream {runs[WHOLE]['losses']}; "
+          f"{run_table({k: runs[k] for k in ('unsharded', '4x2', WHOLE)})}; 4 x 2 eager step ms "
+          f"{[round(x, 2) for x in e['step_ms']]}; {readings(g)}; collectives a step "
+          f"{g['collectives']}; {out['position_bytes']:,} B a position (account "
+          f"{out['account_bytes']:,}) [{card()}]")
+    del states, want, init
+    train_step_mod.SHARDED_STEP.clear()
+    release()
+    return out
+
+
+def sharded_xlstm_inference(dev, mesh) -> dict:
+    """40(k)'s inference, in f32: the unsharded prefill of ``SHARD_XLSTM``'s
+    prompt (and of the control prompt, its middle token changed) and the
+    unsharded decode from each; then under ``make_ctx`` the placed prefill
+    (:func:`placed_prefill`) and the captured decode from its caches
+    (:func:`placed_decode`), whose states after the last step are held
+    against the unsharded decode's (laid out by ``place_group_caches``),
+    and each position's cache bytes against the dry-run's."""
+    spec = SHARD_XLSTM
+    cfg = dataclasses.replace(shard_config(spec), param_dtype="float32", compute_dtype="float32")
+    b, p0, steps = spec["batch"], spec["prompt"], spec["decode_steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 48)
+    model = lm.init_params(gen, cfg, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, p0 + steps), generator=gen, device=dev,
+                        dtype=torch.int32)
+    toks = [ids[:, p0 + i:p0 + i + 1] for i in range(steps)]
+    ref_out = unsharded_prefill(model, cfg, ids[:, :p0], spec["max_len"])
+    want, ms, final = xlstm_decode(model, toks, ref_out["cache"], p0)
+    _, c_cache = model.prefill(middle_changed(ids[:, :p0], cfg.vocab_size), spec["max_len"])
+    c_want, _, c_final = xlstm_decode(model, toks, c_cache, p0)
+    out = dict(params=lm.count_params(cfg), prefill_s=ref_out["prefill_s"],
+               unsharded_step_ms=ms, control_logits_rel_l2=ref_out["control_logits_rel_l2"],
+               control_cache_rel_l2=ref_out["control_cache_rel_l2"],
+               control_decode_rel_l2=max(rel_l2(c, w) for c, w in zip(c_want, want)),
+               control_state_rel_l2=rel_l2(c_final, final))
+    del c_cache, c_want, c_final
+    model = model.cpu()
+    release()
+    ctx = sh.make_ctx(mesh)
+    placed = sh.place(model, mesh, ctx, inference=True)
+    with sh.use_ctx(ctx):
+        whole = lm.place_group_caches(placed, ref_out["cache"])
+        pre, caches = placed_prefill(dev, placed, cfg, ids[:, :p0], spec["max_len"], ref_out,
+                                     whole)
+        del whole
+        out["position_cache_bytes"] = lm.cache_position_bytes(placed, caches)
+        out["account_cache_bytes"] = cache_account(cfg, spec, mesh, ctx)
+        collectives.counts.clear()
+        with graphs.disable_capture():
+            lm.decode_step(placed, copy.deepcopy(caches), toks[0], p0, cfg)
+        out["decode_collectives"] = dict(collectives.counts)
+        dec = placed_decode(dev, placed, cfg, caches, toks, p0, want)
+        dec["state_rel_l2"] = rel_l2(caches, lm.place_group_caches(placed, final))
+    out["runs"] = {"4x2": dict(ctx="4x2", positions=len(sh.tp_peers(ctx, 0)), **dec, prefill=pre)}
+    del placed, caches, model, want, final, ref_out
+    release()
+    r = out["runs"]["4x2"]
+    print(f"phase 40(k) xlstm_125m placed prefill and captured decode ({cfg.n_layers} layers, "
+          f"full width, {out['params']:,} parameters, f32, {b} rows, a {p0}-token prompt, "
+          f"{steps} steps) split by heads on 4 x 2: unsharded prefill {out['prefill_s']:.3f} s, "
+          f"decode {statistics.median(ms):.2f} ms a step; {placed_text(pre, r)}; decode state "
+          f"rel L2 {r['state_rel_l2']:.3g}; controls (middle token changed): prefill logits "
+          f"{out['control_logits_rel_l2']:.3g}, cache {out['control_cache_rel_l2']:.3g}, decode "
+          f"logits {out['control_decode_rel_l2']:.3g}, states {out['control_state_rel_l2']:.3g}; "
+          f"limits {XLSTM_PREFILL_TOL}, {XLSTM_CACHE_TOL}, {XLSTM_DECODE_TOL}, "
+          f"{XLSTM_STATE_TOL}; collectives of an eager step {out['decode_collectives']}; cache "
+          f"bytes a position {out['position_cache_bytes'][0]:,} (dry-run "
+          f"{out['account_cache_bytes']:,}) [{card()}]")
+    what = "40(k) xlstm"
+    check(pre["graphed_equals_eager"], f"{what}: the placed prefill replayed equals the eager "
+          "one, bit for bit")
+    check((pre["variants"], pre["captures"], pre["replays"]) == (1, 1, 1),
+          f"{what}: one prefill variant, captured once and replayed once")
+    check(r["graphed_equals_eager"], f"{what}: the captured decode equals the eager decode, "
+          "logits and caches bit for bit")
+    check((r["variants"], r["captures"], r["replays"]) == (1, 1, steps - 1),
+          f"{what}: one decode variant and one capture for the loop of {steps} steps")
+    for name, got, control, limit in (
+            ("prefill logits", pre["logits_rel_l2"], out["control_logits_rel_l2"],
+             XLSTM_PREFILL_TOL),
+            ("prefill caches", pre["cache_rel_l2"], out["control_cache_rel_l2"], XLSTM_CACHE_TOL),
+            ("decode logits", max(r["rel_l2"]), out["control_decode_rel_l2"], XLSTM_DECODE_TOL),
+            ("decode states", r["state_rel_l2"], out["control_state_rel_l2"], XLSTM_STATE_TOL)):
+        check(got <= limit, f"{what}: {name} within rel L2 {limit} of the unsharded run "
+              f"({got:.3g})")
+        check(control > limit, f"{what}: the control's {name} ({control:.3g}) lie beyond it")
+    check(out["position_cache_bytes"] == [out["account_cache_bytes"]] * mesh.size,
+          f"{what}: each position's cache bytes equal the dry-run's")
+    check(out["decode_collectives"].get("all_gather", 0) > 0,
+          f"{what}: the decode step gathered the positions' conv outputs")
+    return out
+
+
+def sharded_xlstm(dev) -> dict:
+    """40(k): xlstm_125m at full width and depth on 4 x 2, its mLSTM and
+    sLSTM blocks split by heads over the model axis: training
+    (:func:`sharded_xlstm_training`) and inference
+    (:func:`sharded_xlstm_inference`)."""
+    mesh = make_device_mesh(*SHARD_MESH)
+    t0 = time.perf_counter()
+    out = dict(config=SHARD_XLSTM["config"], training=sharded_xlstm_training(dev, mesh))
+    out["training_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["inference"] = sharded_xlstm_inference(dev, mesh)
+    out["inference_s"] = time.perf_counter() - t0
+    out["runs"] = {**{f"train {k}": v for k, v in out["training"]["runs"].items()},
+                   "prefill": out["inference"]["runs"]["4x2"]["prefill"],
+                   "decode": out["inference"]["runs"]["4x2"]}
+    return out
+
+
 def lru_scan_placed_row(dev, launches: int) -> dict:
     """K5 at 40(j)'s per-position prefill shape [1, 2048, 2048] (a
     data-parallel group's row, a position's channels of recurrentgemma's
@@ -5826,6 +6069,10 @@ def model_sharding(dev) -> dict:
     t0 = time.perf_counter()
     out["placed_recurrent"] = placed_recurrent(dev)
     out["placed_recurrent"]["wall_s"] = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    out["xlstm"] = sharded_xlstm(dev)
+    out["xlstm"]["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6006,7 +6253,7 @@ def main() -> int:
              + [shards[k] for k in ("drain", "drain_huge", "failed_region_drain")]
              + list(shards["card_matches_cpu"].values())
              + [r for k in ("granite", "recurrentgemma", "moe", "decode", "expert_decode",
-                            "placed_recurrent") for r in sharding[k]["runs"].values()]
+                            "placed_recurrent", "xlstm") for r in sharding[k]["runs"].values()]
              + [r["prefill"] for k in ("decode", "expert_decode", "placed_recurrent")
                 for r in sharding[k]["runs"].values()]
              + list(sharding["several_cards"].get("runs", {}).values()))

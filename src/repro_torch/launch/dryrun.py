@@ -21,12 +21,13 @@ the cut under ``reduced``.  It builds the cut cell with random weights from
 ``--seed``; its step is a ``graphs.Program``, as the reference jits each
 cell.  The first step runs eagerly and captures the graph (the warm-up,
 ``first_step_s``), then ``TIMED_STEPS`` replays are timed with CUDA events
-(more of them for a decode cell, whose step the host bounds), then one more
-runs under ``torch.profiler``.  The cell is then built again and run
-eagerly (``graphs.disable_capture()``): ``EAGER_STEPS`` timed steps and one
-profiled, recorded under ``eager``, and the second step's outputs of both
-runs are compared bit for bit (``graphed_equals_eager``).  It writes the
-reference's keys (``memory``,
+(more of them for a decode cell, whose step the host bounds), then
+``PROFILED_STEPS`` more run under ``torch.profiler`` (one on the CPU), the
+trace with the most device events kept.  The cell is then built again and
+run eagerly (``graphs.disable_capture()``): ``EAGER_STEPS`` timed steps and
+``PROFILED_STEPS`` profiled, recorded under ``eager``, and the second
+step's outputs of both runs are compared bit for bit
+(``graphed_equals_eager``).  It writes the reference's keys (``memory``,
 ``flops_per_device``, ``bytes_per_device`` and ``model_flops`` of the cut
 cell, ``wire_bytes_per_device``, ``roofline``), ``build_s`` and
 ``first_step_s`` for the reference's ``lower_s`` and ``compile_s``, and
@@ -128,6 +129,12 @@ TIMED_STEPS = {"train": 3, "prefill": 1, "decode": 25}
 # timed steps of the eager run beside the graphed one (a rebuilt cell, no
 # warm-up: the graphed run has warmed the process)
 EAGER_STEPS = {"train": 1, "prefill": 1, "decode": 25}
+# profiled steps of each run on the card, the trace with the most device
+# events kept: the profiler loses records, now and then a run of about 20
+# consecutive ones (``scripts/trace_loss.py`` counts them).  A replay, or an
+# eager step, launches the same kernels every time, so the fuller trace is
+# the truer one
+PROFILED_STEPS = 2
 
 
 class DoesNotFit(ValueError):
@@ -463,7 +470,7 @@ def _timed(step, device: torch.device):
 
 def _profiled(step, device: torch.device, trace_path: str):
     """(the step's result, the wall ms of the step run under the profiler,
-    its trace's kernel classes, the trace)."""
+    its trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -473,15 +480,15 @@ def _profiled(step, device: torch.device, trace_path: str):
         _sync(device)
         window_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(trace_path)
-    trace = tr.read(trace_path)
-    return out, window_ms, tr.kernel_classes(trace), trace
+    return out, window_ms, tr.read(trace_path)
 
 
 def _run(step, n_timed: int, device: torch.device, trace_path: str, first: bool) -> dict:
     """``step`` run ``first`` (the warm-up, untimed), ``n_timed`` times timed,
-    then once profiled: the figures of ``measure``'s ``measured``, and the
-    outputs of the step after the first, copied (the step whose graphed
-    and eager results ``measure`` compares)."""
+    then profiled (``PROFILED_STEPS`` times on the card, the trace with the
+    most device events kept at ``trace_path``): the figures of ``measure``'s
+    ``measured``, and the outputs of the step after the first, copied (the
+    step whose graphed and eager results ``measure`` compares)."""
     cuda = device.type == "cuda"
     res, kept, i = {}, None, 0
     if cuda:
@@ -500,10 +507,23 @@ def _run(step, n_timed: int, device: torch.device, trace_path: str, first: bool)
         if i == 1:
             kept = [t.detach().cpu() for t in graphs.tensors(out)]
         out, i = None, i + 1
-    out, window_ms, classes, trace = _profiled(step, device, trace_path)
-    if i == 1:
-        kept = [t.detach().cpu() for t in graphs.tensors(out)]
-    out = None
+    n = PROFILED_STEPS if cuda else 1
+    root = trace_path.removesuffix(".json.gz")
+    runs = []
+    for path in (f"{root}.{k}.json.gz" for k in range(n)):
+        out, window_ms, trace = _profiled(step, device, path)
+        if i == 1:
+            kept = [t.detach().cpu() for t in graphs.tensors(out)]
+        out, i = None, i + 1
+        classes = tr.kernel_classes(trace)
+        runs.append((sum(c["launches"] for c in classes.values()), window_ms, classes, trace,
+                     path))
+    events = [r[0] for r in runs]
+    kernels, window_ms, classes, trace, path = max(runs, key=lambda r: r[0])
+    for r in runs:
+        if r[4] != path:
+            os.remove(r[4])
+    os.replace(path, trace_path)
     step_ms = statistics.median(times)
     # a CPU trace holds no device events: its device figures are not measured
     device_ms = sum(c["device_ms"] for c in classes.values()) if cuda else None
@@ -512,7 +532,7 @@ def _run(step, n_timed: int, device: torch.device, trace_path: str, first: bool)
         busy=device_ms / step_ms if cuda else None,
         busy_profiled=device_ms / window_ms if cuda else None,
         peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None,
-        kernels=sum(c["launches"] for c in classes.values()), kernel_classes=classes,
+        kernels=kernels, kernel_classes=classes, profiled_events=events,
         trace=os.path.basename(trace_path), kept=kept, collectives=trace)
     return res
 
@@ -522,7 +542,7 @@ def measure(cell: Cell, device: torch.device, seed: int, trace_path: str) -> dic
     ``memory``, ``collectives``, ``wire_bytes_per_device`` and ``measured``,
     the cell's graphed step; and ``eager``, the same cell built again and
     run under ``graphs.disable_capture()`` (``EAGER_STEPS`` timed steps and
-    one profiled), with ``graphed_equals_eager``: the outputs of the step
+    the profiled ones), with ``graphed_equals_eager``: the outputs of the step
     after the first, graphed (a replay) against eager, bit for bit.  The
     allocator's counts and device time exist on the card only: on the CPU
     those figures are None."""

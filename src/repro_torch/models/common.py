@@ -14,8 +14,8 @@ with its parameters, a layer runs whole, as on one device.
 
 Under sequence parallelism (the reference's residual constraint ``("dp",
 "seq", None)`` with ``seq`` on the model axis) the residual stream of a
-group is a list: ``x[t]`` position ``t``'s rows of ``[B, S, D]`` on its
-device.  A split layer then takes its input all-gathered over the
+group is a :class:`Stream`: ``x[t]`` position ``t``'s rows of ``[B, S,
+D]`` on its device.  A split layer then takes its input all-gathered over the
 sequence onto every position and leaves each position its rows of the
 sum of the partial outputs, a reduce-scatter (:func:`tp_inputs`,
 :func:`tp_output`: Megatron's sequence-parallel pair in place of its f
@@ -127,37 +127,66 @@ class Split:
     spans: list
 
 
-def stream_norm(x, weight: torch.Tensor, group: col.Group | None, eps: float):
+class Stream(list):
+    """A data-parallel group's residual stream split by sequence over its
+    tensor-parallel positions ``group``: ``self[t]`` is position ``t``'s rows
+    ``[B, S / n, D]`` on ``group.devices[t]``.  The one owner of that
+    layout; a stream that is not a ``Stream`` is whole, on the lead."""
+
+    def __init__(self, rows, group: col.Group):
+        super().__init__(rows)
+        self.group = group
+
+    @classmethod
+    def split(cls, x: torch.Tensor, group: col.Group) -> Stream:
+        """``x`` ``[B, S, D]`` on the lead cut into each position's rows
+        (``collectives.split``)."""
+        return cls(col.split(x, group, dim=1), group)
+
+    def whole(self) -> torch.Tensor:
+        """The rows gathered onto the lead."""
+        return col.all_gather(self, self.group, dim=1)
+
+
+def stream_tensors(x) -> list[torch.Tensor]:
+    """The tensors of a stream, whole (one) or split by sequence."""
+    return list(x) if isinstance(x, Stream) else [x]
+
+
+def in_layout(y: torch.Tensor, x):
+    """``y``, whole on the lead, in the stream ``x``'s layout."""
+    return Stream.split(y, x.group) if isinstance(x, Stream) else y
+
+
+def stream_norm(x, weight: torch.Tensor, eps: float):
     """RMS norm of the residual stream; split by sequence, on each
     position's rows with its copy of the weight (bound on the lead and
     broadcast, so its gradient adds the positions')."""
-    if not isinstance(x, list):
+    if not isinstance(x, Stream):
         return rms_norm(x, weight, eps)
-    return [rms_norm(xi, w, eps) for xi, w in zip(x, col.broadcast(weight, group))]
+    return Stream([rms_norm(xi, w, eps) for xi, w in zip(x, col.broadcast(weight, x.group))],
+                  x.group)
 
 
 def stream_add(x, y):
     """``x + y`` of two streams in the same layout, whole or split."""
-    return [a + b for a, b in zip(x, y)] if isinstance(x, list) else x + y
+    return Stream([a + b for a, b in zip(x, y)], x.group) if isinstance(x, Stream) else x + y
 
 
 def tp_inputs(x, group: col.Group) -> list[torch.Tensor]:
     """Each position's copy of a split layer's input: ``x`` whole on the
-    lead broadcast, or a stream split by sequence (a list of the
-    positions' rows) all-gathered along the sequence onto every position.
-    Backward, the positions' gradients added (and each position's rows
-    handed back to it)."""
-    if isinstance(x, list):
-        return col.broadcast(col.all_gather(x, group, dim=1), group)
-    return col.broadcast(x, group)
+    lead broadcast, or a :class:`Stream` all-gathered along the sequence
+    onto every position.  Backward, the positions' gradients added (and
+    each position's rows handed back to it)."""
+    return col.broadcast(x.whole() if isinstance(x, Stream) else x, group)
 
 
 def tp_output(parts: list[torch.Tensor], x, group: col.Group):
     """The sum of a split layer's partial outputs in ``x``'s layout and
-    dtype: on the lead (an all-reduce), or for a stream split by sequence
-    each position's rows (a reduce-scatter, the same sums bit for bit)."""
-    if isinstance(x, list):
-        return col.reduce_scatter(parts, group, dim=1, dtype=x[0].dtype)
+    dtype: on the lead (an all-reduce), or for a :class:`Stream` each
+    position's rows (a reduce-scatter, the same sums bit for bit)."""
+    if isinstance(x, Stream):
+        return Stream(col.reduce_scatter(parts, group, dim=1, dtype=x[0].dtype), group)
     return col.all_reduce(parts, group, x.dtype)
 
 

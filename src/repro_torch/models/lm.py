@@ -40,10 +40,10 @@ decode loop, and it updates the cache in place.  A product that runs tensor-para
 position's block of its weights, gathered over the fsdp axis alone, and
 the positions' partial products meet in all-reduces; the rest is gathered
 whole onto the lead and runs there.  Under sequence parallelism
-(``Plan.seq``) the training residual stream is a list of each position's
-rows, and each position saves only its rows of each block's input.  The
-training backward recomputes each block from its saved input, binding it
-again, and reduces each position's gradient of its block into the shards
+(``Plan.seq``) the training residual stream is a ``common.Stream`` of
+each position's rows, and each position saves only its rows of each
+block's input.  The training backward recomputes each block from its
+saved input, binding it again, and reduces each position's gradient of its block into the shards
 that hold that block as soon as the block is done.  A placed decode's
 cache lies over the positions by the reference's rule
 (``tensor_parallel.place_caches``): :func:`init_group_caches` makes it
@@ -74,8 +74,9 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.common import (_param, dense_init, embed_init, rms_norm, softcap,
-                                       stream_norm)
+from repro_torch.models import xlstm
+from repro_torch.models.common import (Stream, _param, dense_init, embed_init, rms_norm,
+                                       softcap, stream_norm, stream_tensors)
 from repro_torch.models.moe import dp_config, moe_stationary
 
 
@@ -424,7 +425,8 @@ def _bound(skels: list, placed: sh.PlacedModel, names: list[str], plan: tp.Plan,
                 continue
             sub = skel.get_submodule(owner)
             old.append((sub, leaf, getattr(sub, leaf)))
-            p = nn.Parameter(bind(placed.leaves[name], region, pos), requires_grad=grad)
+            p = nn.Parameter(tp.bind_leaf(placed.leaves[name], region, pos, bind),
+                             requires_grad=grad)
             setattr(sub, leaf, p)
             bound.append((name, region, p))
     try:
@@ -439,7 +441,7 @@ def _reduce_grads(bound: list, grads, into: dict) -> None:
     its region (``sharding.constrain_params``)."""
     pieces = {}
     for (name, region, _), g in zip(bound, grads):
-        pieces.setdefault(name, []).append((region, g))
+        pieces.setdefault(name, []).extend(tp.region_blocks(region, g))
     sh.constrain_params(pieces, into=into)
 
 
@@ -451,41 +453,36 @@ def _embed(skels: list, inputs: torch.Tensor, plan: tp.Plan, group: col.Group, c
     all-reduce a reduce-scatter, a whole embedding split from the lead."""
     if plan.vocab is None or not cfg.embed_inputs:
         x = skels[0].embed_tokens(inputs)
-        return col.split(x, group, dim=1) if plan.seq else x
+        return Stream.split(x, group) if plan.seq else x
     parts = []
     for skel, (v0, v1), dev in zip(skels, plan.vocab, group.devices):
         ids = inputs.to(dev).long() - v0
         held = (ids >= 0) & (ids < v1 - v0)
         parts.append(torch.where(held[..., None], skel.embed[ids.clamp(0, v1 - v0 - 1)], 0))
     if plan.seq:
-        return [_embedded(x, cfg) for x in col.reduce_scatter(parts, group, dim=1)]
+        return Stream([_embedded(x, cfg) for x in col.reduce_scatter(parts, group, dim=1)], group)
     return _embedded(col.all_reduce(parts, group), cfg)
 
 
-def _final_norm(skels: list, x, group: col.Group) -> torch.Tensor:
+def _final_norm(skels: list, x) -> torch.Tensor:
     """The final norm, on the lead; of a stream split by sequence, on each
     position's rows (the weight broadcast from the lead), then gathered
     onto the lead."""
-    x = stream_norm(x, skels[0].final_norm, group, skels[0].cfg.norm_eps)
-    return col.all_gather(x, group, dim=1) if isinstance(x, list) else x
+    x = stream_norm(x, skels[0].final_norm, skels[0].cfg.norm_eps)
+    return x.whole() if isinstance(x, Stream) else x
 
 
 def _logit_parts(skels: list, x, plan: tp.Plan, group: col.Group) -> list:
     """The final norm (:func:`_final_norm`), then each position's fp32
     logits of its vocabulary slice."""
-    x = _final_norm(skels, x, group)
+    x = _final_norm(skels, x)
     return [_head_logits(xi, s) for xi, s in zip(col.broadcast(x, group), skels)]
-
-
-def _leaves(x) -> list[torch.Tensor]:
-    """The tensors of a stream, whole or split by sequence."""
-    return list(x) if isinstance(x, list) else [x]
 
 
 def _detached(x):
     """The stream as a leaf of a new autograd graph."""
-    out = [xi.detach().requires_grad_(True) for xi in _leaves(x)]
-    return out if isinstance(x, list) else out[0]
+    out = [xi.detach().requires_grad_(True) for xi in stream_tensors(x)]
+    return Stream(out, x.group) if isinstance(x, Stream) else out[0]
 
 
 def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.Plan,
@@ -525,16 +522,16 @@ def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.
                                      cfg.layer_kinds[i])
             aux = aux + a
     x = _detached(x)
-    k = len(_leaves(x))  # the stream's tensors: 1, or a position's rows each
+    k = len(stream_tensors(x))  # the stream's tensors: 1, or a position's rows each
     with _bound(skels, placed, head, plan, group, True) as bound:
         if plan.vocab is None:
-            nll = masked_nll_sum(_head_logits(_final_norm(skels, x, group), skels[0]),
+            nll = masked_nll_sum(_head_logits(_final_norm(skels, x), skels[0]),
                                  batch["labels"])
         else:
             nll = vocab_parallel_nll_sum(_logit_parts(skels, x, plan, group), batch["labels"],
                                          plan.vocab, group)
         nll = nll / denom
-        grads = torch.autograd.grad(nll, [*_leaves(x), *(p for _, _, p in bound)])
+        grads = torch.autograd.grad(nll, [*stream_tensors(x), *(p for _, _, p in bound)])
     dx, grads = grads[:k], grads[k:]
     _reduce_grads(bound, grads, into)
     seed = torch.full((), aux_scale, dtype=torch.float32, device=lead)
@@ -543,17 +540,17 @@ def group_train(placed: sh.PlacedModel, batch: dict, cfg: ModelConfig, plan: tp.
         with _bound(skels, placed, blocks[i], plan, group, True) as bound:
             y, a = B.block_train(xi, tp.block_view(skels, i, plan, group), cfg,
                                  cfg.layer_kinds[i])
-            outs, seeds = _leaves(y), list(dx)
+            outs, seeds = stream_tensors(y), list(dx)
             if a.requires_grad:
                 outs, seeds = outs + [a], seeds + [seed]
-            grads = torch.autograd.grad(outs, [*_leaves(xi), *(p for _, _, p in bound)], seeds,
-                                        allow_unused=True, materialize_grads=True)
+            grads = torch.autograd.grad(outs, [*stream_tensors(xi), *(p for _, _, p in bound)],
+                                        seeds, allow_unused=True, materialize_grads=True)
         dx, grads = grads[:k], grads[k:]
         _reduce_grads(bound, grads, into)
     if embed:
         with _bound(skels, placed, embed, plan, group, True) as bound:
-            grads = torch.autograd.grad(_leaves(_embed(skels, batch["inputs"], plan, group, cfg)),
-                                        [p for _, _, p in bound], list(dx))
+            x = _embed(skels, batch["inputs"], plan, group, cfg)
+            grads = torch.autograd.grad(stream_tensors(x), [p for _, _, p in bound], list(dx))
         _reduce_grads(bound, grads, into)
     return nll.detach() + aux_scale * aux
 
@@ -563,13 +560,20 @@ def init_group_caches(placed: sh.PlacedModel, batch: int, max_len: int) -> list[
     the group's rows of ``batch``: a layer an entry, laid out over the
     group's positions by the reference's rule (``tensor_parallel.
     place_caches``: an attention layer's slots over the positions where
-    they divide, an RG-LRU layer's channels where they split, else whole
-    on the lead)."""
+    they divide, an RG-LRU layer's channels where they split, a split xLSTM
+    block's states by heads, else whole on the lead), each state at
+    ``init_cache``'s values."""
     ctx, plan, groups = _decode_groups(placed, batch)
     shapes = init_cache(placed.cfg, batch // len(groups), max_len, "meta")
-    return [tp.place_caches(plan, placed.cfg, ctx, shapes, grp, batch,
-                            lambda t, d: torch.zeros(t.shape, dtype=t.dtype, device=d))
-            for grp in groups]
+    caches = [tp.place_caches(plan, placed.cfg, ctx, shapes, grp, batch,
+                              lambda t, d: torch.zeros(t.shape, dtype=t.dtype, device=d))
+              for grp in groups]
+    for cache in caches:  # the xLSTM stabiliser starts at xlstm._M0, not 0
+        for kind, layer in zip(placed.cfg.layer_kinds, cache):
+            if kind in ("mlstm", "slstm"):
+                for piece in layer if isinstance(layer, list) else [layer]:
+                    piece["m"].fill_(xlstm._M0)
+    return caches
 
 
 def place_group_caches(placed: sh.PlacedModel, cache: list[dict]) -> list[list]:
@@ -745,8 +749,9 @@ def _placed_prefill_step(placed: sh.PlacedModel, inputs: torch.Tensor, cfg: Mode
     is laid out at once by the decode's rule (``tensor_parallel.place_layer``,
     as :func:`place_group_caches` lays out a whole cache): an attention
     cache, whole on the group's lead (a split layer's KV heads gathered),
-    grown to ``max_len`` slots first; an RG-LRU state split by channels
-    kept on its positions where the decode splits it the same way."""
+    grown to ``max_len`` slots first; a split RG-LRU or xLSTM state (by
+    channels, by heads) kept on its positions where the decode splits it
+    the same way."""
     ctx = sh.executor_ctx(placed.mesh)
     b, s = inputs.shape[:2]
     groups = [tp.group(placed, ctx, lead) for lead in sh.dp_leads(ctx)]

@@ -19,6 +19,18 @@ jitted step sees (the global microbatch ``[B, S, D]`` in training, ``[B,
     (``src/repro/models/common.py:72-74``) and ``d_ff`` splits;
   * an RG-LRU block splits its channels whenever they split (the
     reference constrains nothing there and leaves the weights' own specs);
+  * an mLSTM or sLSTM block's ``cell`` splits by heads whenever ``n``
+    divides its 4 heads (``xlstm.N_HEADS``; the reference constrains
+    nothing there either): position ``t`` takes heads ``[4 t / n, 4 (t +
+    1) / n)`` and their channels of each leaf (``_CUTS``; ``models/xlstm.py``
+    computes the split block).  Both kinds' ``up`` holds two branches side
+    by side (the mLSTM's ``z | gate``, the sLSTM FFN's ``u | g``), where
+    the reference's column rule gives each position a whole branch: a
+    position's region of it is a list of two regions, its span of each
+    branch, bound concatenated (:func:`bind_leaf`) and its gradient added
+    back half by half (:func:`region_blocks`).  The sLSTM's FFN splits its
+    hidden units where ``n`` divides them, as a dense MLP does, else runs
+    whole on the lead;
   * a MoE layer splits its experts whenever its expert leaves lie over the
     model axis (the training layout, ``src/repro/models/moe.py:104-112``);
     placed in the inference layout (``sharding._EXPERT_INFERENCE``) it is
@@ -33,18 +45,19 @@ jitted step sees (the global microbatch ``[B, S, D]`` in training, ``[B,
     slices (``models/lm.py`` ``vocab_parallel_nll_sum``).
 
 Anything else runs whole on the group's lead, its leaves gathered whole
-there, as do the mLSTM and sLSTM blocks (their ``wi``, ``wf``, ``wz``,
-``wo_gate``, ``up`` and ``down`` rules stay storage only).  A split
-layer's modules are handed to ``models/attention.py``, ``common.py``,
-``recurrent.py`` and ``moe.py`` as a ``common.Split`` (:func:`block_view`);
-an expert-stationary layer's blocks as a ``moe.Stationary``
+there (an xLSTM block where ``n`` does not divide its heads, such as
+``make_decode_2d_ctx``'s 8 positions).  A split layer's modules are handed
+to ``models/attention.py``, ``common.py``, ``recurrent.py``, ``moe.py``
+and ``xlstm.py`` as a ``common.Split`` (:func:`block_view`); an
+expert-stationary layer's blocks as a ``moe.Stationary``
 (:func:`bind_stationary`).
 
 Sequence parallelism (``Plan.seq``): where ``ctx.seq_shard`` holds and the
 step's sequence splits over the ``n`` positions (the reference's ``("dp",
 "seq", None)`` residual constraint, sanitized), a training step's
-residual stream lies by rows over the group, position ``t`` holding rows
-``[t S / n, (t + 1) S / n)`` of ``[B_g, S, D]``: the embedding, the
+residual stream lies by rows over the group (a ``common.Stream``),
+position ``t`` holding rows ``[t S / n, (t + 1) S / n)`` of ``[B_g, S,
+D]``: the embedding, the
 norms, the residual adds and the final norm run on each position's rows,
 the split layers all-gather their input over the sequence and
 reduce-scatter their output, and the layers that run whole gather the
@@ -56,10 +69,16 @@ The decode cache (:func:`place_caches`) follows the
 reference's rule (``sharding.cache_spec``): an attention layer's k and v
 over the group's positions by their time axis, each holding its slots of
 every KV head (``attention.SeqKV``) where the positions divide the slot
-count, and an RG-LRU layer's state by its channels where they split; any
-other layer's cache, and one the positions do not divide, whole on the
-group's lead.  A placed prefill lays out each layer's cache as its block
-finishes (:func:`place_layer`).
+count, an RG-LRU layer's state by its channels where they split, and a
+split xLSTM block's states by its positions' heads (``_STATE_CUTS``: the
+conv history by their channels of ``z`` or ``x``, the mLSTM's ``c``,
+``n`` and ``m`` by heads, the sLSTM's ``c``, ``n``, ``m`` and ``h`` by
+the heads' channels).  The rule cuts the mLSTM's ``c`` and ``n`` along
+their head dim (``hd``) rather than by heads; both give a position 1/n of
+each tensor, so the bytes a position holds are the rule's (ROADMAP D11).
+Any other layer's cache, and one the positions do not divide, lies whole
+on the group's lead.  A placed prefill lays out each layer's cache as its
+block finishes (:func:`place_layer`).
 """
 
 from __future__ import annotations
@@ -68,12 +87,14 @@ import dataclasses
 import math
 import types
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.collectives import Group
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import moe, xlstm
 from repro_torch.models.common import Split
 
 # the dim each split sublayer's leaves are cut along, and the span it takes
@@ -88,7 +109,29 @@ _CUTS = {
             "br": (0, "c"), "w_rnn_out": (0, "c")},
     "mlp": {"w_gate": (1, "f"), "w_in": (1, "f"), "w_out": (0, "f")},
     "moe": {"e_gate": (0, "e"), "e_in": (0, "e"), "e_out": (0, "e")},
+    # an xLSTM block's cell, by kind ("h": heads; "c": their channels of z
+    # or of x; "f": the sLSTM FFN's hidden units, where they split)
+    "mlstm": {"up": (1, "c"), "conv_w": (1, "c"), "conv_b": (0, "c"), "wq": (1, "c"),
+              "wk": (1, "c"), "wv": (1, "c"), "skip": (1, "c"), "wi": (1, "h"),
+              "wf": (1, "h"), "bi": (0, "h"), "bf": (0, "h"), "down": (0, "c")},
+    "slstm": {"conv_w": (1, "c"), "conv_b": (0, "c"), "wi": (1, "c"), "wf": (1, "c"),
+              "wz": (1, "c"), "wo_gate": (1, "c"), "bi": (0, "c"), "bf": (0, "c"),
+              "bz": (0, "c"), "bo": (0, "c"), "ri": (0, "h"), "rf": (0, "h"), "rz": (0, "h"),
+              "ro": (0, "h"), "out_proj": (0, "c"), "up": (1, "f"), "down": (0, "f")},
 }
+# leaves that hold two branches side by side along their cut dim (an xLSTM
+# block's up projection: z | gate, or the sLSTM FFN's u | g): a position
+# binds its span of each, the two concatenated (:func:`bind_leaf`)
+_BRANCHED = {"up"}
+# the dim of each recurrent state that a split layer's positions cut, and
+# the span that cuts it (the decode cache's layout, :func:`place_layer`)
+_STATE_CUTS = {
+    "rec": {"conv": (2, "c"), "h": (1, "c")},
+    "mlstm": {"conv": (2, "c"), "c": (1, "h"), "n": (1, "h"), "m": (1, "h")},
+    "slstm": {"conv": (2, "c"), "c": (1, "c"), "n": (1, "c"), "m": (1, "c"), "h": (1, "c")},
+}
+# the sublayer of a recurrent kind that splits
+_STATE_SUB = {"rec": "rec", "mlstm": "cell", "slstm": "cell"}
 _VOCAB_CUTS = {"embed": 0, "lm_head": 1}
 # an expert-stationary MoE layer's leaves: the dims cut by the group's
 # experts ("e") and by the position's hidden units ("f")
@@ -197,6 +240,8 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
             elif n > 1 and leaves[f"{p}moe.e_gate"].spec[0] == ctx.tp:
                 e = leaves[f"{p}moe.e_gate"].shape[0]
                 split["moe"] = ([cfg] * n, [{"e": _even(e, n, t)} for t in range(n)])
+        if n > 1 and kind in ("mlstm", "slstm") and xlstm.N_HEADS % n == 0:
+            split["cell"] = ([cfg] * n, _cell_spans(leaves, p, n))
         if n > 1 and kind in ("attn", "win", "rec"):
             mlp = [k for k in (f"{p}mlp.w_gate", f"{p}mlp.w_in", f"{p}mlp.w_out") if k in leaves]
             f = leaves[f"{p}mlp.w_in"].shape[1]
@@ -214,10 +259,15 @@ def plan(placed: sh.PlacedModel, ctx: sh.ShardCtx, x_shape: tuple[int, ...]) -> 
         if parts[0] == "blocks" and parts[2] == "moe" and int(parts[1]) in stationary:
             regions[name] = [None] * n  # bound by bind_stationary
         elif parts[0] == "blocks" and parts[2] in layers[int(parts[1])]:
-            spans = layers[int(parts[1])][parts[2]][1]
-            cut = _CUTS[parts[2]].get(parts[3])
-            regions[name] = [sh.whole(x.shape) if cut is None else
-                             _cut(x.shape, cut[0], spans[t][cut[1]]) for t in range(n)]
+            i, sub = int(parts[1]), parts[2]
+            spans = layers[i][sub][1]
+            cut = _CUTS[cfg.layer_kinds[i] if sub == "cell" else sub].get(parts[3])
+            if cut is None:
+                regions[name] = [sh.whole(x.shape)] * n
+            elif cut[1] in spans[0]:  # else (an sLSTM FFN that does not split) lead only
+                branched = parts[3] in _BRANCHED
+                regions[name] = [_cut(x.shape, cut[0], spans[t][cut[1]], branched)
+                                 for t in range(n)]
         elif name in _VOCAB_CUTS and vocab is not None:
             regions[name] = [_cut(x.shape, _VOCAB_CUTS[name], vocab[t]) for t in range(n)]
     seq = n > 1 and ctx.seq_shard and len(x_shape) == 3 and x_shape[1] % n == 0
@@ -272,10 +322,49 @@ def _stationary(e_gate: sh.Sharded, ctx: sh.ShardCtx, n: int) -> StationaryLayou
     return StationaryLayout(experts, hidden, exchanges)
 
 
-def _cut(shape, dim: int, span: tuple[int, int]) -> tuple:
+def _cut(shape, dim: int, span: tuple[int, int], branched: bool = False):
+    """The region of a leaf of ``shape`` cut along ``dim`` to ``span``; of a
+    leaf of two branches, the list of its two regions, ``span`` of each."""
+    if branched:
+        half = shape[dim] // 2
+        return [_cut(shape, dim, (half * b + span[0], half * b + span[1])) for b in (0, 1)]
     region = list(sh.whole(shape))
     region[dim] = slice(*span)
     return tuple(region)
+
+
+def _cell_spans(leaves: dict, p: str, n: int) -> list[dict]:
+    """Each position's spans of block ``p``'s xLSTM cell: its heads
+    (``"h"``), their channels (``"c"``: of ``z`` in an mLSTM, of ``x`` in
+    an sLSTM) and, where ``n`` divides the sLSTM FFN's hidden units, its
+    share of them (``"f"``)."""
+    width = leaves[f"{p}cell.conv_w"].shape[1]
+    hd, heads = width // xlstm.N_HEADS, xlstm.N_HEADS
+    ffn = leaves[f"{p}cell.down"].shape[0] if f"{p}cell.out_proj" in leaves else 0
+    spans = []
+    for t in range(n):
+        h0, h1 = _even(heads, n, t)
+        spans.append({"h": (h0, h1), "c": (h0 * hd, h1 * hd)})
+        if ffn and ffn % n == 0:
+            spans[-1]["f"] = _even(ffn, n, t)
+    return spans
+
+
+def bind_leaf(x: sh.Sharded, region, pos: int, bind) -> torch.Tensor:
+    """Leaf ``x``'s ``region`` on position ``pos`` through ``bind``
+    (``sharding.gather_region`` or ``bind_region``); a branched leaf's two
+    regions concatenated along their last dim."""
+    if isinstance(region, list):
+        return torch.cat([bind(x, r, pos) for r in region], dim=-1)
+    return bind(x, region, pos)
+
+
+def region_blocks(region, block: torch.Tensor) -> list[tuple]:
+    """``(region, block)`` pairs of a bound leaf's gradient ``block``: one,
+    or a branched leaf's two halves, each with its region."""
+    if isinstance(region, list):
+        return list(zip(region, block.chunk(len(region), dim=-1)))
+    return [(region, block)]
 
 
 def group(placed: sh.PlacedModel, ctx: sh.ShardCtx, lead: int) -> Group:
@@ -324,9 +413,12 @@ def _layer_layout(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer: dict,
                   batch: int) -> str:
     """How a group's cache of layer ``i`` lies over its positions by
     ``sharding.cache_spec`` on the global cache (``batch`` rows): ``"seq"``
-    (k and v by slots), ``"rec"`` (the RG-LRU state by channels) or
-    ``"lead"``.  The xLSTM states stay whole on the lead, as their blocks
-    run there."""
+    (k and v by slots), ``"split"`` (a recurrent state by the spans of the
+    positions' channels or heads, ``_STATE_CUTS``) or ``"lead"``.  An
+    RG-LRU state splits where the rule splits its channels; an xLSTM state
+    wherever its block splits by heads, which cuts each state into the
+    same bytes as the rule (D11: the rule cuts the mLSTM's ``c`` and ``n``
+    along the head dim, ``hd``, not by heads)."""
     if p.n > 1 and kind in ("attn", "win", "moe"):
         if sh.cache_spec("k", (batch, *layer["k"].shape[1:]), ctx)[1] is not None:
             return "seq"
@@ -335,7 +427,9 @@ def _layer_layout(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer: dict,
             if "rec" not in p.layers[i]:
                 raise ValueError(f"layer {i}: the cache rule splits the RG-LRU state's channels, "
                                  "the plan does not")
-            return "rec"
+            return "split"
+    if kind in ("mlstm", "slstm") and "cell" in p.layers[i]:
+        return "split"
     return "lead"
 
 
@@ -344,10 +438,11 @@ def place_caches(p: Plan, cfg: ModelConfig, ctx: sh.ShardCtx, cache: list, grp: 
     """One group's decode cache from ``cache``, its rows of each layer's
     whole cache (any device), laid out over its positions ``grp`` (the
     module docstring): a layer an entry, an ``attention.SeqKV`` of the
-    positions' slots, a list of the positions' ``{"conv", "h"}`` channels,
-    or the layer's dict on the lead.  ``batch`` is the global batch the
-    rule reads; ``make(t, device)`` makes each position's piece from its
-    slice ``t`` of ``cache`` (a copy, or zeros of a ``meta`` slice's shape)."""
+    positions' slots, a list of the positions' pieces of a recurrent state
+    (by ``_STATE_CUTS``), or the layer's dict on the lead.  ``batch`` is the
+    global batch the rule reads; ``make(t, device)`` makes each position's
+    piece from its slice ``t`` of ``cache`` (a copy, or zeros of a ``meta``
+    slice's shape)."""
     return [place_layer(p, ctx, i, kind, layer, grp, batch, make)
             for i, (kind, layer) in enumerate(zip(cfg.layer_kinds, cache))]
 
@@ -355,25 +450,42 @@ def place_caches(p: Plan, cfg: ModelConfig, ctx: sh.ShardCtx, cache: list, grp: 
 def place_layer(p: Plan, ctx: sh.ShardCtx, i: int, kind: str, layer, grp: Group,
                 batch: int, make):
     """Layer ``i``'s entry of :func:`place_caches` from ``layer``, the group's
-    rows of its whole cache, or of an RG-LRU layer a list of the positions'
-    pieces of it by channels (a split prefill's state): kept on their
-    positions where the rule splits the channels into the same spans, else
+    rows of its whole cache, or of a split recurrent layer a list of the
+    positions' pieces of it (a split prefill's state): kept on their
+    positions where the layout cuts the state into the same spans, else
     gathered whole first."""
     pieces = layer if isinstance(layer, list) else None
     if pieces is not None:
-        layer = {k: v.new_empty((*v.shape[:-1], sum(q[k].shape[-1] for q in pieces)),
-                                device="meta") for k, v in pieces[0].items()}
+        cuts = _STATE_CUTS[kind]
+        layer = {k: v.new_empty(_joined(k, cuts, pieces), device="meta")
+                 for k, v in pieces[0].items()}
     how = _layer_layout(p, ctx, i, kind, layer, batch)
+    spans = p.layers[i][_STATE_SUB[kind]][1] if how == "split" else None
     if pieces is not None:
-        if how == "rec" and [q["h"].shape[-1] for q in pieces] == [
-                c1 - c0 for c0, c1 in (s["c"] for s in p.layers[i]["rec"][1])]:
+        if how == "split" and all(q[k].shape == _piece(v, kind, k, s).shape
+                                  for q, s in zip(pieces, spans) for k, v in layer.items()):
             return [{k: make(v, d) for k, v in q.items()} for q, d in zip(pieces, grp.devices)]
-        layer = {k: col.all_gather([q[k] for q in pieces], grp, dim=-1) for k in pieces[0]}
+        layer = {k: col.all_gather([q[k] for q in pieces], grp, dim=cuts[k][0])
+                 for k in pieces[0]}
     if how == "seq":
         tn = layer["k"].shape[1] // p.n
         return attn.SeqKV([{k: make(v.narrow(1, t * tn, tn), d) for k, v in layer.items()}
                            for t, d in enumerate(grp.devices)], grp)
-    if how == "rec":
-        return [{k: make(v[..., c0:c1], d) for k, v in layer.items()}
-                for (c0, c1), d in zip((s["c"] for s in p.layers[i]["rec"][1]), grp.devices)]
+    if how == "split":
+        return [{k: make(_piece(v, kind, k, s), d) for k, v in layer.items()}
+                for s, d in zip(spans, grp.devices)]
     return {k: make(v, grp.devices[0]) for k, v in layer.items()}
+
+
+def _piece(v: torch.Tensor, kind: str, k: str, spans: dict) -> torch.Tensor:
+    """A position's piece of state ``k`` of a ``kind`` layer, by its spans."""
+    dim, what = _STATE_CUTS[kind][k]
+    return v.narrow(dim, spans[what][0], spans[what][1] - spans[what][0])
+
+
+def _joined(k: str, cuts: dict, pieces: list) -> tuple:
+    """The shape of state ``k`` whole from the positions' ``pieces``."""
+    d = cuts[k][0]
+    shape = list(pieces[0][k].shape)
+    shape[d] = sum(q[k].shape[d] for q in pieces)
+    return tuple(shape)

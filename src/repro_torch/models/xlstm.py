@@ -8,6 +8,18 @@ either cell in the reference).  A prefill of at least ``2 * _CHUNK`` tokens
 takes the chunkwise-parallel mLSTM, a shorter one the sequential cell, at
 the reference's threshold, because the two differ in fp32 rounding.
 
+Handed a ``common.Split``, either block runs tensor-parallel by heads over
+a data-parallel group's positions (``models/tensor_parallel.py`` ``plan``:
+each position holds its heads' columns, channels, recurrence blocks and
+rows): the mLSTM gathers ``z`` and its conv output onto every position,
+since q, k and v contract over every channel, then runs its heads' cell;
+the sLSTM gathers its positions' conv outputs once and runs each head's
+block-diagonal recurrence on its position for every step.  The partial
+products of ``down`` and ``out_proj`` are added in fp32 (an all-reduce, or
+the mLSTM's a reduce-scatter under sequence parallelism); the cells keep
+the whole block's fp32 states and order of operations per head.  A decode
+cache is then a list of the positions' states.
+
 Block structure (paper appendix):
   mLSTM block: LN -> up-proj (pf=2) to (z, gate); causal conv4 on z; q,k
     from conv output, v from z; per-head mLSTM cell; out = cell ⊙ SiLU(gate);
@@ -24,7 +36,17 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import _default_device
-from repro_torch.models.common import _param, dense_init
+from repro_torch.distributed import collectives as col
+from repro_torch.models.common import (
+    Split,
+    _param,
+    dense_init,
+    in_layout,
+    partial_product,
+    stream_add,
+    tp_inputs,
+    tp_output,
+)
 from repro_torch.models.recurrent import causal_conv
 
 N_HEADS = 4  # xLSTM-125M uses 4 heads for both cell types
@@ -112,6 +134,19 @@ def mlstm_cell(q, k, v, logi, logf, state):
     return torch.stack(hs, dim=1), state
 
 
+def _cummax(x: torch.Tensor) -> torch.Tensor:
+    """The running max of ``x`` along dim 1 (the reference's ``lax.cummax``)
+    by doubling: ``log2 L`` elementwise maxima, the values of
+    ``torch.cummax`` bit for bit.  ``torch.cummax``'s backward scatters its
+    gradient with atomic adds on the card, so a training step's update
+    would vary from run to run; this one's is elementwise."""
+    step = 1
+    while step < x.shape[1]:
+        x = torch.cat([x[:, :step], torch.maximum(x[:, step:], x[:, :-step])], dim=1)
+        step *= 2
+    return x
+
+
 def mlstm_cell_chunked(q, k, v, logi, logf, state, chunk: int = 64):
     """Chunkwise-parallel mLSTM: algebraically the sequential cell, with a
     serial depth of S/chunk.  Within a chunk the stabiliser recurrence
@@ -129,7 +164,7 @@ def mlstm_cell_chunked(q, k, v, logi, logf, state, chunk: int = 64):
         qc, kc, vc, lic, lfc = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], logf[:, sl]
         b = torch.cumsum(lfc, dim=1)  # [B,L,H] cumulative log-forget
         g = lic - b  # [B,L,H]
-        gmax = torch.cummax(g, dim=1).values
+        gmax = _cummax(g)
         m_t = torch.maximum(m_prev[:, None] + b, b + gmax)  # [B,L,H]
         inter = torch.exp(m_prev[:, None] + b - m_t)  # [B,L,H]
         # stabilised intra-chunk weights: logS[t,j] = b_t - m_t + g_j (j<=t)
@@ -159,66 +194,119 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     device = _default_device(device)
     r = 2 * cfg.d_model
     hd = r // N_HEADS
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=cfg.dtype(), device=device),
+            **_mlstm_state0(batch, N_HEADS, hd, device)}
+
+
+def _mlstm_state0(batch: int, heads: int, hd: int, device) -> dict:
+    """The cell's initial state over ``heads`` heads."""
     f32 = torch.float32
-    return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=cfg.dtype(), device=device),
-        "c": torch.zeros((batch, N_HEADS, hd, hd), dtype=f32, device=device),
-        "n": torch.zeros((batch, N_HEADS, hd), dtype=f32, device=device),
-        "m": torch.full((batch, N_HEADS), _M0, dtype=f32, device=device),
-    }
+    return {"c": torch.zeros((batch, heads, hd, hd), dtype=f32, device=device),
+            "n": torch.zeros((batch, heads, hd), dtype=f32, device=device),
+            "m": torch.full((batch, heads), _M0, dtype=f32, device=device)}
 
 
-def _mlstm_qkv(z, zc, params: MLSTM):
-    b, s, r = z.shape
-    hd = r // N_HEADS
-    q = (zc @ params.wq).reshape(b, s, N_HEADS, hd).float() * hd**-0.5
-    k = (zc @ params.wk).reshape(b, s, N_HEADS, hd).float() * hd**-0.5
-    v = (z @ params.wv).reshape(b, s, N_HEADS, hd).float()
+def _mlstm_qkv(z, zc, params: MLSTM, hd: int):
+    """q, k, v and the gates of ``params``' heads (a tensor-parallel
+    position's columns of ``wq``, ``wk``, ``wv``, ``wi`` and ``wf``) from
+    every channel of ``z`` and ``zc``."""
+    b, s, _ = z.shape
+    q = (zc @ params.wq).reshape(b, s, -1, hd).float() * hd**-0.5
+    k = (zc @ params.wk).reshape(b, s, -1, hd).float() * hd**-0.5
+    v = (z @ params.wv).reshape(b, s, -1, hd).float()
     logi = zc.float() @ params.wi + params.bi
     logf = F.logsigmoid(zc.float() @ params.wf + params.bf)
     return q, k, v, logi, logf
 
 
+def _mlstm_conv(z, params, cache: dict | None, width: int, mode: str):
+    """The conv of ``z`` (a position's channels, with its ``conv_w`` and
+    ``conv_b``) and the conv history a decode step reads next."""
+    if mode == "decode":
+        hist = torch.cat([cache["conv"], z], dim=1)
+        return _conv_step(hist, params.conv_w, params.conv_b)[:, None].to(z.dtype), hist[:, 1:]
+    if mode in ("train", "prefill"):
+        return causal_conv(z, params.conv_w, params.conv_b), _conv_tail(z, width)
+    raise ValueError(mode)
+
+
+def _mlstm_heads(z, zc, params: MLSTM, hd: int, cache: dict | None, mode: str):
+    """``params``' heads of the cell over ``z`` and ``zc`` from ``cache``'s
+    state (or the initial one): (h ``[B, S, heads hd]`` fp32, final state);
+    a prefill of at least ``2 * _CHUNK`` tokens takes the chunked cell."""
+    b, s, _ = z.shape
+    q, k, v, logi, logf = _mlstm_qkv(z, zc, params, hd)
+    heads = q.shape[2]
+    if cache is not None:  # continue from a prior state
+        state = (cache["c"], cache["n"], cache["m"])
+    else:
+        state = tuple(_mlstm_state0(b, heads, hd, z.device).values())
+    if mode == "decode":
+        state, h = _mlstm_cell_step(state, (q[:, 0], k[:, 0], v[:, 0], logi[:, 0], logf[:, 0]))
+        h = h[:, None]
+    elif s >= 2 * _CHUNK:
+        h, state = mlstm_cell_chunked(q, k, v, logi, logf, state, _CHUNK)
+    else:
+        h, state = mlstm_cell(q, k, v, logi, logf, state)
+    return h.reshape(b, s, heads * hd), state
+
+
+def _halves(t: torch.Tensor):
+    """The two branches of an up projection's output, side by side."""
+    half = t.shape[-1] // 2
+    return t[..., :half], t[..., half:]
+
+
 def mlstm_block(x, params: MLSTM, cfg: ModelConfig, cache: dict | None = None, *, mode: str):
     """mode: train | prefill | decode.  x: [B,S,D] ([B,1,D] for decode).
     Returns (out [B,S,D], new cache), ``cache`` left as it was; ``train``
-    runs the prefill path and returns ``out`` alone, as the reference does."""
-    b, s, d = x.shape
-    r = 2 * d
-    zg = x @ params.up
-    z, gate = zg[..., :r], zg[..., r:]
-    if mode == "decode":
-        hist = torch.cat([cache["conv"], z], dim=1)
-        zc = _conv_step(hist, params.conv_w, params.conv_b)[:, None].to(z.dtype)
-        q, k, v, logi, logf = _mlstm_qkv(z, zc, params)
-        state = (cache["c"], cache["n"], cache["m"])
-        state, h1 = _mlstm_cell_step(state, (q[:, 0], k[:, 0], v[:, 0], logi[:, 0], logf[:, 0]))
-        h = h1[:, None]
-        conv = hist[:, 1:]
-    elif mode in ("train", "prefill"):
-        zc = causal_conv(z, params.conv_w, params.conv_b)
-        q, k, v, logi, logf = _mlstm_qkv(z, zc, params)
-        if cache is not None:  # continue from a prior state
-            state = (cache["c"], cache["n"], cache["m"])
-        else:
-            hd = r // N_HEADS
-            state = (
-                torch.zeros((b, N_HEADS, hd, hd), dtype=torch.float32, device=x.device),
-                torch.zeros((b, N_HEADS, hd), dtype=torch.float32, device=x.device),
-                torch.full((b, N_HEADS), _M0, dtype=torch.float32, device=x.device),
-            )
-        if s >= 2 * _CHUNK:
-            h, state = mlstm_cell_chunked(q, k, v, logi, logf, state, _CHUNK)
-        else:
-            h, state = mlstm_cell(q, k, v, logi, logf, state)
-        conv = _conv_tail(z, cfg.conv_width)
-    else:
-        raise ValueError(mode)
-    hr = h.reshape(b, s, r).to(x.dtype) + zc @ params.skip
+    runs the prefill path and returns ``out`` alone, as the reference does.
+    ``params`` a ``common.Split``: by heads over its positions
+    (:func:`_mlstm_split`)."""
+    if isinstance(params, Split):
+        return _mlstm_split(x, params, cfg, cache, mode)
+    hd = 2 * cfg.d_model // N_HEADS
+    z, gate = _halves(x @ params.up)
+    zc, conv = _mlstm_conv(z, params, cache, cfg.conv_width, mode)
+    h, state = _mlstm_heads(z, zc, params, hd, cache, mode)
+    hr = h.to(x.dtype) + zc @ params.skip
     out = (hr * F.silu(gate)) @ params.down
     if mode == "train":
         return out
     return out, {"conv": conv, "c": state[0], "n": state[1], "m": state[2]}
+
+
+def _mlstm_split(x, params: Split, cfg: ModelConfig, cache: list | None, mode: str):
+    """The mLSTM block over a group's positions, each holding its heads
+    (``params.parts[t]``: its columns of ``up``'s two branches, ``wq``,
+    ``wk``, ``wv``, ``skip``, ``wi`` and ``wf``, its channels of the conv,
+    its rows of ``down``).  Each position computes its channels of ``z``
+    and their conv; ``q``, ``k`` and ``v`` contract over every channel, so
+    ``z`` and its conv are gathered onto every position; each position then
+    runs its heads' cell, and the partial products of ``down`` meet in
+    ``common.tp_output``.  ``x`` whole on the lead or a ``Stream``; a cache
+    is a list of the positions' states."""
+    group, hd = params.group, 2 * cfg.d_model // N_HEADS
+    caches = cache if cache is not None else [None] * len(params.parts)
+    xs = tp_inputs(x, group)
+    zs, gates, zcs, convs = [], [], [], []
+    for xi, p, c in zip(xs, params.parts, caches):
+        z, gate = _halves(xi @ p.up)
+        zc, conv = _mlstm_conv(z, p, c, cfg.conv_width, mode)
+        zs.append(z)
+        gates.append(gate)
+        zcs.append(zc)
+        convs.append(conv)
+    z_all = col.broadcast(col.all_gather(zs, group), group)
+    zc_all = col.broadcast(col.all_gather(zcs, group), group)
+    outs, new = [], []
+    for z, zc, gate, conv, p, c in zip(z_all, zc_all, gates, convs, params.parts, caches):
+        h, state = _mlstm_heads(z, zc, p, hd, c, mode)
+        hr = h.to(z.dtype) + zc @ p.skip
+        outs.append(partial_product(hr * F.silu(gate), p.down))
+        new.append({"conv": conv, "c": state[0], "n": state[1], "m": state[2]})
+    out = tp_output(outs, x, group)
+    return out if mode == "train" else (out, new)
 
 
 # =============================================================================
@@ -267,9 +355,10 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> SLSTM:
 
 
 def _rec(h: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Per-head recurrent contribution: h [B,d] x r [H,hd,hd] -> [B,d]."""
+    """Per-head recurrent contribution: h [B,d] x r [H,hd,hd] -> [B,d] (on a
+    tensor-parallel position its heads: ``r`` its blocks)."""
     b, d = h.shape
-    hh = h.reshape(b, N_HEADS, d // N_HEADS)
+    hh = h.reshape(b, r.shape[0], r.shape[1])
     return torch.einsum("bhi,hij->bhj", hh, r).reshape(b, d)
 
 
@@ -292,50 +381,114 @@ def _slstm_cell_step(params: SLSTM, state, x_t):
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     device = _default_device(device)
-    d, f32 = cfg.d_model, torch.float32
-    return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, d), dtype=cfg.dtype(), device=device),
-        "c": torch.zeros((batch, d), dtype=f32, device=device),
-        "n": torch.zeros((batch, d), dtype=f32, device=device),
-        "m": torch.full((batch, d), _M0, dtype=f32, device=device),
-        "h": torch.zeros((batch, d), dtype=f32, device=device),
-    }
+    d = cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, d), dtype=cfg.dtype(), device=device),
+            **_slstm_state0(batch, d, device)}
+
+
+def _slstm_state0(batch: int, width: int, device) -> dict:
+    """The cell's initial state over ``width`` channels."""
+    f32 = torch.float32
+    return {"c": torch.zeros((batch, width), dtype=f32, device=device),
+            "n": torch.zeros((batch, width), dtype=f32, device=device),
+            "m": torch.full((batch, width), _M0, dtype=f32, device=device),
+            "h": torch.zeros((batch, width), dtype=f32, device=device)}
+
+
+def _slstm_conv(x, params, cache: dict | None, width: int, mode: str):
+    """The conv of ``x`` (a position's channels, with its ``conv_w`` and
+    ``conv_b``) in fp32, and the conv history a decode step reads next."""
+    if mode == "decode":
+        hist = torch.cat([cache["conv"], x], dim=1)
+        return _conv_step(hist, params.conv_w, params.conv_b)[:, None], hist[:, 1:]
+    if mode in ("train", "prefill"):
+        return causal_conv(x, params.conv_w, params.conv_b).float(), _conv_tail(x, width)
+    raise ValueError(mode)
+
+
+def _slstm_heads(xc, params: SLSTM, cache: dict | None):
+    """``params``' heads of the cell (a tensor-parallel position's columns of
+    the gate weights, its recurrence blocks) over every channel of ``xc``
+    [B,S,D] fp32, step by step from ``cache``'s state (or the initial
+    one): (h [B,S,heads hd] fp32, final state)."""
+    if cache is not None:
+        state = (cache["c"], cache["n"], cache["m"], cache["h"])
+    else:
+        state = tuple(_slstm_state0(xc.shape[0], params.wi.shape[1], xc.device).values())
+    hs = []
+    for t in range(xc.shape[1]):  # the reference's lax.scan, one step at a time
+        state, h_t = _slstm_cell_step(params, state, xc[:, t])
+        hs.append(h_t)
+    return torch.stack(hs, dim=1), state
+
+
+def _geglu(y, params: SLSTM) -> torch.Tensor:
+    """The FFN's hidden units (GeGLU, pf 4/3) of ``params``' columns of
+    ``up``'s two branches."""
+    u, g = _halves(y @ params.up)
+    return F.gelu(g, approximate="tanh") * u
+
+
+def _slstm_cache(conv, state) -> dict:
+    return {"conv": conv, "c": state[0], "n": state[1], "m": state[2], "h": state[3]}
 
 
 def slstm_block(x, params: SLSTM, cfg: ModelConfig, cache: dict | None = None, *, mode: str):
     """mode: train | prefill | decode.  x: [B,S,D].  Returns (the block's
     delta [B,S,D], new cache), ``cache`` left as it was; ``train`` returns the
-    delta alone."""
-    b, s, d = x.shape
-    if mode == "decode":
-        hist = torch.cat([cache["conv"], x], dim=1)
-        state = (cache["c"], cache["n"], cache["m"], cache["h"])
-        state, h1 = _slstm_cell_step(params, state, _conv_step(hist, params.conv_w, params.conv_b))
-        hs = h1[:, None]
-        conv = hist[:, 1:]
-    elif mode in ("train", "prefill"):
-        xc = causal_conv(x, params.conv_w, params.conv_b).float()
-        if cache is not None:
-            state = (cache["c"], cache["n"], cache["m"], cache["h"])
-        else:
-            z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-            state = (z, z, torch.full((b, d), _M0, dtype=torch.float32, device=x.device), z)
-        hs = []
-        for t in range(s):  # the reference's lax.scan, one step at a time
-            state, h_t = _slstm_cell_step(params, state, xc[:, t])
-            hs.append(h_t)
-        hs = torch.stack(hs, dim=1)
-        conv = _conv_tail(x, cfg.conv_width)
-    else:
-        raise ValueError(mode)
+    delta alone.  ``params`` a ``common.Split``: by heads over its positions
+    (:func:`_slstm_split`)."""
+    if isinstance(params, Split):
+        return _slstm_split(x, params, cfg, cache, mode)
+    xc, conv = _slstm_conv(x, params, cache, cfg.conv_width, mode)
+    hs, state = _slstm_heads(xc, params, cache)
     cell_out = hs.to(x.dtype) @ params.out_proj
     # feed-forward sub-block (GeGLU, pf 4/3) around the cell's residual
     y = x + cell_out
-    f_up = params.down.shape[0]
-    uz = y @ params.up
-    u, g = uz[..., :f_up], uz[..., f_up:]
-    ff = (F.gelu(g, approximate="tanh") * u) @ params.down
+    ff = _geglu(y, params) @ params.down
     out = ff + cell_out  # the block's delta (the caller adds the residual)
     if mode == "train":
         return out
-    return out, {"conv": conv, "c": state[0], "n": state[1], "m": state[2], "h": state[3]}
+    return out, _slstm_cache(conv, state)
+
+
+def _slstm_split(x, params: Split, cfg: ModelConfig, cache: list | None, mode: str):
+    """The sLSTM block over a group's positions, each holding its heads
+    (``params.parts[t]``: its channels of the conv, its columns of the gate
+    weights and biases, its recurrence blocks, its rows of ``out_proj``).
+    Each position runs the conv on its channels; the gates read every
+    channel of the conv output, so the positions' outputs are gathered onto
+    every position once (for the whole prompt, or once a decode step); the
+    recurrence is block-diagonal by head, so each position then runs its
+    heads for every step alone.  Their partial products of ``out_proj``
+    meet in an all-reduce on the lead, since the FFN reads ``x + cell_out``
+    whole.  The FFN splits its hidden units where the spans hold an ``"f"``
+    span (the rows of ``down``, both branches' columns of ``up``), its
+    partials added in ``x``'s layout, else runs whole on the lead.  ``x``
+    whole on the lead or a ``Stream``; a cache is a list of the positions'
+    states."""
+    group = params.group
+    caches = cache if cache is not None else [None] * len(params.parts)
+    xs = tp_inputs(x, group)
+    xcs, convs = [], []
+    for xi, p, span, c in zip(xs, params.parts, params.spans, caches):
+        xc, conv = _slstm_conv(xi[..., slice(*span["c"])], p, c, cfg.conv_width, mode)
+        xcs.append(xc)
+        convs.append(conv)
+    xc_all = col.broadcast(col.all_gather(xcs, group), group)
+    dtype = xs[0].dtype
+    cells, new = [], []
+    for xc, conv, p, c in zip(xc_all, convs, params.parts, caches):
+        hs, state = _slstm_heads(xc, p, c)
+        cells.append(partial_product(hs.to(dtype), p.out_proj))
+        new.append(_slstm_cache(conv, state))
+    cell_out = col.all_reduce(cells, group, dtype)
+    y = xs[0] + cell_out
+    if "f" in params.spans[0]:
+        ff = tp_output([partial_product(_geglu(yi, p), p.down)
+                        for yi, p in zip(col.broadcast(y, group), params.parts)], x, group)
+        out = stream_add(ff, in_layout(cell_out, x))
+    else:
+        lead = params.parts[0]
+        out = in_layout(_geglu(y, lead) @ lead.down + cell_out, x)
+    return out if mode == "train" else (out, new)

@@ -7,9 +7,10 @@ state: the JAX ``init_train_state`` leaves, written by this process and
 read by the subprocess, carried into the port with ``train_state_from_numpy``.
 
 * the sharded train step (4 x 2 ``("data", "model")``, ``n_micro=2``, batch
-  8 x 32, two steps) of reduced granite, recurrentgemma_9b and
+  8 x 32, two steps) of reduced granite, recurrentgemma_9b,
   qwen3_moe_235b_a22b (``moe.groups=8``: 8 routing groups of a microbatch's
-  128 tokens, two a data-parallel group), and of granite with labels at
+  128 tokens, two a data-parallel group) and xlstm_125m (its mLSTM and
+  sLSTM blocks split by heads), and of granite with labels at
   -100 spread unevenly over the data-parallel groups: the losses within
   2e-4 and the parameters within rtol 3e-3 / atol 3e-4, the tolerances of
   the reference's ``tests/test_multidevice.py:73``;
@@ -87,6 +88,7 @@ CASES = [
     ("recurrentgemma", "recurrentgemma_9b", {}, False),
     ("qwen3_moe", "qwen3_moe_235b_a22b", dict(moe_groups=8), False),
     ("granite_masked", "granite_3_2b", dict(n_layers=2), True),
+    ("xlstm", "xlstm_125m", {}, False),
 ]
 ELASTIC = ("qwen2_7b", dict(n_layers=2))
 

@@ -12,7 +12,8 @@ model placed with ``inference=True`` under ``make_ctx`` and under
 * reduced gemma2_27b, recurrentgemma_9b (K5's plain version on each
   position's channels), qwen3_moe_235b_a22b (expert-stationary; ``moe.groups``
   4, what the dry-run's prefill and decode cells both set at this shape)
-  and xlstm_125m (its blocks whole on the lead): the placed prefill's
+  and xlstm_125m (its blocks split by heads on 4 x 2, whole on the lead
+  over 8 positions, which do not divide its 4 heads): the placed prefill's
   logits, and every cache layer gathered whole, within 1e-5 of the JAX
   single-device ``prefill``; its caches laid out exactly as
   ``lm.place_group_caches`` lays out the JAX cache; then 10 decode steps
@@ -61,6 +62,7 @@ from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.launch.mesh import make_device_mesh  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import tensor_parallel as tp  # noqa: E402
 
 DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 # the port against the reference's sharded programs on 8 host devices
@@ -133,19 +135,21 @@ def _case(arch, **moe_overrides):
     return _CASES[key]
 
 
-def _whole_layer(layer) -> dict:
+def _whole_layer(kind: str, layer) -> dict:
     """One group's cache of a layer gathered whole: a ``SeqKV``'s slots, or a
-    list of positions' channels, concatenated."""
+    list of positions' pieces of a recurrent state, concatenated."""
     if isinstance(layer, attn.SeqKV):
         return {k: torch.cat([p[k] for p in layer.parts], 1) for k in layer.parts[0]}
     if isinstance(layer, list):
-        return {k: torch.cat([p[k] for p in layer], -1) for k in layer[0]}
+        return {k: torch.cat([p[k] for p in layer], tp._STATE_CUTS[kind][k][0])
+                for k in layer[0]}
     return layer
 
 
-def _whole(caches) -> list[dict]:
+def _whole(caches, cfg) -> list[dict]:
     """Every group's caches gathered into the whole cache, layer by layer."""
-    layers = [[_whole_layer(layer) for layer in cache] for cache in caches]
+    layers = [[_whole_layer(kind, layer) for kind, layer in zip(cfg.layer_kinds, cache)]
+              for cache in caches]
     return [{k: torch.cat([g[i][k] for g in layers], 0) for k in layers[0][i]}
             for i in range(len(layers[0]))]
 
@@ -163,7 +167,7 @@ def _placed_run(arch, make, **moe_overrides):
     lm.PLACED_DECODE.clear()
     with sh.use_ctx(ctx):
         logits, caches = lm.prefill(placed, torch.from_numpy(prompt), cfg, MAX_LEN)
-        whole = [{k: v.clone() for k, v in layer.items()} for layer in _whole(caches)]
+        whole = [{k: v.clone() for k, v in layer.items()} for layer in _whole(caches, cfg)]
         layout = [[lm._layout(layer) for layer in c] for c in caches]
         want = [[lm._layout(layer) for layer in c]
                 for c in lm.place_group_caches(placed, [dict(layer) for layer in cache])]
@@ -230,7 +234,11 @@ def test_placed_prefill_with_routing_groups_over_the_data_parallel_groups(make, 
 def test_layouts_the_positions_take(make):
     """gemma2 under both contexts: its window and global layers by sequence
     (``SeqKV``) over every position of a group; recurrentgemma's RG-LRU
-    state by channels; xLSTM's states whole on the lead."""
+    state by channels; xLSTM's states by heads under ``make_ctx`` (the
+    mLSTM's ``c``, ``n`` and ``m`` by their head dim, the sLSTM's states
+    and both conv histories by the heads' channels), whole on the lead
+    under ``make_decode_2d_ctx``, whose 8 positions do not divide the 4
+    heads."""
     n = 2 if make is sh.make_ctx else 8
     mesh = _mesh()
     for arch in ("gemma2_27b", "recurrentgemma_9b", "xlstm_125m"):
@@ -248,6 +256,16 @@ def test_layouts_the_positions_take(make):
             elif kind == "rec":
                 assert isinstance(layer, list) and len(layer) == n
                 assert layer[0]["h"].shape == (BATCH * n // 8, cfg.d_model // n)
+            elif make is sh.make_ctx:
+                rows, heads, hd = BATCH * n // 8, 4 // n, 2 * cfg.d_model // 4
+                width = 2 * cfg.d_model if kind == "mlstm" else cfg.d_model
+                assert isinstance(layer, list) and len(layer) == n, (arch, kind)
+                assert layer[0]["conv"].shape == (rows, cfg.conv_width - 1, width // n)
+                if kind == "mlstm":
+                    assert layer[0]["c"].shape == (rows, heads, hd, hd)
+                    assert layer[0]["m"].shape == (rows, heads)
+                else:
+                    assert layer[0]["h"].shape == (rows, cfg.d_model // n)
             else:
                 assert isinstance(layer, dict) and layer["c"].device == mesh.devices[0]
 
@@ -345,14 +363,14 @@ for arch in p["archs"]:
             out[f"{tag}/compiles"] = np.asarray(step._cache_size())
 np.savez(sys.argv[2], **out)
 """
-SHARDED_ARCHS = ARCHS[:3]
+SHARDED_ARCHS = ARCHS
 
 
 @pytest.fixture(scope="module")
 def reference_sharded(tmp_path_factory):
     """The reference's sharded prefill and decode of the reduced gemma2,
-    recurrentgemma and qwen3_moe under both contexts, started at once in a
-    subprocess while the port's side runs."""
+    recurrentgemma, qwen3_moe and xlstm_125m under both contexts, started
+    at once in a subprocess while the port's side runs."""
     tmp = tmp_path_factory.mktemp("placed_prefill")
     params = dict(archs=SHARDED_ARCHS, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN)
     proc = subprocess.Popen(

@@ -7,7 +7,7 @@ JAX side runs on this process's one JAX device, as that file runs its
 decode reference (``tests/conftest.py`` holds this process to one JAX
 device), from the same seeded parameters:
 
-* a 4 x 2 step of reduced granite and recurrentgemma under
+* a 4 x 2 step of reduced granite, recurrentgemma and xlstm_125m under
   ``make_ctx(seq_shard=True)``, S = 32 over 2 positions: the step-1 loss
   bit for bit with ``seq_shard=False`` (the forward sees the same products
   and row-wise norms) and within 2e-4 of the JAX package's loss of the
@@ -17,7 +17,7 @@ device), from the same seeded parameters:
 * each position saves its ``[B_g, S / 2, D]`` rows of each block's input,
   on its device; an ``S`` the 2 positions do not divide takes the whole
   path, with no reduce-scatter or split counted;
-* reduced gemma2 and recurrentgemma: the JAX package's ``prefill`` carried
+* reduced gemma2, recurrentgemma and xlstm_125m: the JAX package's ``prefill`` carried
   into ``lm.place_group_caches``, then 10 decode steps under ``make_ctx``
   and ``make_decode_2d_ctx``, crossing the slot boundary between positions
   and the window's wrap: logits within 1e-5 of the JAX single-device
@@ -26,7 +26,9 @@ device), from the same seeded parameters:
   layer's cache whole on the lead;
 * each position's decode-cache bytes equal the dry-run's ``cache`` group
   (``launch/dryrun.py`` ``cache_specs``, ``account``'s rule) under both
-  contexts.
+  contexts, but xlstm_125m's under ``make_decode_2d_ctx``, whose 8
+  positions do not divide its 4 heads: there its blocks and their states
+  stay whole on the lead (ROADMAP D7).
 """
 
 import dataclasses
@@ -64,13 +66,13 @@ DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 BATCH, SEQ = 8, 32
 TCFG = tts.TrainConfig(n_micro=2, optimizer=topt.OptimizerConfig(
     peak_lr=1e-3, warmup_steps=1, total_steps=10))
-TRAIN_CASES = [("granite_3_2b", dict(n_layers=2)), ("recurrentgemma_9b", {})]
+TRAIN_CASES = [("granite_3_2b", dict(n_layers=2)), ("recurrentgemma_9b", {}), ("xlstm_125m", {})]
 # a prompt of 12, then 10 steps (positions 12-21): gemma2's global layers
 # hold 32 slots (16 a position on 4 x 2, 4 on 8 positions: the steps cross
 # from one position's slots into the next), its window layers 8 (the
 # rolling buffer wraps; 4 and 1 a position)
 PROMPT, STEPS, MAX_LEN = 12, 10, 32
-DECODE_CASES = [("gemma2_27b", dict(n_layers=4)), ("recurrentgemma_9b", {})]
+DECODE_CASES = [("gemma2_27b", dict(n_layers=4)), ("recurrentgemma_9b", {}), ("xlstm_125m", {})]
 CTXS = [sh.make_ctx, sh.make_decode_2d_ctx]
 
 
@@ -215,7 +217,7 @@ def test_decode_from_a_prefill_over_the_sequence_matches_jax(arch, overrides):
             caches = lm.place_group_caches(placed, [dict(layer) for layer in whole])
             rows = BATCH // len(sh.dp_leads(ctx))
             for kind, layer, src in zip(cfg.layer_kinds, caches[0], whole):
-                if kind == "rec":
+                if kind in ("rec", "mlstm", "slstm"):
                     continue
                 t = src["k"].shape[1]
                 assert isinstance(layer, attn.SeqKV) and len(layer.parts) == n
@@ -281,4 +283,8 @@ def test_decode_cache_bytes_equal_the_dryrun_account(arch, overrides):
             assert D.account(cell, mesh)["arguments"]["cache"] == want
         with sh.use_ctx(ctx):
             got = lm.cache_position_bytes(placed, lm.init_group_caches(placed, BATCH, MAX_LEN))
-        assert got == [want] * mesh.size, make.__name__
+        if make is sh.make_decode_2d_ctx and arch == "xlstm_125m":  # D7
+            total = sum(t.numel() * t.element_size() for t in leaves.values())
+            assert got == [total] + [0] * (mesh.size - 1)
+        else:
+            assert got == [want] * mesh.size, make.__name__
